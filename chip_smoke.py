@@ -6,24 +6,39 @@ Phases, each printing its own line(s):
   1. device  - the card's name and `nvidia-smi` name/power limit; fails at
                once when torch sees no CUDA device;
   2. build   - nvcc builds every kernel from moshi_tpu_torch/csrc/ into
-               build/kernels/ (skipped when a library of the same sources
-               is already there);
-  3. kernels - each kernel against its plain PyTorch version at the main
-               path's shapes (B = 1 and 4, bf16 and f32), max relative
-               error against its bound, and CUDA-event times of both;
+               build/kernels/, one nvcc per source, all at once (skipped
+               when a library of the same sources is already there), and
+               prints each library's registers and spills (-Xptxas -v);
+  3. kernels - each kernel against its plain PyTorch version on the card at
+               the main paths' shapes: the GEMVs at B = 1, 4, 9, 16 in bf16
+               and f32, decode_attention_int4 at B = 16, H = 32, D = 128 and
+               64 with a ragged mask, cache_write_int4 byte for byte; then
+               CUDA-graph-replay times (operands cold in L2) of each kernel,
+               its plain version and one PyTorch library call for the same
+               work, beside the least time the card could take (bound);
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
                seed on the card; ServerState.warmup(), then 3 sessions of 40
                frames of seeded PCM with sampling on (sessions 1 and 3 share
                a seed).  Checks PCM, token ranges, that sessions 1 and 3
                agree, and that the kernel launch counts are exactly what the
-               config implies per LMGen.step; prints the p50 ms per frame.
+               config implies per LMGen.step; prints the p50 ms per frame;
+  5. batched - the same weights with the int4 KV cache, B = 16 slots of
+               BatchedMoshiState: a greedy run of 40 frames whose slots
+               must agree token for token (two slots with one PCM, a slot
+               that joins 5 frames late, one frozen for frames 10-14, one
+               reset at frame 20 that replays the PCM from the start), then
+               a sampled run of 40 frames on all 16 slots (p50/p90 ms per
+               batched frame), each with exact launch counts per frame of
+               all four kernels; then a torch.profiler pass over a few
+               frames for the card's busy time.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,9 +55,14 @@ import torch  # noqa: E402
 SEED = 1234
 SESSIONS = (11, 12, 11)  # session seeds; the first and last are equal
 FRAMES = 40
-BATCHES = (1, 4)
+SLOTS = 16               # B of the batched phase
+BATCHES = (1, 4, 9, 16)  # GEMV checks
+TIMED_BATCHES = (1, SLOTS)
 # max |kernel - plain| / max |plain|
 BOUNDS = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# decode_attention_int4 takes q / sqrt(D) in bf16 (as the TPU kernel does):
+# relative error of acc / l and of m
+ATTN_BOUND = 2e-2
 # main-path shapes (din, dout) of Moshi-7B -> launches per LMGen.step.
 # q4: temporal in_proj, out_proj, linear_in, linear_out (32 layers) and the
 # text head.  int8: depformer in_proj, out_proj, linear_in, linear_out (6
@@ -51,11 +71,18 @@ Q4_SHAPES = {(4096, 12288): 32, (4096, 4096): 32, (4096, 22528): 32,
              (11264, 4096): 32, (4096, 32000): 1}
 INT8_SHAPES = {(1024, 3072): 48, (1024, 1024): 48, (1024, 5632): 48,
                (2816, 1024): 48, (1024, 2048): 8, (4096, 1024): 8}
+# the int4 KV cache of the batched phase: Moshi-7B, context 3000
+KV = {"layers": 32, "heads": 32, "head_dim": 128, "cap": 3000}
 TPU_KERNELS = {
     # q4gemm and q4gemm_stacked
     "q4_gemv": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     "int8_gemv": "moshi_tpu/ops/qmatmul.py:48",  # qgemv
+    "decode_attention_int4": "moshi_tpu/ops/int4_attention.py:165",
+    "cache_write_int4": "moshi_tpu/ops/int4_attention.py:313",
 }
+SOURCES = {name: f"moshi_tpu_torch/csrc/{name}.cu" for name in TPU_KERNELS}
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s
+PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
 
 
 def phase(name: str, msg: str) -> None:
@@ -72,12 +99,19 @@ def rel_err(y: torch.Tensor, ref: torch.Tensor) -> float:
     return ((y.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least ms the card could take: bytes over HBM bandwidth or bf16 flops
+    over the tensor-core peak, the larger, and which of the two it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def time_ms(fn, operands, iters: int = 20, reps: int = 3) -> float:
     """Device ms per call.  `iters` calls, cycling through `operands`
-    (copies of the weights larger in total than the 50 MB L2, so each call
-    reads its weights from device memory as the main path does), are
-    captured in a CUDA graph; the graph's replays are timed with CUDA
-    events, so the host's launch cost is not in the number."""
+    (copies larger in total than the 50 MB L2, so each call reads its
+    operands from device memory as the main path does), are captured in a
+    CUDA graph; the graph's replays are timed with CUDA events, so the
+    host's launch cost is not in the number."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -96,23 +130,42 @@ def time_ms(fn, operands, iters: int = 20, reps: int = 3) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / (reps * iters)
 
 
-def check_kernels(dev) -> list[dict]:
+def copies_for_cold_l2(nbytes: int) -> int:
+    return max(2, -(-256 * 2 ** 20 // nbytes))
+
+
+def ptxas_summary(log: str) -> str:
+    """Most registers of any kernel instance and total spill bytes, from
+    nvcc -Xptxas -v output."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
+    return f"max {max(regs, default=0)} registers, {spills} bytes of spill stores"
+
+
+# ---------------------------------------------------------------- kernels
+def check_gemvs(dev, g) -> list[dict]:
+    """q4_gemv and int8_gemv against their plain versions at every main-path
+    shape, then times at B = 1 and B = SLOTS summed over one frame's
+    launches (Q4_SHAPES / INT8_SHAPES counts)."""
     from moshi_tpu_torch.ops.q4matmul import q4_gemv, q4_gemv_plain
     from moshi_tpu_torch.ops.qmatmul import int8_gemv, int8_gemv_plain
-    from moshi_tpu_torch.utils.quantize import quantize_tensor, quantize_tensor4
+    from moshi_tpu_torch.utils.quantize import (dequantize, dequantize4, quantize_tensor,
+                                                quantize_tensor4)
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    table = []
-    for name, fn, plain, quant, shapes, src in (
-            ("q4_gemv", q4_gemv, q4_gemv_plain, quantize_tensor4, Q4_SHAPES,
-             "moshi_tpu_torch/csrc/q4_gemv.cu"),
-            ("int8_gemv", int8_gemv, int8_gemv_plain, quantize_tensor, INT8_SHAPES,
-             "moshi_tpu_torch/csrc/int8_gemv.cu")):
-        max_abs, ms, plain_ms = 0.0, {}, {}
-        for din, dout in shapes:
+    rows = []
+    for name, fn, plain, quant, deq, shapes in (
+            ("q4_gemv", q4_gemv, q4_gemv_plain, quantize_tensor4, dequantize4, Q4_SHAPES),
+            ("int8_gemv", int8_gemv, int8_gemv_plain, quantize_tensor, dequantize,
+             INT8_SHAPES)):
+        max_abs = 0.0
+        per_frame = {B: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+                     for B in TIMED_BATCHES}
+        by_shape, bound_by = {}, set()
+        for (din, dout), n in shapes.items():
             w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
             qt = quant(w)
             for B in BATCHES:
@@ -129,28 +182,169 @@ def check_kernels(dev) -> list[dict]:
                           f"{'ok' if ok else 'FAIL'}")
                     if not ok:
                         raise RuntimeError(f"{name} disagrees with its plain version")
-            # time at the main path's operands: B = 1, bf16
+            # times at the main paths' operands: bf16, weights cold in L2
             bytes_w = qt.q.numel() + 4 * qt.scale.numel()
-            copies = [quant(w) for _ in range(max(2, -(-256 * 2 ** 20 // bytes_w)))]
-            x = torch.randn(1, din, device=dev, generator=g).to(torch.bfloat16)
-            operands = [(x, c.q, c.scale) for c in copies]
-            ms[(din, dout)] = time_ms(fn, operands)
-            plain_ms[(din, dout)] = time_ms(plain, operands)
-            phase("kernels", f"{name} {din}x{dout} B=1 bf16: kernel "
-                  f"{ms[(din, dout)]:.4f} ms, plain {plain_ms[(din, dout)]:.4f} ms, "
-                  f"{bytes_w / ms[(din, dout)] / 1e6:.1f} GB/s of packed weight")
-            del copies, operands
+            copies = [quant(w) for _ in range(copies_for_cold_l2(bytes_w))]
+            dense = [deq(qt.q, qt.scale, torch.bfloat16)
+                     for _ in range(copies_for_cold_l2(2 * din * dout))]
+            for B in TIMED_BATCHES:
+                x = torch.randn(B, din, device=dev, generator=g).to(torch.bfloat16)
+                ops = [(x, c.q, c.scale) for c in copies]
+                t = {"ms": time_ms(fn, ops), "plain_ms": time_ms(plain, ops),
+                     "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
+                t["bound_ms"], by = bound(bytes_w + 2 * B * (din + dout), 2 * B * din * dout)
+                bound_by.add(by)
+                for k, v in t.items():
+                    per_frame[B][k] += n * v
+                by_shape[f"{din}x{dout} B={B}"] = t
+                phase("kernels", f"{name} {din}x{dout} B={B} bf16: kernel {t['ms']:.4f} ms, "
+                      f"plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
+                      f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; "
+                      f"{bytes_w / t['ms'] / 1e6:.1f} GB/s of packed weight")
+            if name == "int8_gemv":
+                by_shape[f"{din}x{dout} int8pack"] = int8pack_ms(qt, din, dev, g)
+            del copies, dense
         torch.cuda.synchronize()
-        table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": TPU_KERNELS[name], "max_abs_err": max_abs,
-                      "shapes": shapes, "ms": ms, "plain_ms": plain_ms})
-    return table
+        rows.append({"name": name, "max_abs_err": max_abs, "per_frame": per_frame,
+                     "by_shape": by_shape,
+                     "bound_by": "operations" if bound_by == {"operations"} else "bytes"})
+    return rows
 
 
+def int8pack_ms(qt, din, dev, g):
+    """torch._weight_int8pack_mm at B = SLOTS, where this build of PyTorch
+    runs it on CUDA (a yardstick for int8_gemv, never called by the port);
+    None where it does not."""
+    x = torch.randn(SLOTS, din, device=dev, generator=g).to(torch.bfloat16)
+    w = qt.q.t().contiguous()
+    s = qt.scale[0].to(torch.bfloat16)
+    try:
+        torch._weight_int8pack_mm(x, w, s)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        phase("kernels", f"torch._weight_int8pack_mm on CUDA: not available ({str(e)[:80]})")
+        return None
+    return time_ms(torch._weight_int8pack_mm, [(x, w, s)])
+
+
+def random_int4_cache(g, L, B, Hkv, D, cap_pad, dev):
+    """Packed caches with every nibble in [-7, 7], positive bf16 scales."""
+    def packed():
+        vals = torch.randint(-7, 8, (L, B, Hkv * D // 2, cap_pad, 2), device=dev,
+                             generator=g, dtype=torch.int8)
+        return (vals[..., 1] << 4) | (vals[..., 0] & 15)
+
+    def scales():
+        return (0.01 + 0.2 * torch.rand(L, B, Hkv, cap_pad, device=dev, generator=g)
+                ).to(torch.bfloat16)
+    return packed(), packed(), scales(), scales()
+
+
+def check_attention(dev, g) -> dict:
+    """decode_attention_int4 against its plain version at B = SLOTS, H = 32,
+    D = 128 and 64, cap 3000, a ragged mask, layer 5 of 8; times at the
+    main path's D = 128, per launch and per batched frame."""
+    from moshi_tpu_torch.ops.int4_attention import (_dequant_layer,
+                                                    decode_attention_int4_stats as k4,
+                                                    decode_attention_int4_stats_plain as k4p)
+    import torch.nn.functional as F
+
+    B, H, cap, L, layer = SLOTS, KV["heads"], KV["cap"], 8, 5
+    cap_pad = -(-cap // 128) * 128
+    max_abs, row = 0.0, {}
+    for D in (128, 64):
+        caches = random_int4_cache(g, L, B, H, D, cap_pad, dev)
+        q = torch.randn(B, H, 1, D, device=dev, generator=g).to(torch.bfloat16)
+        valid = torch.randint(1, cap + 1, (B,), device=dev, generator=g)
+        mask = ((torch.rand(B, cap, device=dev, generator=g) < 0.9)
+                & (torch.arange(cap, device=dev)[None] < valid[:, None]))
+        mask[:, 0] = True
+        acc, m, lse = k4(q, layer, *caches, mask)
+        torch.cuda.synchronize()
+        racc, rm, rl = k4p(q, layer, *caches, mask)
+        err = max(rel_err(acc / lse, racc / rl), rel_err(m, rm))
+        max_abs = max(max_abs, (acc / lse - racc / rl).abs().max().item())
+        ok = err <= ATTN_BOUND and bool(torch.isfinite(acc / lse).all())
+        phase("kernels", f"decode_attention_int4 B={B} H={H} D={D} cap={cap} layer={layer}: "
+              f"max rel err of acc/l and m {err:.3e} (bound {ATTN_BOUND:.0e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("decode_attention_int4 disagrees with its plain version")
+        if D != KV["head_dim"]:
+            continue
+        ops = [(q, li, *caches, mask) for li in range(L)]
+        t = {"ms": time_ms(k4, ops), "plain_ms": time_ms(k4p, ops, iters=4)}
+
+        def dense(li):
+            return [_dequant_layer(c[li], s[li], cap).transpose(-1, -2)
+                    .to(torch.bfloat16).contiguous() for c, s in ((caches[0], caches[2]),
+                                                                  (caches[1], caches[3]))]
+        lib_ops = [(q, *dense(li), mask[:, None, None, :]) for li in range(2)]
+        t["library_ms"] = time_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=m_), lib_ops)
+        nbytes = (2 * B * H * D // 2 * cap + 2 * 2 * B * H * cap + B * cap + 2 * B * H * D
+                  + 4 * B * H * (D + 2))
+        t["bound_ms"], row["bound_by"] = bound(nbytes, 4 * B * H * cap * D)
+        phase("kernels", f"decode_attention_int4 B={B} H={H} D={D} cap={cap}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"on the dequantized bf16 layer {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); "
+              f"{nbytes / t['ms'] / 1e6:.1f} GB/s")
+        row["per_launch"] = t
+        del ops, lib_ops
+    row["max_abs_err"] = max_abs
+    return row
+
+
+def check_cache_write(dev, g) -> dict:
+    """cache_write_int4 against its plain version byte for byte at the
+    batched path's shapes (every slot written, a frozen one too); times."""
+    from moshi_tpu_torch.ops.int4_attention import (cache_write_int4 as k5,
+                                                    cache_write_int4_plain as k5p)
+
+    L, B, H, D, cap = KV["layers"], SLOTS, KV["heads"], KV["head_dim"], KV["cap"]
+    cap_pad = -(-cap // 128) * 128
+    caches = random_int4_cache(g, L, B, H, D, cap_pad, dev)
+    cols = [torch.randint(-128, 128, (L, B, H * D // 2), device=dev, generator=g,
+                          dtype=torch.int8) for _ in range(2)]
+    scols = [torch.randn(L, B, H, device=dev, generator=g).to(torch.bfloat16)
+             for _ in range(2)]
+    pos = torch.randint(0, cap, (B,), device=dev, generator=g)
+    ref = k5p(pos, *cols, *scols, *(c.clone() for c in caches))
+    got = k5(pos, *cols, *scols, *caches)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a, b) for a, b in zip(got, ref))
+    phase("kernels", f"cache_write_int4 L={L} B={B} H={H} D={D} cap_pad={cap_pad}: "
+          f"{'byte-equal to the plain version' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("cache_write_int4 disagrees with its plain version")
+    del ref
+    ops = [(pos, *cols, *scols, *caches)]
+    li = torch.arange(L, device=dev)[:, None, None]
+    bi = torch.arange(B, device=dev)[None, :, None]
+    pi = pos[None, :, None]
+
+    def index_put(pos_, kc, vc, ksc, vsc, k_all, v_all, ks_all, vs_all):
+        for col, cache in ((kc, k_all), (vc, v_all), (ksc, ks_all), (vsc, vs_all)):
+            ri = torch.arange(col.shape[-1], device=dev)[None, None, :]
+            cache.index_put_((li, bi, ri, pi), col)
+    t = {"ms": time_ms(k5, ops), "plain_ms": time_ms(k5p, ops),
+         "library_ms": time_ms(index_put, ops)}
+    nbytes = 2 * (2 * L * B * H * D // 2 + 2 * 2 * L * B * H) + 8 * B
+    t["bound_ms"], bound_by = bound(nbytes, 0)
+    phase("kernels", f"cache_write_int4: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms,"
+          f" index_put_ on each of the 4 caches {t['library_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB read + written)")
+    return {"per_launch": t, "bound_by": bound_by, "max_abs_err": 0.0}
+
+
+# ------------------------------------------------------------------ slice
 def per_step_launches(cfg, params) -> dict:
     """Kernel launches one LMGen.step implies: each q4 temporal linear once
     per layer plus the text head; each int8 depformer linear once per layer
-    and codebook, plus depformer_in and the output head per codebook."""
+    and codebook, plus depformer_in and the output head per codebook; with
+    the int4 KV cache, one decode_attention_int4 per layer and one
+    cache_write_int4."""
     from moshi_tpu_torch.utils.quantize import QTensor, QTensor4
 
     layers = params["transformer"]["layers"]
@@ -169,15 +363,53 @@ def per_step_launches(cfg, params) -> dict:
     if per_step != {"q4_gemv": sum(Q4_SHAPES.values()),
                     "int8_gemv": sum(INT8_SHAPES.values())}:
         raise RuntimeError(f"launches per step {per_step} do not match the shape tables")
+    int4 = cfg.kv_cache_dtype == "int4"
+    per_step["decode_attention_int4"] = cfg.num_layers if int4 else 0
+    per_step["cache_write_int4"] = 1 if int4 else 0
     return per_step
 
 
-def run_slice(dev, card: str) -> tuple[dict, float]:
-    from moshi_tpu_torch.models.lm import LMModel, lm_config_v0_1
-    from moshi_tpu_torch.models.mimi import MimiModel, mimi_v0_1_config
+def counters() -> dict:
+    """The launch-counted wrappers, by kernel name."""
+    from moshi_tpu_torch.ops.int4_attention import cache_write_int4, decode_attention_int4_stats
     from moshi_tpu_torch.ops.q4matmul import q4_gemv
     from moshi_tpu_torch.ops.qmatmul import int8_gemv
-    from moshi_tpu_torch.serve.server import ServerState, serve_sessions
+    return {"q4_gemv": q4_gemv, "int8_gemv": int8_gemv,
+            "decode_attention_int4": decode_attention_int4_stats,
+            "cache_write_int4": cache_write_int4}
+
+
+def zero_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def check_counts(launches: dict, expected: dict, steps: int, what: str) -> None:
+    for name, n in launches.items():
+        if n != expected[name] * steps:
+            raise RuntimeError(f"{what}: {name} launched {n} times, expected "
+                               f"{expected[name]} x {steps}")
+
+
+def check_tokens(tokens, cfg, what: str) -> None:
+    if not ((tokens[:, 0] >= 0).all() and (tokens[:, 0] < cfg.text_card).all()
+            and (tokens[:, 1:] >= 0).all() and (tokens[:, 1:] < cfg.card).all()):
+        raise RuntimeError(f"{what}: token out of range")
+
+
+def check_pcm(audio, frame_size, what: str) -> None:
+    if not all(p.shape == (frame_size,) and np.isfinite(p).all() for p in audio):
+        raise RuntimeError(f"{what}: PCM frames of the wrong size or not finite")
+
+
+def build_models(dev):
+    from moshi_tpu_torch.models.lm import LMModel, lm_config_v0_1
+    from moshi_tpu_torch.models.mimi import MimiModel, mimi_v0_1_config
     from moshi_tpu_torch.utils.quantize import quantize_lm_params
 
     t0 = time.perf_counter()
@@ -188,32 +420,33 @@ def run_slice(dev, card: str) -> tuple[dict, float]:
     torch.cuda.empty_cache()
     mimi = MimiModel(mimi_v0_1_config(cfg.dep_q))
     mimi_params = mimi.init_params(g, torch.bfloat16, dev)
-    expected = per_step_launches(cfg, lm_params)
-    state = ServerState(mimi, mimi_params, lm, lm_params, device=dev)
     torch.cuda.synchronize()
     phase("slice", f"Moshi-7B q4 + Mimi bf16 built from seed {SEED} in "
           f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated(dev) / 2**30:.2f} "
           f"GiB on the card")
+    return lm, lm_params, mimi, mimi_params
+
+
+def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> tuple[dict, float]:
+    from moshi_tpu_torch.serve.server import ServerState, serve_sessions
+
+    cfg = lm.config
+    expected = per_step_launches(cfg, lm_params)
+    state = ServerState(mimi, mimi_params, lm, lm_params, device=dev)
     state.warmup()
     torch.cuda.synchronize()
 
-    q4_gemv.launches = int8_gemv.launches = 0
+    zero_counts()
     results = serve_sessions(state, SESSIONS, FRAMES)
-    torch.cuda.synchronize()
-    launches = {"q4_gemv": q4_gemv.launches, "int8_gemv": int8_gemv.launches}
+    launches = read_counts()
 
     steps = len(SESSIONS) * FRAMES
-    for name, n in launches.items():
-        if n != expected[name] * steps:
-            raise RuntimeError(f"{name}: {n} launches, expected {expected[name]} x {steps}")
+    check_counts(launches, expected, steps, "slice")
     for i, (tokens, audio, _) in enumerate(results):
         if len(tokens) != FRAMES - cfg.max_delay:
             raise RuntimeError(f"session {i}: {len(tokens)} frames generated")
-        if not all(p.shape == (mimi.frame_size,) and np.isfinite(p).all() for p in audio):
-            raise RuntimeError(f"session {i}: PCM frames of the wrong size or not finite")
-        if not ((tokens[:, 0] >= 0).all() and (tokens[:, 0] < cfg.text_card).all()
-                and (tokens[:, 1:] >= 0).all() and (tokens[:, 1:] < cfg.card).all()):
-            raise RuntimeError(f"session {i}: token out of range")
+        check_pcm(audio, mimi.frame_size, f"session {i}")
+        check_tokens(tokens, cfg, f"session {i}")
     if not np.array_equal(results[0][0], results[2][0]):
         raise RuntimeError("sessions 1 and 3 share a seed but not their tokens")
     if np.array_equal(results[0][0], results[1][0]):
@@ -225,6 +458,156 @@ def run_slice(dev, card: str) -> tuple[dict, float]:
           f"p50 {p50:.2f} ms/frame, p90 {np.percentile(ms, 90):.2f} ms/frame "
           f"({card})")
     return launches, p50
+
+
+# ---------------------------------------------------------------- batched
+def isolation_script(frame_size: int):
+    """The greedy run's schedule and PCM: (schedule, frames, the slots whose
+    session must equal slot 0's)."""
+    # unit-RMS noise: the random-weight Mimi maps quiet noise to one code
+    # whatever the PCM, and then every slot's stream would be the same
+    rs = np.random.RandomState(SEED)
+    ref = rs.randn(FRAMES + 1, frame_size).astype(np.float32)
+    frames = {s: rs.randn(FRAMES + 1, frame_size).astype(np.float32) for s in range(SLOTS)}
+    frames[1] = frames[2] = frames[3] = ref
+    frames[0] = ref
+    frames[4] = np.concatenate([frames[4][:20], ref])
+    schedule = [dict.fromkeys(range(SLOTS), "join")]
+    del schedule[0][2]
+    for tick in range(1, FRAMES + 1):
+        t = dict.fromkeys(range(SLOTS), "send")
+        if tick < 5:
+            del t[2]               # slot 2 joins 5 frames late
+        elif tick == 5:
+            t[2] = "join"
+        if 10 <= tick <= 14:
+            del t[3]               # slot 3 frozen on frames 10-14
+        if tick == 20:
+            t[4] = "join"          # slot 4: reset, then slot 0's PCM again
+        schedule.append(t)
+    # slot -> (its session index, frames it executes in that session)
+    same_as_0 = {1: (0, FRAMES), 2: (0, FRAMES - 5), 3: (0, FRAMES - 5), 4: (1, FRAMES - 20)}
+    return schedule, frames, same_as_0
+
+
+def profile_frames(state, n: int) -> dict:
+    """torch.profiler over n sampled frames: the card's busy ms per frame
+    (sum of its kernels' times), the host ms per frame under the profiler,
+    and kernel ms per frame by name for the port's four kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rs = np.random.RandomState(SEED + 1)
+    pcm = (0.1 * rs.randn(n, state.batch_size, 1, state.frame_size)).astype(np.float32)
+    mask = np.ones(state.batch_size, bool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for chunk in pcm:
+            out, audio = state.frame(chunk, mask)
+            out.cpu(), audio.cpu()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    busy, by_kernel = 0.0, {}
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue  # host ops; their kernels are counted as device events
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        busy += us
+        for name in TPU_KERNELS:
+            if name in evt.key and "reduce" not in evt.key:
+                by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
+    return {"host_ms_per_frame": wall, "busy_ms_per_frame": busy / 1e3 / n,
+            "kernel_ms_per_frame": by_kernel}
+
+
+def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
+    """The batched path at B = SLOTS with the int4 KV cache."""
+    from dataclasses import replace
+
+    from moshi_tpu_torch.models.lm import LMModel, lm_config_v0_1
+    from moshi_tpu_torch.serve.batched_moshi import BatchedMoshiState, serve_batched
+
+    cfg = replace(lm_config_v0_1(), kv_cache_dtype="int4")
+    lm = LMModel(cfg)
+    expected = per_step_launches(cfg, lm_params)
+
+    # 1. greedy isolation run
+    state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
+                              use_sampling=False)
+    kshape = tuple(state.gen_state["transformer"]["k"].shape)
+    phase("batched", f"B = {SLOTS}, int4 KV cache {kshape} int8 x 2 + bf16 scales; "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card")
+    state.warmup()
+    schedule, frames, same_as_0 = isolation_script(mimi.frame_size)
+    zero_counts()
+    sessions, ms = serve_batched(state, schedule, frames)
+    greedy_launches = read_counts()
+    check_counts(greedy_launches, expected, len(ms), "batched greedy run")
+    ref = sessions[0][0][0]
+    if len(ms) != FRAMES or len(ref) != FRAMES - cfg.max_delay:
+        raise RuntimeError(f"greedy run: {len(ms)} frames, slot 0 generated {len(ref)}")
+    for s in range(SLOTS):
+        for tokens, audio in sessions[s]:
+            check_tokens(tokens, cfg, f"greedy slot {s}")
+            check_pcm(audio, mimi.frame_size, f"greedy slot {s}")
+    for s, (session, executed) in same_as_0.items():
+        got = sessions[s][session][0]
+        if len(got) != executed - cfg.max_delay or not np.array_equal(got, ref[:len(got)]):
+            raise RuntimeError(f"greedy run: slot {s} session {session} does not repeat "
+                               f"slot 0's tokens")
+    distinct = sum(not np.array_equal(sessions[s][0][0], ref) for s in range(5, SLOTS))
+    if distinct == 0:
+        raise RuntimeError(f"greedy run: only {distinct} slots with their own PCM differ "
+                           f"from slot 0")
+    phase("batched", f"greedy, {len(ms)} frames: slots 1 (same PCM), 2 (joined 5 frames "
+          f"late), 3 (frozen on frames 10-14) and 4 (reset at frame 20) repeat slot 0's "
+          f"tokens; {distinct} of {SLOTS - 5} other slots differ; launches "
+          f"{greedy_launches} = per frame {expected} x {len(ms)}")
+    del state, sessions
+    torch.cuda.empty_cache()
+
+    # 2. sampled run, every slot active
+    state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
+                              rng_seed=SEED, use_sampling=True)
+    state.warmup()
+    rs = np.random.RandomState(SEED + 2)
+    frames = {s: (0.1 * rs.randn(FRAMES + 1, mimi.frame_size)).astype(np.float32)
+              for s in range(SLOTS)}
+    schedule = ([dict.fromkeys(range(SLOTS), "join")]
+                + [dict.fromkeys(range(SLOTS), "send")] * FRAMES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    sessions, ms = serve_batched(state, schedule, frames)
+    sampled_launches = read_counts()
+    check_counts(sampled_launches, expected, len(ms), "batched sampled run")
+    for s in range(SLOTS):
+        tokens, audio = sessions[s][0]
+        if len(tokens) != FRAMES - cfg.max_delay:
+            raise RuntimeError(f"sampled slot {s}: {len(tokens)} frames generated")
+        check_tokens(tokens, cfg, f"sampled slot {s}")
+        check_pcm(audio, mimi.frame_size, f"sampled slot {s}")
+    p50, p75, p90 = (float(np.percentile(ms, p)) for p in (50, 75, 90))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    phase("batched", f"sampled, {len(ms)} frames x {SLOTS} slots: p50 {p50:.2f} ms, p75 "
+          f"{p75:.2f} ms, p90 {p90:.2f} ms per batched frame; {p50 / SLOTS:.2f} ms per "
+          f"user-frame at p50; "
+          f"peak {peak:.2f} GiB; launches {sampled_launches} = per frame {expected} x "
+          f"{len(ms)} ({card})")
+    prof = profile_frames(state, 5)
+    # the profiler slows the host, so the idle share is taken against the
+    # frame time measured without it
+    prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / p50
+    phase("batched", f"profiler over 5 sampled frames: card busy "
+          f"{prof['busy_ms_per_frame']:.2f} ms/frame, idle share {prof['idle_share']:.3f} "
+          f"of the p50 frame (host {prof['host_ms_per_frame']:.2f} ms/frame under the "
+          f"profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": {"greedy": greedy_launches, "sampled": sampled_launches},
+            "per_frame": expected,
+            "p50_ms": p50, "p75_ms": p75, "p90_ms": p90, "frames": len(ms), "peak_gib": peak,
+            "profile": prof}
 
 
 def main() -> None:
@@ -239,31 +622,53 @@ def main() -> None:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    logs = build.build_all(extra_flags=("-Xptxas", "-v"))
     for name in build.SIGNATURES:
         build.load(name)
     phase("build", f"{', '.join(build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc: {build.build_seconds or 'libraries already built'}) -> {build.BUILD_DIR}")
+          f"(nvcc in parallel: {build.build_seconds or 'libraries already built'}) -> "
+          f"{build.BUILD_DIR}")
+    for name, log in logs.items():
+        phase("build", f"{name}: {ptxas_summary(log)}")
 
-    table = check_kernels(dev)
-    torch.cuda.synchronize()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    gemvs = check_gemvs(dev, g)
+    attn = check_attention(dev, g)
+    write = check_cache_write(dev, g)
+    torch.cuda.empty_cache()
 
-    launches, p50 = run_slice(dev, card)
-    torch.cuda.synchronize()
+    lm, lm_params, mimi, mimi_params = build_models(dev)
+    slice_launches, p50 = run_slice(dev, card, lm, lm_params, mimi, mimi_params)
+    torch.cuda.empty_cache()
+    batched = run_batched(dev, card, lm_params, mimi, mimi_params)
 
+    launches = {name: slice_launches[name] + sum(b[name] for b in batched["launches"].values())
+                for name in TPU_KERNELS}
+    per_frame = batched["per_frame"]
     kernels = []
-    for k in table:
-        # ms / plain_ms: card time of one LMGen.step's launches of this
-        # kernel (B = 1, bf16, weights cold in L2), from the per-shape times
-        kernels.append({"name": k["name"], "route": k["route"], "source": k["source"],
-                        "replaces": k["replaces"], "launches": launches[k["name"]],
-                        "max_abs_err": k["max_abs_err"],
-                        "ms": sum(n * k["ms"][sh] for sh, n in k["shapes"].items()),
-                        "plain_ms": sum(n * k["plain_ms"][sh]
-                                        for sh, n in k["shapes"].items()),
-                        "ms_by_shape": {f"{a}x{b}": v for (a, b), v in k["ms"].items()},
-                        "plain_ms_by_shape": {f"{a}x{b}": v
-                                              for (a, b), v in k["plain_ms"].items()}})
-    print(json.dumps({"kernels": kernels, "frame_p50_ms": p50}), flush=True)
+    # ms / plain_ms / library_ms / bound_ms: card time of one B = 16 batched
+    # frame's launches of the kernel (bf16, operands cold in L2), from the
+    # per-shape (GEMVs) or per-launch times; "b1" the same for one B = 1 frame
+    for k in gemvs:
+        kernels.append({"name": k["name"], **k["per_frame"][SLOTS], "bound_by": k["bound_by"],
+                        "b1": k["per_frame"][1], "by_shape": k["by_shape"],
+                        "max_abs_err": k["max_abs_err"]})
+    for name, k in (("decode_attention_int4", attn), ("cache_write_int4", write)):
+        n = per_frame[name]
+        kernels.append({"name": name, **{key: v * n for key, v in k["per_launch"].items()},
+                        "bound_by": k["bound_by"], "per_launch": k["per_launch"],
+                        "max_abs_err": k["max_abs_err"]})
+    for k in kernels:
+        k.update({"route": "cuda", "source": SOURCES[k["name"]],
+                  "replaces": TPU_KERNELS[k["name"]], "launches": launches[k["name"]],
+                  "launches_by_path": {"slice_b1": slice_launches[k["name"]],
+                                       **{f"batched_{p}": v[k["name"]]
+                                          for p, v in batched["launches"].items()}},
+                  "launches_per_batched_frame": per_frame[k["name"]]})
+    print(json.dumps({"kernels": kernels, "frame_p50_ms": p50,
+                      "batched": {key: batched[key] for key in ("p50_ms", "p75_ms", "p90_ms",
+                                                                "frames", "peak_gib",
+                                                                "profile")}}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,11 @@ namespace gemv {
 
 constexpr int kCols = 4;       // output columns per thread (one 32-bit load)
 constexpr int kThreads = 128;  // threads per block
-constexpr int kMaxBatch = 8;   // batch rows a launch takes
+constexpr int kMaxBatch = 16;  // batch rows a launch takes
+// Shared memory a block stages x in without opting in to more: f32 [NB,
+// rows], so the host caps rows per split at kStageFloats / NB and a launch
+// that asks for more is refused.
+constexpr int kStageFloats = 48 * 1024 / 4;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -84,5 +88,13 @@ extern "C" const char* cuda_error_string(int err) {
     case 6: return FN<T, 6>(__VA_ARGS__);                   \
     case 7: return FN<T, 7>(__VA_ARGS__);                   \
     case 8: return FN<T, 8>(__VA_ARGS__);                   \
+    case 9: return FN<T, 9>(__VA_ARGS__);                   \
+    case 10: return FN<T, 10>(__VA_ARGS__);                 \
+    case 11: return FN<T, 11>(__VA_ARGS__);                 \
+    case 12: return FN<T, 12>(__VA_ARGS__);                 \
+    case 13: return FN<T, 13>(__VA_ARGS__);                 \
+    case 14: return FN<T, 14>(__VA_ARGS__);                 \
+    case 15: return FN<T, 15>(__VA_ARGS__);                 \
+    case 16: return FN<T, 16>(__VA_ARGS__);                 \
     default: return cudaErrorInvalidValue;                  \
   }

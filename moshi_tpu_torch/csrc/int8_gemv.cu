@@ -12,7 +12,7 @@
 //   x     [B, din] bf16 or f32; y has x's dtype.
 //
 // What bounds it: 2*B flops per weight against one byte of weight read,
-// i.e. din bytes per output column at B = 1..8.  It is bound by
+// i.e. din bytes per output column at B = 1..16.  It is bound by
 // device-memory bandwidth, and at the depformer's sizes (1-6 MB per call)
 // by launch latency as much.  The design reads every weight byte once, in
 // coalesced 32-bit words (four neighbouring columns per thread, 128
@@ -84,6 +84,7 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* out,
                    int splits, cudaStream_t stream) {
   const dim3 grid((dout + kCols * kThreads - 1) / (kCols * kThreads), splits);
   const size_t smem = sizeof(float) * NB * rows_per_split;
+  if (smem > sizeof(float) * gemv::kStageFloats) return cudaErrorInvalidValue;
   int8_gemv_kernel<T, NB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(scale), static_cast<T*>(out),

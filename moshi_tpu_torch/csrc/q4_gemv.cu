@@ -15,7 +15,7 @@
 // Each group is accumulated in f32 and then multiplied by its scale, as the
 // TPU kernel does (q4matmul.py:70-75).
 //
-// What bounds it: at the batch sizes of decoding (B = 1..8) the kernel does
+// What bounds it: at the batch sizes of decoding (B = 1..16) the kernel does
 // 2*B flops per weight and reads 0.5 byte of packed weight plus 4/gs bytes
 // of scale per weight, i.e. 0.625 * din bytes per output column at gs = 32.
 // It is bound by device-memory bandwidth.  The design therefore reads every
@@ -113,6 +113,7 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* out,
                    int groups_per_split, int splits, cudaStream_t stream) {
   const dim3 grid((dout + kCols * kThreads - 1) / (kCols * kThreads), splits);
   const size_t smem = sizeof(float) * NB * groups_per_split * gs;
+  if (smem > sizeof(float) * gemv::kStageFloats) return cudaErrorInvalidValue;
   q4_gemv_kernel<T, NB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(scale), static_cast<T*>(out),

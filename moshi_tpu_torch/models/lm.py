@@ -2,8 +2,13 @@
 moshi_tpu/models/lm.py): token embeddings, the temporal transformer and its
 text head, and the depformer that samples the audio codebooks of a frame.
 
+`kv_cache_dtype` ("model" or "int4") sets the temporal transformer's KV
+cache; the depformer, whose cache lives one frame, keeps the model dtype
+(moshi_tpu lm.py:153).
+
 Not ported yet: the training forward, low-rank and demuxed embeddings,
-extra heads, cross-attention and CFG in the depformer.
+extra heads, cross-attention, CFG in the depformer and the int8 KV cache
+(the next slice).
 """
 
 from dataclasses import dataclass
@@ -49,6 +54,7 @@ class LmConfig:
     depformer_pos_emb: str = "none"
     depformer_max_period: float = 10_000.0
     depformer_layer_scale: float | None = None
+    kv_cache_dtype: str = "model"  # model | int4 (temporal transformer only)
 
     @property
     def num_codebooks(self) -> int:
@@ -77,7 +83,7 @@ class LmConfig:
             dim_feedforward=int(self.hidden_scale * self.dim), context=self.context,
             positional_embedding=self.positional_embedding, max_period=self.max_period,
             gating=self.gating, norm=self.norm, layer_scale=self.layer_scale,
-            kv_repeat=self.kv_repeat)
+            kv_repeat=self.kv_repeat, kv_cache_dtype=self.kv_cache_dtype)
 
     @property
     def depformer_config(self) -> TransformerConfig:
@@ -167,11 +173,14 @@ class LMModel:
         h = self._out_norm.apply(params["out_norm"], h)
         return h, wdot(h, params["text_linear"]["weight"])
 
-    def forward_text_step(self, params: dict, tr_state: dict, sequence: torch.Tensor):
+    def forward_text_step(self, params: dict, tr_state: dict, sequence: torch.Tensor,
+                          exec_mask: torch.Tensor | None = None):
         """Temporal forward of one step.  sequence [B, K, 1] -> (h [B, 1, dim],
-        text_logits [B, 1, 1, text_card], tr_state)."""
+        text_logits [B, 1, 1, text_card], tr_state); exec_mask [B] bool: the
+        slots whose KV offsets advance (all by default)."""
         x = self.embed_inputs(params, sequence)
-        h, tr_state = self.transformer.step(params["transformer"], tr_state, x)
+        h, tr_state = self.transformer.step(params["transformer"], tr_state, x,
+                                            exec_mask=exec_mask)
         h, text_logits = self._text_head(params, h)
         return h, text_logits[:, None], tr_state
 

@@ -6,9 +6,13 @@ per-item offsets, the temporal transformer's ring KV cache and the
 `torch.Generator` that draws the samples; `step` updates it in place.
 Frames before the delays have filled come out as UNGENERATED_TOKEN.
 
-Not ported yet: CFG batch doubling, the text repetition penalty, exec_mask
-(per-slot freeze), conditioning sums, and the split main_step/depth_step
-API of the TTS/ASR control planes.
+`exec_mask` [B] bool freezes slots for batched serving: a frozen slot keeps
+its offsets, writes no tokens and outputs UNGENERATED_TOKEN.  The generator
+is shared by the batch and draws for every slot each step, frozen or not.
+
+Not ported yet: CFG batch doubling, the text repetition penalty,
+conditioning sums, and the split main_step/depth_step API of the TTS/ASR
+control planes.
 """
 
 from dataclasses import dataclass
@@ -65,10 +69,10 @@ class LMGen:
     def _delays(self, device) -> torch.Tensor:
         return torch.tensor(self.model.config.delays, dtype=torch.long, device=device)
 
-    def _scatter_inputs(self, cache, offsets, input_tokens):
+    def _scatter_inputs(self, cache, offsets, input_tokens, exec_mask):
         """Write the user's audio tokens at offset + delay and gather this
         frame's model inputs at offset (initial tokens while offset <=
-        delay)."""
+        delay, and for frozen slots)."""
         c = self.model.config
         B, K, CT = cache.shape
         dev = cache.device
@@ -77,28 +81,31 @@ class LMGen:
         if self.num_input_audio > 0:
             kin = torch.arange(c.dep_q + 1, K, device=dev)[None]
             wpos = (offsets[:, None] + delays[None, c.dep_q + 1:]) % CT
-            cache[b, kin, wpos] = input_tokens[:, :self.num_input_audio, 0].long()
-        is_init = offsets[:, None] <= delays[None]
+            cache[b, kin, wpos] = torch.where(
+                exec_mask[:, None], input_tokens[:, :self.num_input_audio, 0].long(),
+                cache[b, kin, wpos])
+        is_init = (offsets[:, None] <= delays[None]) | ~exec_mask[:, None]
         gathered = cache[b, torch.arange(K, device=dev)[None], (offsets % CT)[:, None]]
         return torch.where(is_init, self.model._initial_token(B, dev), gathered)
 
-    def _commit(self, cache, offsets, text_token, audio_tokens):
-        """Advance offsets, write the generated tokens, gather the undelayed
-        output frame [B, 1 + dep_q, 1]."""
+    def _commit(self, cache, offsets, text_token, audio_tokens, exec_mask):
+        """Advance the executing slots' offsets, write their generated
+        tokens, gather the undelayed output frame [B, 1 + dep_q, 1]."""
         c = self.model.config
         B, _, CT = cache.shape
         dev = cache.device
         b = torch.arange(B, device=dev)[:, None]
-        offsets += 1
+        offsets += exec_mask.long()
         pos = (offsets % CT)[:, None]
-        cache[b, 0, pos] = text_token[:, None]
+        run = exec_mask[:, None]
+        cache[b, 0, pos] = torch.where(run, text_token[:, None], cache[b, 0, pos])
         kgen = torch.arange(1, c.dep_q + 1, device=dev)[None]
-        cache[b, kgen, pos] = audio_tokens
+        cache[b, kgen, pos] = torch.where(run, audio_tokens, cache[b, kgen, pos])
         gen_delays = self._delays(dev)[None, :c.dep_q + 1]
         gpos = (offsets[:, None] - self.max_delay + gen_delays) % CT
         out = cache[b, torch.arange(c.dep_q + 1, device=dev)[None], gpos]
-        out = out.masked_fill((offsets <= self.max_delay)[:, None], UNGENERATED_TOKEN)
-        return out[:, :, None]
+        invalid = (offsets <= self.max_delay) | ~exec_mask
+        return out.masked_fill(invalid[:, None], UNGENERATED_TOKEN)[:, :, None]
 
     def _sample_text(self, generator, text_logits):
         gc = self.gc
@@ -108,34 +115,37 @@ class LMGen:
         return sample_token(generator, logits, use_sampling=gc.use_sampling,
                             temp=gc.temp_text, top_k=gc.top_k_text)
 
-    def _step(self, params, state, input_tokens):
+    def _step(self, params, state, input_tokens, exec_mask):
         model, gc = self.model, self.gc
         if input_tokens.shape[2] != 1:
             raise ValueError("steps are given one frame at a time")
         cache, offsets = state["cache"], state["offsets"]
-        model_in = self._scatter_inputs(cache, offsets, input_tokens)
+        if exec_mask is None:
+            exec_mask = torch.ones(cache.shape[0], dtype=torch.bool, device=cache.device)
+        model_in = self._scatter_inputs(cache, offsets, input_tokens, exec_mask)
         h, text_logits, _ = model.forward_text_step(params, state["transformer"],
-                                                    model_in[:, :, None])
+                                                    model_in[:, :, None], exec_mask)
         generator = state["generator"]
         text_token = self._sample_text(generator, text_logits)
         audio_tokens = model.depformer_step(
             params, generator, text_token, h, use_sampling=gc.use_sampling,
             temp=gc.temp, top_k=gc.top_k)
-        out = self._commit(cache, offsets, text_token, audio_tokens)
+        out = self._commit(cache, offsets, text_token, audio_tokens, exec_mask)
         return out, text_logits, text_token
 
-    def step(self, params: dict, state: dict, input_tokens: torch.Tensor
-             ) -> tuple[torch.Tensor, dict]:
+    def step(self, params: dict, state: dict, input_tokens: torch.Tensor,
+             exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
         """One 80 ms frame.  input_tokens [B, Ki, 1] -> (out [B, 1 + dep_q, 1]
         int64, state); out holds UNGENERATED_TOKEN for the first max_delay
-        frames."""
-        out, _, _ = self._step(params, state, input_tokens)
+        frames and for slots whose exec_mask entry is False."""
+        out, _, _ = self._step(params, state, input_tokens, exec_mask)
         return out, state
 
-    def step_with_text_prob(self, params: dict, state: dict, input_tokens: torch.Tensor
+    def step_with_text_prob(self, params: dict, state: dict, input_tokens: torch.Tensor,
+                            exec_mask: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """Also return the sampled text token's softmax probability [B]."""
-        out, text_logits, text_token = self._step(params, state, input_tokens)
+        out, text_logits, text_token = self._step(params, state, input_tokens, exec_mask)
         lp = torch.log_softmax(text_logits[:, 0, 0].float(), dim=-1)
         prob = torch.exp(torch.gather(lp, -1, text_token[:, None]))[:, 0]
         return out, prob, state

@@ -122,21 +122,28 @@ class MimiModel:
             "upsample": self.upsample.init_state(batch_size, dtype, device),
         }
 
-    def encode_step(self, params: dict, state: dict, x: torch.Tensor
-                    ) -> tuple[torch.Tensor, dict]:
-        """x [B, C, n * frame_size] -> (codes [B, K, n], state)."""
-        emb, _ = self.encoder.step(params["encoder"], state["encoder"], x.transpose(1, 2))
+    def encode_step(self, params: dict, state: dict, x: torch.Tensor,
+                    exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+        """x [B, C, n * frame_size] -> (codes [B, K, n], state).  exec_mask
+        [B] bool: the slots whose streaming state advances (all by
+        default); a frozen slot's codes are computed and meaningless."""
+        emb, _ = self.encoder.step(params["encoder"], state["encoder"], x.transpose(1, 2),
+                                   exec_mask)
         emb, _ = self.encoder_transformer.step(params["encoder_transformer"],
-                                               state["transformer"], emb)
-        emb, _ = self.downsample.step(params["downsample"], state["downsample"], emb)
+                                               state["transformer"], emb,
+                                               exec_mask=exec_mask)
+        emb, _ = self.downsample.step(params["downsample"], state["downsample"], emb,
+                                      exec_mask)
         return self.quantizer.encode(params["quantizer"], emb), state
 
-    def decode_step(self, params: dict, state: dict, codes: torch.Tensor
-                    ) -> tuple[torch.Tensor, dict]:
-        """codes [B, K, n] -> (audio [B, C, n * frame_size], state)."""
+    def decode_step(self, params: dict, state: dict, codes: torch.Tensor,
+                    exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+        """codes [B, K, n] -> (audio [B, C, n * frame_size], state);
+        exec_mask as in encode_step."""
         emb = self.quantizer.decode(params["quantizer"], codes)
-        emb, _ = self.upsample.step(params["upsample"], state["upsample"], emb)
+        emb, _ = self.upsample.step(params["upsample"], state["upsample"], emb, exec_mask)
         emb, _ = self.decoder_transformer.step(params["decoder_transformer"],
-                                               state["transformer"], emb)
-        out, _ = self.decoder.step(params["decoder"], state["decoder"], emb)
+                                               state["transformer"], emb,
+                                               exec_mask=exec_mask)
+        out, _ = self.decoder.step(params["decoder"], state["decoder"], emb, exec_mask)
         return out.transpose(1, 2), state

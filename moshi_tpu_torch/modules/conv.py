@@ -7,6 +7,11 @@ PyTorch's layout: [Cout, Cin/groups, K] for a convolution and
 [Cin, Cout/groups, K] for a transposed one (`conv_from_jax` and
 `convtr_from_jax` convert the JAX package's [K, Cin/groups, Cout]).  State
 tails are preallocated and updated in place.
+
+`exec_mask` [B] bool is the per-slot freeze of batched serving: a slot whose
+entry is False computes an output but keeps its state (moshi_tpu
+conv.py:126-148, 191-207).  The masked updates go through `torch.where`
+into the preallocated state.
 """
 
 import math
@@ -79,21 +84,29 @@ class StreamingConv1d:
                      stride=self.stride, dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
 
-    def step(self, params: dict, state: dict, x: torch.Tensor
-             ) -> tuple[torch.Tensor, dict]:
+    def step(self, params: dict, state: dict, x: torch.Tensor,
+             exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
         T = x.shape[1]
         if T == 0 or T % self.stride:
             raise ValueError("steps must be a positive multiple of stride")
         if self.state_len == 0:
             return self._conv(params, x), state
+        m = None if exec_mask is None else exec_mask.view(-1, 1, 1)
         prev = state["prev"]
         if self.pad_mode == "replicate":
-            prev = torch.where(state["first"].view(-1, 1, 1),
+            first = state["first"].view(-1, 1, 1)
+            prev = torch.where(first if m is None else first & m,
                                x[:, :1].to(prev.dtype), prev)
-            state["first"].fill_(False)
+            if exec_mask is None:
+                state["first"].fill_(False)
+            else:
+                state["first"].masked_fill_(exec_mask, False)
         full = torch.cat([prev.to(x.dtype), x], dim=1)
         y = self._conv(params, full)
-        state["prev"].copy_(full[:, -self.state_len:])
+        tail = full[:, -self.state_len:]
+        if m is not None:
+            tail = torch.where(m, tail.to(prev.dtype), state["prev"])
+        state["prev"].copy_(tail)
         return y, state
 
 
@@ -126,8 +139,8 @@ class StreamingConvTranspose1d:
         return {"partial": torch.zeros(batch_size, self.state_len, self.out_channels,
                                        dtype=dtype, device=device)}
 
-    def step(self, params: dict, state: dict, x: torch.Tensor
-             ) -> tuple[torch.Tensor, dict]:
+    def step(self, params: dict, state: dict, x: torch.Tensor,
+             exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
         T = x.shape[1]
         bias = params["bias"].to(x.dtype) if "bias" in params else None
         # full (untrimmed) output: (T - 1) * stride + K steps
@@ -140,5 +153,8 @@ class StreamingConvTranspose1d:
         tail = y[:, T * self.stride:]
         if bias is not None:
             tail = tail - bias
+        if exec_mask is not None:
+            tail = torch.where(exec_mask.view(-1, 1, 1), tail.to(state["partial"].dtype),
+                               state["partial"])
         state["partial"].copy_(tail)
         return y[:, :T * self.stride], state

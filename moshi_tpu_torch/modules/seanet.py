@@ -44,10 +44,10 @@ class _ResBlock:
     def init_state(self, B, dtype, device):
         return {"block": [c.init_state(B, dtype, device) for c in self.convs]}
 
-    def step(self, params, state, x):
+    def step(self, params, state, x, exec_mask=None):
         y = x
         for c, p, s in zip(self.convs, params["block"], state["block"]):
-            y, _ = c.step(p, s, F.elu(y))
+            y, _ = c.step(p, s, F.elu(y), exec_mask)
         return x + y, state
 
 
@@ -74,12 +74,14 @@ class _SEANetBase:
         return {"model": [mod.init_state(batch_size, dtype, device)
                           for _, mod, _ in self.items]}
 
-    def step(self, params: dict, state: dict, x: torch.Tensor
-             ) -> tuple[torch.Tensor, dict]:
+    def step(self, params: dict, state: dict, x: torch.Tensor,
+             exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+        """exec_mask [B] bool: slots that advance their conv state (all by
+        default); see conv.py."""
         for (_, mod, pre_act), p, s in zip(self.items, params["model"], state["model"]):
             if pre_act:
                 x = F.elu(x)
-            x, _ = mod.step(p, s, x)
+            x, _ = mod.step(p, s, x, exec_mask)
         return x, state
 
 

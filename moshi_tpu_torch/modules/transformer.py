@@ -1,27 +1,39 @@
 """Streaming transformer with a ring KV cache (counterpart of
-moshi_tpu/modules/transformer.py), bf16/f32 KV path.
+moshi_tpu/modules/transformer.py): the model-dtype KV path and the int4 KV
+path of batched serving.
 
 - Layer parameters are stacked on a leading [L, ...] axis; per-step weights
   (the depformer) on a [W, ...] axis after it.  Layer l's weights are views
   `w[l]`, so a q4 or int8 member goes to its GEMV kernel without a copy.
-- Streaming state is a dict of preallocated tensors {k, v, offset}, updated
-  in place: the new K/V rows are written into the ring at `offset % cap`
-  (moshi_tpu transformer.py:719-723) and `offset` advances after the step.
-  In place takes the role of the JAX package's donated buffers.
+- Streaming state is a dict of preallocated tensors, updated in place: the
+  new K/V rows are written into the ring at `offset % cap` (moshi_tpu
+  transformer.py:719-723) and `offset` advances after the step.  In place
+  takes the role of the JAX package's donated buffers.
+- `exec_mask` [B] bool freezes slots: a frozen slot's K/V row is still
+  written (the writes are unconditional), but its offset does not advance,
+  so the row is overwritten by its next executed step and never attended
+  before that.
+- `kv_cache_dtype="int4"`: the JAX package's nibble-packed cache in its
+  layout (ops/int4_attention.py); a T = 1 step reads it with the
+  `decode_attention_int4` kernel, merges the current unquantized row with
+  the flash rule and writes every layer's new column after the layer loop
+  with `cache_write_int4` (moshi_tpu transformer.py:749-921).
 
-Not ported yet: int8/int4 KV caches, cross-attention, exec_mask (per-slot
-freeze for batched serving), sinusoidal position embeddings and the offline
-`apply`.
+Not ported yet: the int8 KV cache (the next slice, with its kernel), T > 1
+steps over the int4 cache (the prefill path, which LMGen never takes),
+cross-attention, sinusoidal position embeddings and the offline `apply`.
 """
 
 import math
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 
 from .norm import LayerScale, make_norm
 from .rope import apply_rope
+from ..ops.int4_attention import cache_write_int4, decode_attention_int4_stats
 from ..utils.matmul import wdot
 from ..utils.params import trunc_normal
 
@@ -44,17 +56,38 @@ def _per_step_linear(w, x: torch.Tensor, idx) -> torch.Tensor:
     return wdot(x, w[idx[0]])
 
 
-def ring_positions(offset: torch.Tensor, T: int, cap: int
+def ring_positions(offset: torch.Tensor, T: int, cap: int,
+                   exec_mask: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Absolute positions [B, cap] of the ring slots after writing T new
-    steps, -1 for never-written slots, and the advanced offset [B]."""
+    steps, -1 for never-written slots, and the advanced offset [B]; a slot
+    whose exec_mask entry is False keeps its offset."""
     idx = torch.arange(cap, device=offset.device)[None]
     last = (offset + T - 1)[:, None]
     delta = idx - last % cap
     pos = torch.where(delta <= 0, last + delta, last + delta - cap)
     offset_next = offset + T
+    if exec_mask is not None:
+        offset_next = torch.where(exec_mask, offset_next, offset)
     pos = torch.where(idx >= offset_next[:, None], -1, pos)
     return pos, offset_next
+
+
+def _quant_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int4 quantization per (batch, time, head) row of [B, T, H,
+    D]: values in [-7, 7] as int8 and the f32 scale [B, T, H, 1].
+    torch.round rounds half to even, as jnp.round does."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp(min=1e-6) / 7.0
+    return torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int8), scale
+
+
+def _pack_nibble_cols(vals: torch.Tensor) -> torch.Tensor:
+    """int4 values [B, H*D] (one position's channels) -> channel-pair
+    packed bytes [B, H*D/2]: channel 2r in the low nibble, 2r+1 in the
+    high."""
+    return (vals[:, 1::2] << 4) | (vals[:, 0::2] & 15)
 
 
 def layer_view(tree, layer: int):
@@ -79,6 +112,7 @@ class TransformerConfig:
     layer_scale: float | None = None
     kv_repeat: int = 1
     weights_per_step: int = 0
+    kv_cache_dtype: str = "model"  # model | int4
 
     @property
     def head_dim(self) -> int:
@@ -117,6 +151,11 @@ class StreamingTransformer:
             raise NotImplementedError(f"gating {c.gating!r} is not ported")
         if c.d_model % c.num_heads or c.num_heads % c.kv_repeat:
             raise ValueError("heads must divide d_model and kv_repeat the heads")
+        if c.kv_cache_dtype == "int8":
+            raise NotImplementedError("the int8 KV cache is not ported yet: it comes "
+                                      "in the next slice, with its decode kernel")
+        if c.kv_cache_dtype not in ("model", "int4"):
+            raise ValueError(f"kv_cache_dtype {c.kv_cache_dtype!r}")
         self.config = c
         self.rope = c.positional_embedding != "none"
         self.rope_interleave = c.positional_embedding != "rope_concat"
@@ -160,11 +199,29 @@ class StreamingTransformer:
 
     # ------------------------------------------------------------------ state
     def init_state(self, batch_size: int, dtype=torch.bfloat16, device=None) -> dict:
+        """Model-dtype KV: k, v [L, B, cap, Hkv, D] in `dtype`.  int4 KV
+        (`dtype` unused): k, v [L, B, Hkv*D/2, cap_pad] int8 channel-pair
+        packed and k_scale, v_scale [L, B, Hkv, cap_pad] bf16, with cap_pad
+        the capacity rounded up to a multiple of 128 (moshi_tpu
+        transformer.py:336-363)."""
         c = self.config
-        shape = (c.num_layers, batch_size, c.kv_capacity, c.num_kv_heads, c.head_dim)
-        return {"offset": torch.zeros(batch_size, dtype=torch.long, device=device),
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        L, Hkv, D = c.num_layers, c.num_kv_heads, c.head_dim
+        state = {"offset": torch.zeros(batch_size, dtype=torch.long, device=device)}
+        if c.kv_cache_dtype == "int4":
+            if D % 2:
+                raise ValueError(f"int4 KV needs an even head dim, not {D}")
+            cap_pad = -(-c.kv_capacity // 128) * 128
+            for name in ("k", "v"):
+                state[name] = torch.zeros((L, batch_size, Hkv * D // 2, cap_pad),
+                                          dtype=torch.int8, device=device)
+            for name in ("k_scale", "v_scale"):
+                state[name] = torch.zeros((L, batch_size, Hkv, cap_pad),
+                                          dtype=torch.bfloat16, device=device)
+            return state
+        shape = (L, batch_size, c.kv_capacity, Hkv, D)
+        state["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        state["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        return state
 
     # ------------------------------------------------------------- layer body
     def _attention(self, q, k, v, mask):
@@ -183,7 +240,48 @@ class StreamingTransformer:
         out = torch.einsum("bhts,bshd->bthd", w.to(compute), v.to(compute))
         return out.reshape(*out.shape[:2], -1)  # [B, T, H*D]
 
-    def _layer(self, pl, x, state, layer, write_idx, mask, offset, widx):
+    def _ring_attention(self, q, kk, vv, *, state, layer, write_idx, mask):
+        """Model-dtype KV: write the new rows into the ring in place, then
+        attend over the layer's whole ring."""
+        B = q.shape[0]
+        b = torch.arange(B, device=q.device)[:, None]
+        state["k"][layer, b, write_idx] = kk.to(state["k"].dtype)
+        state["v"][layer, b, write_idx] = vv.to(state["v"].dtype)
+        return self._attention(q.transpose(1, 2), state["k"][layer], state["v"][layer], mask)
+
+    def _int4_attention(self, q, kk, vv, *, state, layer, ctx):
+        """Decode attention over the packed int4 cache plus the current row.
+        q [B, 1, H, D] and kk, vv [B, 1, Hkv, D], rope'd.  Quantizes and
+        packs the current rows into ctx's column buffers for the deferred
+        write, runs the cache pass (the kernel on the card, its plain
+        version on the CPU) and flash-merges the current unquantized row,
+        whose score counts only for executing slots (moshi_tpu
+        transformer.py:857-921).  Returns [B, 1, H*D]."""
+        c = self.config
+        B, _, H, D = q.shape
+        (kq, ks), (vq, vs) = _quant_rows_int4(kk), _quant_rows_int4(vv)
+        ctx["kcols"][layer] = _pack_nibble_cols(kq.reshape(B, -1))
+        ctx["vcols"][layer] = _pack_nibble_cols(vq.reshape(B, -1))
+        ctx["kscols"][layer] = ks[:, 0, :, 0]
+        ctx["vscols"][layer] = vs[:, 0, :, 0]
+        qh = q.transpose(1, 2).contiguous()                    # [B, H, 1, D]
+        acc, m, lse = decode_attention_int4_stats(qh, layer, state["k"], state["v"],
+                                                  state["k_scale"], state["v_scale"],
+                                                  ctx["mask"])
+        k_cur, v_cur = kk[:, 0], vv[:, 0]                      # [B, Hkv, D]
+        if c.kv_repeat > 1:
+            k_cur = k_cur.repeat_interleave(c.kv_repeat, dim=1)
+            v_cur = v_cur.repeat_interleave(c.kv_repeat, dim=1)
+        s_cur = (qh[:, :, 0].float() * k_cur.float()).sum(-1, keepdim=True) / math.sqrt(D)
+        s_cur = torch.where(ctx["cur_valid"][:, None, None], s_cur, -1e30)
+        m2 = torch.maximum(m, s_cur)
+        a1, a2 = torch.exp(m - m2), torch.exp(s_cur - m2)
+        out = (acc * a1 + a2 * v_cur.float()) / (lse * a1 + a2 + 1e-30)
+        return out.reshape(B, 1, H * D).to(q.dtype)
+
+    def _layer(self, pl, x, attend, offset, widx):
+        """One layer; attend(q [B, T, H, D], k, v [B, T, Hkv, D]) -> [B, T,
+        H*D] does the KV cache's part."""
         c = self.config
         B, T, d = x.shape
         H, Hkv, Dh = c.num_heads, c.num_kv_heads, c.head_dim
@@ -199,12 +297,7 @@ class StreamingTransformer:
                                 interleave=self.rope_interleave)
             q, kk = qh.transpose(1, 2), kh.transpose(1, 2)
 
-        # ring write, in place
-        b = torch.arange(B, device=x.device)[:, None]
-        state["k"][layer, b, write_idx] = kk.to(state["k"].dtype)
-        state["v"][layer, b, write_idx] = vv.to(state["v"].dtype)
-        attn = self._attention(q.transpose(1, 2), state["k"][layer],
-                               state["v"][layer], mask)
+        attn = attend(q, kk, vv)
         attn = _per_step_linear(pl["attn"]["out_proj"], attn, widx)
         if "layer_scale_1" in pl:
             attn = pl["layer_scale_1"]["scale"].to(attn.dtype) * attn
@@ -226,21 +319,29 @@ class StreamingTransformer:
 
     # ------------------------------------------------------------------- step
     def step(self, params: dict, state: dict, x: torch.Tensor, *,
-             steps=None) -> tuple[torch.Tensor, dict]:
+             exec_mask: torch.Tensor | None = None, steps=None
+             ) -> tuple[torch.Tensor, dict]:
         """Streaming forward of T new steps x [B, T, d_model].  Updates
-        `state` in place and returns (y, state).  steps: the absolute step
-        index of each position, for per-step weights (default range(T))."""
+        `state` in place and returns (y, state).  exec_mask [B] bool: the
+        slots whose offset advances (all by default).  steps: the absolute
+        step index of each position, for per-step weights (default
+        range(T))."""
         c = self.config
         B, T, _ = x.shape
-        offset = state["offset"]
-        cap = state["k"].shape[2]
         widx = None
         if c.num_weights > 1:
             widx = list(range(T) if steps is None else steps)
+        if c.kv_cache_dtype == "int4":
+            if T != 1:
+                raise NotImplementedError("T > 1 steps over the int4 KV cache (the "
+                                          "prefill path) are not ported")
+            return self._step_int4_decode(params, state, x, exec_mask, widx)
+        offset = state["offset"]
+        cap = state["k"].shape[2]
 
         ar = torch.arange(T, device=x.device)
         write_idx = (offset[:, None] + ar) % cap                     # [B, T]
-        pos_k, offset_next = ring_positions(offset, T, cap)
+        pos_k, offset_next = ring_positions(offset, T, cap, exec_mask)
         pos_q = offset[:, None] + ar[None]                           # [B, T]
         delta = pos_q[:, :, None] - pos_k[:, None, :]                # [B, T, cap]
         mask = (pos_k[:, None, :] >= 0) & (delta >= 0)
@@ -249,8 +350,43 @@ class StreamingTransformer:
         mask = mask[:, None]
 
         for layer in range(c.num_layers):
-            x = self._layer(layer_view(params["layers"], layer), x, state,
-                            layer, write_idx, mask, offset, widx)
+            attend = partial(self._ring_attention, state=state, layer=layer,
+                             write_idx=write_idx, mask=mask)
+            x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx)
+        offset.copy_(offset_next)
+        return x, state
+
+    def _step_int4_decode(self, params, state, x, exec_mask, widx):
+        """One T = 1 step over the int4 cache (moshi_tpu
+        transformer.py:749-855).  The lane at the write position holds a
+        stale row and is masked out of the cache pass; the current row is
+        merged in unquantized.  Every layer's new column is written after
+        the layer loop, at `offset % cap`, for every slot."""
+        c = self.config
+        B = x.shape[0]
+        L, Hkv = c.num_layers, c.num_kv_heads
+        offset = state["offset"]
+        cap = c.kv_capacity  # the cache's lane axis is padded past it
+        wp = offset % cap
+        pos_k, offset_next = ring_positions(offset, 1, cap, exec_mask)
+        delta = offset[:, None] - pos_k                              # [B, cap]
+        mask = (pos_k >= 0) & (delta >= 0)
+        if c.context is not None:
+            mask &= delta < c.context
+        mask &= torch.arange(cap, device=x.device)[None] != wp[:, None]
+        hd2 = state["k"].shape[2]
+        ctx = {"mask": mask,
+               "cur_valid": (torch.ones(B, dtype=torch.bool, device=x.device)
+                             if exec_mask is None else exec_mask),
+               "kcols": torch.empty((L, B, hd2), dtype=torch.int8, device=x.device),
+               "vcols": torch.empty((L, B, hd2), dtype=torch.int8, device=x.device),
+               "kscols": torch.empty((L, B, Hkv), dtype=torch.bfloat16, device=x.device),
+               "vscols": torch.empty((L, B, Hkv), dtype=torch.bfloat16, device=x.device)}
+        for layer in range(L):
+            attend = partial(self._int4_attention, state=state, layer=layer, ctx=ctx)
+            x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx)
+        cache_write_int4(wp, ctx["kcols"], ctx["vcols"], ctx["kscols"], ctx["vscols"],
+                         state["k"], state["v"], state["k_scale"], state["v_scale"])
         offset.copy_(offset_next)
         return x, state
 

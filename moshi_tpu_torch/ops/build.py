@@ -1,16 +1,17 @@
 """Build the hand-written CUDA kernels in `moshi_tpu_torch/csrc/` and load
 them with ctypes.
 
-Each kernel source `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into a
-shared library with a plain C interface:
+Each kernel source `csrc/<name>.cu`, with the C entry point `<name>`, is
+compiled by `nvcc` for sm_90a into a shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 The library lands in `build/kernels/` at the repository root (listed in
 .gitignore), named by a hash of the sources and flags, so the first call
 builds it and later calls, in this process or another, reuse it until a
-source changes.  Nothing is built on import: the CPU tests import every
-module of the port on a machine with no `nvcc`.
+source changes.  `build_all` starts one nvcc per source at once.  Nothing
+is built on import: the CPU tests import every module of the port on a
+machine with no `nvcc`.
 """
 
 import ctypes
@@ -38,6 +39,12 @@ SIGNATURES = {
     # x, q, scale, out, partial, batch, din, dout, rows_per_split, splits,
     # x_is_bf16, stream
     "int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k_all, v_all, k_scale, v_scale, mask, acc, m, l, layer, B, H, Hkv, D,
+    # cap, cap_pad, stream
+    "decode_attention_int4": [_P] * 9 + [_I] * 7 + [_P],
+    # pos, kcols, vcols, kscols, vscols, k_all, v_all, ks_all, vs_all, L, B,
+    # hd2, Hkv, cap_pad, stream
+    "cache_write_int4": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -62,25 +69,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def build_all(names=None, extra_flags=()) -> dict[str, str]:
+    """Compile csrc/<name>.cu for every name (all kernels by default) that
+    has no library of the same sources yet, one nvcc process per source, all
+    started together.  Returns nvcc's output per compiled name (with
+    extra_flags=("-Xptxas", "-v"): registers, shared memory, spills)."""
+    todo = [n for n in (names or SIGNATURES) if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    jobs = {}
+    for name in todo:
+        # compile to a private name, then rename: concurrent builders never
+        # see a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in jobs.items():
+        logs[name] = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(name)
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"{n}:\n{logs[n]}" for n in failed))
+    return logs
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless a library of the same sources exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    # compile to a private name, then rename: concurrent builders never see
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    build_seconds[name] = time.perf_counter() - t0
-    return out
+    build_all([name])
+    return library_path(name)
 
 
 def load(name: str) -> ctypes.CDLL:

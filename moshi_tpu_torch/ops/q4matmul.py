@@ -15,9 +15,16 @@ import torch
 from ..utils.quantize import dequantize4
 from . import build
 
-MAX_BATCH = 8        # gemv::kMaxBatch
+MAX_BATCH = 16        # gemv::kMaxBatch
 BLOCK_COLS = 4 * 128  # gemv::kCols * gemv::kThreads
 MAX_SPLIT_ROWS = 1024  # din rows a block stages in shared memory
+STAGE_FLOATS = 48 * 1024 // 4  # gemv::kStageFloats: f32 [batch, rows] staged x
+
+
+def max_split_rows(batch: int) -> int:
+    """din rows per block: MAX_SPLIT_ROWS, or fewer where the staged x of
+    `batch` rows would pass the 48 KB a launch gets without opting in."""
+    return min(MAX_SPLIT_ROWS, STAGE_FLOATS // batch)
 
 
 def q4_gemv_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -31,15 +38,16 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def plan_splits(din: int, dout: int, group_size: int, num_sms: int) -> tuple[int, int]:
+def plan_splits(din: int, dout: int, group_size: int, num_sms: int,
+                batch: int = 1) -> tuple[int, int]:
     """(groups_per_split, splits): split din so the grid has about four
-    blocks per SM, with at most MAX_SPLIT_ROWS rows per block."""
+    blocks per SM, with at most max_split_rows(batch) rows per block."""
     groups = din // group_size
     col_blocks = -(-dout // BLOCK_COLS)
-    want = max(-(-4 * num_sms // col_blocks),
-               -(-din // MAX_SPLIT_ROWS))
+    max_rows = max_split_rows(batch)
+    want = max(-(-4 * num_sms // col_blocks), -(-din // max_rows))
     gps = max(1, -(-groups // min(want, groups)))
-    gps = min(gps, max(1, MAX_SPLIT_ROWS // group_size))
+    gps = min(gps, max(1, max_rows // group_size))
     return gps, -(-groups // gps)
 
 
@@ -74,13 +82,14 @@ def q4_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tens
         raise TypeError(f"q4_gemv: x dtype {x.dtype}")
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"q4_gemv: batch {B} outside 1..{MAX_BATCH}")
-    if gs % 2 or dout % 4:
-        raise ValueError(f"q4_gemv: group size {gs} must be even, dout {dout} a multiple of 4")
+    if gs % 2 or dout % 4 or gs > max_split_rows(B):
+        raise ValueError(f"q4_gemv: group size {gs} must be even and at most "
+                         f"{max_split_rows(B)}, dout {dout} a multiple of 4")
     if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("q4_gemv: operands must be contiguous")
     if q.data_ptr() % 4 or scale.data_ptr() % 16:
         raise ValueError("q4_gemv: q must be 4-byte and scale 16-byte aligned")
-    gps, splits = plan_splits(din, dout, gs, _num_sms(x.device.index or 0))
+    gps, splits = plan_splits(din, dout, gs, _num_sms(x.device.index or 0), B)
     out = torch.empty((B, dout), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, B, dout), dtype=torch.float32, device=x.device)
                if splits > 1 else out)

@@ -13,7 +13,7 @@ import torch
 
 from ..utils.quantize import dequantize
 from . import build
-from .q4matmul import BLOCK_COLS, MAX_BATCH, MAX_SPLIT_ROWS, _num_sms
+from .q4matmul import BLOCK_COLS, MAX_BATCH, _num_sms, max_split_rows
 
 ROW_GRAIN = 32  # din rows per split are a multiple of this
 
@@ -24,14 +24,14 @@ def int8_gemv_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     return torch.matmul(x, dequantize(q, scale, x.dtype))
 
 
-def plan_splits(din: int, dout: int, num_sms: int) -> tuple[int, int]:
+def plan_splits(din: int, dout: int, num_sms: int, batch: int = 1) -> tuple[int, int]:
     """(rows_per_split, splits): split din so the grid has about four blocks
-    per SM, with ROW_GRAIN..MAX_SPLIT_ROWS rows per block."""
+    per SM, with ROW_GRAIN..max_split_rows(batch) rows per block."""
     col_blocks = -(-dout // BLOCK_COLS)
     want = max(1, -(-4 * num_sms // col_blocks))
     rows = -(-din // want)
     rows = -(-rows // ROW_GRAIN) * ROW_GRAIN
-    rows = min(max(rows, ROW_GRAIN), MAX_SPLIT_ROWS)
+    rows = min(max(rows, ROW_GRAIN), max_split_rows(batch) // ROW_GRAIN * ROW_GRAIN)
     return rows, -(-din // rows)
 
 
@@ -66,7 +66,7 @@ def int8_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
         raise ValueError("int8_gemv: operands must be contiguous")
     if q.data_ptr() % 4:
         raise ValueError("int8_gemv: q must be 4-byte aligned")
-    rows, splits = plan_splits(din, dout, _num_sms(x.device.index or 0))
+    rows, splits = plan_splits(din, dout, _num_sms(x.device.index or 0), B)
     out = torch.empty((B, dout), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, B, dout), dtype=torch.float32, device=x.device)
                if splits > 1 else out)

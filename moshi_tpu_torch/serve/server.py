@@ -24,7 +24,7 @@ class ServerState:
     runs in the dtype of its parameters; the KV cache is bf16, as in the
     JAX server."""
 
-    def __init__(self, mimi, mimi_params, lm, lm_params, *, device="cpu",
+    def __init__(self, mimi, mimi_params, lm, lm_params, *, device="cuda",
                  rng_seed: int = 0, **lm_gen_kwargs):
         self.mimi, self.mimi_params = mimi, mimi_params
         self.lm, self.lm_params = lm, lm_params

@@ -9,7 +9,7 @@ imports no JAX, so it also runs on a machine that has none:
 import pytest
 import torch
 
-from moshi_tpu_torch.ops import q4matmul, qmatmul
+from moshi_tpu_torch.ops import int4_attention as i4, q4matmul, qmatmul
 from moshi_tpu_torch.utils import quantize as tq
 
 pytestmark = pytest.mark.cuda
@@ -34,7 +34,7 @@ def _rel(y, ref):
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", range(1, 9))
+@pytest.mark.parametrize("B", range(1, 17))
 def test_every_batch_size(kernel, dtype, B, gen):
     fn, plain, quant = KERNELS[kernel]
     din, dout = 1024, 1536
@@ -90,12 +90,117 @@ def test_deterministic_and_counted(kernel, gen):
 def test_rejects_what_the_kernel_does_not_take(kernel, gen):
     fn, _, quant = KERNELS[kernel]
     qt = quant(torch.randn(256, 128, device="cuda", generator=gen))
-    x = torch.randn(9, 256, device="cuda", generator=gen)
+    x = torch.randn(17, 256, device="cuda", generator=gen)
     with pytest.raises(ValueError):
-        fn(x, qt.q, qt.scale)                      # batch above the kernel's 8
+        fn(x, qt.q, qt.scale)                      # batch above the kernel's 16
     with pytest.raises(ValueError):
         fn(x[:2], qt.q.cpu(), qt.scale)            # mixed devices
     with pytest.raises(TypeError):
         fn(x[:2].half(), qt.q, qt.scale)           # fp16 activations
     with pytest.raises(ValueError):
         fn(torch.randn(256, 2, device="cuda").T, qt.q, qt.scale)  # not contiguous
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+@pytest.mark.parametrize("B", [9, 16])
+def test_batched_main_path_shape(kernel, B, gen):
+    """B = 9 and 16 at the widest main-path shape of each kernel, where the
+    split planner caps the staged rows at 48 KB of shared memory."""
+    fn, plain, quant = KERNELS[kernel]
+    din, dout = (11264, 4096) if kernel == "q4" else (2816, 1024)
+    qt = quant(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
+    x = torch.randn(B, din, device="cuda", generator=gen).to(torch.bfloat16)
+    y = fn(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert _rel(y, plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+
+
+def _int4_cache(gen, L, B, Hkv, D, cap_pad):
+    """Random packed caches (every nibble in [-7, 7]) and positive scales."""
+    def packed():
+        vals = torch.randint(-7, 8, (L, B, Hkv * D, cap_pad), device="cuda",
+                             generator=gen, dtype=torch.int8)
+        return (vals[:, :, 1::2] << 4) | (vals[:, :, 0::2] & 15)
+
+    def scales():
+        return (torch.rand(L, B, Hkv, cap_pad, device="cuda", generator=gen)
+                * 0.2 + 0.01).to(torch.bfloat16)
+    return packed(), packed(), scales(), scales()
+
+
+def _stats_err(got, ref):
+    """Relative error of acc / l and of m (the kernel takes q in bf16)."""
+    (acc, m, l), (racc, rm, rl) = got, ref
+    return max(_rel(acc / l, racc / rl), _rel(m, rm))
+
+
+# (B, H, Hkv, D, cap, layer): the main path's shape, D = 64, a capacity
+# that is no multiple of the 1024-lane chunk, grouped KV heads
+ATTN = [(16, 32, 32, 128, 3000, 5), (16, 32, 32, 64, 3000, 1), (3, 4, 4, 128, 1500, 2),
+        (2, 8, 2, 64, 200, 0), (1, 4, 4, 128, 2048, 1)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,D,cap,layer", ATTN)
+def test_decode_attention_int4(B, H, Hkv, D, cap, layer, gen):
+    cap_pad = -(-cap // 128) * 128
+    caches = _int4_cache(gen, layer + 1, B, Hkv, D, cap_pad)
+    q = torch.randn(B, H, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.rand(B, cap, device="cuda", generator=gen) < 0.8
+    mask[:, -1] = True                         # the last lane of a ragged chunk
+    got = i4.decode_attention_int4_stats(q, layer, *caches, mask)
+    torch.cuda.synchronize()
+    ref = i4.decode_attention_int4_stats_plain(q, layer, *caches, mask)
+    assert all(t.dtype == torch.float32 for t in got)
+    assert _stats_err(got, ref) <= BOUND[torch.bfloat16]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_attention_int4_one_lane(D, gen):
+    """Every lane masked but one, and every lane masked: the kernel's m, l
+    and acc equal the dense version's (lanes past cap do not count)."""
+    B, H, cap = 2, 4, 1100
+    caches = _int4_cache(gen, 1, B, H, D, 1152)
+    q = torch.randn(B, H, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.zeros(B, cap, dtype=torch.bool, device="cuda")
+    mask[0, 1037] = True
+    got = i4.decode_attention_int4_stats(q, 0, *caches, mask)
+    torch.cuda.synchronize()
+    ref = i4.decode_attention_int4_stats_plain(q, 0, *caches, mask)
+    assert _stats_err([t[:1] for t in got], [t[:1] for t in ref]) <= BOUND[torch.bfloat16]
+    torch.testing.assert_close(got[2][1], ref[2][1])          # l = cap on slot 1
+    assert (got[1][1] == -1e30).all()
+
+
+@pytest.mark.parametrize("kv_repeat", [1, 2])
+def test_cache_write_int4(kv_repeat, gen):
+    """Byte for byte the plain version's writes, for every slot: slot 1 is
+    the frozen one, at a lane it wrote before."""
+    L, B, H, D, cap_pad = 3, 4, 8, 128, 384
+    Hkv = H // kv_repeat
+    caches = _int4_cache(gen, L, B, Hkv, D, cap_pad)
+    cols = [torch.randint(-128, 128, (L, B, Hkv * D // 2), device="cuda", generator=gen,
+                          dtype=torch.int8) for _ in range(2)]
+    scols = [torch.randn(L, B, Hkv, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2)]
+    pos = torch.tensor([0, 7, 383, 200], device="cuda")
+    ref = i4.cache_write_int4_plain(pos, *cols, *scols, *(c.clone() for c in caches))
+    n = i4.cache_write_int4.launches
+    got = i4.cache_write_int4(pos, *cols, *scols, *caches)
+    torch.cuda.synchronize()
+    assert i4.cache_write_int4.launches == n + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_int4_wrappers_reject_what_the_kernels_do_not_take(gen):
+    caches = _int4_cache(gen, 2, 2, 4, 96, 256)
+    q = torch.randn(2, 4, 1, 96, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.ones(2, 200, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        i4.decode_attention_int4_stats(q, 0, *caches, mask)      # head dim 96
+    caches = _int4_cache(gen, 2, 2, 4, 64, 256)
+    q = torch.randn(2, 4, 1, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        i4.decode_attention_int4_stats(q, 2, *caches, mask)      # layer past L
+    with pytest.raises(TypeError):
+        i4.decode_attention_int4_stats(q.float(), 0, *caches, mask)   # f32 q

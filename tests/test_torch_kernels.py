@@ -195,3 +195,19 @@ def test_kernel_modules_import_without_cuda_toolchain():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
                    timeout=120)
 
+
+
+@pytest.mark.parametrize("batch", [1, 8, 9, 13, 16])
+def test_split_plans_fit_the_staging_limit(batch):
+    """At every batch the GEMVs take, a block's staged x (f32 [batch, rows])
+    stays within the 48 KB a launch gets without opting in, and the splits
+    still cover din exactly."""
+    limit = 48 * 1024
+    for din, dout in ((4096, 12288), (11264, 4096), (4096, 32000), (192, 100)):
+        gps, splits = q4matmul.plan_splits(din, dout, 32, 132, batch)
+        assert 4 * batch * gps * 32 <= limit
+        assert (splits - 1) * gps < din // 32 <= splits * gps
+    for din, dout in ((1024, 3072), (2816, 1024), (4096, 1024), (1000, 260)):
+        rows, splits = qmatmul.plan_splits(din, dout, 132, batch)
+        assert 4 * batch * rows <= limit and rows % qmatmul.ROW_GRAIN == 0
+        assert (splits - 1) * rows < din <= splits * rows

@@ -44,7 +44,7 @@ def servers():
     tstate = TServerState(TMimi(tmcfg),
                           from_jax(jax.device_get(mimi_params), mimi_config=tmcfg),
                           TLM(port_lm_config(cfg)), from_jax(jax.device_get(lm_params)),
-                          use_sampling=False)
+                          device="cpu", use_sampling=False)
     return jstate, tstate
 
 
