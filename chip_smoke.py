@@ -12,7 +12,10 @@ Phases, each printing its own line(s):
   3. kernels - each kernel against its plain PyTorch version on the card at
                the main paths' shapes: the GEMVs at B = 1, 4, 9, 16 in bf16
                and f32, decode_attention_int4 at B = 16, H = 32, D = 128 and
-               64 with a ragged mask, cache_write_int4 byte for byte; then
+               64 with a ragged mask, cache_write_int4 byte for byte,
+               decode_attention_int8 at the ASR path's B = 256, H = 8, cap
+               750 and Moshi's B = 16, H = 32, cap 3000, D = 128 and 64, a
+               ragged mask and a slot with every position masked; then
                CUDA-graph-replay times (operands cold in L2) of each kernel,
                its plain version and one PyTorch library call for the same
                work, beside the least time the card could take (bound);
@@ -31,7 +34,16 @@ Phases, each printing its own line(s):
                a sampled run of 40 frames on all 16 slots (p50/p90 ms per
                batched frame), each with exact launch counts per frame of
                all four kernels; then a torch.profiler pass over a few
-               frames for the card's busy time.
+               frames for the card's busy time; then the greedy run once more
+               with the int8 KV cache (32 decode_attention_int8 per frame);
+  6. asr     - batched speech-to-text at the full width of asr_300m_202501
+               (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
+               `delay` condition), all from a seed, B = 256 slots of
+               BatchedAsrState: warm-up, then the greedy isolation run of the
+               batched phase over 40 frames (text tokens), with exactly 16
+               decode_attention_int8 and no GEMV launches per frame, p50 /
+               p75 / p90 ms per batched frame; 10 frames of every slot for
+               the host ms of the word trackers; peak memory; a profiler pass.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
@@ -56,6 +68,11 @@ SEED = 1234
 SESSIONS = (11, 12, 11)  # session seeds; the first and last are equal
 FRAMES = 40
 SLOTS = 16               # B of the batched phase
+ASR_SLOTS = 256          # B of the asr phase
+ASR_DELAY = 6            # asr_delay_in_tokens: 0.5 s at 12.5 Hz
+# the `delay` conditioner of the asr phase (no checkpoint on the card's
+# machine: its width and value are this script's choice)
+ASR_COND = {"dim": 1024, "scale_factor": 1.0, "max_period": 10_000.0, "delay": 0.5}
 BATCHES = (1, 4, 9, 16)  # GEMV checks
 TIMED_BATCHES = (1, SLOTS)
 # max |kernel - plain| / max |plain|
@@ -73,12 +90,16 @@ INT8_SHAPES = {(1024, 3072): 48, (1024, 1024): 48, (1024, 5632): 48,
                (2816, 1024): 48, (1024, 2048): 8, (4096, 1024): 8}
 # the int4 KV cache of the batched phase: Moshi-7B, context 3000
 KV = {"layers": 32, "heads": 32, "head_dim": 128, "cap": 3000}
+# decode_attention_int8's main-path shapes, (B, heads, cap) at head dim 128:
+# asr_300m_202501 at B = 256 (16 launches per frame), Moshi-7B at B = 16 (32)
+INT8_KV = {"asr": (ASR_SLOTS, 8, 750), "moshi_b16": (SLOTS, 32, 3000)}
 TPU_KERNELS = {
     # q4gemm and q4gemm_stacked
     "q4_gemv": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     "int8_gemv": "moshi_tpu/ops/qmatmul.py:48",  # qgemv
     "decode_attention_int4": "moshi_tpu/ops/int4_attention.py:165",
     "cache_write_int4": "moshi_tpu/ops/int4_attention.py:313",
+    "decode_attention_int8": "moshi_tpu/ops/decode_attention.py:90",
 }
 SOURCES = {name: f"moshi_tpu_torch/csrc/{name}.cu" for name in TPU_KERNELS}
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s
@@ -338,13 +359,87 @@ def check_cache_write(dev, g) -> dict:
     return {"per_launch": t, "bound_by": bound_by, "max_abs_err": 0.0}
 
 
+def random_int8_cache(g, L, B, cap, Hkv, D, dev):
+    """int8 ring caches [L, B, cap, Hkv, D] and positive bf16 row scales."""
+    def vals():
+        return torch.randint(-127, 128, (L, B, cap, Hkv, D), device=dev, generator=g,
+                             dtype=torch.int8)
+
+    def scales():
+        return (0.001 + 0.02 * torch.rand(L, B, cap, Hkv, 1, device=dev, generator=g)
+                ).to(torch.bfloat16)
+    return vals(), vals(), scales(), scales()
+
+
+def check_attention_int8(dev, g) -> dict:
+    """decode_attention_int8 against its plain version at both main-path
+    shapes (INT8_KV), D = 128 and 64, layer 3 of 4, a ragged mask and slot 0
+    with every position masked (which must give 0); times per launch at
+    D = 128 beside scaled_dot_product_attention on the dequantized bf16
+    layer and the bound."""
+    from moshi_tpu_torch.ops.decode_attention import (decode_attention_int8 as k6,
+                                                      decode_attention_int8_plain as k6p)
+    import torch.nn.functional as F
+
+    L, layer = 4, 3
+    max_abs, per_launch, bound_by = 0.0, {}, None
+    for path, (B, H, cap) in INT8_KV.items():
+        for D in (128, 64):
+            caches = random_int8_cache(g, L, B, cap, H, D, dev)
+            q = torch.randn(B, H, D, device=dev, generator=g).to(torch.bfloat16)
+            valid = torch.randint(1, cap + 1, (B,), device=dev, generator=g)
+            mask = ((torch.rand(B, cap, device=dev, generator=g) < 0.9)
+                    & (torch.arange(cap, device=dev)[None] < valid[:, None]))
+            mask[:, 0] = True
+            mask[0] = False
+            out = k6(q, layer, *caches, mask)
+            torch.cuda.synchronize()
+            ref = k6p(q, layer, *caches, mask)
+            err = rel_err(out[1:], ref[1:])
+            max_abs = max(max_abs, (out.float() - ref.float()).abs().max().item())
+            ok = (err <= ATTN_BOUND and bool(torch.isfinite(out).all())
+                  and bool((out[0] == 0).all()))
+            phase("kernels", f"decode_attention_int8 B={B} H={H} D={D} cap={cap} "
+                  f"layer={layer}: max rel err {err:.3e} (bound {ATTN_BOUND:.0e}), fully "
+                  f"masked slot {'0' if (out[0] == 0).all() else 'NOT 0'} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("decode_attention_int8 disagrees with its plain version")
+            if D != 128:
+                continue
+            ops = [(q, li, *caches, mask) for li in range(L)]
+            t = {"ms": time_ms(k6, ops), "plain_ms": time_ms(k6p, ops, iters=4)}
+
+            def dense(li):
+                return [(c[li].float() * s[li].float()).to(torch.bfloat16).transpose(1, 2)
+                        .contiguous() for c, s in ((caches[0], caches[2]),
+                                                   (caches[1], caches[3]))]
+            lib_ops = [(q[:, :, None], *dense(li), mask[:, None, None, :]) for li in range(2)]
+            t["library_ms"] = time_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+                q_, k_, v_, attn_mask=m_), lib_ops)
+            nbytes = 2 * B * cap * H * D + 2 * 2 * B * cap * H + B * cap + 2 * 2 * B * H * D
+            t["bound_ms"], bound_by = bound(nbytes, 4 * B * H * cap * D)
+            phase("kernels", f"decode_attention_int8 {path} B={B} H={H} D={D} cap={cap}: "
+                  f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"scaled_dot_product_attention on the dequantized bf16 layer "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB); {nbytes / t['ms'] / 1e6:.1f} GB/s")
+            per_launch[path] = t
+            del ops, lib_ops
+        del caches
+        torch.cuda.empty_cache()
+    return {"per_launch": per_launch["asr"], "per_launch_by_shape": per_launch,
+            "bound_by": bound_by, "max_abs_err": max_abs}
+
+
 # ------------------------------------------------------------------ slice
 def per_step_launches(cfg, params) -> dict:
     """Kernel launches one LMGen.step implies: each q4 temporal linear once
     per layer plus the text head; each int8 depformer linear once per layer
     and codebook, plus depformer_in and the output head per codebook; with
     the int4 KV cache, one decode_attention_int4 per layer and one
-    cache_write_int4."""
+    cache_write_int4; with the int8 KV cache, one decode_attention_int8 per
+    layer."""
     from moshi_tpu_torch.utils.quantize import QTensor, QTensor4
 
     layers = params["transformer"]["layers"]
@@ -366,17 +461,20 @@ def per_step_launches(cfg, params) -> dict:
     int4 = cfg.kv_cache_dtype == "int4"
     per_step["decode_attention_int4"] = cfg.num_layers if int4 else 0
     per_step["cache_write_int4"] = 1 if int4 else 0
+    per_step["decode_attention_int8"] = cfg.num_layers if cfg.kv_cache_dtype == "int8" else 0
     return per_step
 
 
 def counters() -> dict:
     """The launch-counted wrappers, by kernel name."""
+    from moshi_tpu_torch.ops.decode_attention import decode_attention_int8
     from moshi_tpu_torch.ops.int4_attention import cache_write_int4, decode_attention_int4_stats
     from moshi_tpu_torch.ops.q4matmul import q4_gemv
     from moshi_tpu_torch.ops.qmatmul import int8_gemv
     return {"q4_gemv": q4_gemv, "int8_gemv": int8_gemv,
             "decode_attention_int4": decode_attention_int4_stats,
-            "cache_write_int4": cache_write_int4}
+            "cache_write_int4": cache_write_int4,
+            "decode_attention_int8": decode_attention_int8}
 
 
 def zero_counts() -> None:
@@ -461,21 +559,21 @@ def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> tuple[dict, f
 
 
 # ---------------------------------------------------------------- batched
-def isolation_script(frame_size: int):
+def isolation_script(frame_size: int, slots: int = SLOTS):
     """The greedy run's schedule and PCM: (schedule, frames, the slots whose
     session must equal slot 0's)."""
     # unit-RMS noise: the random-weight Mimi maps quiet noise to one code
     # whatever the PCM, and then every slot's stream would be the same
     rs = np.random.RandomState(SEED)
     ref = rs.randn(FRAMES + 1, frame_size).astype(np.float32)
-    frames = {s: rs.randn(FRAMES + 1, frame_size).astype(np.float32) for s in range(SLOTS)}
+    frames = {s: rs.randn(FRAMES + 1, frame_size).astype(np.float32) for s in range(slots)}
     frames[1] = frames[2] = frames[3] = ref
     frames[0] = ref
     frames[4] = np.concatenate([frames[4][:20], ref])
-    schedule = [dict.fromkeys(range(SLOTS), "join")]
+    schedule = [dict.fromkeys(range(slots), "join")]
     del schedule[0][2]
     for tick in range(1, FRAMES + 1):
-        t = dict.fromkeys(range(SLOTS), "send")
+        t = dict.fromkeys(range(slots), "send")
         if tick < 5:
             del t[2]               # slot 2 joins 5 frames late
         elif tick == 5:
@@ -490,23 +588,20 @@ def isolation_script(frame_size: int):
     return schedule, frames, same_as_0
 
 
-def profile_frames(state, n: int) -> dict:
-    """torch.profiler over n sampled frames: the card's busy ms per frame
-    (sum of its kernels' times), the host ms per frame under the profiler,
-    and kernel ms per frame by name for the port's four kernels."""
+def profile_frames(run_frame, n: int) -> dict:
+    """torch.profiler over n frames, run_frame(i) running frame i and
+    reading its result back: the card's busy ms per frame (sum of its
+    kernels' times), the host ms per frame under the profiler, and kernel ms
+    per frame by name for the port's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    rs = np.random.RandomState(SEED + 1)
-    pcm = (0.1 * rs.randn(n, state.batch_size, 1, state.frame_size)).astype(np.float32)
-    mask = np.ones(state.batch_size, bool)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for chunk in pcm:
-            out, audio = state.frame(chunk, mask)
-            out.cpu(), audio.cpu()
+        for i in range(n):
+            run_frame(i)
         wall = (time.perf_counter() - t0) * 1e3 / n
-    busy, by_kernel = 0.0, {}
+    busy, by_kernel, device_ops, kernels = 0.0, {}, {}, 0
     for evt in prof.key_averages():
         if not str(evt.device_type).endswith("CUDA"):
             continue  # host ops; their kernels are counted as device events
@@ -514,15 +609,63 @@ def profile_frames(state, n: int) -> dict:
         if us is None:
             us = evt.self_cuda_time_total
         busy += us
+        kernels += evt.count
+        device_ops[evt.key[:80]] = us / 1e3 / n
         for name in TPU_KERNELS:
             if name in evt.key and "reduce" not in evt.key:
                 by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
+    top = dict(sorted(device_ops.items(), key=lambda kv: -kv[1])[:8])
     return {"host_ms_per_frame": wall, "busy_ms_per_frame": busy / 1e3 / n,
-            "kernel_ms_per_frame": by_kernel}
+            "kernel_ms_per_frame": by_kernel, "device_ops_per_frame": kernels / n,
+            "top_device_ms_per_frame": top}
+
+
+def greedy_isolation(dev, lm, lm_params, mimi, mimi_params, what: str) -> dict:
+    """The greedy run of BatchedMoshiState at B = SLOTS over the isolation
+    script: token checks, exact launch counts per frame.  Returns the
+    launches."""
+    from moshi_tpu_torch.serve.batched_moshi import BatchedMoshiState, serve_batched
+
+    cfg = lm.config
+    expected = per_step_launches(cfg, lm_params)
+    state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
+                              use_sampling=False)
+    kshape = tuple(state.gen_state["transformer"]["k"].shape)
+    phase("batched", f"{what}: B = {SLOTS}, {cfg.kv_cache_dtype} KV cache {kshape} int8 x 2 "
+          f"+ bf16 scales; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card")
+    state.warmup()
+    schedule, frames, same_as_0 = isolation_script(mimi.frame_size)
+    zero_counts()
+    sessions, ms = serve_batched(state, schedule, frames)
+    launches = read_counts()
+    check_counts(launches, expected, len(ms), f"batched {what} run")
+    ref = sessions[0][0][0]
+    if len(ms) != FRAMES or len(ref) != FRAMES - cfg.max_delay:
+        raise RuntimeError(f"{what}: {len(ms)} frames, slot 0 generated {len(ref)}")
+    for s in range(SLOTS):
+        for tokens, audio in sessions[s]:
+            check_tokens(tokens, cfg, f"{what} slot {s}")
+            check_pcm(audio, mimi.frame_size, f"{what} slot {s}")
+    for s, (session, executed) in same_as_0.items():
+        got = sessions[s][session][0]
+        if len(got) != executed - cfg.max_delay or not np.array_equal(got, ref[:len(got)]):
+            raise RuntimeError(f"{what}: slot {s} session {session} does not repeat "
+                               f"slot 0's tokens")
+    distinct = sum(not np.array_equal(sessions[s][0][0], ref) for s in range(5, SLOTS))
+    if distinct == 0:
+        raise RuntimeError(f"{what}: no slot with its own PCM differs from slot 0")
+    phase("batched", f"{what}, {len(ms)} frames: slots 1 (same PCM), 2 (joined 5 frames "
+          f"late), 3 (frozen on frames 10-14) and 4 (reset at frame 20) repeat slot 0's "
+          f"tokens; {distinct} of {SLOTS - 5} other slots differ; launches "
+          f"{launches} = per frame {expected} x {len(ms)}")
+    del state, sessions
+    torch.cuda.empty_cache()
+    return launches
 
 
 def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
-    """The batched path at B = SLOTS with the int4 KV cache."""
+    """The batched path at B = SLOTS with the int4 KV cache, then its greedy
+    run with the int8 KV cache."""
     from dataclasses import replace
 
     from moshi_tpu_torch.models.lm import LMModel, lm_config_v0_1
@@ -533,39 +676,7 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
     expected = per_step_launches(cfg, lm_params)
 
     # 1. greedy isolation run
-    state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
-                              use_sampling=False)
-    kshape = tuple(state.gen_state["transformer"]["k"].shape)
-    phase("batched", f"B = {SLOTS}, int4 KV cache {kshape} int8 x 2 + bf16 scales; "
-          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card")
-    state.warmup()
-    schedule, frames, same_as_0 = isolation_script(mimi.frame_size)
-    zero_counts()
-    sessions, ms = serve_batched(state, schedule, frames)
-    greedy_launches = read_counts()
-    check_counts(greedy_launches, expected, len(ms), "batched greedy run")
-    ref = sessions[0][0][0]
-    if len(ms) != FRAMES or len(ref) != FRAMES - cfg.max_delay:
-        raise RuntimeError(f"greedy run: {len(ms)} frames, slot 0 generated {len(ref)}")
-    for s in range(SLOTS):
-        for tokens, audio in sessions[s]:
-            check_tokens(tokens, cfg, f"greedy slot {s}")
-            check_pcm(audio, mimi.frame_size, f"greedy slot {s}")
-    for s, (session, executed) in same_as_0.items():
-        got = sessions[s][session][0]
-        if len(got) != executed - cfg.max_delay or not np.array_equal(got, ref[:len(got)]):
-            raise RuntimeError(f"greedy run: slot {s} session {session} does not repeat "
-                               f"slot 0's tokens")
-    distinct = sum(not np.array_equal(sessions[s][0][0], ref) for s in range(5, SLOTS))
-    if distinct == 0:
-        raise RuntimeError(f"greedy run: only {distinct} slots with their own PCM differ "
-                           f"from slot 0")
-    phase("batched", f"greedy, {len(ms)} frames: slots 1 (same PCM), 2 (joined 5 frames "
-          f"late), 3 (frozen on frames 10-14) and 4 (reset at frame 20) repeat slot 0's "
-          f"tokens; {distinct} of {SLOTS - 5} other slots differ; launches "
-          f"{greedy_launches} = per frame {expected} x {len(ms)}")
-    del state, sessions
-    torch.cuda.empty_cache()
+    greedy_launches = greedy_isolation(dev, lm, lm_params, mimi, mimi_params, "greedy")
 
     # 2. sampled run, every slot active
     state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
@@ -594,20 +705,157 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
           f"user-frame at p50; "
           f"peak {peak:.2f} GiB; launches {sampled_launches} = per frame {expected} x "
           f"{len(ms)} ({card})")
-    prof = profile_frames(state, 5)
+    pcm = (0.1 * np.random.RandomState(SEED + 1).randn(5, SLOTS, 1, mimi.frame_size)
+           ).astype(np.float32)
+
+    def run_frame(i):
+        out, audio = state.frame(pcm[i], np.ones(SLOTS, bool))
+        out.cpu(), audio.cpu()
+    prof = profile_frames(run_frame, len(pcm))
     # the profiler slows the host, so the idle share is taken against the
     # frame time measured without it
     prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / p50
     phase("batched", f"profiler over 5 sampled frames: card busy "
           f"{prof['busy_ms_per_frame']:.2f} ms/frame, idle share {prof['idle_share']:.3f} "
           f"of the p50 frame (host {prof['host_ms_per_frame']:.2f} ms/frame under the "
-          f"profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}")
+          f"profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}; "
+          f"{prof['device_ops_per_frame']:.0f} device ops/frame, the most costly "
+          f"{json.dumps(prof['top_device_ms_per_frame'])}")
     del state
     torch.cuda.empty_cache()
-    return {"launches": {"greedy": greedy_launches, "sampled": sampled_launches},
-            "per_frame": expected,
+
+    # 3. the greedy run with the int8 KV cache (the worker's kv_cache = "int8")
+    lm8 = LMModel(replace(cfg, kv_cache_dtype="int8"))
+    int8_launches = greedy_isolation(dev, lm8, lm_params, mimi, mimi_params, "int8 greedy")
+    return {"launches": {"greedy": greedy_launches, "sampled": sampled_launches,
+                         "int8_greedy": int8_launches},
+            "per_frame": {"int4": expected, "int8": per_step_launches(lm8.config, lm_params)},
             "p50_ms": p50, "p75_ms": p75, "p90_ms": p90, "frames": len(ms), "peak_gib": peak,
             "profile": prof}
+
+
+# -------------------------------------------------------------------- asr
+def build_asr(dev):
+    """asr_300m_202501 at full width with the int8 KV cache and bf16
+    weights, the bf16 Mimi v0.1 with 32 codebooks and the `delay`
+    condition, all from a seed; the StreamingASR engine at B = ASR_SLOTS."""
+    from dataclasses import replace
+
+    from moshi_tpu_torch.conditioners import ConditionProvider, ContinuousAttributeConditioner
+    from moshi_tpu_torch.models.asr import StreamingASR, asr_sum_condition
+    from moshi_tpu_torch.models.lm import LMModel, lm_config_asr_300m_202501
+    from moshi_tpu_torch.models.mimi import MimiModel, mimi_v0_1_config
+
+    t0 = time.perf_counter()
+    cfg = replace(lm_config_asr_300m_202501(), kv_cache_dtype="int8")
+    lm = LMModel(cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    lm_params = lm.init_params(g, torch.bfloat16, dev)
+    mimi = MimiModel(mimi_v0_1_config(cfg.n_q))
+    mimi_params = mimi.init_params(g, torch.bfloat16, dev)
+    provider = ConditionProvider({"delay": ContinuousAttributeConditioner(
+        output_dim=cfg.dim, dim=ASR_COND["dim"], scale_factor=ASR_COND["scale_factor"],
+        max_period=ASR_COND["max_period"])})
+    cond = asr_sum_condition(provider, provider.init_params(g, torch.float32, dev), cfg.dim,
+                             conditioning_delay=ASR_COND["delay"])
+    asr = StreamingASR(mimi, lm, ASR_SLOTS, asr_delay_in_tokens=ASR_DELAY, temperature=0.0,
+                       mimi_dtype=torch.bfloat16, sum_condition=cond, device=dev)
+    torch.cuda.synchronize()
+    phase("asr", f"asr_300m_202501 bf16 (dim {cfg.dim}, {cfg.num_layers} layers, "
+          f"{cfg.num_heads} heads x {cfg.transformer_config.head_dim}, n_q {cfg.n_q}, ctx "
+          f"{cfg.context}) + Mimi bf16 with {mimi.num_codebooks} codebooks built from seed "
+          f"{SEED + 3} in {time.perf_counter() - t0:.1f} s")
+    return asr, lm_params, mimi_params
+
+
+def run_asr(dev, card: str) -> dict:
+    """The batched STT path at B = ASR_SLOTS over the isolation script."""
+    from moshi_tpu_torch.serve.batched_asr import BatchedAsrState, serve_asr
+
+    asr, lm_params, mimi_params = build_asr(dev)
+    cfg, B, fs = asr.lm.config, ASR_SLOTS, asr.mimi.frame_size
+    state = BatchedAsrState(asr, mimi_params, lm_params)
+    kv = state.state["transformer"]
+    phase("asr", f"B = {B}, int8 KV cache {tuple(kv['k'].shape)} x 2 + bf16 scales "
+          f"{tuple(kv['k_scale'].shape)}; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          f"on the card")
+    # warm-up: three zero frames on every slot, then every session closed
+    for s in range(B):
+        state.acquire_slot(s)
+        state.feed_pcm(s, np.zeros(3 * fs, np.float32))
+    for _ in range(3):
+        state.tick()
+    for s in range(B):
+        state.release_slot(s)
+    torch.cuda.synchronize()
+
+    # greedy isolation run: the batched phase's script, one frame per tick
+    schedule, frames, same_as_0 = isolation_script(fs, B)
+    expected = {name: 0 for name in TPU_KERNELS}
+    expected["decode_attention_int8"] = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    sessions, ms = serve_asr(state, schedule[:FRAMES], frames)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_counts(launches, expected, len(ms), "asr greedy run")
+    ref = sessions[0][0][0]
+    if len(ms) != FRAMES or len(ref) != FRAMES:
+        raise RuntimeError(f"asr: {len(ms)} frames, slot 0 has {len(ref)} tokens")
+    words = 0
+    for s in range(B):
+        for tokens, msgs in sessions[s]:
+            if not ((tokens >= 0).all() and (tokens < cfg.text_card).all()):
+                raise RuntimeError(f"asr slot {s}: text token out of range")
+            words += sum(m["type"] == "Word" for m in msgs)
+    for s, (session, executed) in same_as_0.items():
+        got = sessions[s][session][0]
+        if len(got) != executed or not np.array_equal(got, ref[:len(got)]):
+            raise RuntimeError(f"asr: slot {s} session {session} does not repeat slot 0's "
+                               f"text tokens")
+    distinct = sum(not np.array_equal(sessions[s][0][0], ref) for s in range(5, B))
+    if distinct == 0:
+        raise RuntimeError("asr: no slot with its own PCM differs from slot 0")
+    p50, p75, p90 = (float(np.percentile(ms, p)) for p in (50, 75, 90))
+    phase("asr", f"greedy, {len(ms)} frames x {B} slots: slots 1 (same PCM), 2 (joined 5 "
+          f"frames late), 3 (frozen on frames 10-14) and 4 (reset at frame 20) repeat slot "
+          f"0's text tokens; {distinct} of {B - 5} other slots differ; {words} Word "
+          f"messages; launches {launches} = per frame {expected} x {len(ms)}")
+    phase("asr", f"p50 {p50:.2f} ms, p75 {p75:.2f} ms, p90 {p90:.2f} ms per batched frame; "
+          f"{p50 / B:.3f} ms per user-frame at p50; peak {peak:.2f} GiB ({card})")
+
+    # every slot sends every frame: the word trackers' host ms, then the profiler
+    rs = np.random.RandomState(SEED + 4)
+    pcm = rs.randn(15, B, fs).astype(np.float32)
+    host, full = [], []
+
+    def run_frame(i):
+        for s in range(B):
+            state.feed_pcm(s, pcm[i, s])
+        state.tick()
+    for i in range(10):
+        run_frame(i)
+        host.append(asr.host_ms)
+        full.append(state.frame_ms)
+    full_p50 = float(np.percentile(full, 50))
+    prof = profile_frames(lambda i: run_frame(10 + i), 5)
+    # against the p50 of the same kind of frame (every slot sending), taken
+    # without the profiler
+    prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / full_p50
+    phase("asr", f"all {B} slots, 10 frames: p50 {full_p50:.2f} ms per "
+          f"batched frame, of it {np.percentile(host, 50):.2f} ms of host Python in the "
+          f"per-slot input and word-tracker loops; profiler over 5 frames: card busy "
+          f"{prof['busy_ms_per_frame']:.2f} ms/frame, idle share {prof['idle_share']:.3f} of "
+          f"the p50 frame (host {prof['host_ms_per_frame']:.2f} ms/frame under the "
+          f"profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}; "
+          f"{prof['device_ops_per_frame']:.0f} device ops/frame, the most costly "
+          f"{json.dumps(prof['top_device_ms_per_frame'])}")
+    del state, asr, lm_params, mimi_params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_frame": expected, "p50_ms": p50, "p75_ms": p75,
+            "p90_ms": p90, "frames": len(ms), "peak_gib": peak,
+            "all_slots_p50_ms": full_p50,
+            "host_ms_p50": float(np.percentile(host, 50)), "profile": prof}
 
 
 def main() -> None:
@@ -635,40 +883,50 @@ def main() -> None:
     gemvs = check_gemvs(dev, g)
     attn = check_attention(dev, g)
     write = check_cache_write(dev, g)
+    attn8 = check_attention_int8(dev, g)
     torch.cuda.empty_cache()
 
     lm, lm_params, mimi, mimi_params = build_models(dev)
     slice_launches, p50 = run_slice(dev, card, lm, lm_params, mimi, mimi_params)
     torch.cuda.empty_cache()
     batched = run_batched(dev, card, lm_params, mimi, mimi_params)
+    del lm, lm_params, mimi, mimi_params
+    torch.cuda.empty_cache()
+    asr = run_asr(dev, card)
 
-    launches = {name: slice_launches[name] + sum(b[name] for b in batched["launches"].values())
-                for name in TPU_KERNELS}
-    per_frame = batched["per_frame"]
+    by_path = {"slice_b1": slice_launches,
+               **{f"batched_{p}": v for p, v in batched["launches"].items()},
+               "asr": asr["launches"]}
+    per_frame_by_path = {"batched": batched["per_frame"]["int4"],
+                         "batched_int8": batched["per_frame"]["int8"], "asr": asr["per_frame"]}
     kernels = []
-    # ms / plain_ms / library_ms / bound_ms: card time of one B = 16 batched
-    # frame's launches of the kernel (bf16, operands cold in L2), from the
-    # per-shape (GEMVs) or per-launch times; "b1" the same for one B = 1 frame
+    # ms / plain_ms / library_ms / bound_ms: card time of one frame's
+    # launches of the kernel (bf16, operands cold in L2), from the per-shape
+    # (GEMVs) or per-launch times: a B = 16 batched frame for the first
+    # four kernels ("b1" the same for one B = 1 frame), a B = 256 ASR frame
+    # for decode_attention_int8
     for k in gemvs:
         kernels.append({"name": k["name"], **k["per_frame"][SLOTS], "bound_by": k["bound_by"],
                         "b1": k["per_frame"][1], "by_shape": k["by_shape"],
                         "max_abs_err": k["max_abs_err"]})
-    for name, k in (("decode_attention_int4", attn), ("cache_write_int4", write)):
-        n = per_frame[name]
+    for name, k, path in (("decode_attention_int4", attn, "batched"),
+                          ("cache_write_int4", write, "batched"),
+                          ("decode_attention_int8", attn8, "asr")):
+        n = per_frame_by_path[path][name]
         kernels.append({"name": name, **{key: v * n for key, v in k["per_launch"].items()},
-                        "bound_by": k["bound_by"], "per_launch": k["per_launch"],
-                        "max_abs_err": k["max_abs_err"]})
+                        **k})
     for k in kernels:
-        k.update({"route": "cuda", "source": SOURCES[k["name"]],
-                  "replaces": TPU_KERNELS[k["name"]], "launches": launches[k["name"]],
-                  "launches_by_path": {"slice_b1": slice_launches[k["name"]],
-                                       **{f"batched_{p}": v[k["name"]]
-                                          for p, v in batched["launches"].items()}},
-                  "launches_per_batched_frame": per_frame[k["name"]]})
+        name = k["name"]
+        k.update({"route": "cuda", "source": SOURCES[name], "replaces": TPU_KERNELS[name],
+                  "launches": sum(v[name] for v in by_path.values()),
+                  "launches_by_path": {p: v[name] for p, v in by_path.items()},
+                  "launches_per_frame": {p: v[name] for p, v in per_frame_by_path.items()}})
     print(json.dumps({"kernels": kernels, "frame_p50_ms": p50,
                       "batched": {key: batched[key] for key in ("p50_ms", "p75_ms", "p90_ms",
                                                                 "frames", "peak_gib",
-                                                                "profile")}}), flush=True)
+                                                                "profile")},
+                      "asr": {key: v for key, v in asr.items()
+                              if key not in ("launches", "per_frame")}}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,15 @@
 """Moshi RQ-Transformer language model, inference half (counterpart of
 moshi_tpu/models/lm.py): token embeddings, the temporal transformer and its
-text head, and the depformer that samples the audio codebooks of a frame.
+text head, the extra heads of the speech-to-text models, and the depformer
+that samples the audio codebooks of a frame (none when dep_q = 0, as in
+the ASR presets).
 
-`kv_cache_dtype` ("model" or "int4") sets the temporal transformer's KV
-cache; the depformer, whose cache lives one frame, keeps the model dtype
-(moshi_tpu lm.py:153).
+`kv_cache_dtype` ("model", "int8" or "int4") sets the temporal
+transformer's KV cache; the depformer, whose cache lives one frame, keeps
+the model dtype (moshi_tpu lm.py:153).
 
 Not ported yet: the training forward, low-rank and demuxed embeddings,
-extra heads, cross-attention, CFG in the depformer and the int8 KV cache
-(the next slice).
+cross-attention and CFG in the depformer.
 """
 
 from dataclasses import dataclass
@@ -54,7 +55,10 @@ class LmConfig:
     depformer_pos_emb: str = "none"
     depformer_max_period: float = 10_000.0
     depformer_layer_scale: float | None = None
-    kv_cache_dtype: str = "model"  # model | int4 (temporal transformer only)
+    kv_cache_dtype: str = "model"  # model | int8 | int4 (temporal transformer only)
+    attention_int8_qk: bool = False  # XLA-only in the JAX package; refused here
+    extra_heads_num_heads: int = 0
+    extra_heads_dim: int = 6
 
     @property
     def num_codebooks(self) -> int:
@@ -83,7 +87,8 @@ class LmConfig:
             dim_feedforward=int(self.hidden_scale * self.dim), context=self.context,
             positional_embedding=self.positional_embedding, max_period=self.max_period,
             gating=self.gating, norm=self.norm, layer_scale=self.layer_scale,
-            kv_repeat=self.kv_repeat, kv_cache_dtype=self.kv_cache_dtype)
+            kv_repeat=self.kv_repeat, kv_cache_dtype=self.kv_cache_dtype,
+            attention_int8_qk=self.attention_int8_qk)
 
     @property
     def depformer_config(self) -> TransformerConfig:
@@ -112,6 +117,25 @@ def lm_config_v0_1() -> LmConfig:
         depformer_max_period=10_000.0, depformer_gating="silu",
         depformer_pos_emb="none",
         delays=(0, 0, 1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1, 1, 1, 1))
+
+
+def lm_config_asr_v0_1_1b() -> LmConfig:
+    """Streaming ASR 1B, no depformer (moshi_tpu/models/loaders.py)."""
+    return LmConfig(
+        dim=2048, num_heads=16, num_layers=16, hidden_scale=4.125,
+        context=750, max_period=100_000.0, gating="silu", norm="rms_norm_f32",
+        positional_embedding="rope", layer_scale=None,
+        card=2048, text_card=48000, n_q=8, dep_q=0, delays=(0,) * 9)
+
+
+def lm_config_asr_300m_202501() -> LmConfig:
+    """The 300M streaming ASR model, 32 codebooks, no depformer
+    (moshi_tpu/models/loaders.py)."""
+    return LmConfig(
+        dim=1024, num_heads=8, num_layers=16, hidden_scale=4.125,
+        context=750, max_period=100_000.0, gating="silu", norm="rms_norm_f32",
+        positional_embedding="rope", layer_scale=None,
+        card=2048, text_card=48000, n_q=32, dep_q=0, delays=(0,) * 33)
 
 
 def embed(table_params: dict, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -149,6 +173,9 @@ class LMModel:
                          self._out_norm.init_params(dtype, device).items()},
             "text_linear": {"weight": trunc((c.dim, c.text_card), c.dim)},
         }
+        if c.extra_heads_num_heads:
+            p["extra_heads"] = {"weight": trunc(
+                (c.extra_heads_num_heads, c.dim, c.extra_heads_dim), c.dim)}
         if self.depformer is not None:
             dd = c.depformer_dim
             p.update({
@@ -174,15 +201,28 @@ class LMModel:
         return h, wdot(h, params["text_linear"]["weight"])
 
     def forward_text_step(self, params: dict, tr_state: dict, sequence: torch.Tensor,
+                          sum_condition: torch.Tensor | None = None,
                           exec_mask: torch.Tensor | None = None):
         """Temporal forward of one step.  sequence [B, K, 1] -> (h [B, 1, dim],
-        text_logits [B, 1, 1, text_card], tr_state); exec_mask [B] bool: the
-        slots whose KV offsets advance (all by default)."""
+        text_logits [B, 1, 1, text_card], tr_state); sum_condition [1, 1,
+        dim] is added to the input embeddings (the conditioners' AddToInput
+        sum); exec_mask [B] bool: the slots whose KV offsets advance (all by
+        default)."""
         x = self.embed_inputs(params, sequence)
+        if sum_condition is not None:
+            x = x + sum_condition.to(x.dtype)
         h, tr_state = self.transformer.step(params["transformer"], tr_state, x,
                                             exec_mask=exec_mask)
         h, text_logits = self._text_head(params, h)
         return h, text_logits[:, None], tr_state
+
+    def extra_head_probs(self, params: dict, h: torch.Tensor) -> torch.Tensor | None:
+        """Softmax of each extra head over h [B, T, dim]: [n_heads, B, T,
+        extra_heads_dim] f32, or None for a model without extra heads."""
+        if "extra_heads" not in params:
+            return None
+        logits = torch.einsum("btd,ndo->nbto", h, params["extra_heads"]["weight"].to(h.dtype))
+        return torch.softmax(logits.float(), dim=-1)
 
     def depformer_step(self, params: dict, generator: torch.Generator | None,
                        text_token: torch.Tensor, h: torch.Tensor, *,

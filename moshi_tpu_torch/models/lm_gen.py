@@ -124,7 +124,8 @@ class LMGen:
             exec_mask = torch.ones(cache.shape[0], dtype=torch.bool, device=cache.device)
         model_in = self._scatter_inputs(cache, offsets, input_tokens, exec_mask)
         h, text_logits, _ = model.forward_text_step(params, state["transformer"],
-                                                    model_in[:, :, None], exec_mask)
+                                                    model_in[:, :, None],
+                                                    exec_mask=exec_mask)
         generator = state["generator"]
         text_token = self._sample_text(generator, text_logits)
         audio_tokens = model.depformer_step(

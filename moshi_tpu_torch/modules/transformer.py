@@ -1,6 +1,6 @@
 """Streaming transformer with a ring KV cache (counterpart of
-moshi_tpu/modules/transformer.py): the model-dtype KV path and the int4 KV
-path of batched serving.
+moshi_tpu/modules/transformer.py): the model-dtype KV path and the int8 and
+int4 KV paths of batched serving.
 
 - Layer parameters are stacked on a leading [L, ...] axis; per-step weights
   (the depformer) on a [W, ...] axis after it.  Layer l's weights are views
@@ -18,10 +18,17 @@ path of batched serving.
   `decode_attention_int4` kernel, merges the current unquantized row with
   the flash rule and writes every layer's new column after the layer loop
   with `cache_write_int4` (moshi_tpu transformer.py:749-921).
+- `kv_cache_dtype="int8"`: the ring layout of the model-dtype cache in int8,
+  with a bf16 scale per (position, head) row.  A T = 1 step writes the
+  current row quantized at `offset % cap` for every slot, then attends over
+  the layer's whole ring with the `decode_attention_int8` kernel, so the
+  current row is read back quantized (moshi_tpu transformer.py:670-746,
+  where XLA's `_attention` puts the scales on scores and weights).
 
-Not ported yet: the int8 KV cache (the next slice, with its kernel), T > 1
-steps over the int4 cache (the prefill path, which LMGen never takes),
-cross-attention, sinusoidal position embeddings and the offline `apply`.
+Not ported yet: T > 1 steps over the quantized caches (the prefill path,
+which LMGen and the ASR engine never take), `attention_int8_qk` (an
+XLA-only option), cross-attention, sinusoidal position embeddings and the
+offline `apply`.
 """
 
 import math
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 
 from .norm import LayerScale, make_norm
 from .rope import apply_rope
+from ..ops.decode_attention import decode_attention_int8
 from ..ops.int4_attention import cache_write_int4, decode_attention_int4_stats
 from ..utils.matmul import wdot
 from ..utils.params import trunc_normal
@@ -71,6 +79,16 @@ def ring_positions(offset: torch.Tensor, T: int, cap: int,
         offset_next = torch.where(exec_mask, offset_next, offset)
     pos = torch.where(idx >= offset_next[:, None], -1, pos)
     return pos, offset_next
+
+
+def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization per (batch, time, head) row of [B, T, H,
+    D]: values in [-127, 127] and the f32 scale [B, T, H, 1].  torch.round
+    rounds half to even, as jnp.round does."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp(min=1e-6) / 127.0
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
 def _quant_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -112,7 +130,8 @@ class TransformerConfig:
     layer_scale: float | None = None
     kv_repeat: int = 1
     weights_per_step: int = 0
-    kv_cache_dtype: str = "model"  # model | int4
+    kv_cache_dtype: str = "model"  # model | int8 | int4
+    attention_int8_qk: bool = False  # int8 x int8 scores on XLA; not ported
 
     @property
     def head_dim(self) -> int:
@@ -151,10 +170,10 @@ class StreamingTransformer:
             raise NotImplementedError(f"gating {c.gating!r} is not ported")
         if c.d_model % c.num_heads or c.num_heads % c.kv_repeat:
             raise ValueError("heads must divide d_model and kv_repeat the heads")
-        if c.kv_cache_dtype == "int8":
-            raise NotImplementedError("the int8 KV cache is not ported yet: it comes "
-                                      "in the next slice, with its decode kernel")
-        if c.kv_cache_dtype not in ("model", "int4"):
+        if c.attention_int8_qk:
+            raise NotImplementedError("attention_int8_qk (int8 x int8 scores, an "
+                                      "XLA-only option of the JAX package) is not ported")
+        if c.kv_cache_dtype not in ("model", "int8", "int4"):
             raise ValueError(f"kv_cache_dtype {c.kv_cache_dtype!r}")
         self.config = c
         self.rope = c.positional_embedding != "none"
@@ -199,11 +218,12 @@ class StreamingTransformer:
 
     # ------------------------------------------------------------------ state
     def init_state(self, batch_size: int, dtype=torch.bfloat16, device=None) -> dict:
-        """Model-dtype KV: k, v [L, B, cap, Hkv, D] in `dtype`.  int4 KV
-        (`dtype` unused): k, v [L, B, Hkv*D/2, cap_pad] int8 channel-pair
-        packed and k_scale, v_scale [L, B, Hkv, cap_pad] bf16, with cap_pad
-        the capacity rounded up to a multiple of 128 (moshi_tpu
-        transformer.py:336-363)."""
+        """Model-dtype KV: k, v [L, B, cap, Hkv, D] in `dtype`.  int8 KV
+        (`dtype` unused): k, v [L, B, cap, Hkv, D] int8 and k_scale,
+        v_scale [L, B, cap, Hkv, 1] bf16.  int4 KV (`dtype` unused): k, v
+        [L, B, Hkv*D/2, cap_pad] int8 channel-pair packed and k_scale,
+        v_scale [L, B, Hkv, cap_pad] bf16, with cap_pad the capacity rounded
+        up to a multiple of 128 (moshi_tpu transformer.py:336-370)."""
         c = self.config
         L, Hkv, D = c.num_layers, c.num_kv_heads, c.head_dim
         state = {"offset": torch.zeros(batch_size, dtype=torch.long, device=device)}
@@ -219,6 +239,11 @@ class StreamingTransformer:
                                           dtype=torch.bfloat16, device=device)
             return state
         shape = (L, batch_size, c.kv_capacity, Hkv, D)
+        if c.kv_cache_dtype == "int8":
+            dtype = torch.int8
+            for name in ("k_scale", "v_scale"):
+                state[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.bfloat16,
+                                          device=device)
         state["k"] = torch.zeros(shape, dtype=dtype, device=device)
         state["v"] = torch.zeros(shape, dtype=dtype, device=device)
         return state
@@ -248,6 +273,22 @@ class StreamingTransformer:
         state["k"][layer, b, write_idx] = kk.to(state["k"].dtype)
         state["v"][layer, b, write_idx] = vv.to(state["v"].dtype)
         return self._attention(q.transpose(1, 2), state["k"][layer], state["v"][layer], mask)
+
+    def _int8_attention(self, q, kk, vv, *, state, layer, write_pos, mask):
+        """int8 KV: quantize the current rows kk, vv [B, 1, Hkv, D] and
+        write them at write_pos [B] of every slot (a plain index write, an
+        XLA scatter in the JAX package), then attend over the layer's whole
+        ring, the current row included (the kernel on the card, its plain
+        version on the CPU).  q [B, 1, H, D]; returns [B, 1, H*D]."""
+        B, _, H, D = q.shape
+        b = torch.arange(B, device=q.device)
+        for name, rows in (("k", kk), ("v", vv)):
+            vals, scale = _quant_rows(rows)
+            state[name][layer, b, write_pos] = vals[:, 0]
+            state[name + "_scale"][layer, b, write_pos] = scale[:, 0].to(torch.bfloat16)
+        out = decode_attention_int8(q[:, 0].contiguous(), layer, state["k"], state["v"],
+                                    state["k_scale"], state["v_scale"], mask)
+        return out.reshape(B, 1, H * D).to(q.dtype)
 
     def _int4_attention(self, q, kk, vv, *, state, layer, ctx):
         """Decode attention over the packed int4 cache plus the current row.
@@ -331,10 +372,10 @@ class StreamingTransformer:
         widx = None
         if c.num_weights > 1:
             widx = list(range(T) if steps is None else steps)
+        if c.kv_cache_dtype in ("int8", "int4") and T != 1:
+            raise NotImplementedError(f"T > 1 steps over the {c.kv_cache_dtype} KV "
+                                      f"cache (the prefill path) are not ported")
         if c.kv_cache_dtype == "int4":
-            if T != 1:
-                raise NotImplementedError("T > 1 steps over the int4 KV cache (the "
-                                          "prefill path) are not ported")
             return self._step_int4_decode(params, state, x, exec_mask, widx)
         offset = state["offset"]
         cap = state["k"].shape[2]
@@ -350,8 +391,14 @@ class StreamingTransformer:
         mask = mask[:, None]
 
         for layer in range(c.num_layers):
-            attend = partial(self._ring_attention, state=state, layer=layer,
-                             write_idx=write_idx, mask=mask)
+            # int8 KV (moshi_tpu transformer.py:670-746 at T = 1): the same
+            # ring mask, the current row written quantized before attending
+            if c.kv_cache_dtype == "int8":
+                attend = partial(self._int8_attention, state=state, layer=layer,
+                                 write_pos=write_idx[:, 0], mask=mask[:, 0, 0])
+            else:
+                attend = partial(self._ring_attention, state=state, layer=layer,
+                                 write_idx=write_idx, mask=mask)
             x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx)
         offset.copy_(offset_next)
         return x, state

@@ -45,6 +45,9 @@ SIGNATURES = {
     # pos, kcols, vcols, kscols, vscols, k_all, v_all, ks_all, vs_all, L, B,
     # hd2, Hkv, cap_pad, stream
     "cache_write_int4": [_P] * 9 + [_I] * 5 + [_P],
+    # q, k_all, v_all, k_scale, v_scale, mask, out, layer, B, H, Hkv, D, cap,
+    # stream
+    "decode_attention_int8": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

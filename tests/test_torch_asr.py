@@ -1,0 +1,277 @@
+"""The port's speech-to-text path against moshi_tpu's, on the CPU in f32:
+the `delay` continuous conditioner and `asr_sum_condition`, StreamingASR
+over joins, freezes and a reset with the model-dtype and the int8 KV cache
+(greedy text tokens and Word/EndWord/Step messages), and the batched engine
+of serve/batched_asr.py (markers, the backlog cap, the outboxes)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moshi_tpu import conditioners as jcond
+from moshi_tpu.models import asr as jasr
+from moshi_tpu.models.lm import LMModel as JLM
+from moshi_tpu.models.mimi import MimiModel as JMimi
+from moshi_tpu_torch import conditioners as tcond
+from moshi_tpu_torch.models import asr as tasr
+from moshi_tpu_torch.models.lm import LMModel as TLM, lm_config_asr_300m_202501
+from moshi_tpu_torch.models.mimi import MimiModel as TMimi
+from moshi_tpu_torch.serve.batched_asr import BatchedAsrState, serve_asr
+from moshi_tpu_torch.utils.params import from_jax
+from test_lm import tiny_lm_config
+from test_mimi import tiny_mimi_config
+from test_torch_port import max_abs, port_lm_config, port_mimi_config
+
+B = 3
+DELAY = 2           # asr_delay_in_tokens
+COND_TOL = 1e-6     # f32 sin/cos embedding and one product
+PRS_TOL = 1e-5      # f32 extra-head softmax after the whole temporal stack
+# tick -> (slots reset before the frame, exec mask): slot 2 joins at tick 4
+# (frozen at offset 0 before it), slot 1 freezes on ticks 7-9, slot 0
+# starts a second session at tick 13
+TICKS = 22
+RESETS = {4: [2], 13: [0]}
+
+
+def _mask(t):
+    return np.array([True, not 7 <= t <= 9, t >= 4])
+
+
+def test_continuous_conditioner_matches_jax():
+    """Sinusoidal embedding, projection and learnt padding for a None
+    value, on the same parameters, within 1e-6."""
+    jc = jcond.ContinuousAttributeConditioner(output_dim=12, dim=8, scale_factor=0.5,
+                                              max_period=100.0)
+    tc = tcond.ContinuousAttributeConditioner(output_dim=12, dim=8, scale_factor=0.5,
+                                              max_period=100.0)
+    params = jc.init_params(jax.random.PRNGKey(0))
+    values = [-2.5, None, 0.75]
+    jout, jmask = jc.apply(params, jc.prepare(values))
+    tout, tmask = tc.apply(from_jax(jax.device_get(params)), tc.prepare(values))
+    assert tout.shape == (3, 1, 12)
+    assert max_abs(tout.numpy(), jout) <= COND_TOL
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    tparams = tc.init_params(torch.Generator().manual_seed(0))
+    assert tparams["output_proj"].shape == (8, 12)
+    assert tparams["learnt_padding"].shape == (1, 1, 12)
+
+
+def _providers(dim):
+    jc = jcond.ContinuousAttributeConditioner(output_dim=dim, dim=4, scale_factor=1.0,
+                                              max_period=10.0)
+    params = {"delay": jc.init_params(jax.random.PRNGKey(1))}
+    tc = tcond.ContinuousAttributeConditioner(output_dim=dim, dim=4, scale_factor=1.0,
+                                              max_period=10.0)
+    return (jcond.ConditionProvider({"delay": jc}), params,
+            tcond.ConditionProvider({"delay": tc}), from_jax(jax.device_get(params)))
+
+
+def test_asr_sum_condition_matches_jax():
+    """The delay value is fed negated, the learnt padding on request, and the
+    reference server's contract holds: a model with a `delay` conditioner
+    takes exactly one of the two, a model without one takes neither."""
+    dim = 8
+    jprov, jparams, tprov, tparams = _providers(dim)
+
+    class Info:
+        def __init__(self, provider, params):
+            self.provider, self.params = provider, params
+
+        def get_conditioners(self, output_dim):
+            return self.provider, None, self.params
+
+    with_delay, without = Info(jprov, jparams), Info(None, None)
+    for kw in ({"conditioning_delay": 0.5}, {"learnt_padding": True}):
+        want = jasr.asr_sum_condition(with_delay, dim, **kw)
+        got = tasr.asr_sum_condition(tprov, tparams, dim, **kw)
+        assert got.shape == (1, 1, dim)
+        assert max_abs(got.numpy(), want) <= COND_TOL
+    assert tasr.asr_sum_condition(None, None, dim) is None
+    assert jasr.asr_sum_condition(without, dim) is None
+    for jinfo, prov, params, kw in (
+            (with_delay, tprov, tparams, {"conditioning_delay": 1.0,
+                                          "learnt_padding": True}),   # both set
+            (with_delay, tprov, tparams, {}),                          # nothing set
+            (without, None, None, {"conditioning_delay": 1.0})):       # nothing to set
+        with pytest.raises(ValueError):
+            jasr.asr_sum_condition(jinfo, dim, **kw)
+        with pytest.raises(ValueError):
+            tasr.asr_sum_condition(prov, params, dim, **kw)
+
+
+def _engines(kv):
+    """The same tiny dep_q = 0 model (two extra heads, a text head pushed
+    toward the pad tokens so that words end) and tiny Mimi in both
+    packages, f32, with a delay condition."""
+    cfg = tiny_lm_config(n_q=4, dep_q=0, delays=(0,) * 5, extra_heads_num_heads=2,
+                         extra_heads_dim=2, kv_cache_dtype=kv, context=16)
+    jlm, jmimi = JLM(cfg), JMimi(tiny_mimi_config())
+    lm_params = jlm.init_params(jax.random.PRNGKey(0), dtype=jnp.float32)
+    w = np.array(lm_params["text_linear"]["weight"])
+    w[:, [0, 3]] *= 1.3
+    lm_params["text_linear"]["weight"] = jnp.asarray(w)
+    mimi_params = jmimi.init_params(jax.random.PRNGKey(1))
+    jprov, jparams, tprov, tparams = _providers(cfg.dim)
+    # the condition at a fifth of its size: at full size it pins this tiny
+    # model's text stream to one token
+    jcond_vec = 0.2 * jprov.conditioners["delay"].apply(
+        jparams["delay"], jprov.conditioners["delay"].prepare([-0.5]))[0]
+    jengine = jasr.StreamingASR(jmimi, jlm, B, asr_delay_in_tokens=DELAY, temperature=0.0,
+                                sum_condition=jcond_vec)
+    tmcfg = port_mimi_config(tiny_mimi_config())
+    tengine = tasr.StreamingASR(
+        TMimi(tmcfg), TLM(port_lm_config(cfg)), B, asr_delay_in_tokens=DELAY,
+        temperature=0.0, device="cpu",
+        sum_condition=0.2 * tasr.asr_sum_condition(tprov, tparams, cfg.dim,
+                                                   conditioning_delay=0.5))
+    return (jengine, lm_params, mimi_params, tengine, from_jax(jax.device_get(lm_params)),
+            from_jax(jax.device_get(mimi_params), mimi_config=tmcfg))
+
+
+def _pcm(frame_size):
+    rs = np.random.RandomState(0)
+    return (0.3 * rs.randn(TICKS, B, 1, frame_size)).astype(np.float32)
+
+
+def _same_messages(tm, jm, mask):
+    assert [type(m).__name__ for m in tm] == [type(m).__name__ for m in jm]
+    for a, b in zip(tm, jm):
+        if isinstance(b, jasr.AsrStep):
+            assert a.step_idx == b.step_idx
+            assert max_abs(a.prs[:, mask], np.asarray(b.prs)[:, mask]) <= PRS_TOL
+        elif isinstance(b, jasr.AsrWord):
+            assert (a.tokens, a.start_time, a.batch_idx) == (b.tokens, b.start_time,
+                                                             b.batch_idx)
+        else:
+            assert (a.stop_time, a.batch_idx) == (b.stop_time, b.batch_idx)
+
+
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_streaming_asr_matches_jax(kv):
+    """22 frames at B = 3 with a late join, a freeze and a reset: every
+    executing slot's greedy text token and every Word/EndWord/Step message
+    (times included) equal moshi_tpu's."""
+    jeng, jlp, jmp, teng, tlp, tmp = _engines(kv)
+    jstate = jeng.init_state(jax.random.PRNGKey(0), jnp.float32)
+    tstate = teng.init_state(None, torch.float32)
+    if kv == "int8":
+        assert tstate["transformer"]["k"].dtype == torch.int8
+    counts = {"words": 0, "ends": 0}
+    for t, pcm in enumerate(_pcm(teng.mimi.frame_size)):
+        for slot in RESETS.get(t, []):
+            jstate = jeng.reset_batch_idx(jstate, slot)
+            tstate = teng.reset_batch_idx(tstate, slot)
+        mask = _mask(t)
+        jm, jstate = jeng.step_pcm(jmp, jlp, jstate, pcm, exec_mask=mask)
+        tm, tstate = teng.step_pcm(tmp, tlp, tstate, pcm, exec_mask=mask)
+        assert ([i.text_token for i in teng.items] == [i.text_token for i in jeng.items])
+        assert [i.step_idx for i in teng.items] == [i.step_idx for i in jeng.items]
+        _same_messages(tm, jm, mask)
+        counts["words"] += sum(isinstance(m, tasr.AsrWord) for m in tm)
+        counts["ends"] += sum(isinstance(m, tasr.AsrEndWord) for m in tm)
+    assert teng.model_step_idx == jeng.model_step_idx == TICKS
+    assert counts["words"] >= 3 and counts["ends"] >= 3
+
+
+def _port_engine(kv="int8"):
+    _, _, _, teng, tlp, tmp = _engines(kv)
+    return teng, tlp, tmp
+
+
+def test_serve_asr_matches_the_engine():
+    """serve_asr over a join/send schedule gives, per session, the text
+    tokens of the same frames stepped on StreamingASR by hand; each executed
+    frame puts one Step per executing slot in its outbox, and the Word and
+    EndWord payloads carry the engine's times."""
+    teng, tlp, tmp = _port_engine()
+    fs = teng.mimi.frame_size
+    pcm = _pcm(fs)
+    frames = {s: pcm[:, s, 0] for s in range(B)}
+    schedule = []
+    for t in range(TICKS):
+        mask = _mask(t)
+        tick = {s: "send" for s in range(B) if mask[s]}
+        for s in RESETS.get(t, []):
+            tick[s] = "join"
+        if t == 0:
+            tick.update({0: "join", 1: "join"})
+        schedule.append(tick)
+    sessions, ms = serve_asr(BatchedAsrState(teng, tmp, tlp), schedule, frames)
+    assert len(ms) == TICKS and all(m > 0 for m in ms)
+    assert [len(s) for s in sessions.values()] == [2, 1, 1]
+
+    ref = _port_engine()[0]
+    state = ref.init_state(None)
+    taken = dict.fromkeys(range(B), 0)
+    tokens = {s: [] for s in range(B)}
+    words = {s: [] for s in range(B)}
+    for tick in schedule:
+        chunk = np.zeros((B, 1, fs), np.float32)
+        mask = np.zeros(B, bool)
+        for s, action in tick.items():
+            if action == "join":
+                state = ref.reset_batch_idx(state, s)
+                tokens[s].append([])
+                words[s].append([])
+            chunk[s, 0] = frames[s][taken[s]]
+            taken[s] += 1
+            mask[s] = True
+        msgs, state = ref.step_pcm(tmp, tlp, state, chunk, mask)
+        for s in np.nonzero(mask)[0]:
+            tokens[s][-1].append(ref.items[s].text_token)
+        for m in msgs:
+            if isinstance(m, tasr.AsrWord):
+                words[m.batch_idx][-1].append({"type": "Word", "tokens": m.tokens,
+                                               "start_time": m.start_time})
+            elif isinstance(m, tasr.AsrEndWord):
+                words[m.batch_idx][-1].append({"type": "EndWord", "stop_time": m.stop_time})
+    for s in range(B):
+        for i, (toks, msgs) in enumerate(sessions[s]):
+            np.testing.assert_array_equal(toks, tokens[s][i])
+            steps = [m for m in msgs if m["type"] == "Step"]
+            assert len(steps) == len(toks)
+            assert all(len(m["prs"]) == 2 and m["buffered_pcm"] == 0 for m in steps)
+            assert [m for m in msgs if m["type"] != "Step"] == words[s][i]
+
+
+def test_markers_and_backlog_cap():
+    """A marker comes back at the tick where the model step reaches
+    registration step + delay + the frames buffered then; a backlog past
+    30 s of audio is cut to exactly the cap."""
+    teng, tlp, tmp = _port_engine()
+    fs = teng.mimi.frame_size
+    state = BatchedAsrState(teng, tmp, tlp)
+    assert state.acquire_slot(1) == 1 and state.acquire_slot() == 2
+    rs = np.random.RandomState(5)
+    assert state.feed_pcm(1, (0.3 * rs.randn(3 * fs)).astype(np.float32))
+    state.add_marker(1, 42)
+    assert state.slot_markers[1] == [(DELAY + 3, 42)]
+    seen_at = None
+    for tick in range(8):
+        if tick >= 3:
+            state.feed_pcm(1, (0.3 * rs.randn(fs)).astype(np.float32))
+        assert state.tick() is not None
+        if {"type": "Marker", "id": 42} in state.slot_outbox[1]:
+            seen_at = seen_at if seen_at is not None else teng.model_step_idx
+    assert seen_at == DELAY + 3
+    assert state.tick() is None           # slot 1 has no whole frame left, slot 2 none
+    cap = int(30.0 * teng.mimi.config.sample_rate)
+    assert state.feed_pcm(2, np.zeros(cap - fs, np.float32))
+    assert not state.feed_pcm(2, np.zeros(3 * fs, np.float32))
+    assert state.slot_pcm[2].shape == (cap,)
+    state.release_slot(2)
+    assert 2 in state.slots_free and 2 not in state.slot_outbox
+
+
+def test_asr_presets_match_jax():
+    """The ASR presets equal moshi_tpu's; dep_q = 0 builds no depformer."""
+    from moshi_tpu.models import loaders
+    from moshi_tpu_torch.models import lm as tlm
+    for name in ("lm_config_asr_300m_202501", "lm_config_asr_v0_1_1b"):
+        assert port_lm_config(getattr(loaders, name)()) == getattr(tlm, name)()
+    c = dataclasses.replace(lm_config_asr_300m_202501(), kv_cache_dtype="int8")
+    assert TLM(c).depformer is None and c.transformer_config.head_dim == 128

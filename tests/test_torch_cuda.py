@@ -9,7 +9,7 @@ imports no JAX, so it also runs on a machine that has none:
 import pytest
 import torch
 
-from moshi_tpu_torch.ops import int4_attention as i4, q4matmul, qmatmul
+from moshi_tpu_torch.ops import decode_attention as da8, int4_attention as i4, q4matmul, qmatmul
 from moshi_tpu_torch.utils import quantize as tq
 
 pytestmark = pytest.mark.cuda
@@ -204,3 +204,72 @@ def test_int4_wrappers_reject_what_the_kernels_do_not_take(gen):
         i4.decode_attention_int4_stats(q, 2, *caches, mask)      # layer past L
     with pytest.raises(TypeError):
         i4.decode_attention_int4_stats(q.float(), 0, *caches, mask)   # f32 q
+
+
+def _int8_cache(gen, L, B, cap, Hkv, D):
+    """Random int8 ring caches [L, B, cap, Hkv, D] and positive bf16 row
+    scales [L, B, cap, Hkv, 1]."""
+    def vals():
+        return torch.randint(-127, 128, (L, B, cap, Hkv, D), device="cuda", generator=gen,
+                             dtype=torch.int8)
+
+    def scales():
+        return (torch.rand(L, B, cap, Hkv, 1, device="cuda", generator=gen)
+                * 0.02 + 0.001).to(torch.bfloat16)
+    return vals(), vals(), scales(), scales()
+
+
+# (B, H, Hkv, D, cap, layer): the ASR path's shape (layer 5 of 6), Moshi's,
+# D = 64, a capacity that is no multiple of the 256-position chunk, grouped
+# KV heads, a capacity below one chunk
+INT8_ATTN = [(256, 8, 8, 128, 750, 5), (16, 32, 32, 128, 3000, 1), (16, 32, 32, 64, 3000, 0),
+             (3, 4, 4, 128, 1500, 2), (2, 8, 2, 64, 200, 0), (1, 4, 4, 128, 100, 1)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,D,cap,layer", INT8_ATTN)
+def test_decode_attention_int8(B, H, Hkv, D, cap, layer, gen):
+    """A ragged mask, and slot 0 with every position masked (0, not NaN)."""
+    caches = _int8_cache(gen, layer + 1, B, cap, Hkv, D)
+    q = torch.randn(B, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.rand(B, cap, device="cuda", generator=gen) < 0.8
+    mask[:, -1] = True                         # the last position of a ragged chunk
+    mask[0] = False
+    n = da8.decode_attention_int8.launches
+    got = da8.decode_attention_int8(q, layer, *caches, mask)
+    torch.cuda.synchronize()
+    assert da8.decode_attention_int8.launches == n + 1
+    ref = da8.decode_attention_int8_plain(q, layer, *caches, mask)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, H, D)
+    assert (got[0] == 0).all() and (ref[0] == 0).all()
+    if B > 1:
+        assert _rel(got[1:], ref[1:]) <= BOUND[torch.bfloat16]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_attention_int8_one_position(D, gen):
+    """One position masked in: the output is that position's dequantized V
+    row, whatever its score."""
+    B, H, cap = 2, 4, 700
+    k, v, ks, vs = _int8_cache(gen, 1, B, cap, H, D)
+    q = torch.randn(B, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.zeros(B, cap, dtype=torch.bool, device="cuda")
+    mask[0, 517] = True
+    mask[1, 3] = True
+    got = da8.decode_attention_int8(q, 0, k, v, ks, vs, mask)
+    torch.cuda.synchronize()
+    want = torch.stack([v[0, 0, 517] * vs[0, 0, 517].float(), v[0, 1, 3] * vs[0, 1, 3].float()])
+    torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float())
+
+
+def test_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    caches = _int8_cache(gen, 2, 2, 64, 4, 96)
+    q = torch.randn(2, 4, 96, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.ones(2, 64, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        da8.decode_attention_int8(q, 0, *caches, mask)           # head dim 96
+    caches = _int8_cache(gen, 2, 2, 64, 4, 64)
+    q = torch.randn(2, 4, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        da8.decode_attention_int8(q, 2, *caches, mask)           # layer past L
+    with pytest.raises(TypeError):
+        da8.decode_attention_int8(q.float(), 0, *caches, mask)   # f32 q

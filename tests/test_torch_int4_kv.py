@@ -218,13 +218,18 @@ def test_plain_cache_write_matches_pallas_kernel(pallas_interpret):
 
 
 def test_int4_prefill_and_int8_are_refused():
+    """T > 1 steps over either quantized cache (the prefill path) and the
+    XLA-only int8 x int8 scores are not ported."""
     _, _, _, tmodel, tparams = _build(1)
     state = tmodel.init_state(1, torch.float32)
     with pytest.raises(NotImplementedError):
         tmodel.step(tparams, state, torch.zeros(1, 2, 64))
-    with pytest.raises(NotImplementedError, match="next slice"):
+    int8 = ttr.StreamingTransformer(ttr.TransformerConfig(**dict(CFG, kv_cache_dtype="int8")))
+    with pytest.raises(NotImplementedError, match="T > 1"):
+        int8.step(tparams, int8.init_state(1), torch.zeros(1, 2, 64))
+    with pytest.raises(NotImplementedError, match="attention_int8_qk"):
         ttr.StreamingTransformer(ttr.TransformerConfig(
-            **dict(CFG, kv_cache_dtype="int8")))
+            **dict(CFG, kv_cache_dtype="int8"), attention_int8_qk=True))
 
 
 def test_int4_wrappers_reject_bad_operands():
