@@ -10,22 +10,25 @@ Phases, each printing its own line(s):
                when a library of the same sources is already there), and
                prints each library's registers and spills (-Xptxas -v);
   3. kernels - each kernel against its plain PyTorch version on the card at
-               the main paths' shapes: the GEMVs at B = 1, 4, 9, 16 in bf16
-               and f32, decode_attention_int4 at B = 16, H = 32, D = 128 and
+               the main paths' shapes: the q4_gemv and int8_gemv kernels at
+               B = 1, 4, 9, 16 in bf16 and f32, q4_mma at B = 2, 4, 9, 16
+               in bf16, decode_attention_int4 at B = 16, H = 32, D = 128 and
                64 with a ragged mask, cache_write_int4 byte for byte,
                decode_attention_int8 at the ASR path's B = 256, H = 8, cap
                750 and Moshi's B = 16, H = 32, cap 3000, D = 128 and 64, a
                ragged mask and a slot with every position masked; then
                CUDA-graph-replay times (operands cold in L2) of each kernel,
                its plain version and one PyTorch library call for the same
-               work, beside the least time the card could take (bound);
+               work, beside the least time the card could take (bound); the
+               two q4 kernels at B = 1, 2, 4, 8, 16 (their crossover);
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
                seed on the card; ServerState.warmup(), then 3 sessions of 40
                frames of seeded PCM with sampling on (sessions 1 and 3 share
                a seed).  Checks PCM, token ranges, that sessions 1 and 3
                agree, and that the kernel launch counts are exactly what the
-               config implies per LMGen.step; prints the p50 ms per frame;
+               config implies per LMGen.step (the q4 linears on the q4_gemv
+               kernel at B = 1); prints the p50 ms per frame;
   5. batched - the same weights with the int4 KV cache, B = 16 slots of
                BatchedMoshiState: a greedy run of 40 frames whose slots
                must agree token for token (two slots with one PCM, a slot
@@ -33,17 +36,20 @@ Phases, each printing its own line(s):
                reset at frame 20 that replays the PCM from the start), then
                a sampled run of 40 frames on all 16 slots (p50/p90 ms per
                batched frame), each with exact launch counts per frame of
-               all four kernels; then a torch.profiler pass over a few
-               frames for the card's busy time; then the greedy run once more
-               with the int8 KV cache (32 decode_attention_int8 per frame);
+               the kernels (the q4 linears on q4_mma at B = 16); then a
+               torch.profiler pass over a few frames for the card's busy
+               time; then the greedy run once more with the int8 KV cache
+               (32 decode_attention_int8 per frame);
   6. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
                BatchedAsrState: warm-up, then the greedy isolation run of the
-               batched phase over 40 frames (text tokens), with exactly 16
-               decode_attention_int8 and no GEMV launches per frame, p50 /
-               p75 / p90 ms per batched frame; 10 frames of every slot for
-               the host ms of the word trackers; peak memory; a profiler pass.
+               batched phase over 40 frames (text tokens and Word / EndWord
+               messages; the text head's pad columns are scaled up so that
+               words end), with exactly 16 decode_attention_int8 and no GEMV
+               launches per frame, p50 / p75 / p90 ms per batched frame; 10
+               frames of every slot for the host ms of the word trackers;
+               peak memory; a profiler pass.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
@@ -74,7 +80,15 @@ ASR_DELAY = 6            # asr_delay_in_tokens: 0.5 s at 12.5 Hz
 # machine: its width and value are this script's choice)
 ASR_COND = {"dim": 1024, "scale_factor": 1.0, "max_period": 10_000.0, "delay": 0.5}
 BATCHES = (1, 4, 9, 16)  # GEMV checks
+MMA_BATCHES = (2, 4, 9, 16)  # q4_mma checks (bf16 x only)
 TIMED_BATCHES = (1, SLOTS)
+CROSSOVER_BATCHES = (1, 2, 4, 8, SLOTS)  # both q4 kernels timed
+# asr: factors of the seeded text head's columns of the end-pad (0) and pad
+# (3) ids.  The random model's hidden state varies little, so its greedy
+# stream settles on a few tokens and never emits a pad; with these factors
+# (found by trying factors on this seed) the pads win on some frames, words
+# end, and slot 0's session holds Word and EndWord messages.
+ASR_PAD_LOGIT_SCALE = {0: 25.0, 3: 50.0}
 # max |kernel - plain| / max |plain|
 BOUNDS = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # decode_attention_int4 takes q / sqrt(D) in bf16 (as the TPU kernel does):
@@ -94,8 +108,10 @@ KV = {"layers": 32, "heads": 32, "head_dim": 128, "cap": 3000}
 # asr_300m_202501 at B = 256 (16 launches per frame), Moshi-7B at B = 16 (32)
 INT8_KV = {"asr": (ASR_SLOTS, 8, 750), "moshi_b16": (SLOTS, 32, 3000)}
 TPU_KERNELS = {
-    # q4gemm and q4gemm_stacked
+    # q4gemm and q4gemm_stacked: q4_gemv on the CUDA cores (B = 1, f32),
+    # q4_mma on the tensor cores (bf16, B = MMA_MIN_BATCH..16)
     "q4_gemv": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
+    "q4_mma": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     "int8_gemv": "moshi_tpu/ops/qmatmul.py:48",  # qgemv
     "decode_attention_int4": "moshi_tpu/ops/int4_attention.py:165",
     "cache_write_int4": "moshi_tpu/ops/int4_attention.py:313",
@@ -159,76 +175,110 @@ def copies_for_cold_l2(nbytes: int) -> int:
     return max(2, -(-256 * 2 ** 20 // nbytes))
 
 
-def ptxas_summary(log: str) -> str:
+def ptxas_summary(log: str) -> tuple[int, int]:
     """Most registers of any kernel instance and total spill bytes, from
     nvcc -Xptxas -v output."""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
-    return f"max {max(regs, default=0)} registers, {spills} bytes of spill stores"
+    return max(regs, default=0), spills
 
 
 # ---------------------------------------------------------------- kernels
-def check_gemvs(dev, g) -> list[dict]:
-    """q4_gemv and int8_gemv against their plain versions at every main-path
-    shape, then times at B = 1 and B = SLOTS summed over one frame's
-    launches (Q4_SHAPES / INT8_SHAPES counts)."""
-    from moshi_tpu_torch.ops.q4matmul import q4_gemv, q4_gemv_plain
+def _check_against_plain(name, fn, plain, qt, x) -> float:
+    """Raise unless fn(x, q, scale) is within BOUNDS of the plain version;
+    returns max |fn - plain|."""
+    y = fn(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    ref = plain(x, qt.q, qt.scale)
+    err = rel_err(y, ref)
+    din, dout = x.shape[1], qt.q.shape[-1]
+    ok = err <= BOUNDS[x.dtype] and bool(torch.isfinite(y).all())
+    phase("kernels", f"{name} {din}x{dout} B={x.shape[0]} {str(x.dtype)[6:]}: max rel err "
+          f"{err:.3e} (bound {BOUNDS[x.dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    return (y.float() - ref.float()).abs().max().item()
+
+
+def check_gemvs(dev, g, families=("q4", "int8")) -> list[dict]:
+    """The weight-only GEMV kernels against their plain versions at every
+    main-path shape: the q4_gemv and int8_gemv kernels at BATCHES in bf16
+    and f32, q4_mma at MMA_BATCHES in bf16.  Then, at the main paths'
+    operands (bf16, weights cold in L2), each kernel's time beside its
+    plain version's, torch.matmul's on the bf16 weights and the bound,
+    summed over one frame's launches (Q4_SHAPES / INT8_SHAPES counts): at
+    CROSSOVER_BATCHES for the two q4 kernels, at TIMED_BATCHES for
+    int8_gemv.  Returns a row per kernel."""
+    from moshi_tpu_torch.ops.q4matmul import (MMA_MIN_BATCH, q4_gemv_kernel, q4_gemv_plain,
+                                              q4_mma)
     from moshi_tpu_torch.ops.qmatmul import int8_gemv, int8_gemv_plain
     from moshi_tpu_torch.utils.quantize import (dequantize, dequantize4, quantize_tensor,
                                                 quantize_tensor4)
 
+    both = (torch.bfloat16, torch.float32)
+    # family -> ({kernel: (wrapper, checked dtypes, checked batches)}, plain
+    # version, quantizer, dequantizer, shapes, timed batches)
+    table = {"q4": ({"q4_gemv": (q4_gemv_kernel, both, BATCHES),
+                     "q4_mma": (q4_mma, (torch.bfloat16,), MMA_BATCHES)},
+                    q4_gemv_plain, quantize_tensor4, dequantize4, Q4_SHAPES, CROSSOVER_BATCHES),
+             "int8": ({"int8_gemv": (int8_gemv, both, BATCHES)}, int8_gemv_plain,
+                      quantize_tensor, dequantize, INT8_SHAPES, TIMED_BATCHES)}
     rows = []
-    for name, fn, plain, quant, deq, shapes in (
-            ("q4_gemv", q4_gemv, q4_gemv_plain, quantize_tensor4, dequantize4, Q4_SHAPES),
-            ("int8_gemv", int8_gemv, int8_gemv_plain, quantize_tensor, dequantize,
-             INT8_SHAPES)):
-        max_abs = 0.0
-        per_frame = {B: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
-                     for B in TIMED_BATCHES}
-        by_shape, bound_by = {}, set()
+    for family in families:
+        kernels, plain, quant, deq, shapes, timed = table[family]
+        max_abs = dict.fromkeys(kernels, 0.0)
+        per_frame = {k: {B: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+                         for B in timed} for k in kernels}
+        by_shape, bound_by = {k: {} for k in kernels}, set()
         for (din, dout), n in shapes.items():
             w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
             qt = quant(w)
-            for B in BATCHES:
-                for dt in (torch.bfloat16, torch.float32):
-                    x = torch.randn(B, din, device=dev, generator=g).to(dt)
-                    y = fn(x, qt.q, qt.scale)
-                    torch.cuda.synchronize()
-                    ref = plain(x, qt.q, qt.scale)
-                    err = rel_err(y, ref)
-                    max_abs = max(max_abs, (y.float() - ref.float()).abs().max().item())
-                    ok = err <= BOUNDS[dt] and bool(torch.isfinite(y).all())
-                    phase("kernels", f"{name} {din}x{dout} B={B} {str(dt)[6:]}: "
-                          f"max rel err {err:.3e} (bound {BOUNDS[dt]:.0e}) "
-                          f"{'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise RuntimeError(f"{name} disagrees with its plain version")
-            # times at the main paths' operands: bf16, weights cold in L2
+            for name, (fn, dtypes, batches) in kernels.items():
+                for B in batches:
+                    for dt in dtypes:
+                        x = torch.randn(B, din, device=dev, generator=g).to(dt)
+                        max_abs[name] = max(max_abs[name],
+                                            _check_against_plain(name, fn, plain, qt, x))
             bytes_w = qt.q.numel() + 4 * qt.scale.numel()
             copies = [quant(w) for _ in range(copies_for_cold_l2(bytes_w))]
             dense = [deq(qt.q, qt.scale, torch.bfloat16)
                      for _ in range(copies_for_cold_l2(2 * din * dout))]
-            for B in TIMED_BATCHES:
+            for B in timed:
                 x = torch.randn(B, din, device=dev, generator=g).to(torch.bfloat16)
                 ops = [(x, c.q, c.scale) for c in copies]
-                t = {"ms": time_ms(fn, ops), "plain_ms": time_ms(plain, ops),
-                     "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
-                t["bound_ms"], by = bound(bytes_w + 2 * B * (din + dout), 2 * B * din * dout)
+                shared = {"plain_ms": time_ms(plain, ops),
+                          "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
+                shared["bound_ms"], by = bound(bytes_w + 2 * B * (din + dout), 2 * B * din * dout)
                 bound_by.add(by)
-                for k, v in t.items():
-                    per_frame[B][k] += n * v
-                by_shape[f"{din}x{dout} B={B}"] = t
-                phase("kernels", f"{name} {din}x{dout} B={B} bf16: kernel {t['ms']:.4f} ms, "
-                      f"plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
-                      f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; "
-                      f"{bytes_w / t['ms'] / 1e6:.1f} GB/s of packed weight")
-            if name == "int8_gemv":
-                by_shape[f"{din}x{dout} int8pack"] = int8pack_ms(qt, din, dev, g)
+                for name, (fn, _, _) in kernels.items():
+                    t = {"ms": time_ms(fn, ops), **shared}
+                    for k, v in t.items():
+                        per_frame[name][B][k] += n * v
+                    by_shape[name][f"{din}x{dout} B={B}"] = t
+                    phase("kernels", f"{name} {din}x{dout} B={B} bf16: kernel {t['ms']:.4f} ms, "
+                          f"plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
+                          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; "
+                          f"{bytes_w / t['ms'] / 1e6:.1f} GB/s of packed weight")
+            if family == "int8":
+                by_shape["int8_gemv"][f"{din}x{dout} int8pack"] = int8pack_ms(qt, din, dev, g)
             del copies, dense
         torch.cuda.synchronize()
-        rows.append({"name": name, "max_abs_err": max_abs, "per_frame": per_frame,
-                     "by_shape": by_shape,
-                     "bound_by": "operations" if bound_by == {"operations"} else "bytes"})
+        rows += [{"name": name, "max_abs_err": max_abs[name], "per_frame": per_frame[name],
+                  "by_shape": by_shape[name],
+                  "bound_by": "operations" if bound_by == {"operations"} else "bytes"}
+                 for name in kernels]
+        if family == "q4":
+            faster = []
+            for B in timed:
+                t = {k: per_frame[k][B] for k in kernels}
+                if t["q4_mma"]["ms"] < t["q4_gemv"]["ms"]:
+                    faster.append(B)
+                phase("kernels", f"q4 per frame ({sum(shapes.values())} launches) B={B}: "
+                      f"q4_gemv kernel {t['q4_gemv']['ms']:.3f} ms, q4_mma "
+                      f"{t['q4_mma']['ms']:.3f} ms, torch.matmul on bf16 "
+                      f"{t['q4_mma']['library_ms']:.3f} ms, bound {t['q4_mma']['bound_ms']:.3f} ms")
+            phase("kernels", f"q4 crossover: q4_mma faster at B = {faster}; the route sends "
+                  f"bf16 B >= MMA_MIN_BATCH = {MMA_MIN_BATCH} to q4_mma")
     return rows
 
 
@@ -433,13 +483,15 @@ def check_attention_int8(dev, g) -> dict:
 
 
 # ------------------------------------------------------------------ slice
-def per_step_launches(cfg, params) -> dict:
-    """Kernel launches one LMGen.step implies: each q4 temporal linear once
-    per layer plus the text head; each int8 depformer linear once per layer
-    and codebook, plus depformer_in and the output head per codebook; with
-    the int4 KV cache, one decode_attention_int4 per layer and one
-    cache_write_int4; with the int8 KV cache, one decode_attention_int8 per
-    layer."""
+def per_step_launches(cfg, params, batch: int) -> dict:
+    """Kernel launches one LMGen.step of `batch` slots implies: each q4
+    temporal linear once per layer plus the text head, each on the kernel
+    that q4matmul.use_mma picks for bf16 x of `batch` rows; each int8
+    depformer linear once per layer and codebook, plus depformer_in and the
+    output head per codebook; with the int4 KV cache, one
+    decode_attention_int4 per layer and one cache_write_int4; with the int8
+    KV cache, one decode_attention_int8 per layer."""
+    from moshi_tpu_torch.ops.q4matmul import use_mma
     from moshi_tpu_torch.utils.quantize import QTensor, QTensor4
 
     layers = params["transformer"]["layers"]
@@ -453,10 +505,14 @@ def per_step_launches(cfg, params) -> dict:
                                                        params["linears"]["weight"]]])
     if not all(kinds):
         raise RuntimeError("the quantized tree is not q4 temporal / int8 depformer")
-    per_step = {"q4_gemv": cfg.num_layers * len(temporal) + 1,
+    per_step = {"q4_gemv": 0, "q4_mma": 0,
                 "int8_gemv": cfg.depformer_num_layers * len(dep) * cfg.dep_q + 2 * cfg.dep_q}
-    if per_step != {"q4_gemv": sum(Q4_SHAPES.values()),
-                    "int8_gemv": sum(INT8_SHAPES.values())}:
+    for w, n in [(w, cfg.num_layers) for w in temporal] + [(params["text_linear"]["weight"], 1)]:
+        dout = w.q.shape[-1]
+        gs = 2 * w.q.shape[-2] // w.scale.shape[-3]
+        per_step["q4_mma" if use_mma(batch, torch.bfloat16, gs, dout) else "q4_gemv"] += n
+    if (per_step["q4_gemv"] + per_step["q4_mma"] != sum(Q4_SHAPES.values())
+            or per_step["int8_gemv"] != sum(INT8_SHAPES.values())):
         raise RuntimeError(f"launches per step {per_step} do not match the shape tables")
     int4 = cfg.kv_cache_dtype == "int4"
     per_step["decode_attention_int4"] = cfg.num_layers if int4 else 0
@@ -469,9 +525,9 @@ def counters() -> dict:
     """The launch-counted wrappers, by kernel name."""
     from moshi_tpu_torch.ops.decode_attention import decode_attention_int8
     from moshi_tpu_torch.ops.int4_attention import cache_write_int4, decode_attention_int4_stats
-    from moshi_tpu_torch.ops.q4matmul import q4_gemv
+    from moshi_tpu_torch.ops.q4matmul import q4_gemv, q4_mma
     from moshi_tpu_torch.ops.qmatmul import int8_gemv
-    return {"q4_gemv": q4_gemv, "int8_gemv": int8_gemv,
+    return {"q4_gemv": q4_gemv, "q4_mma": q4_mma, "int8_gemv": int8_gemv,
             "decode_attention_int4": decode_attention_int4_stats,
             "cache_write_int4": cache_write_int4,
             "decode_attention_int8": decode_attention_int8}
@@ -529,7 +585,9 @@ def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> tuple[dict, f
     from moshi_tpu_torch.serve.server import ServerState, serve_sessions
 
     cfg = lm.config
-    expected = per_step_launches(cfg, lm_params)
+    expected = per_step_launches(cfg, lm_params, 1)
+    if expected["q4_mma"]:
+        raise RuntimeError(f"the B = 1 frame would run q4_mma: {expected}")
     state = ServerState(mimi, mimi_params, lm, lm_params, device=dev)
     state.warmup()
     torch.cuda.synchronize()
@@ -627,7 +685,7 @@ def greedy_isolation(dev, lm, lm_params, mimi, mimi_params, what: str) -> dict:
     from moshi_tpu_torch.serve.batched_moshi import BatchedMoshiState, serve_batched
 
     cfg = lm.config
-    expected = per_step_launches(cfg, lm_params)
+    expected = per_step_launches(cfg, lm_params, SLOTS)
     state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
                               use_sampling=False)
     kshape = tuple(state.gen_state["transformer"]["k"].shape)
@@ -673,7 +731,9 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
 
     cfg = replace(lm_config_v0_1(), kv_cache_dtype="int4")
     lm = LMModel(cfg)
-    expected = per_step_launches(cfg, lm_params)
+    expected = per_step_launches(cfg, lm_params, SLOTS)
+    if expected["q4_gemv"]:
+        raise RuntimeError(f"the B = {SLOTS} frame would run the q4_gemv kernel: {expected}")
 
     # 1. greedy isolation run
     greedy_launches = greedy_isolation(dev, lm, lm_params, mimi, mimi_params, "greedy")
@@ -729,7 +789,8 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
     int8_launches = greedy_isolation(dev, lm8, lm_params, mimi, mimi_params, "int8 greedy")
     return {"launches": {"greedy": greedy_launches, "sampled": sampled_launches,
                          "int8_greedy": int8_launches},
-            "per_frame": {"int4": expected, "int8": per_step_launches(lm8.config, lm_params)},
+            "per_frame": {"int4": expected,
+                          "int8": per_step_launches(lm8.config, lm_params, SLOTS)},
             "p50_ms": p50, "p75_ms": p75, "p90_ms": p90, "frames": len(ms), "peak_gib": peak,
             "profile": prof}
 
@@ -737,8 +798,9 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
 # -------------------------------------------------------------------- asr
 def build_asr(dev):
     """asr_300m_202501 at full width with the int8 KV cache and bf16
-    weights, the bf16 Mimi v0.1 with 32 codebooks and the `delay`
-    condition, all from a seed; the StreamingASR engine at B = ASR_SLOTS."""
+    weights (the text head's pad columns scaled by ASR_PAD_LOGIT_SCALE), the
+    bf16 Mimi v0.1 with 32 codebooks and the `delay` condition, all from a
+    seed; the StreamingASR engine at B = ASR_SLOTS."""
     from dataclasses import replace
 
     from moshi_tpu_torch.conditioners import ConditionProvider, ContinuousAttributeConditioner
@@ -751,6 +813,8 @@ def build_asr(dev):
     lm = LMModel(cfg)
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     lm_params = lm.init_params(g, torch.bfloat16, dev)
+    for token, factor in ASR_PAD_LOGIT_SCALE.items():
+        lm_params["text_linear"]["weight"][:, token] *= factor
     mimi = MimiModel(mimi_v0_1_config(cfg.n_q))
     mimi_params = mimi.init_params(g, torch.bfloat16, dev)
     provider = ConditionProvider({"delay": ContinuousAttributeConditioner(
@@ -802,25 +866,40 @@ def run_asr(dev, card: str) -> dict:
     ref = sessions[0][0][0]
     if len(ms) != FRAMES or len(ref) != FRAMES:
         raise RuntimeError(f"asr: {len(ms)} frames, slot 0 has {len(ref)} tokens")
-    words = 0
+    said = {"Word": 0, "EndWord": 0}
     for s in range(B):
         for tokens, msgs in sessions[s]:
             if not ((tokens >= 0).all() and (tokens < cfg.text_card).all()):
                 raise RuntimeError(f"asr slot {s}: text token out of range")
-            words += sum(m["type"] == "Word" for m in msgs)
+            for m in msgs:
+                said[m["type"]] = said.get(m["type"], 0) + 1
+    if not (said["Word"] and said["EndWord"]):
+        raise RuntimeError(f"asr: no Word or no EndWord message came out: {said}")
+
+    def words(msgs):
+        return [m for m in msgs if m["type"] in ("Word", "EndWord")]
+    ref_words = words(sessions[0][0][1])
+    if not ref_words:
+        raise RuntimeError("asr: slot 0 said no word, so its copies have nothing to repeat")
     for s, (session, executed) in same_as_0.items():
         got = sessions[s][session][0]
         if len(got) != executed or not np.array_equal(got, ref[:len(got)]):
             raise RuntimeError(f"asr: slot {s} session {session} does not repeat slot 0's "
                                f"text tokens")
+        # a slot that executed fewer frames said what slot 0 said in them
+        got_words = words(sessions[s][session][1])
+        if got_words != ref_words[:len(got_words)] or (s == 1 and got_words != ref_words):
+            raise RuntimeError(f"asr: slot {s} session {session} does not repeat slot 0's "
+                               f"Word / EndWord messages")
     distinct = sum(not np.array_equal(sessions[s][0][0], ref) for s in range(5, B))
     if distinct == 0:
         raise RuntimeError("asr: no slot with its own PCM differs from slot 0")
     p50, p75, p90 = (float(np.percentile(ms, p)) for p in (50, 75, 90))
     phase("asr", f"greedy, {len(ms)} frames x {B} slots: slots 1 (same PCM), 2 (joined 5 "
           f"frames late), 3 (frozen on frames 10-14) and 4 (reset at frame 20) repeat slot "
-          f"0's text tokens; {distinct} of {B - 5} other slots differ; {words} Word "
-          f"messages; launches {launches} = per frame {expected} x {len(ms)}")
+          f"0's text tokens and its {len(ref_words)} Word / EndWord messages; {distinct} of "
+          f"{B - 5} other slots differ; messages by type {said}; launches {launches} = per "
+          f"frame {expected} x {len(ms)}")
     phase("asr", f"p50 {p50:.2f} ms, p75 {p75:.2f} ms, p90 {p90:.2f} ms per batched frame; "
           f"{p50 / B:.3f} ms per user-frame at p50; peak {peak:.2f} GiB ({card})")
 
@@ -877,7 +956,10 @@ def main() -> None:
           f"(nvcc in parallel: {build.build_seconds or 'libraries already built'}) -> "
           f"{build.BUILD_DIR}")
     for name, log in logs.items():
-        phase("build", f"{name}: {ptxas_summary(log)}")
+        regs, spills = ptxas_summary(log)
+        phase("build", f"{name}: max {regs} registers, {spills} bytes of spill stores")
+        if name == "q4_mma" and spills:
+            raise RuntimeError("q4_mma spills registers")
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     gemvs = check_gemvs(dev, g)
@@ -901,14 +983,16 @@ def main() -> None:
                          "batched_int8": batched["per_frame"]["int8"], "asr": asr["per_frame"]}
     kernels = []
     # ms / plain_ms / library_ms / bound_ms: card time of one frame's
-    # launches of the kernel (bf16, operands cold in L2), from the per-shape
-    # (GEMVs) or per-launch times: a B = 16 batched frame for the first
-    # four kernels ("b1" the same for one B = 1 frame), a B = 256 ASR frame
-    # for decode_attention_int8
+    # launches of the kernel (bf16, operands cold in L2) on the path it
+    # runs, from the per-shape (GEMVs) or per-launch times: the B = 1 frame
+    # for the q4_gemv kernel, a B = 16 batched frame for q4_mma, int8_gemv,
+    # decode_attention_int4 and cache_write_int4, a B = 256 ASR frame for
+    # decode_attention_int8; "per_frame_by_batch" has the GEMVs' frames at
+    # each batch timed
     for k in gemvs:
-        kernels.append({"name": k["name"], **k["per_frame"][SLOTS], "bound_by": k["bound_by"],
-                        "b1": k["per_frame"][1], "by_shape": k["by_shape"],
-                        "max_abs_err": k["max_abs_err"]})
+        main_b = 1 if k["name"] == "q4_gemv" else SLOTS
+        kernels.append({**k["per_frame"][main_b], "per_frame_by_batch": k["per_frame"],
+                        **{key: v for key, v in k.items() if key != "per_frame"}})
     for name, k, path in (("decode_attention_int4", attn, "batched"),
                           ("cache_write_int4", write, "batched"),
                           ("decode_attention_int8", attn8, "asr")):

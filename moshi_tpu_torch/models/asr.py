@@ -14,10 +14,12 @@ A frozen slot (exec_mask False) gets zero audio and the text start token,
 computes, and keeps its offsets and its host state.  Streaming state is
 updated in place.
 
+With a `text_tokenizer` (text/spm.py) a word's tokens are also decoded to
+its `text`, as the reference server does.
+
 Not ported: `mimi_chunks`, a work-around for XLA's rematerialization at
-B = 512 whose results do not depend on it, the single-slot snapshot
-extract/restore of session resume, and decoding a word's tokens to text
-(the port has no text tokenizer yet; words carry their token ids).
+B = 512 whose results do not depend on it, and the single-slot snapshot
+extract/restore of session resume.
 """
 
 import time
@@ -35,6 +37,7 @@ class AsrWord:
     tokens: list
     start_time: float
     batch_idx: int
+    text: str | None = None
 
 
 @dataclass
@@ -110,12 +113,14 @@ def asr_sum_condition(provider, params, dim: int, conditioning_delay: float | No
 class StreamingASR:
     """B slots of streaming ASR on `device`.  The codec runs in
     `mimi_dtype` (its parameters must be in it too); the LM's KV cache
-    follows its config (`kv_cache_dtype`)."""
+    follows its config (`kv_cache_dtype`).  `text_tokenizer` (anything with
+    `decode(ids) -> str`, or None) gives each AsrWord its `text`."""
 
     def __init__(self, mimi, lm, batch_size: int, asr_delay_in_tokens: int,
-                 temperature: float = 0.0, mimi_dtype=torch.float32, sum_condition=None,
-                 device="cuda"):
+                 temperature: float = 0.0, text_tokenizer=None, mimi_dtype=torch.float32,
+                 sum_condition=None, device="cuda"):
         self.mimi, self.lm = mimi, lm
+        self.text_tokenizer = text_tokenizer
         self.batch_size = batch_size
         self.asr_delay_in_tokens = asr_delay_in_tokens
         self.temperature = temperature
@@ -232,7 +237,10 @@ class StreamingASR:
                     t = item.text_token
                     if t in (0, 3):
                         if item.word_tokens:
-                            msgs.append(AsrWord(item.word_tokens, item.last_stop_time, b))
+                            word = AsrWord(item.word_tokens, item.last_stop_time, b)
+                            if self.text_tokenizer is not None:
+                                word.text = self.text_tokenizer.decode(word.tokens)
+                            msgs.append(word)
                             item.word_tokens = []
                             item.unended_word = True
                     else:

@@ -1,10 +1,11 @@
-"""Group-wise 4-bit weight-only GEMV: the wrapper of the CUDA kernel
-`csrc/q4_gemv.cu` and its plain PyTorch version.
+"""Group-wise 4-bit weight-only GEMV: the wrappers of the CUDA kernels
+`csrc/q4_gemv.cu` and `csrc/q4_mma.cu` and their plain PyTorch version.
 
 Counterpart of moshi_tpu/ops/q4matmul.py (`q4gemm`, `q4gemm_stacked`).  A
 member of a stacked weight is a view here, so one entry point covers both.
-On a CPU tensor `q4_gemv` runs `q4_gemv_plain`; on a CUDA tensor it launches
-the kernel or raises.
+`q4_gemv` is the entry point: on a CPU tensor it runs `q4_gemv_plain`; on a
+CUDA tensor it launches `q4_mma` (tensor cores) where `use_mma` says so and
+the `q4_gemv` kernel (CUDA cores) otherwise, or raises.
 """
 
 import functools
@@ -19,6 +20,12 @@ MAX_BATCH = 16        # gemv::kMaxBatch
 BLOCK_COLS = 4 * 128  # gemv::kCols * gemv::kThreads
 MAX_SPLIT_ROWS = 1024  # din rows a block stages in shared memory
 STAGE_FLOATS = 48 * 1024 // 4  # gemv::kStageFloats: f32 [batch, rows] staged x
+# q4_mma takes bf16 calls of MMA_MIN_BATCH..MAX_BATCH rows: from B = 2 it is
+# over twice as fast as the q4_gemv kernel on the H100; B = 1 stays on the
+# q4_gemv kernel, within 3% of q4_mma there (PERF.md, the crossover table).
+MMA_MIN_BATCH = 2
+MMA_WARP_COLS = 64    # q4_mma.cu kWarpCols: eight n8 tiles
+MMA_BLOCK_COLS = 4 * MMA_WARP_COLS  # q4_mma.cu kBlockCols: 4 warps
 
 
 def max_split_rows(batch: int) -> int:
@@ -38,17 +45,42 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def plan_splits(din: int, dout: int, group_size: int, num_sms: int,
-                batch: int = 1) -> tuple[int, int]:
-    """(groups_per_split, splits): split din so the grid has about four
-    blocks per SM, with at most max_split_rows(batch) rows per block."""
+def _split(din: int, group_size: int, want: int, max_rows: int) -> tuple[int, int]:
+    """(groups_per_split, splits): din cut into about `want` splits of whole
+    groups, at least as many as keep a split within max_rows rows."""
     groups = din // group_size
-    col_blocks = -(-dout // BLOCK_COLS)
-    max_rows = max_split_rows(batch)
-    want = max(-(-4 * num_sms // col_blocks), -(-din // max_rows))
+    want = max(want, 1, -(-din // max_rows))
     gps = max(1, -(-groups // min(want, groups)))
     gps = min(gps, max(1, max_rows // group_size))
     return gps, -(-groups // gps)
+
+
+def plan_splits(din: int, dout: int, group_size: int, num_sms: int,
+                batch: int = 1) -> tuple[int, int]:
+    """(groups_per_split, splits) of the q4_gemv kernel: split din so the
+    grid has about four blocks per SM, with at most max_split_rows(batch)
+    rows per block."""
+    col_blocks = -(-dout // BLOCK_COLS)
+    return _split(din, group_size, -(-4 * num_sms // col_blocks), max_split_rows(batch))
+
+
+def mma_plan_splits(din: int, dout: int, group_size: int, num_sms: int) -> tuple[int, int]:
+    """(groups_per_split, splits) of q4_mma: as many blocks of
+    MMA_BLOCK_COLS columns as fit four to an SM (one wave: q4_mma's
+    registers let four blocks share an SM, and a fifth block per SM would
+    wait for a second wave), at most MAX_SPLIT_ROWS rows per block (bf16
+    [16, rows + 8] of staged x stays within 48 KB)."""
+    col_blocks = -(-dout // MMA_BLOCK_COLS)
+    return _split(din, group_size, 4 * num_sms // col_blocks, MAX_SPLIT_ROWS)
+
+
+def use_mma(batch: int, dtype: torch.dtype, group_size: int, dout: int) -> bool:
+    """Whether a CUDA call of q4_gemv goes to q4_mma: bf16 x of
+    MMA_MIN_BATCH..MAX_BATCH rows, a group size that is a multiple of 16 (at
+    most MAX_SPLIT_ROWS) and dout a multiple of MMA_WARP_COLS."""
+    return (dtype == torch.bfloat16 and MMA_MIN_BATCH <= batch <= MAX_BATCH
+            and group_size % 16 == 0 and group_size <= MAX_SPLIT_ROWS
+            and dout % MMA_WARP_COLS == 0)
 
 
 def _check(x, q, scale):
@@ -67,14 +99,34 @@ def _check(x, q, scale):
         raise TypeError(f"q4_gemv: q {q.dtype}, scale {scale.dtype}")
 
 
+def _check_cuda(name, x, q, scale, q_align):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if q.data_ptr() % q_align or scale.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be {q_align}-byte and scale 16-byte aligned")
+
+
 def q4_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [B, din] bf16/f32; q [din/2, dout] int8; scale [din/gs, 1, dout]
-    f32 -> [B, dout] in x.dtype."""
+    f32 -> [B, dout] in x.dtype.  The `q4_gemv` kernel's launches are
+    counted in `q4_gemv.launches`, q4_mma's in `q4_mma.launches`."""
     _check(x, q, scale)
     if x.device.type == "cpu":
         return q4_gemv_plain(x, q, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"q4_gemv: unsupported device {x.device}")
+    if use_mma(x.shape[0], x.dtype, x.shape[1] // scale.shape[0], q.shape[1]):
+        return q4_mma(x, q, scale)
+    return q4_gemv_kernel(x, q, scale)
+
+
+def q4_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """q4_gemv's function through the `q4_gemv` kernel (CUDA cores), whatever
+    `use_mma` says; on a CPU tensor the plain version."""
+    _check(x, q, scale)
+    if x.device.type == "cpu":
+        return q4_gemv_plain(x, q, scale)
+    _check_cuda("q4_gemv", x, q, scale, 4)
     B, din = x.shape
     dout = q.shape[1]
     gs = din // scale.shape[0]
@@ -85,10 +137,6 @@ def q4_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     if gs % 2 or dout % 4 or gs > max_split_rows(B):
         raise ValueError(f"q4_gemv: group size {gs} must be even and at most "
                          f"{max_split_rows(B)}, dout {dout} a multiple of 4")
-    if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("q4_gemv: operands must be contiguous")
-    if q.data_ptr() % 4 or scale.data_ptr() % 16:
-        raise ValueError("q4_gemv: q must be 4-byte and scale 16-byte aligned")
     gps, splits = plan_splits(din, dout, gs, _num_sms(x.device.index or 0), B)
     out = torch.empty((B, dout), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, B, dout), dtype=torch.float32, device=x.device)
@@ -103,7 +151,39 @@ def q4_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     return out
 
 
+def q4_mma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """q4_gemv's function through the `q4_mma` kernel (tensor cores): x
+    bf16 of 1..MAX_BATCH rows, gs a multiple of 16, dout a multiple of
+    MMA_WARP_COLS; on a CPU tensor the plain version."""
+    _check(x, q, scale)
+    if x.device.type == "cpu":
+        return q4_gemv_plain(x, q, scale)
+    _check_cuda("q4_mma", x, q, scale, 8)
+    B, din = x.shape
+    dout = q.shape[1]
+    gs = din // scale.shape[0]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"q4_mma: x dtype {x.dtype}, not bfloat16")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"q4_mma: batch {B} outside 1..{MAX_BATCH}")
+    if gs % 16 or gs > MAX_SPLIT_ROWS or dout % MMA_WARP_COLS:
+        raise ValueError(f"q4_mma: group size {gs} must be a multiple of 16 and at most "
+                         f"{MAX_SPLIT_ROWS}, dout {dout} a multiple of {MMA_WARP_COLS}")
+    gps, splits = mma_plan_splits(din, dout, gs, _num_sms(x.device.index or 0))
+    out = torch.empty((B, dout), dtype=torch.bfloat16, device=x.device)
+    partial = (torch.empty((splits, B, dout), dtype=torch.float32, device=x.device)
+               if splits > 1 else out)
+    lib = build.load("q4_mma")
+    err = lib.q4_mma(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                     partial.data_ptr(), B, din, dout, gs, gps, splits,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "q4_mma")
+    q4_mma.launches += 1
+    return out
+
+
 q4_gemv.launches = 0
+q4_mma.launches = 0
 
 
 def q4_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

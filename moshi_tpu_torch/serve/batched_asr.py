@@ -4,11 +4,12 @@ one 80 ms frame at a time by `BatchedAsrState.tick`.
 
 Each slot has an audio backlog, an outbox of protocol messages (the dicts
 the websocket server sends: Word, EndWord, Step, Marker) and a list of
-pending markers.  A Word carries its text token ids: decoding them to the
-protocol's "text" comes with the text tokenizer and the websocket layer.  A tick applies the queued slot resets, runs one frame
-over the slots whose backlog holds a whole frame (the others are frozen by
-the exec mask), dispatches the engine's messages to the slots' outboxes
-and flushes the markers that are due.
+pending markers.  A Word's "text" is the engine's decoding of the word
+(StreamingASR's `text_tokenizer`; "" without one), as in the reference
+protocol.  A tick applies the queued slot resets, runs one frame over the
+slots whose backlog holds a whole frame (the others are frozen by the exec
+mask), dispatches the engine's messages to the slots' outboxes and flushes
+the markers that are due.
 
 The websocket/msgpack handlers, the asyncio loop and session resume
 (snapshots) are not ported yet; `serve_asr` plays the loop's role over a
@@ -108,7 +109,7 @@ class BatchedAsrState:
 
     def _dispatch(self, m, mask):
         if isinstance(m, AsrWord):
-            self._send(m.batch_idx, {"type": "Word", "tokens": list(m.tokens),
+            self._send(m.batch_idx, {"type": "Word", "text": m.text or "",
                                      "start_time": m.start_time})
         elif isinstance(m, AsrEndWord):
             self._send(m.batch_idx, {"type": "EndWord", "stop_time": m.stop_time})

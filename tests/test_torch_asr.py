@@ -1,10 +1,13 @@
 """The port's speech-to-text path against moshi_tpu's, on the CPU in f32:
 the `delay` continuous conditioner and `asr_sum_condition`, StreamingASR
 over joins, freezes and a reset with the model-dtype and the int8 KV cache
-(greedy text tokens and Word/EndWord/Step messages), and the batched engine
-of serve/batched_asr.py (markers, the backlog cap, the outboxes)."""
+(greedy text tokens, Word/EndWord/Step messages with the words' text, and
+the protocol payloads the batched servers send for them), and the batched
+engine of serve/batched_asr.py (markers, the backlog cap, the outboxes)."""
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -16,15 +19,21 @@ from moshi_tpu import conditioners as jcond
 from moshi_tpu.models import asr as jasr
 from moshi_tpu.models.lm import LMModel as JLM
 from moshi_tpu.models.mimi import MimiModel as JMimi
+from moshi_tpu.serve import batched_asr as jbatched
+from moshi_tpu.text import SentencePieceTokenizer as JTokenizer
 from moshi_tpu_torch import conditioners as tcond
 from moshi_tpu_torch.models import asr as tasr
 from moshi_tpu_torch.models.lm import LMModel as TLM, lm_config_asr_300m_202501
 from moshi_tpu_torch.models.mimi import MimiModel as TMimi
 from moshi_tpu_torch.serve.batched_asr import BatchedAsrState, serve_asr
+from moshi_tpu_torch.text import SentencePieceTokenizer as TTokenizer
 from moshi_tpu_torch.utils.params import from_jax
 from test_lm import tiny_lm_config
 from test_mimi import tiny_mimi_config
 from test_torch_port import max_abs, port_lm_config, port_mimi_config
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
+from make_tiny_checkpoint import spm_model_bytes  # noqa: E402
 
 B = 3
 DELAY = 2           # asr_delay_in_tokens
@@ -103,10 +112,11 @@ def test_asr_sum_condition_matches_jax():
             tasr.asr_sum_condition(prov, params, dim, **kw)
 
 
-def _engines(kv):
+def _engines(kv, tokenizer_path=None):
     """The same tiny dep_q = 0 model (two extra heads, a text head pushed
     toward the pad tokens so that words end) and tiny Mimi in both
-    packages, f32, with a delay condition."""
+    packages, f32, with a delay condition; with `tokenizer_path`, each
+    engine decodes words with its own package's tokenizer of that file."""
     cfg = tiny_lm_config(n_q=4, dep_q=0, delays=(0,) * 5, extra_heads_num_heads=2,
                          extra_heads_dim=2, kv_cache_dtype=kv, context=16)
     jlm, jmimi = JLM(cfg), JMimi(tiny_mimi_config())
@@ -120,12 +130,14 @@ def _engines(kv):
     # model's text stream to one token
     jcond_vec = 0.2 * jprov.conditioners["delay"].apply(
         jparams["delay"], jprov.conditioners["delay"].prepare([-0.5]))[0]
+    jtok = None if tokenizer_path is None else JTokenizer(tokenizer_path)
+    ttok = None if tokenizer_path is None else TTokenizer(tokenizer_path)
     jengine = jasr.StreamingASR(jmimi, jlm, B, asr_delay_in_tokens=DELAY, temperature=0.0,
-                                sum_condition=jcond_vec)
+                                text_tokenizer=jtok, sum_condition=jcond_vec)
     tmcfg = port_mimi_config(tiny_mimi_config())
     tengine = tasr.StreamingASR(
         TMimi(tmcfg), TLM(port_lm_config(cfg)), B, asr_delay_in_tokens=DELAY,
-        temperature=0.0, device="cpu",
+        temperature=0.0, text_tokenizer=ttok, device="cpu",
         sum_condition=0.2 * tasr.asr_sum_condition(tprov, tparams, cfg.dim,
                                                    conditioning_delay=0.5))
     return (jengine, lm_params, mimi_params, tengine, from_jax(jax.device_get(lm_params)),
@@ -144,23 +156,54 @@ def _same_messages(tm, jm, mask):
             assert a.step_idx == b.step_idx
             assert max_abs(a.prs[:, mask], np.asarray(b.prs)[:, mask]) <= PRS_TOL
         elif isinstance(b, jasr.AsrWord):
-            assert (a.tokens, a.start_time, a.batch_idx) == (b.tokens, b.start_time,
-                                                             b.batch_idx)
+            assert (a.tokens, a.start_time, a.batch_idx, a.text) == (
+                b.tokens, b.start_time, b.batch_idx, b.text)
         else:
             assert (a.stop_time, a.batch_idx) == (b.stop_time, b.batch_idx)
 
 
+class _Outbox:
+    """Stands in for a BatchedAsrState when its `_dispatch` (moshi_tpu's or
+    the port's, called unbound) turns engine messages into protocol
+    payloads: every slot is open, no audio is buffered."""
+
+    def __init__(self):
+        self.slot_queues = dict.fromkeys(range(B))
+        self.slot_pcm = {}
+        self.sent = []
+
+    def _send(self, slot, payload):
+        self.sent.append((slot, payload))
+
+
+def _same_payloads(tbox, jbox):
+    """The port's payloads equal moshi_tpu's key for key: Word (with its
+    "text") and EndWord exactly, Step up to the f32 probabilities."""
+    assert [(s, p["type"]) for s, p in tbox.sent] == [(s, p["type"]) for s, p in jbox.sent]
+    for (_, a), (_, b) in zip(tbox.sent, jbox.sent):
+        assert a.keys() == b.keys()
+        if a["type"] == "Step":
+            assert (a["step_idx"], a["buffered_pcm"]) == (b["step_idx"], b["buffered_pcm"])
+            assert max_abs(np.array(a["prs"]), np.array(b["prs"])) <= PRS_TOL
+        else:
+            assert a == b
+
+
 @pytest.mark.parametrize("kv", ["model", "int8"])
-def test_streaming_asr_matches_jax(kv):
+def test_streaming_asr_matches_jax(kv, tmp_path):
     """22 frames at B = 3 with a late join, a freeze and a reset: every
     executing slot's greedy text token and every Word/EndWord/Step message
-    (times included) equal moshi_tpu's."""
-    jeng, jlp, jmp, teng, tlp, tmp = _engines(kv)
+    (times and the decoded word text included) equal moshi_tpu's, and so do
+    the protocol payloads the two batched servers make of them."""
+    tokenizer = tmp_path / "tokenizer.model"
+    tokenizer.write_bytes(spm_model_bytes(tiny_lm_config().text_card))
+    jeng, jlp, jmp, teng, tlp, tmp = _engines(kv, tokenizer)
     jstate = jeng.init_state(jax.random.PRNGKey(0), jnp.float32)
     tstate = teng.init_state(None, torch.float32)
     if kv == "int8":
         assert tstate["transformer"]["k"].dtype == torch.int8
     counts = {"words": 0, "ends": 0}
+    tbox, jbox = _Outbox(), _Outbox()
     for t, pcm in enumerate(_pcm(teng.mimi.frame_size)):
         for slot in RESETS.get(t, []):
             jstate = jeng.reset_batch_idx(jstate, slot)
@@ -171,10 +214,16 @@ def test_streaming_asr_matches_jax(kv):
         assert ([i.text_token for i in teng.items] == [i.text_token for i in jeng.items])
         assert [i.step_idx for i in teng.items] == [i.step_idx for i in jeng.items]
         _same_messages(tm, jm, mask)
-        counts["words"] += sum(isinstance(m, tasr.AsrWord) for m in tm)
+        for m in tm:
+            BatchedAsrState._dispatch(tbox, m, mask)
+        for m in jm:
+            jbatched.BatchedAsrState._dispatch(jbox, m, mask)
+        counts["words"] += sum(isinstance(m, tasr.AsrWord) and m.text.startswith("w")
+                               for m in tm)
         counts["ends"] += sum(isinstance(m, tasr.AsrEndWord) for m in tm)
     assert teng.model_step_idx == jeng.model_step_idx == TICKS
     assert counts["words"] >= 3 and counts["ends"] >= 3
+    _same_payloads(tbox, jbox)
 
 
 def _port_engine(kv="int8"):
@@ -225,7 +274,7 @@ def test_serve_asr_matches_the_engine():
             tokens[s][-1].append(ref.items[s].text_token)
         for m in msgs:
             if isinstance(m, tasr.AsrWord):
-                words[m.batch_idx][-1].append({"type": "Word", "tokens": m.tokens,
+                words[m.batch_idx][-1].append({"type": "Word", "text": "",
                                                "start_time": m.start_time})
             elif isinstance(m, tasr.AsrEndWord):
                 words[m.batch_idx][-1].append({"type": "EndWord", "stop_time": m.stop_time})
@@ -265,6 +314,20 @@ def test_markers_and_backlog_cap():
     assert state.slot_pcm[2].shape == (cap,)
     state.release_slot(2)
     assert 2 in state.slots_free and 2 not in state.slot_outbox
+
+
+def test_text_tokenizer_matches_jax(tmp_path):
+    """The port's copy of the SentencePiece reader decodes, encodes and
+    names pieces as moshi_tpu's does (controls and <unk> decode to
+    nothing)."""
+    path = tmp_path / "tokenizer.model"
+    path.write_bytes(spm_model_bytes(40))
+    j, t = JTokenizer(path), TTokenizer(path)
+    assert len(t) == len(j) == 40
+    ids = [5, 1, 17, 3, 39, 0, 2]
+    assert t.decode(ids) == j.decode(ids) == "w5 w17 w3 w39"
+    assert t.encode("w5 w17") == j.encode("w5 w17") == [5, 17]
+    assert [t.id_to_piece(i) for i in range(40)] == [j.id_to_piece(i) for i in range(40)]
 
 
 def test_asr_presets_match_jax():

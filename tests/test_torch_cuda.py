@@ -76,14 +76,16 @@ def test_stacked_member_view(gen):
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
 def test_deterministic_and_counted(kernel, gen):
     """Two launches give the same bits (no atomics), and each adds one to
-    the wrapper's launch count."""
+    the launch count of the kernel it went to: where q4_gemv routes bf16 at
+    B = 2 to q4_mma, the q4_gemv kernel's count stays."""
     fn, _, quant = KERNELS[kernel]
     qt = quant(torch.randn(4096, 1024, device="cuda", generator=gen))
     x = torch.randn(2, 4096, device="cuda", generator=gen).to(torch.bfloat16)
-    n = fn.launches
+    n, m = fn.launches, q4matmul.q4_mma.launches
     a, b = fn(x, qt.q, qt.scale), fn(x, qt.q, qt.scale)
     assert torch.equal(a, b)
-    assert fn.launches == n + 2
+    to_mma = kernel == "q4" and q4matmul.use_mma(2, torch.bfloat16, 32, 1024)
+    assert (fn.launches, q4matmul.q4_mma.launches) == ((n, m + 2) if to_mma else (n + 2, m))
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
@@ -113,6 +115,96 @@ def test_batched_main_path_shape(kernel, B, gen):
     y = fn(x, qt.q, qt.scale)
     torch.cuda.synchronize()
     assert _rel(y, plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+
+
+# q4_mma (tensor cores): bf16 x only, so every check is held to the bf16
+# bound; the Moshi-7B shapes (din, dout) of the q4 linears
+MMA = q4matmul.q4_mma
+Q4_MAIN_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096), (4096, 32000)]
+
+
+def _mma_case(gen, B, din, dout, group_size=32):
+    qt = tq.quantize_tensor4(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5,
+                             group_size=group_size)
+    x = torch.randn(B, din, device="cuda", generator=gen).to(torch.bfloat16)
+    return x, qt
+
+
+@pytest.mark.parametrize("B", range(2, 17))
+def test_q4_mma_every_batch_size(B, gen):
+    x, qt = _mma_case(gen, B, 1024, 1536)
+    n = MMA.launches
+    y = MMA(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert MMA.launches == n + 1
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (B, 1536)
+    assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+
+
+@pytest.mark.parametrize("B,din,dout,group_size", [(3, 4160, 8256, 32), (7, 64, 64, 32),
+                                                   (16, 256, 192, 64), (5, 2048, 320, 16)])
+def test_q4_mma_ragged_shapes(B, din, dout, group_size, gen):
+    """A last block with one warp's columns in use, a last din split
+    shorter than the others (4160 = 130 groups), one split, other group
+    sizes."""
+    x, qt = _mma_case(gen, B, din, dout, group_size)
+    y = MMA(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+
+
+def test_q4_mma_stacked_member_view(gen):
+    """q4_mma on the view q[l] of a stacked weight reads member l."""
+    qt = tq.quantize_tensor4(torch.randn(3, 1, 512, 768, device="cuda", generator=gen))
+    x = torch.randn(16, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    for layer in range(3):
+        y = MMA(x, qt.q[layer][0], qt.scale[layer][0])
+        ref = q4matmul.q4_gemv_plain(x, qt.q[layer][0], qt.scale[layer][0])
+        assert _rel(y, ref) <= BOUND[torch.bfloat16]
+
+
+def test_q4_mma_deterministic_and_counted(gen):
+    """Two launches give the same bits (splits added in order, no atomics);
+    each adds one to q4_mma's count and none to the q4_gemv kernel's."""
+    x, qt = _mma_case(gen, 16, 4096, 4096)
+    n, m = q4matmul.q4_gemv.launches, MMA.launches
+    a, b = MMA(x, qt.q, qt.scale), MMA(x, qt.q, qt.scale)
+    assert torch.equal(a, b)
+    assert (q4matmul.q4_gemv.launches, MMA.launches) == (n, m + 2)
+
+
+@pytest.mark.parametrize("din,dout", Q4_MAIN_SHAPES)
+def test_q4_mma_main_path_shapes(din, dout, gen):
+    """B = 16 at the Moshi-7B shapes, through the entry point q4_gemv (the
+    route the batched frame takes), against the plain version and against
+    the q4_gemv kernel on the same operands."""
+    x, qt = _mma_case(gen, 16, din, dout)
+    assert q4matmul.use_mma(16, torch.bfloat16, 32, dout)
+    m = MMA.launches
+    y = q4matmul.q4_gemv(x, qt.q, qt.scale)
+    simt = q4matmul.q4_gemv_kernel(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert MMA.launches == m + 1
+    assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+    assert _rel(y, simt) <= BOUND[torch.bfloat16]
+
+
+def test_q4_mma_rejects_what_the_kernel_does_not_take(gen):
+    x, qt = _mma_case(gen, 4, 256, 128)
+    with pytest.raises(TypeError):
+        MMA(x.float(), qt.q, qt.scale)                   # f32 activations
+    with pytest.raises(ValueError):
+        MMA(torch.cat([x] * 5), qt.q, qt.scale)          # batch above 16
+    x96, q96 = _mma_case(gen, 4, 256, 96)
+    with pytest.raises(ValueError):
+        MMA(x96, q96.q, q96.scale)                       # dout not a multiple of 64
+    x8, q8 = _mma_case(gen, 4, 256, 128, group_size=8)
+    with pytest.raises(ValueError):
+        MMA(x8, q8.q, q8.scale)                          # group size not a multiple of 16
+    with pytest.raises(ValueError):
+        MMA(x, qt.q.cpu(), qt.scale)                     # mixed devices
+    with pytest.raises(ValueError):
+        MMA(torch.randn(256, 4, device="cuda").to(torch.bfloat16).T, qt.q, qt.scale)
 
 
 def _int4_cache(gen, L, B, Hkv, D, cap_pad):

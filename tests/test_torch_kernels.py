@@ -188,13 +188,76 @@ def test_split_plans_cover_the_main_path_shapes():
 def test_kernel_modules_import_without_cuda_toolchain():
     """Importing the port builds nothing and needs neither nvcc nor triton."""
     code = ("import sys, moshi_tpu_torch.ops.q4matmul, moshi_tpu_torch.ops.qmatmul, "
-            "moshi_tpu_torch.utils.matmul\n"
+            "moshi_tpu_torch.utils.matmul, moshi_tpu_torch.text\n"
             "from moshi_tpu_torch.ops import build\n"
+            "assert moshi_tpu_torch.ops.q4matmul.q4_mma.launches == 0\n"
             "assert not build._loaded and 'triton' not in sys.modules\n")
     env = dict(os.environ, PATH="/usr/bin:/bin")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
                    timeout=120)
 
+
+
+Q4_MAIN_SHAPES = ((4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096), (4096, 32000))
+
+
+@pytest.mark.parametrize("din,dout", Q4_MAIN_SHAPES)
+def test_route_sends_the_batched_frame_to_q4_mma(din, dout):
+    """bf16 at B = 16 (the batched frame) at every q4 shape of Moshi-7B goes
+    to q4_mma; B = 1 (the B = 1 frame), f32 x, and a group size or a dout
+    the kernel does not take go to the q4_gemv kernel."""
+    assert dout % q4matmul.MMA_WARP_COLS == 0
+    bf16, gs = torch.bfloat16, 32
+    assert q4matmul.use_mma(16, bf16, gs, dout)
+    assert q4matmul.use_mma(q4matmul.MMA_MIN_BATCH, bf16, gs, dout)
+    assert not q4matmul.use_mma(1, bf16, gs, dout)
+    assert not q4matmul.use_mma(16, torch.float32, gs, dout)
+    assert not q4matmul.use_mma(16, torch.float16, gs, dout)
+    assert not q4matmul.use_mma(17, bf16, gs, dout)
+    assert not q4matmul.use_mma(16, bf16, 24, dout)     # gs % 16 != 0
+    assert not q4matmul.use_mma(16, bf16, gs, dout + 16)  # dout % 32 != 0
+    assert not q4matmul.use_mma(16, bf16, gs, dout + 32)  # dout % 64 != 0
+    assert 1 < q4matmul.MMA_MIN_BATCH <= q4matmul.MAX_BATCH
+
+
+@pytest.mark.parametrize("num_sms", [132, 114, 8])
+def test_mma_split_plans_cover_the_main_path_shapes(num_sms):
+    """q4_mma's din splits of the 7B's q4 shapes cover din exactly, keep a
+    block's staged bf16 [16, rows + 8] x within 48 KB and give the grid
+    one wave of about four blocks per SM (at least three, as the groups per
+    split are rounded up, and at most four where din allows it)."""
+    for din, dout in Q4_MAIN_SHAPES + ((256, 192), (4160, 8256)):
+        gps, splits = q4matmul.mma_plan_splits(din, dout, 32, num_sms)
+        assert (splits - 1) * gps < din // 32 <= splits * gps
+        assert 2 * 16 * (gps * 32 + 8) <= 48 * 1024
+        blocks = -(-dout // q4matmul.MMA_BLOCK_COLS) * splits
+        assert blocks >= 3 * num_sms or gps == 1
+        assert blocks <= 4 * num_sms or splits <= -(-din // q4matmul.MAX_SPLIT_ROWS)
+
+
+def test_q4_mma_on_cpu_runs_the_plain_version():
+    """On CPU tensors q4_mma and the q4_gemv entry point compute the plain
+    version and count no launch, whatever the route says."""
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(16, 256).astype(np.float32)).to(torch.bfloat16)
+    q4 = tq.quantize_tensor4(torch.from_numpy(rs.randn(256, 64).astype(np.float32)))
+    counts = (q4matmul.q4_gemv.launches, q4matmul.q4_mma.launches)
+    ref = q4matmul.q4_gemv_plain(x, q4.q, q4.scale)
+    for fn in (q4matmul.q4_mma, q4matmul.q4_gemv, q4matmul.q4_gemv_kernel):
+        assert torch.equal(fn(x, q4.q, q4.scale), ref)
+    assert (q4matmul.q4_gemv.launches, q4matmul.q4_mma.launches) == counts
+    with pytest.raises(ValueError):
+        q4matmul.q4_mma(x[:, :128], q4.q, q4.scale)
+
+
+def test_q4_mma_is_built_by_name():
+    """q4_mma is a kernel of the build: its source and its C signature (the
+    q4_gemv kernel's minus x_is_bf16)."""
+    from moshi_tpu_torch.ops import build
+    assert (build.CSRC / "q4_mma.cu").is_file()
+    assert build.SIGNATURES["q4_mma"] == (build.SIGNATURES["q4_gemv"][:11]
+                                          + build.SIGNATURES["q4_gemv"][12:])
+    assert build.library_path("q4_mma").name.startswith("q4_mma-")
 
 
 @pytest.mark.parametrize("batch", [1, 8, 9, 13, 16])
