@@ -12,7 +12,8 @@ Phases, each printing its own line(s):
   3. kernels - each kernel against its plain PyTorch version on the card at
                the main paths' shapes: the q4_gemv and int8_gemv kernels at
                B = 1, 4, 9, 16 in bf16 and f32, q4_mma at B = 2, 4, 9, 16
-               in bf16, decode_attention_int4 at B = 16, H = 32, D = 128 and
+               and int8_mma at B = 1, 2, 4, 9, 16 in bf16,
+               decode_attention_int4 at B = 16, H = 32, D = 128 and
                64 with a ragged mask, cache_write_int4 byte for byte,
                decode_attention_int8 at the ASR path's B = 256, H = 8, cap
                750 and Moshi's B = 16, H = 32, cap 3000, D = 128 and 64, a
@@ -20,7 +21,9 @@ Phases, each printing its own line(s):
                CUDA-graph-replay times (operands cold in L2) of each kernel,
                its plain version and one PyTorch library call for the same
                work, beside the least time the card could take (bound); the
-               two q4 kernels at B = 1, 2, 4, 8, 16 (their crossover);
+               two q4 kernels and the two int8 kernels at B = 1, 2, 4, 8, 16
+               (their crossovers); one launch's floor (int8_mma and
+               torch.matmul at 16 x 64, beside a one-element add_);
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
                seed on the card; ServerState.warmup(), then 3 sessions of 40
@@ -28,7 +31,8 @@ Phases, each printing its own line(s):
                a seed).  Checks PCM, token ranges, that sessions 1 and 3
                agree, and that the kernel launch counts are exactly what the
                config implies per LMGen.step (the q4 linears on the q4_gemv
-               kernel at B = 1); prints the p50 ms per frame;
+               kernel at B = 1, the int8 ones on int8_mma); prints the p50
+               ms per frame;
   5. batched - the same weights with the int4 KV cache, B = 16 slots of
                BatchedMoshiState: a greedy run of 40 frames whose slots
                must agree token for token (two slots with one PCM, a slot
@@ -36,7 +40,8 @@ Phases, each printing its own line(s):
                reset at frame 20 that replays the PCM from the start), then
                a sampled run of 40 frames on all 16 slots (p50/p90 ms per
                batched frame), each with exact launch counts per frame of
-               the kernels (the q4 linears on q4_mma at B = 16); then a
+               the kernels (the q4 linears on q4_mma and the int8 ones on
+               int8_mma at B = 16); then a
                torch.profiler pass over a few frames for the card's busy
                time; then the greedy run once more with the int8 KV cache
                (32 decode_attention_int8 per frame);
@@ -81,8 +86,8 @@ ASR_DELAY = 6            # asr_delay_in_tokens: 0.5 s at 12.5 Hz
 ASR_COND = {"dim": 1024, "scale_factor": 1.0, "max_period": 10_000.0, "delay": 0.5}
 BATCHES = (1, 4, 9, 16)  # GEMV checks
 MMA_BATCHES = (2, 4, 9, 16)  # q4_mma checks (bf16 x only)
-TIMED_BATCHES = (1, SLOTS)
-CROSSOVER_BATCHES = (1, 2, 4, 8, SLOTS)  # both q4 kernels timed
+INT8_MMA_BATCHES = (1, 2, 4, 9, 16)  # int8_mma checks (bf16 x only)
+CROSSOVER_BATCHES = (1, 2, 4, 8, SLOTS)  # both kernels of each GEMV family timed
 # asr: factors of the seeded text head's columns of the end-pad (0) and pad
 # (3) ids.  The random model's hidden state varies little, so its greedy
 # stream settles on a few tokens and never emits a pad; with these factors
@@ -112,7 +117,10 @@ TPU_KERNELS = {
     # q4_mma on the tensor cores (bf16, B = MMA_MIN_BATCH..16)
     "q4_gemv": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     "q4_mma": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
-    "int8_gemv": "moshi_tpu/ops/qmatmul.py:48",  # qgemv
+    # qgemv: int8_gemv on the CUDA cores (f32), int8_mma on the tensor cores
+    # (bf16, B = 1..16)
+    "int8_gemv": "moshi_tpu/ops/qmatmul.py:48",
+    "int8_mma": "moshi_tpu/ops/qmatmul.py:48",
     "decode_attention_int4": "moshi_tpu/ops/int4_attention.py:165",
     "cache_write_int4": "moshi_tpu/ops/int4_attention.py:313",
     "decode_attention_int8": "moshi_tpu/ops/decode_attention.py:90",
@@ -203,29 +211,32 @@ def _check_against_plain(name, fn, plain, qt, x) -> float:
 def check_gemvs(dev, g, families=("q4", "int8")) -> list[dict]:
     """The weight-only GEMV kernels against their plain versions at every
     main-path shape: the q4_gemv and int8_gemv kernels at BATCHES in bf16
-    and f32, q4_mma at MMA_BATCHES in bf16.  Then, at the main paths'
-    operands (bf16, weights cold in L2), each kernel's time beside its
-    plain version's, torch.matmul's on the bf16 weights and the bound,
-    summed over one frame's launches (Q4_SHAPES / INT8_SHAPES counts): at
-    CROSSOVER_BATCHES for the two q4 kernels, at TIMED_BATCHES for
-    int8_gemv.  Returns a row per kernel."""
-    from moshi_tpu_torch.ops.q4matmul import (MMA_MIN_BATCH, q4_gemv_kernel, q4_gemv_plain,
-                                              q4_mma)
-    from moshi_tpu_torch.ops.qmatmul import int8_gemv, int8_gemv_plain
+    and f32, q4_mma at MMA_BATCHES and int8_mma at INT8_MMA_BATCHES in
+    bf16.  Then, at the main paths' operands (bf16, weights cold in L2),
+    each kernel's time beside its plain version's, torch.matmul's on the
+    bf16 weights and the bound, summed over one frame's launches (Q4_SHAPES
+    / INT8_SHAPES counts) at CROSSOVER_BATCHES, and each family's
+    crossover.  Returns a row per kernel."""
+    from moshi_tpu_torch.ops import q4matmul, qmatmul
     from moshi_tpu_torch.utils.quantize import (dequantize, dequantize4, quantize_tensor,
                                                 quantize_tensor4)
 
     both = (torch.bfloat16, torch.float32)
     # family -> ({kernel: (wrapper, checked dtypes, checked batches)}, plain
     # version, quantizer, dequantizer, shapes, timed batches)
-    table = {"q4": ({"q4_gemv": (q4_gemv_kernel, both, BATCHES),
-                     "q4_mma": (q4_mma, (torch.bfloat16,), MMA_BATCHES)},
-                    q4_gemv_plain, quantize_tensor4, dequantize4, Q4_SHAPES, CROSSOVER_BATCHES),
-             "int8": ({"int8_gemv": (int8_gemv, both, BATCHES)}, int8_gemv_plain,
-                      quantize_tensor, dequantize, INT8_SHAPES, TIMED_BATCHES)}
+    table = {"q4": ({"q4_gemv": (q4matmul.q4_gemv_kernel, both, BATCHES),
+                     "q4_mma": (q4matmul.q4_mma, (torch.bfloat16,), MMA_BATCHES)},
+                    q4matmul.q4_gemv_plain, quantize_tensor4, dequantize4, Q4_SHAPES,
+                    q4matmul.MMA_MIN_BATCH),
+             "int8": ({"int8_gemv": (qmatmul.int8_gemv_kernel, both, BATCHES),
+                       "int8_mma": (qmatmul.int8_mma, (torch.bfloat16,), INT8_MMA_BATCHES)},
+                      qmatmul.int8_gemv_plain, quantize_tensor, dequantize, INT8_SHAPES,
+                      qmatmul.MMA_MIN_BATCH)}
     rows = []
     for family in families:
-        kernels, plain, quant, deq, shapes, timed = table[family]
+        kernels, plain, quant, deq, shapes, min_batch = table[family]
+        simt, mma = kernels
+        timed = CROSSOVER_BATCHES
         max_abs = dict.fromkeys(kernels, 0.0)
         per_frame = {k: {B: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
                          for B in timed} for k in kernels}
@@ -267,19 +278,40 @@ def check_gemvs(dev, g, families=("q4", "int8")) -> list[dict]:
                   "by_shape": by_shape[name],
                   "bound_by": "operations" if bound_by == {"operations"} else "bytes"}
                  for name in kernels]
-        if family == "q4":
-            faster = []
-            for B in timed:
-                t = {k: per_frame[k][B] for k in kernels}
-                if t["q4_mma"]["ms"] < t["q4_gemv"]["ms"]:
-                    faster.append(B)
-                phase("kernels", f"q4 per frame ({sum(shapes.values())} launches) B={B}: "
-                      f"q4_gemv kernel {t['q4_gemv']['ms']:.3f} ms, q4_mma "
-                      f"{t['q4_mma']['ms']:.3f} ms, torch.matmul on bf16 "
-                      f"{t['q4_mma']['library_ms']:.3f} ms, bound {t['q4_mma']['bound_ms']:.3f} ms")
-            phase("kernels", f"q4 crossover: q4_mma faster at B = {faster}; the route sends "
-                  f"bf16 B >= MMA_MIN_BATCH = {MMA_MIN_BATCH} to q4_mma")
+        if family == "int8":
+            rows[-1]["launch_floor_ms"] = launch_floor_ms(dev, g)
+        faster = []
+        for B in timed:
+            t = {k: per_frame[k][B] for k in kernels}
+            if t[mma]["ms"] < t[simt]["ms"]:
+                faster.append(B)
+            phase("kernels", f"{family} per frame ({sum(shapes.values())} launches) B={B}: "
+                  f"{simt} kernel {t[simt]['ms']:.3f} ms, {mma} {t[mma]['ms']:.3f} ms, "
+                  f"torch.matmul on bf16 {t[mma]['library_ms']:.3f} ms, bound "
+                  f"{t[mma]['bound_ms']:.3f} ms")
+        phase("kernels", f"{family} crossover: {mma} faster at B = {faster}; the route sends "
+              f"bf16 B >= MMA_MIN_BATCH = {min_batch} to {mma}")
     return rows
+
+
+def launch_floor_ms(dev, g) -> dict:
+    """What one launch costs whatever its work: int8_mma and torch.matmul
+    on bf16 at the smallest shape int8_mma takes (16 x 64: one block),
+    operands hot in L2, at B = 1 and SLOTS, beside a one-element add_."""
+    from moshi_tpu_torch.ops.qmatmul import int8_mma
+    from moshi_tpu_torch.utils.quantize import dequantize, quantize_tensor
+
+    qt = quantize_tensor(torch.randn(16, 64, device=dev, generator=g))
+    dense = dequantize(qt.q, qt.scale, torch.bfloat16)
+    one = torch.zeros(1, device=dev)
+    t = {"add_": time_ms(lambda t_: t_.add_(1), [(one,)])}
+    for B in (1, SLOTS):
+        x = torch.randn(B, 16, device=dev, generator=g).to(torch.bfloat16)
+        t[f"int8_mma B={B}"] = time_ms(int8_mma, [(x, qt.q, qt.scale)])
+        t[f"torch.matmul B={B}"] = time_ms(torch.matmul, [(x, dense)])
+    phase("kernels", "one launch's floor (16 x 64, operands hot in L2): "
+          + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in t.items()))
+    return t
 
 
 def int8pack_ms(qt, din, dev, g):
@@ -488,10 +520,11 @@ def per_step_launches(cfg, params, batch: int) -> dict:
     temporal linear once per layer plus the text head, each on the kernel
     that q4matmul.use_mma picks for bf16 x of `batch` rows; each int8
     depformer linear once per layer and codebook, plus depformer_in and the
-    output head per codebook; with the int4 KV cache, one
+    output head per codebook, each on the kernel that qmatmul.use_mma
+    picks; with the int4 KV cache, one
     decode_attention_int4 per layer and one cache_write_int4; with the int8
     KV cache, one decode_attention_int8 per layer."""
-    from moshi_tpu_torch.ops.q4matmul import use_mma
+    from moshi_tpu_torch.ops import q4matmul, qmatmul
     from moshi_tpu_torch.utils.quantize import QTensor, QTensor4
 
     layers = params["transformer"]["layers"]
@@ -505,14 +538,20 @@ def per_step_launches(cfg, params, batch: int) -> dict:
                                                        params["linears"]["weight"]]])
     if not all(kinds):
         raise RuntimeError("the quantized tree is not q4 temporal / int8 depformer")
-    per_step = {"q4_gemv": 0, "q4_mma": 0,
-                "int8_gemv": cfg.depformer_num_layers * len(dep) * cfg.dep_q + 2 * cfg.dep_q}
+    per_step = dict.fromkeys(("q4_gemv", "q4_mma", "int8_gemv", "int8_mma"), 0)
     for w, n in [(w, cfg.num_layers) for w in temporal] + [(params["text_linear"]["weight"], 1)]:
         dout = w.q.shape[-1]
         gs = 2 * w.q.shape[-2] // w.scale.shape[-3]
-        per_step["q4_mma" if use_mma(batch, torch.bfloat16, gs, dout) else "q4_gemv"] += n
+        per_step["q4_mma" if q4matmul.use_mma(batch, torch.bfloat16, gs, dout)
+                 else "q4_gemv"] += n
+    for w, n in ([(w, cfg.depformer_num_layers * cfg.dep_q) for w in dep]
+                 + [(params["depformer_in"]["weight"], cfg.dep_q),
+                    (params["linears"]["weight"], cfg.dep_q)]):
+        din, dout = w.q.shape[-2:]
+        per_step["int8_mma" if qmatmul.use_mma(batch, torch.bfloat16, din, dout)
+                 else "int8_gemv"] += n
     if (per_step["q4_gemv"] + per_step["q4_mma"] != sum(Q4_SHAPES.values())
-            or per_step["int8_gemv"] != sum(INT8_SHAPES.values())):
+            or per_step["int8_gemv"] + per_step["int8_mma"] != sum(INT8_SHAPES.values())):
         raise RuntimeError(f"launches per step {per_step} do not match the shape tables")
     int4 = cfg.kv_cache_dtype == "int4"
     per_step["decode_attention_int4"] = cfg.num_layers if int4 else 0
@@ -526,8 +565,9 @@ def counters() -> dict:
     from moshi_tpu_torch.ops.decode_attention import decode_attention_int8
     from moshi_tpu_torch.ops.int4_attention import cache_write_int4, decode_attention_int4_stats
     from moshi_tpu_torch.ops.q4matmul import q4_gemv, q4_mma
-    from moshi_tpu_torch.ops.qmatmul import int8_gemv
+    from moshi_tpu_torch.ops.qmatmul import int8_gemv, int8_mma
     return {"q4_gemv": q4_gemv, "q4_mma": q4_mma, "int8_gemv": int8_gemv,
+            "int8_mma": int8_mma,
             "decode_attention_int4": decode_attention_int4_stats,
             "cache_write_int4": cache_write_int4,
             "decode_attention_int8": decode_attention_int8}
@@ -732,8 +772,8 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
     cfg = replace(lm_config_v0_1(), kv_cache_dtype="int4")
     lm = LMModel(cfg)
     expected = per_step_launches(cfg, lm_params, SLOTS)
-    if expected["q4_gemv"]:
-        raise RuntimeError(f"the B = {SLOTS} frame would run the q4_gemv kernel: {expected}")
+    if expected["q4_gemv"] or expected["int8_gemv"]:
+        raise RuntimeError(f"the B = {SLOTS} frame would run a CUDA-core GEMV kernel: {expected}")
 
     # 1. greedy isolation run
     greedy_launches = greedy_isolation(dev, lm, lm_params, mimi, mimi_params, "greedy")
@@ -958,8 +998,8 @@ def main() -> None:
     for name, log in logs.items():
         regs, spills = ptxas_summary(log)
         phase("build", f"{name}: max {regs} registers, {spills} bytes of spill stores")
-        if name == "q4_mma" and spills:
-            raise RuntimeError("q4_mma spills registers")
+        if name in ("q4_mma", "int8_mma") and spills:
+            raise RuntimeError(f"{name} spills registers")
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     gemvs = check_gemvs(dev, g)
@@ -988,7 +1028,8 @@ def main() -> None:
     # for the q4_gemv kernel, a B = 16 batched frame for q4_mma, int8_gemv,
     # decode_attention_int4 and cache_write_int4, a B = 256 ASR frame for
     # decode_attention_int8; "per_frame_by_batch" has the GEMVs' frames at
-    # each batch timed
+    # each batch timed (the int8_gemv kernel runs no launch of either path:
+    # its row is its B = 16 frame, beside int8_mma's)
     for k in gemvs:
         main_b = 1 if k["name"] == "q4_gemv" else SLOTS
         kernels.append({**k["per_frame"][main_b], "per_frame_by_batch": k["per_frame"],

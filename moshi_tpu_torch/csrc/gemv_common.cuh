@@ -1,6 +1,8 @@
-// Shared pieces of the weight-only GEMV kernels (q4_gemv.cu, int8_gemv.cu).
+// Shared pieces of the weight-only GEMV kernels: the CUDA-core ones
+// (q4_gemv.cu, int8_gemv.cu) and the mma.sync of the tensor-core ones
+// (q4_mma.cu, int8_mma.cu).
 //
-// Both kernels compute y[B, dout] = x[B, din] @ W[din, dout] for a small
+// The CUDA-core kernels compute y[B, dout] = x[B, din] @ W[din, dout] for a small
 // batch B (1..kMaxBatch) over weights stored dout-contiguous, the layout of
 // moshi_tpu's QTensor / QTensor4.  Each thread owns kCols neighbouring output
 // columns and reads their packed bytes as one 32-bit word per weight row, so
@@ -67,6 +69,17 @@ void launch_reduce(const float* partial, const float* scale, T* out, int splits,
                    int n, int dout, cudaStream_t stream) {
   reduce_splits<T><<<(n + 255) / 256, 256, 0, stream>>>(partial, scale, out,
                                                          splits, n, dout);
+}
+
+// ---- the tensor-core kernels: mma.sync.m16n8k16 with bf16 operands
+
+// d += a @ b on one m16n8k16 tile, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace gemv

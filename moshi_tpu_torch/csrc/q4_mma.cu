@@ -52,6 +52,8 @@
 
 namespace {
 
+using gemv::mma_bf16;
+
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTiles = 8;                        // n8 tiles per warp
@@ -63,15 +65,6 @@ constexpr int kPad = 8;                          // bf16 padding of a staged x r
 constexpr uint32_t kBias = 0x88888888u;          // nibble v -> v ^ 8 = signed v + 8
 constexpr uint32_t kBf16Pair128 = 0x43004300u;   // bf16 (128, 128)
 constexpr uint32_t kBf16Pair136 = 0x43084308u;   // bf16 (136, 136)
-
-// d += a @ b on one m16n8k16 tile, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The lane's 8 bytes of one packed row: read once, so not kept in L1, and
 // with a 256-byte L2 prefetch, so that the neighbouring warps' bytes of the

@@ -42,6 +42,8 @@ SIGNATURES = {
     # x, q, scale, out, partial, batch, din, dout, rows_per_split, splits,
     # x_is_bf16, stream
     "int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, scale, out, batch, din, dout, rows_per_block, cluster, stream
+    "int8_mma": [_P] * 4 + [_I] * 5 + [_P],
     # q, k_all, v_all, k_scale, v_scale, mask, acc, m, l, layer, B, H, Hkv, D,
     # cap, cap_pad, stream
     "decode_attention_int4": [_P] * 9 + [_I] * 7 + [_P],

@@ -1,10 +1,11 @@
-"""int8 weight-only GEMV: the wrapper of the CUDA kernel `csrc/int8_gemv.cu`
-and its plain PyTorch version.
+"""int8 weight-only GEMV: the wrappers of the CUDA kernels
+`csrc/int8_gemv.cu` and `csrc/int8_mma.cu` and their plain PyTorch version.
 
 Counterpart of moshi_tpu/ops/qmatmul.py (`qgemv`) and of what `wdot` does
-for a `QTensor` (moshi_tpu/utils/matmul.py:83).  On a CPU tensor
-`int8_gemv` runs `int8_gemv_plain`; on a CUDA tensor it launches the kernel
-or raises.
+for a `QTensor` (moshi_tpu/utils/matmul.py:83).  `int8_gemv` is the entry
+point: on a CPU tensor it runs `int8_gemv_plain`; on a CUDA tensor it
+launches `int8_mma` (tensor cores) where `use_mma` says so and the
+`int8_gemv` kernel (CUDA cores) otherwise, or raises.
 """
 
 import math
@@ -13,9 +14,14 @@ import torch
 
 from ..utils.quantize import dequantize
 from . import build
-from .q4matmul import BLOCK_COLS, MAX_BATCH, _num_sms, max_split_rows
+from .q4matmul import BLOCK_COLS, MAX_BATCH, MMA_WARP_COLS, _check_cuda, _num_sms, max_split_rows
 
-ROW_GRAIN = 32  # din rows per split are a multiple of this
+ROW_GRAIN = 32  # din rows per split of the int8_gemv kernel are a multiple of this
+# int8_mma takes bf16 calls of MMA_MIN_BATCH..MAX_BATCH rows
+MMA_MIN_BATCH = 1
+MMA_BLOCK_COLS = MMA_WARP_COLS  # int8_mma.cu kBlockCols: one warp's 64 columns
+MMA_MAX_CLUSTER = 8             # int8_mma.cu kMaxCluster: the portable cluster size
+MMA_BLOCKS_PER_SM = 2           # int8_mma_plan fills about this many blocks per SM
 
 
 def int8_gemv_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -35,6 +41,27 @@ def plan_splits(din: int, dout: int, num_sms: int, batch: int = 1) -> tuple[int,
     return rows, -(-din // rows)
 
 
+def int8_mma_plan(din: int, dout: int, num_sms: int) -> tuple[int, int]:
+    """(cluster, rows_per_block) of int8_mma: each MMA_BLOCK_COLS-column
+    tile is a cluster of blocks that split din, as many as bring the grid to
+    about MMA_BLOCKS_PER_SM blocks per SM, at most MMA_MAX_CLUSTER and at
+    most one per k16 step; rows_per_block is a multiple of 16 and the last
+    rank is the only short one."""
+    col_blocks = -(-dout // MMA_BLOCK_COLS)
+    steps = din // 16
+    cluster = max(1, min(-(-MMA_BLOCKS_PER_SM * num_sms // col_blocks), MMA_MAX_CLUSTER, steps))
+    rows = -(-steps // cluster) * 16
+    return -(-din // rows), rows
+
+
+def use_mma(batch: int, dtype: torch.dtype, din: int, dout: int) -> bool:
+    """Whether a CUDA call of int8_gemv goes to int8_mma: bf16 x of
+    MMA_MIN_BATCH..MAX_BATCH rows, din a multiple of 16, dout a multiple of
+    MMA_WARP_COLS."""
+    return (dtype == torch.bfloat16 and MMA_MIN_BATCH <= batch <= MAX_BATCH
+            and din % 16 == 0 and dout % MMA_WARP_COLS == 0)
+
+
 def _check(x, q, scale):
     if not (x.device == q.device == scale.device):
         raise ValueError(f"int8_gemv: tensors on {x.device}, {q.device}, {scale.device}")
@@ -48,7 +75,19 @@ def _check(x, q, scale):
 
 def int8_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [B, din] bf16/f32; q [din, dout] int8; scale [1, dout] f32 ->
-    [B, dout] in x.dtype."""
+    [B, dout] in x.dtype.  The `int8_gemv` kernel's launches are counted in
+    `int8_gemv.launches`, int8_mma's in `int8_mma.launches`."""
+    _check(x, q, scale)
+    if x.device.type == "cpu":
+        return int8_gemv_plain(x, q, scale)
+    if use_mma(x.shape[0], x.dtype, x.shape[1], q.shape[1]):
+        return int8_mma(x, q, scale)
+    return int8_gemv_kernel(x, q, scale)
+
+
+def int8_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8_gemv's function through the `int8_gemv` kernel (CUDA cores),
+    whatever `use_mma` says; on a CPU tensor the plain version."""
     _check(x, q, scale)
     if x.device.type == "cpu":
         return int8_gemv_plain(x, q, scale)
@@ -80,7 +119,37 @@ def int8_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     return out
 
 
+def int8_mma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8_gemv's function through the `int8_mma` kernel (tensor cores): x
+    bf16 of 1..MAX_BATCH rows, 8-byte aligned, din a multiple of 16, dout a
+    multiple of MMA_WARP_COLS; on a CPU tensor the plain version."""
+    _check(x, q, scale)
+    if x.device.type == "cpu":
+        return int8_gemv_plain(x, q, scale)
+    _check_cuda("int8_mma", x, q, scale, 8)
+    B, din = x.shape
+    dout = q.shape[1]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"int8_mma: x dtype {x.dtype}, not bfloat16")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"int8_mma: batch {B} outside 1..{MAX_BATCH}")
+    if din % 16 or dout % MMA_WARP_COLS:
+        raise ValueError(f"int8_mma: din {din} must be a multiple of 16, dout {dout} a "
+                         f"multiple of {MMA_WARP_COLS}")
+    if x.data_ptr() % 8:
+        raise ValueError("int8_mma: x must be 8-byte aligned")
+    cluster, rows = int8_mma_plan(din, dout, _num_sms(x.device.index or 0))
+    out = torch.empty((B, dout), dtype=torch.bfloat16, device=x.device)
+    lib = build.load("int8_mma")
+    err = lib.int8_mma(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), B, din,
+                       dout, rows, cluster, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "int8_mma")
+    int8_mma.launches += 1
+    return out
+
+
 int8_gemv.launches = 0
+int8_mma.launches = 0
 
 
 def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,12 @@ pytestmark = pytest.mark.cuda
 # max |kernel - plain| / max |plain|: f32 differs by summation order only,
 # bf16 by the plain version's bf16 rounding of the dequantized weights
 BOUND = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the q4 entry point (bf16 B >= 2 goes to q4_mma) and the int8_gemv kernel
+# on the CUDA cores (int8_mma has its own tests below)
 KERNELS = {"q4": (q4matmul.q4_gemv, q4matmul.q4_gemv_plain, tq.quantize_tensor4),
-           "int8": (qmatmul.int8_gemv, qmatmul.int8_gemv_plain, tq.quantize_tensor)}
+           "int8": (qmatmul.int8_gemv_kernel, qmatmul.int8_gemv_plain, tq.quantize_tensor)}
+# the wrapper whose `launches` counts each family's CUDA-core kernel
+COUNTED = {"q4": q4matmul.q4_gemv, "int8": qmatmul.int8_gemv}
 
 
 @pytest.fixture
@@ -77,15 +81,18 @@ def test_stacked_member_view(gen):
 def test_deterministic_and_counted(kernel, gen):
     """Two launches give the same bits (no atomics), and each adds one to
     the launch count of the kernel it went to: where q4_gemv routes bf16 at
-    B = 2 to q4_mma, the q4_gemv kernel's count stays."""
+    B = 2 to q4_mma, the q4_gemv kernel's count stays; the int8_gemv
+    kernel's wrapper counts on int8_gemv, never on int8_mma."""
     fn, _, quant = KERNELS[kernel]
+    counted = COUNTED[kernel]
     qt = quant(torch.randn(4096, 1024, device="cuda", generator=gen))
     x = torch.randn(2, 4096, device="cuda", generator=gen).to(torch.bfloat16)
-    n, m = fn.launches, q4matmul.q4_mma.launches
+    n, m, m8 = counted.launches, q4matmul.q4_mma.launches, qmatmul.int8_mma.launches
     a, b = fn(x, qt.q, qt.scale), fn(x, qt.q, qt.scale)
     assert torch.equal(a, b)
     to_mma = kernel == "q4" and q4matmul.use_mma(2, torch.bfloat16, 32, 1024)
-    assert (fn.launches, q4matmul.q4_mma.launches) == ((n, m + 2) if to_mma else (n + 2, m))
+    assert (counted.launches, q4matmul.q4_mma.launches) == ((n, m + 2) if to_mma else (n + 2, m))
+    assert qmatmul.int8_mma.launches == m8
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
@@ -205,6 +212,121 @@ def test_q4_mma_rejects_what_the_kernel_does_not_take(gen):
         MMA(x, qt.q.cpu(), qt.scale)                     # mixed devices
     with pytest.raises(ValueError):
         MMA(torch.randn(256, 4, device="cuda").to(torch.bfloat16).T, qt.q, qt.scale)
+
+
+# int8_mma (tensor cores): bf16 x only; the Moshi-7B depformer's shapes
+# (din, dout) of the int8 linears
+MMA8 = qmatmul.int8_mma
+INT8_MAIN_SHAPES = [(1024, 3072), (1024, 1024), (1024, 5632), (2816, 1024), (1024, 2048),
+                    (4096, 1024)]
+
+
+def _mma8_case(gen, B, din, dout):
+    qt = tq.quantize_tensor(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
+    x = torch.randn(B, din, device="cuda", generator=gen).to(torch.bfloat16)
+    return x, qt
+
+
+@pytest.mark.parametrize("B", range(1, 17))
+def test_int8_mma_every_batch_size(B, gen):
+    x, qt = _mma8_case(gen, B, 1024, 1536)
+    n = MMA8.launches
+    y = MMA8(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert MMA8.launches == n + 1
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (B, 1536)
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+
+
+@pytest.mark.parametrize("B,din,dout", [(3, 1008, 192), (9, 2064, 64), (7, 16, 64),
+                                        (16, 4160, 8256), (5, 48, 128)])
+def test_int8_mma_ragged_shapes(B, din, dout, gen):
+    """A last cluster rank shorter than the others (1008 rows in 8 ranks of
+    128, 2064 in 8 of 272), one block (din = 16), a wide layer, a cluster of
+    3 one-step ranks."""
+    x, qt = _mma8_case(gen, B, din, dout)
+    y = MMA8(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+
+
+def test_int8_mma_stacked_member_view(gen):
+    """int8_mma on the view q[l] of a stacked weight reads member l."""
+    qt = tq.quantize_tensor(torch.randn(3, 1, 512, 768, device="cuda", generator=gen))
+    x = torch.randn(16, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    for layer in range(3):
+        y = MMA8(x, qt.q[layer][0], qt.scale[layer][0])
+        ref = qmatmul.int8_gemv_plain(x, qt.q[layer][0], qt.scale[layer][0])
+        assert _rel(y, ref) <= BOUND[torch.bfloat16]
+
+
+def test_int8_mma_deterministic_and_counted(gen):
+    """Two launches give the same bits (the din split added in a fixed
+    order, no atomics); each adds one to int8_mma's count and none to the
+    int8_gemv kernel's."""
+    x, qt = _mma8_case(gen, 16, 4096, 1024)
+    n, m = qmatmul.int8_gemv.launches, MMA8.launches
+    a, b = MMA8(x, qt.q, qt.scale), MMA8(x, qt.q, qt.scale)
+    assert torch.equal(a, b)
+    assert (qmatmul.int8_gemv.launches, MMA8.launches) == (n, m + 2)
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("din,dout", INT8_MAIN_SHAPES)
+def test_int8_mma_main_path_shapes(din, dout, B, gen):
+    """B = 1 and 16 at the depformer's shapes, through the entry point
+    int8_gemv (the route both frames take), against the plain version and
+    against the int8_gemv kernel on the same operands."""
+    x, qt = _mma8_case(gen, B, din, dout)
+    assert qmatmul.use_mma(B, torch.bfloat16, din, dout)
+    n, m = qmatmul.int8_gemv.launches, MMA8.launches
+    y = qmatmul.int8_gemv(x, qt.q, qt.scale)
+    assert (qmatmul.int8_gemv.launches, MMA8.launches) == (n, m + 1)
+    simt = qmatmul.int8_gemv_kernel(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+    assert _rel(y, simt) <= BOUND[torch.bfloat16]
+
+
+def test_int8_mma_rejects_what_the_kernel_does_not_take(gen):
+    x, qt = _mma8_case(gen, 4, 256, 128)
+    with pytest.raises(TypeError):
+        MMA8(x.float(), qt.q, qt.scale)                  # f32 activations
+    with pytest.raises(ValueError):
+        MMA8(torch.cat([x] * 5), qt.q, qt.scale)         # batch above 16
+    x96, q96 = _mma8_case(gen, 4, 256, 96)
+    with pytest.raises(ValueError):
+        MMA8(x96, q96.q, q96.scale)                      # dout not a multiple of 64
+    x24, q24 = _mma8_case(gen, 4, 24, 128)
+    with pytest.raises(ValueError):
+        MMA8(x24, q24.q, q24.scale)                      # din not a multiple of 16
+    with pytest.raises(ValueError):
+        MMA8(x, qt.q.cpu(), qt.scale)                    # mixed devices
+    with pytest.raises(ValueError):
+        MMA8(torch.randn(256, 4, device="cuda").to(torch.bfloat16).T, qt.q, qt.scale)
+    odd = torch.zeros(4 * 256 + 1, device="cuda", dtype=torch.bfloat16)[1:].view(4, 256)
+    with pytest.raises(ValueError):
+        MMA8(odd, qt.q, qt.scale)                        # x not 8-byte aligned
+
+
+def test_int8_mma_c_entry_rejects_what_it_does_not_take(gen):
+    """The C entry returns cudaErrorInvalidValue (1) and launches nothing
+    for what the wrapper would not pass on."""
+    from moshi_tpu_torch.ops import build
+    x, qt = _mma8_case(gen, 16, 256, 128)
+    out = torch.empty(16, 128, device="cuda", dtype=torch.bfloat16)
+    lib = build.load("int8_mma")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(batch=16, din=256, dout=128, rows=128, cluster=2, xp=0, qp=0, sp=0):
+        return lib.int8_mma(x.data_ptr() + xp, qt.q.data_ptr() + qp, qt.scale.data_ptr() + sp,
+                            out.data_ptr(), batch, din, dout, rows, cluster, stream)
+    assert call() == 0
+    for bad in ({"batch": 0}, {"batch": 17}, {"dout": 96}, {"din": 248}, {"rows": 120},
+                {"cluster": 9}, {"cluster": 1}, {"xp": 2}, {"qp": 4}, {"sp": 4}):
+        assert call(**bad) == 1, bad
+    torch.cuda.synchronize()
+    assert _rel(out, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
 
 
 def _int4_cache(gen, L, B, Hkv, D, cap_pad):

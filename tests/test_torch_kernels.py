@@ -1,11 +1,13 @@
 """The port's weight-only GEMV wrappers and quantizers against moshi_tpu.
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
-against the Pallas kernels in interpret mode (q4) and against the function
-the JAX main path calls (`wdot` on a QTensor: qgemv has no interpret
-switch).  The CUDA kernels themselves are checked on the card by the kernel
-phase of chip_smoke.py and by tests/test_torch_cuda.py."""
+against the Pallas kernels in interpret mode (q4gemm and q4gemm_stacked
+through their `interpret` switch, qgemv through the `pallas_interpret`
+fixture) and against the function the JAX main path calls (`wdot` on a
+QTensor).  The CUDA kernels themselves are checked on the card by the
+kernel phase of chip_smoke.py and by tests/test_torch_cuda.py."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -15,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from jax.experimental import pallas as pl
 from moshi_tpu.ops.q4matmul import q4gemm, q4gemm_stacked
+from moshi_tpu.ops.qmatmul import qgemv
 from moshi_tpu.utils import quantize as jq
 from moshi_tpu.utils.matmul import wdot as jax_wdot
 from moshi_tpu_torch.ops import q4matmul, qmatmul
@@ -274,3 +278,80 @@ def test_split_plans_fit_the_staging_limit(batch):
         rows, splits = qmatmul.plan_splits(din, dout, 132, batch)
         assert 4 * batch * rows <= limit and rows % qmatmul.ROW_GRAIN == 0
         assert (splits - 1) * rows < din <= splits * rows
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """Run moshi_tpu's Pallas kernels in interpret mode on the CPU."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call,
+                                                             interpret=True))
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_int8_plain_matches_pallas_qgemv(B, pallas_interpret):
+    """The plain int8 version against the Pallas qgemv itself (interpret
+    mode), bf16, at 128 x 128 blocks: 2 x 3 grid steps."""
+    rs = np.random.RandomState(B)
+    qt = jq.quantize_tensor(jnp.asarray(rs.randn(256, 384).astype(np.float32)))
+    x = jnp.asarray(rs.randn(B, 256).astype(np.float32), jnp.bfloat16)
+    y_ref = qgemv(x, qt.q, qt.scale, block_in=128, block_out=128)
+    y = qmatmul.int8_gemv_plain(_t(x), _t(qt.q), _t(qt.scale))
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (B, 384)
+    assert rel_err(to_np(y), y_ref) <= BOUND["bf16"]
+
+
+INT8_MAIN_SHAPES = ((1024, 3072), (1024, 1024), (1024, 5632), (2816, 1024), (1024, 2048),
+                    (4096, 1024))
+
+
+@pytest.mark.parametrize("din,dout", INT8_MAIN_SHAPES)
+def test_route_sends_the_depformer_linears_to_int8_mma(din, dout):
+    """bf16 at B = 1 and B = 16 (both frames) at every int8 shape of
+    Moshi-7B goes to int8_mma; f32 x, B = 17, and a dout or din the kernel
+    does not take go to the int8_gemv kernel."""
+    bf16 = torch.bfloat16
+    for B in (1, 16, qmatmul.MMA_MIN_BATCH):
+        assert qmatmul.use_mma(B, bf16, din, dout)
+    assert not qmatmul.use_mma(16, torch.float32, din, dout)
+    assert not qmatmul.use_mma(1, torch.float16, din, dout)
+    assert not qmatmul.use_mma(17, bf16, din, dout)
+    assert not qmatmul.use_mma(16, bf16, din, dout + 32)   # dout % 64 != 0
+    assert not qmatmul.use_mma(16, bf16, din + 8, dout)    # din % 16 != 0
+    assert 1 <= qmatmul.MMA_MIN_BATCH <= q4matmul.MAX_BATCH
+
+
+@pytest.mark.parametrize("num_sms", [132, 114])
+def test_int8_mma_plans_cover_the_main_path_shapes(num_sms):
+    """int8_mma's clusters of the depformer's shapes cover din exactly, in
+    rows that are a multiple of 16 with only the last rank short, with at
+    most 8 blocks to a cluster."""
+    for din, dout in INT8_MAIN_SHAPES + ((16, 64), (1008, 192), (2064, 64)):
+        cluster, rows = qmatmul.int8_mma_plan(din, dout, num_sms)
+        assert 1 <= cluster <= qmatmul.MMA_MAX_CLUSTER == 8
+        assert rows % 16 == 0 and rows > 0
+        assert (cluster - 1) * rows < din <= cluster * rows
+
+
+def test_int8_mma_on_cpu_runs_the_plain_version():
+    """On CPU tensors int8_mma, the int8_gemv entry point and the int8_gemv
+    kernel's wrapper compute the plain version and count no launch."""
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(16, 256).astype(np.float32)).to(torch.bfloat16)
+    q8 = tq.quantize_tensor(torch.from_numpy(rs.randn(256, 128).astype(np.float32)))
+    counts = (qmatmul.int8_gemv.launches, qmatmul.int8_mma.launches)
+    ref = qmatmul.int8_gemv_plain(x, q8.q, q8.scale)
+    for fn in (qmatmul.int8_mma, qmatmul.int8_gemv, qmatmul.int8_gemv_kernel):
+        assert torch.equal(fn(x, q8.q, q8.scale), ref)
+    assert (qmatmul.int8_gemv.launches, qmatmul.int8_mma.launches) == counts
+    with pytest.raises(ValueError):
+        qmatmul.int8_mma(x[:, :128], q8.q, q8.scale)
+
+
+def test_int8_mma_is_built_by_name():
+    """int8_mma is a kernel of the build: its source and its C signature
+    (x, q, scale, out; batch, din, dout, rows_per_block, cluster; stream)."""
+    from moshi_tpu_torch.ops import build
+    assert (build.CSRC / "int8_mma.cu").is_file()
+    p, i = build.SIGNATURES["int8_gemv"][0], build.SIGNATURES["int8_gemv"][5]
+    assert build.SIGNATURES["int8_mma"] == [p] * 4 + [i] * 5 + [p]
+    assert build.library_path("int8_mma").name.startswith("int8_mma-")
