@@ -17,7 +17,9 @@ Phases, each printing its own line(s):
                64 with a ragged mask, cache_write_int4 byte for byte,
                decode_attention_int8 at the ASR path's B = 256, H = 8, cap
                750 and Moshi's B = 16, H = 32, cap 3000, D = 128 and 64, a
-               ragged mask and a slot with every position masked; then
+               ragged mask and a slot with every position masked (at
+               Moshi's shape also a mask of positions 0..99 only), with
+               its plan (splits, cluster, warps, blocks per SM); then
                CUDA-graph-replay times (operands cold in L2) of each kernel,
                its plain version and one PyTorch library call for the same
                work, beside the least time the card could take (bound); the
@@ -44,7 +46,8 @@ Phases, each printing its own line(s):
                int8_mma at B = 16); then a
                torch.profiler pass over a few frames for the card's busy
                time; then the greedy run once more with the int8 KV cache
-               (32 decode_attention_int8 per frame);
+               (32 decode_attention_int8 per frame) and a profiler pass
+               over 5 of its frames;
   6. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
@@ -54,7 +57,9 @@ Phases, each printing its own line(s):
                words end), with exactly 16 decode_attention_int8 and no GEMV
                launches per frame, p50 / p75 / p90 ms per batched frame; 10
                frames of every slot for the host ms of the word trackers;
-               peak memory; a profiler pass.
+               peak memory; a profiler pass; then the greedy run once more
+               with decode_attention_int8_plain in the kernel's place, in
+               which slot 0 must say words too.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
@@ -91,9 +96,12 @@ CROSSOVER_BATCHES = (1, 2, 4, 8, SLOTS)  # both kernels of each GEMV family time
 # asr: factors of the seeded text head's columns of the end-pad (0) and pad
 # (3) ids.  The random model's hidden state varies little, so its greedy
 # stream settles on a few tokens and never emits a pad; with these factors
-# (found by trying factors on this seed) the pads win on some frames, words
-# end, and slot 0's session holds Word and EndWord messages.
-ASR_PAD_LOGIT_SCALE = {0: 25.0, 3: 50.0}
+# the pads win on some frames, words end, and slot 0's session holds Word
+# and EndWord messages.  The stream turns on near-ties, so it moves with
+# the attention's rounding: these factors gave slot 0 words with the kernel
+# of csrc/decode_attention_int8.cu, with its plain version and with the
+# kernel it replaced alike (PERF.md), and run_asr checks the plain one's.
+ASR_PAD_LOGIT_SCALE = {0: 15.0, 3: 60.0}
 # max |kernel - plain| / max |plain|
 BOUNDS = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # decode_attention_int4 takes q / sqrt(D) in bf16 (as the TPU kernel does):
@@ -459,34 +467,54 @@ def check_attention_int8(dev, g) -> dict:
     with every position masked (which must give 0); times per launch at
     D = 128 beside scaled_dot_product_attention on the dequantized bf16
     layer and the bound."""
-    from moshi_tpu_torch.ops.decode_attention import (decode_attention_int8 as k6,
-                                                      decode_attention_int8_plain as k6p)
     import torch.nn.functional as F
 
+    from moshi_tpu_torch.ops import decode_attention as da
+    from moshi_tpu_torch.ops.decode_attention import (decode_attention_int8 as k6,
+                                                      decode_attention_int8_plain as k6p)
+
     L, layer = 4, 3
-    max_abs, per_launch, bound_by = 0.0, {}, None
+    max_abs, per_launch, bound_by, plans = 0.0, {}, None, {}
     for path, (B, H, cap) in INT8_KV.items():
         for D in (128, 64):
             caches = random_int8_cache(g, L, B, cap, H, D, dev)
             q = torch.randn(B, H, D, device=dev, generator=g).to(torch.bfloat16)
             valid = torch.randint(1, cap + 1, (B,), device=dev, generator=g)
-            mask = ((torch.rand(B, cap, device=dev, generator=g) < 0.9)
-                    & (torch.arange(cap, device=dev)[None] < valid[:, None]))
-            mask[:, 0] = True
-            mask[0] = False
-            out = k6(q, layer, *caches, mask)
-            torch.cuda.synchronize()
-            ref = k6p(q, layer, *caches, mask)
-            err = rel_err(out[1:], ref[1:])
-            max_abs = max(max_abs, (out.float() - ref.float()).abs().max().item())
-            ok = (err <= ATTN_BOUND and bool(torch.isfinite(out).all())
-                  and bool((out[0] == 0).all()))
-            phase("kernels", f"decode_attention_int8 B={B} H={H} D={D} cap={cap} "
-                  f"layer={layer}: max rel err {err:.3e} (bound {ATTN_BOUND:.0e}), fully "
-                  f"masked slot {'0' if (out[0] == 0).all() else 'NOT 0'} "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise RuntimeError("decode_attention_int8 disagrees with its plain version")
+            ragged = ((torch.rand(B, cap, device=dev, generator=g) < 0.9)
+                      & (torch.arange(cap, device=dev)[None] < valid[:, None]))
+            ragged[:, 0] = True
+            # the Moshi ring's first 8 s: only positions 0..99 masked in, so
+            # every later split holds none
+            first100 = torch.zeros(B, cap, dtype=torch.bool, device=dev)
+            first100[:, :100] = True
+            masks = {"ragged": ragged, **({"first100": first100} if path == "moshi_b16" else {})}
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            splits, per, warps = da.plan_splits(B, H, D, cap, sms)
+            blocks = B * -(-H // da.heads_per_block(D)) * splits
+            plans[f"{path} D={D}"] = {"splits": splits, "cluster": splits, "per_split": per,
+                                      "warps": warps, "blocks": blocks,
+                                      "blocks_per_sm": blocks / sms}
+            phase("kernels", f"decode_attention_int8 {path} B={B} H={H} D={D} cap={cap} plan: "
+                  f"{splits} splits of {per} positions (clusters of {splits} blocks), "
+                  f"{blocks} blocks of {warps} warps and {da.heads_per_block(D)} heads, "
+                  f"{blocks / sms:.2f} blocks ({blocks * warps / sms:.1f} warps) per SM on "
+                  f"{sms} SMs")
+            for kind, mask in masks.items():
+                mask[0] = False
+                out = k6(q, layer, *caches, mask)
+                torch.cuda.synchronize()
+                ref = k6p(q, layer, *caches, mask)
+                err = rel_err(out[1:], ref[1:])
+                max_abs = max(max_abs, (out.float() - ref.float()).abs().max().item())
+                ok = (err <= ATTN_BOUND and bool(torch.isfinite(out).all())
+                      and bool((out[0] == 0).all()))
+                phase("kernels", f"decode_attention_int8 B={B} H={H} D={D} cap={cap} "
+                      f"layer={layer} {kind} mask: max rel err {err:.3e} (bound "
+                      f"{ATTN_BOUND:.0e}), fully masked slot "
+                      f"{'0' if (out[0] == 0).all() else 'NOT 0'} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError("decode_attention_int8 disagrees with its plain version")
+            mask = ragged
             if D != 128:
                 continue
             ops = [(q, li, *caches, mask) for li in range(L)]
@@ -511,7 +539,7 @@ def check_attention_int8(dev, g) -> dict:
         del caches
         torch.cuda.empty_cache()
     return {"per_launch": per_launch["asr"], "per_launch_by_shape": per_launch,
-            "bound_by": bound_by, "max_abs_err": max_abs}
+            "bound_by": bound_by, "max_abs_err": max_abs, "plans": plans}
 
 
 # ------------------------------------------------------------------ slice
@@ -718,10 +746,13 @@ def profile_frames(run_frame, n: int) -> dict:
             "top_device_ms_per_frame": top}
 
 
-def greedy_isolation(dev, lm, lm_params, mimi, mimi_params, what: str) -> dict:
+def greedy_isolation(dev, lm, lm_params, mimi, mimi_params, what: str,
+                     profile: bool = False) -> tuple[dict, dict | None]:
     """The greedy run of BatchedMoshiState at B = SLOTS over the isolation
-    script: token checks, exact launch counts per frame.  Returns the
-    launches."""
+    script: token checks, exact launch counts per frame.  With `profile`,
+    then 5 frames of every slot timed and 5 more under the profiler (card
+    busy ms, kernel ms per frame, idle share of those frames' p50).
+    Returns the launches and the profile (or None)."""
     from moshi_tpu_torch.serve.batched_moshi import BatchedMoshiState, serve_batched
 
     cfg = lm.config
@@ -756,9 +787,32 @@ def greedy_isolation(dev, lm, lm_params, mimi, mimi_params, what: str) -> dict:
           f"late), 3 (frozen on frames 10-14) and 4 (reset at frame 20) repeat slot 0's "
           f"tokens; {distinct} of {SLOTS - 5} other slots differ; launches "
           f"{launches} = per frame {expected} x {len(ms)}")
+    prof = None
+    if profile:
+        pcm = (0.1 * np.random.RandomState(SEED + 5).randn(10, SLOTS, 1, mimi.frame_size)
+               ).astype(np.float32)
+
+        def run_frame(i):
+            out, audio = state.frame(pcm[i], np.ones(SLOTS, bool))
+            out.cpu(), audio.cpu()
+        frame_ms = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            run_frame(i)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_frames(lambda i: run_frame(5 + i), 5)
+        prof["p50_ms"] = float(np.percentile(frame_ms, 50))
+        prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / prof["p50_ms"]
+        phase("batched", f"{what}, every slot, 5 frames: p50 {prof['p50_ms']:.2f} ms per "
+              f"batched frame; profiler over 5 more: card busy "
+              f"{prof['busy_ms_per_frame']:.2f} ms/frame, idle share "
+              f"{prof['idle_share']:.3f} (host {prof['host_ms_per_frame']:.2f} ms/frame under "
+              f"the profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}; "
+              f"{prof['device_ops_per_frame']:.0f} device ops/frame, the most costly "
+              f"{json.dumps(prof['top_device_ms_per_frame'])}")
     del state, sessions
     torch.cuda.empty_cache()
-    return launches
+    return launches, prof
 
 
 def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
@@ -776,7 +830,7 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
         raise RuntimeError(f"the B = {SLOTS} frame would run a CUDA-core GEMV kernel: {expected}")
 
     # 1. greedy isolation run
-    greedy_launches = greedy_isolation(dev, lm, lm_params, mimi, mimi_params, "greedy")
+    greedy_launches, _ = greedy_isolation(dev, lm, lm_params, mimi, mimi_params, "greedy")
 
     # 2. sampled run, every slot active
     state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
@@ -826,13 +880,14 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
 
     # 3. the greedy run with the int8 KV cache (the worker's kv_cache = "int8")
     lm8 = LMModel(replace(cfg, kv_cache_dtype="int8"))
-    int8_launches = greedy_isolation(dev, lm8, lm_params, mimi, mimi_params, "int8 greedy")
+    int8_launches, int8_prof = greedy_isolation(dev, lm8, lm_params, mimi, mimi_params,
+                                                "int8 greedy", profile=True)
     return {"launches": {"greedy": greedy_launches, "sampled": sampled_launches,
                          "int8_greedy": int8_launches},
             "per_frame": {"int4": expected,
                           "int8": per_step_launches(lm8.config, lm_params, SLOTS)},
             "p50_ms": p50, "p75_ms": p75, "p90_ms": p90, "frames": len(ms), "peak_gib": peak,
-            "profile": prof}
+            "profile": prof, "int8_profile": int8_prof}
 
 
 # -------------------------------------------------------------------- asr
@@ -872,12 +927,14 @@ def build_asr(dev):
     return asr, lm_params, mimi_params
 
 
-def run_asr(dev, card: str) -> dict:
-    """The batched STT path at B = ASR_SLOTS over the isolation script."""
+def asr_greedy(dev, asr, lm_params, mimi_params):
+    """A BatchedAsrState of `asr` and a warm-up (three zero frames on every
+    slot, then every session closed), then the greedy isolation run of the
+    batched phase's script, one frame per tick, with the launches counted.
+    Returns (state, sessions, ms, launches, peak GiB, same_as_0)."""
     from moshi_tpu_torch.serve.batched_asr import BatchedAsrState, serve_asr
 
-    asr, lm_params, mimi_params = build_asr(dev)
-    cfg, B, fs = asr.lm.config, ASR_SLOTS, asr.mimi.frame_size
+    B, fs = ASR_SLOTS, asr.mimi.frame_size
     state = BatchedAsrState(asr, mimi_params, lm_params)
     kv = state.state["transformer"]
     phase("asr", f"B = {B}, int8 KV cache {tuple(kv['k'].shape)} x 2 + bf16 scales "
@@ -895,13 +952,23 @@ def run_asr(dev, card: str) -> dict:
 
     # greedy isolation run: the batched phase's script, one frame per tick
     schedule, frames, same_as_0 = isolation_script(fs, B)
-    expected = {name: 0 for name in TPU_KERNELS}
-    expected["decode_attention_int8"] = cfg.num_layers
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     sessions, ms = serve_asr(state, schedule[:FRAMES], frames)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return state, sessions, ms, launches, peak, same_as_0
+
+
+def run_asr(dev, card: str) -> dict:
+    """The batched STT path at B = ASR_SLOTS over the isolation script, then
+    the same greedy run with the plain attention in the kernel's place."""
+    asr, lm_params, mimi_params = build_asr(dev)
+    state, sessions, ms, launches, peak, same_as_0 = asr_greedy(dev, asr, lm_params,
+                                                                mimi_params)
+    cfg, B, fs = asr.lm.config, ASR_SLOTS, asr.mimi.frame_size
+    expected = {name: 0 for name in TPU_KERNELS}
+    expected["decode_attention_int8"] = cfg.num_layers
     check_counts(launches, expected, len(ms), "asr greedy run")
     ref = sessions[0][0][0]
     if len(ms) != FRAMES or len(ref) != FRAMES:
@@ -969,12 +1036,42 @@ def run_asr(dev, card: str) -> dict:
           f"profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}; "
           f"{prof['device_ops_per_frame']:.0f} device ops/frame, the most costly "
           f"{json.dumps(prof['top_device_ms_per_frame'])}")
-    del state, asr, lm_params, mimi_params
+    del state
+    torch.cuda.empty_cache()
+
+    # The seeded random model's text stream turns on near-ties, so the
+    # kernel's rounding can move it.  A second witness: slot 0 must say
+    # words with the plain attention too, so the pad factors do not rest on
+    # one kernel's rounding; the frames up to the streams' first difference
+    # are printed.
+    from moshi_tpu_torch.modules import transformer
+    from moshi_tpu_torch.ops.decode_attention import decode_attention_int8_plain
+
+    transformer.decode_attention_int8 = decode_attention_int8_plain
+    try:
+        state, plain_sessions, _, plain_launches, _, _ = asr_greedy(dev, asr, lm_params,
+                                                                     mimi_params)
+    finally:
+        transformer.decode_attention_int8 = counters()["decode_attention_int8"]
+    plain_ref = plain_sessions[0][0][0]
+    plain_words = words(plain_sessions[0][0][1])
+    same = next((i for i in range(FRAMES) if plain_ref[i] != ref[i]), FRAMES)
+    phase("asr", f"the greedy run with decode_attention_int8_plain in the kernel's place: "
+          f"slot 0 says {len(plain_words)} Word / EndWord messages (with the kernel "
+          f"{len(ref_words)}); its text tokens equal the kernel run's for the first {same} of "
+          f"{FRAMES} frames")
+    if any(plain_launches.values()):
+        raise RuntimeError(f"asr: the plain run launched kernels: {plain_launches}")
+    if not plain_words:
+        raise RuntimeError("asr: with the plain attention slot 0 said no word, so the Word "
+                           "check rests on the kernel's rounding")
+    del state, plain_sessions, asr, lm_params, mimi_params
     torch.cuda.empty_cache()
     return {"launches": launches, "per_frame": expected, "p50_ms": p50, "p75_ms": p75,
             "p90_ms": p90, "frames": len(ms), "peak_gib": peak,
             "all_slots_p50_ms": full_p50,
-            "host_ms_p50": float(np.percentile(host, 50)), "profile": prof}
+            "host_ms_p50": float(np.percentile(host, 50)), "profile": prof,
+            "plain_witness": {"words": len(plain_words), "same_tokens_frames": same}}
 
 
 def main() -> None:
@@ -998,7 +1095,7 @@ def main() -> None:
     for name, log in logs.items():
         regs, spills = ptxas_summary(log)
         phase("build", f"{name}: max {regs} registers, {spills} bytes of spill stores")
-        if name in ("q4_mma", "int8_mma") and spills:
+        if name in ("q4_mma", "int8_mma", "decode_attention_int8") and spills:
             raise RuntimeError(f"{name} spills registers")
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1049,7 +1146,7 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "frame_p50_ms": p50,
                       "batched": {key: batched[key] for key in ("p50_ms", "p75_ms", "p90_ms",
                                                                 "frames", "peak_gib",
-                                                                "profile")},
+                                                                "profile", "int8_profile")},
                       "asr": {key: v for key, v in asr.items()
                               if key not in ("launches", "per_frame")}}), flush=True)
     print(f"card: {card}", flush=True)

@@ -51,8 +51,8 @@ SIGNATURES = {
     # hd2, Hkv, cap_pad, stream
     "cache_write_int4": [_P] * 9 + [_I] * 5 + [_P],
     # q, k_all, v_all, k_scale, v_scale, mask, out, layer, B, H, Hkv, D, cap,
-    # stream
-    "decode_attention_int8": [_P] * 7 + [_I] * 6 + [_P],
+    # per_split, splits, warps, stream
+    "decode_attention_int8": [_P] * 7 + [_I] * 9 + [_P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

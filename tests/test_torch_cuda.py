@@ -434,10 +434,14 @@ def _int8_cache(gen, L, B, cap, Hkv, D):
 
 
 # (B, H, Hkv, D, cap, layer): the ASR path's shape (layer 5 of 6), Moshi's,
-# D = 64, a capacity that is no multiple of the 256-position chunk, grouped
-# KV heads, a capacity below one chunk
+# D = 64, a capacity that is no multiple of the split grain, grouped KV
+# heads, small capacities, grouped heads at Moshi's capacity, a capacity no
+# multiple of a warp's tile (8 positions at D = 128) or of a split, and
+# capacities below one tile
 INT8_ATTN = [(256, 8, 8, 128, 750, 5), (16, 32, 32, 128, 3000, 1), (16, 32, 32, 64, 3000, 0),
-             (3, 4, 4, 128, 1500, 2), (2, 8, 2, 64, 200, 0), (1, 4, 4, 128, 100, 1)]
+             (3, 4, 4, 128, 1500, 2), (2, 8, 2, 64, 200, 0), (1, 4, 4, 128, 100, 1),
+             (4, 16, 4, 128, 3000, 0), (3, 4, 4, 128, 1001, 0), (2, 4, 4, 128, 5, 0),
+             (2, 4, 2, 64, 7, 1)]
 
 
 @pytest.mark.parametrize("B,H,Hkv,D,cap,layer", INT8_ATTN)
@@ -487,3 +491,112 @@ def test_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
         da8.decode_attention_int8(q, 2, *caches, mask)           # layer past L
     with pytest.raises(TypeError):
         da8.decode_attention_int8(q.float(), 0, *caches, mask)   # f32 q
+
+
+def _k6_at(q, layer, caches, mask, splits, warps=4):
+    """The C entry of decode_attention_int8 at a forced split count and
+    block size (the wrapper takes plan_splits'); returns out."""
+    from moshi_tpu_torch.ops import build
+    B, H, D = q.shape
+    cap, Hkv = caches[0].shape[2], caches[0].shape[3]
+    out = torch.empty(B, H, D, device="cuda", dtype=torch.bfloat16)
+    lib = build.load("decode_attention_int8")
+    err = lib.decode_attention_int8(q.data_ptr(), *(c.data_ptr() for c in caches),
+                                    mask.data_ptr(), out.data_ptr(), layer, B, H, Hkv, D, cap,
+                                    da8.split_length(cap, splits), splits, warps,
+                                    torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out
+
+
+def _k6_mask(kind, B, cap, splits):
+    """[B, cap] masks of a split layout: "first100" (a ring filled from 0:
+    every later split empty), "last_split" (positions of the last split
+    only), "boundaries" (one position on each side of every split boundary,
+    or the two ends at one split); slot 0 attends nothing."""
+    per = da8.split_length(cap, splits)
+    mask = torch.zeros(B, cap, dtype=torch.bool, device="cuda")
+    if kind == "first100":
+        mask[:, :100] = True
+    elif kind == "last_split":
+        mask[:, (splits - 1) * per:] = True
+    else:
+        for r in range(1, splits):
+            mask[:, r * per - 1:r * per + 1] = True
+        if splits == 1:
+            mask[:, [0, cap - 1]] = True
+    mask[0] = False
+    return mask
+
+
+@pytest.mark.parametrize("kind", ["first100", "last_split", "boundaries"])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_decode_attention_int8_split_masks(kind, splits, gen):
+    """Every split count the kernel takes, on masks that leave whole splits
+    empty or put the only positions at their edges, against the plain
+    version cut the same way; the fully masked slot gives 0.  Blocks of 1-8
+    warps, 6 query heads over 3 KV heads (a block takes 4 at D = 128: the
+    second block's last two heads are past H)."""
+    B, H, Hkv, D, cap = 3, 6, 3, 128, 3000
+    caches = _int8_cache(gen, 1, B, cap, Hkv, D)
+    q = torch.randn(B, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = _k6_mask(kind, B, cap, splits)
+    got = _k6_at(q, 0, caches, mask, splits, warps=1 << (splits % 4))
+    torch.cuda.synchronize()
+    ref = da8.decode_attention_int8_plain(q, 0, *caches, mask, splits=splits)
+    assert torch.isfinite(got).all() and (got[0] == 0).all()
+    assert _rel(got[1:], ref[1:]) <= BOUND[torch.bfloat16]
+
+
+@pytest.mark.parametrize("B,H,cap", [(256, 8, 750), (16, 32, 3000)])
+def test_decode_attention_int8_first100_main_shapes(B, H, cap, gen):
+    """Both main-path shapes through the wrapper and its plan, with only
+    positions 0..99 masked in (the ring's first 8 s)."""
+    caches = _int8_cache(gen, 2, B, cap, H, 128)
+    q = torch.randn(B, H, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = _k6_mask("first100", B, cap, 1)
+    got = da8.decode_attention_int8(q, 1, *caches, mask)
+    torch.cuda.synchronize()
+    ref = da8.decode_attention_int8_plain(q, 1, *caches, mask)
+    assert (got[0] == 0).all() and _rel(got[1:], ref[1:]) <= BOUND[torch.bfloat16]
+
+
+def test_decode_attention_int8_deterministic(gen):
+    """The splits merge in a fixed order: two calls give the same bits, at
+    the plan's split count and at 8."""
+    B, H, cap = 16, 32, 3000
+    caches = _int8_cache(gen, 1, B, cap, H, 128)
+    q = torch.randn(B, H, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.rand(B, cap, device="cuda", generator=gen) < 0.9
+    first = da8.decode_attention_int8(q, 0, *caches, mask)
+    assert torch.equal(first, da8.decode_attention_int8(q, 0, *caches, mask))
+    assert torch.equal(_k6_at(q, 0, caches, mask, 8, 8), _k6_at(q, 0, caches, mask, 8, 8))
+
+
+def test_decode_attention_int8_c_entry_rejects_what_it_does_not_take(gen):
+    """The C entry returns cudaErrorInvalidValue (1) and launches nothing
+    for a split layout that leaves a split empty or misses positions, more
+    than 8 splits, a head dim or head grouping it does not take, or a
+    cache that is not 16-byte aligned."""
+    from moshi_tpu_torch.ops import build
+    B, H, D, cap = 2, 4, 128, 100
+    k, v, ks, vs = _int8_cache(gen, 1, B, cap, H, D)
+    q = torch.randn(B, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.ones(B, cap, dtype=torch.bool, device="cuda")
+    out = torch.empty(B, H, D, device="cuda", dtype=torch.bfloat16)
+    lib = build.load("decode_attention_int8")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(Hkv=H, D=D, per=64, splits=2, warps=4, kp=0):
+        return lib.decode_attention_int8(q.data_ptr(), k.data_ptr() + kp, v.data_ptr(),
+                                         ks.data_ptr(), vs.data_ptr(), mask.data_ptr(),
+                                         out.data_ptr(), 0, B, H, Hkv, D, cap, per, splits,
+                                         warps, stream)
+    assert call() == 0
+    for bad in ({"splits": 0}, {"splits": 9, "per": 16}, {"per": 32}, {"per": 112},
+                {"splits": 3, "per": 50}, {"D": 96}, {"Hkv": 3}, {"kp": 8}, {"warps": 0},
+                {"warps": 17}, {"warps": 16, "splits": 8, "per": 13}):
+        assert call(**bad) == 1, bad
+    torch.cuda.synchronize()
+    ref = da8.decode_attention_int8_plain(q, 0, k, v, ks, vs, mask, splits=2)
+    assert _rel(out, ref) <= BOUND[torch.bfloat16]

@@ -191,3 +191,69 @@ def test_int8_wrapper_rejects_bad_operands():
         tda.decode_attention_int8(q, 0, k, k, ks.float(), ks, mask)
     with pytest.raises(TypeError):
         tda.decode_attention_int8(q, 0, k.float(), k, ks, ks, mask)
+
+
+def _split_case(cap, mask_kind, D=64, seed=21):
+    """One layer of int8 caches at B = 3, H = 4, Hkv = 2, f32 q, and a mask:
+    "ragged" (random, slot 1 fully masked) or "first100" (only positions
+    0..99 of each slot, as on a ring filled from 0: every later split holds
+    no masked-in position)."""
+    rs = np.random.RandomState(seed)
+    B, H, Hkv = 3, 4, 2
+    k, v = (torch.from_numpy(rs.randint(-127, 128, (1, B, cap, Hkv, D)).astype(np.int8))
+            for _ in range(2))
+    ks, vs = (torch.from_numpy(0.001 + 0.02 * rs.rand(1, B, cap, Hkv, 1).astype(np.float32))
+              .to(torch.bfloat16) for _ in range(2))
+    q = torch.from_numpy(rs.randn(B, H, D).astype(np.float32))
+    if mask_kind == "ragged":
+        mask = rs.rand(B, cap) < 0.6
+        mask[1] = False
+    else:
+        mask = np.zeros((B, cap), bool)
+        mask[:, :100] = True
+    return q, k, v, ks, vs, torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("mask_kind", ["ragged", "first100"])
+@pytest.mark.parametrize("splits", [1, 2, 7, "plan"])
+def test_split_plain_matches_unsplit(splits, mask_kind):
+    """The plain version cut into `splits` ranges (the kernel's partition),
+    each a partial (m, l, acc) merged in split order, equals the one-pass
+    softmax within f32 rounding (2e-6 of the largest output); a slot or a
+    split with no position masked in gives 0, never NaN."""
+    cap = 3000
+    case = _split_case(cap, mask_kind)
+    if splits == "plan":
+        splits = tda.plan_splits(3, 4, 64, cap, 132)[0]  # the H100's 132 SMs
+        assert splits > 1
+    ref = tda.decode_attention_int8_plain(*case[:1], 0, *case[1:], splits=1)
+    got = tda.decode_attention_int8_plain(*case[:1], 0, *case[1:], splits=splits)
+    assert torch.isfinite(got).all()
+    assert max_abs(to_np(got), to_np(ref)) <= 2e-6 * np.abs(to_np(ref)).max()
+    if mask_kind == "ragged":
+        assert (got[1] == 0).all()
+
+
+def test_split_plain_matches_pallas_kernel(pallas_interpret):
+    """At 3 splits the plain version against the TPU kernel itself
+    (interpret mode, block_s = 256, one layer of the ring with Hkv = H):
+    slot 0 attends positions 0..99 only, so its later splits are empty;
+    slot 1 attends nothing (exactly 0 in both)."""
+    rs = np.random.RandomState(5)
+    B, H, S, D = 2, 4, 768, 128
+    q = _bf16(rs.randn(B, H, D))
+    k, v = (rs.randint(-127, 128, (B, H, S, D)).astype(np.int8) for _ in range(2))
+    ks, vs = (_bf16(0.001 + 0.02 * rs.rand(B, H, S, 1)) for _ in range(2))
+    mask = np.zeros((B, S), bool)
+    mask[0, :100] = True
+    ref = jda.decode_attention_int8(*(jnp.asarray(a) for a in (q, k, ks, v, vs)),
+                                    jnp.asarray(mask[:, :, None]), block_s=256)
+
+    def ring(a):  # [B, H, S, X] -> [1, B, S, H, X]
+        return _to_torch(np.ascontiguousarray(a.transpose(0, 2, 1, 3))[None])
+    got = tda.decode_attention_int8_plain(_to_torch(q), 0, ring(k), ring(v), ring(ks),
+                                          ring(vs), torch.from_numpy(mask), splits=3)
+    assert tda.split_length(S, 3) == 256
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert rel_err(to_np(got[0]), ref[0]) <= TOL_KERNEL
+    assert (to_np(got[1]) == 0).all() and (ref[1] == 0).all()

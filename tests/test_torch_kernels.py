@@ -22,7 +22,7 @@ from moshi_tpu.ops.q4matmul import q4gemm, q4gemm_stacked
 from moshi_tpu.ops.qmatmul import qgemv
 from moshi_tpu.utils import quantize as jq
 from moshi_tpu.utils.matmul import wdot as jax_wdot
-from moshi_tpu_torch.ops import q4matmul, qmatmul
+from moshi_tpu_torch.ops import decode_attention as da8, q4matmul, qmatmul
 from moshi_tpu_torch.utils import quantize as tq
 from moshi_tpu_torch.utils.params import from_jax
 from test_torch_port import rel_err, to_np
@@ -355,3 +355,54 @@ def test_int8_mma_is_built_by_name():
     p, i = build.SIGNATURES["int8_gemv"][0], build.SIGNATURES["int8_gemv"][5]
     assert build.SIGNATURES["int8_mma"] == [p] * 4 + [i] * 5 + [p]
     assert build.library_path("int8_mma").name.startswith("int8_mma-")
+
+
+# decode_attention_int8's main-path shapes (B, H, cap): ASR B = 256, Moshi B = 16
+K6_MAIN_SHAPES = ((256, 8, 750), (16, 32, 3000))
+
+
+@pytest.mark.parametrize("B,H,cap", K6_MAIN_SHAPES)
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("num_sms", [132, 114])
+def test_int8_attention_plans_fill_the_card(B, H, cap, D, num_sms):
+    """plan_splits cuts cap into 1..8 splits of a multiple of SPLIT_GRAIN
+    positions that cover it exactly, every split non-empty; its grid has
+    at least MIN_FILL of the SMs' worth of blocks and all of them fit on
+    the card at once at WARPS_PER_SM warps per SM (no last wave), in
+    blocks of a power of two of warps whose shared memory stays within
+    48 KB.  At D = 128 both main-path shapes need no split."""
+    splits, per, warps = da8.plan_splits(B, H, D, cap, num_sms)
+    assert 1 <= splits <= da8.MAX_CLUSTER == 8
+    assert per % da8.SPLIT_GRAIN == 0 and per == da8.split_length(cap, splits)
+    assert (splits - 1) * per < cap <= splits * per
+    blocks = B * -(-H // da8.heads_per_block(D)) * splits
+    assert blocks >= da8.MIN_FILL * num_sms
+    assert warps & (warps - 1) == 0 and 1 <= warps <= da8.MAX_WARPS
+    assert blocks * warps <= da8.WARPS_PER_SM * num_sms < 2 * blocks * warps
+    assert da8.smem_bytes(D, warps, splits) <= 48 * 1024
+    if D == 128:
+        assert splits == 1
+
+
+@pytest.mark.parametrize("cap", [1, 5, 16, 100, 1001, 3000])
+def test_int8_attention_plans_of_small_and_ragged_caps(cap):
+    """A cap below a tile, at one grain or no multiple of it still gets
+    splits that cover it exactly with none empty, and a grid of few (slot,
+    head) pairs is split (at most 8 ways) toward MIN_FILL of the SMs."""
+    for B, H, D in ((1, 4, 128), (3, 8, 64), (1, 32, 128), (16, 32, 64)):
+        splits, per, warps = da8.plan_splits(B, H, D, cap, 132)
+        assert (splits - 1) * per < cap <= splits * per
+        assert da8.smem_bytes(D, warps, splits) <= 48 * 1024
+        blocks = B * -(-H // da8.heads_per_block(D))
+        more = -(-cap // da8.split_length(cap, splits + 1)) == splits + 1  # none empty
+        assert blocks * splits >= da8.MIN_FILL * 132 or splits == 8 or not more
+
+
+def test_decode_attention_int8_is_built_by_name():
+    """decode_attention_int8's C signature: q, k_all, v_all, k_scale,
+    v_scale, mask, out; layer, B, H, Hkv, D, cap, per_split, splits, warps;
+    stream."""
+    from moshi_tpu_torch.ops import build
+    p, i = build.SIGNATURES["int8_gemv"][0], build.SIGNATURES["int8_gemv"][5]
+    assert build.SIGNATURES["decode_attention_int8"] == [p] * 7 + [i] * 9 + [p]
+    assert build.library_path("decode_attention_int8").name.startswith("decode_attention_int8-")
