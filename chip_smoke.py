@@ -14,7 +14,10 @@ Phases, each printing its own line(s):
                B = 1, 4, 9, 16 in bf16 and f32, q4_mma at B = 2, 4, 9, 16
                and int8_mma at B = 1, 2, 4, 9, 16 in bf16,
                decode_attention_int4 at B = 16, H = 32, D = 128 and
-               64 with a ragged mask, cache_write_int4 byte for byte,
+               64 with its plan (warps, blocks per SM), a ragged mask and
+               one with a slot of positions 0..99 only and a fully masked
+               slot, timed at both head dims; cache_write_int4 byte for
+               byte,
                decode_attention_int8 at the ASR path's B = 256, H = 8, cap
                750 and Moshi's B = 16, H = 32, cap 3000, D = 128 and 64, a
                ragged mask and a slot with every position masked (at
@@ -353,8 +356,12 @@ def random_int4_cache(g, L, B, Hkv, D, cap_pad, dev):
 
 def check_attention(dev, g) -> dict:
     """decode_attention_int4 against its plain version at B = SLOTS, H = 32,
-    D = 128 and 64, cap 3000, a ragged mask, layer 5 of 8; times at the
-    main path's D = 128, per launch and per batched frame."""
+    D = 128 and 64, cap 3000, layer 5 of 8, with its plan (warps, blocks and
+    warps per SM): a ragged mask, then slot 0 with positions 0..99 only and
+    slot 1 with every position masked (m must be -1e30 and l = cap); times
+    per launch at both head dims beside the plain version,
+    scaled_dot_product_attention and the bound (the frame's row: D = 128)."""
+    from moshi_tpu_torch.ops import int4_attention as i4
     from moshi_tpu_torch.ops.int4_attention import (_dequant_layer,
                                                     decode_attention_int4_stats as k4,
                                                     decode_attention_int4_stats_plain as k4p)
@@ -362,27 +369,49 @@ def check_attention(dev, g) -> dict:
 
     B, H, cap, L, layer = SLOTS, KV["heads"], KV["cap"], 8, 5
     cap_pad = -(-cap // 128) * 128
-    max_abs, row = 0.0, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warps = i4.plan_warps(B, H, H, cap, sms)
+    blocks = i4.attention_blocks(B, H, H)
+    phase("kernels", f"decode_attention_int4 B={B} H={H} cap={cap} plan: {blocks} blocks of "
+          f"{warps} warps and up to {i4.HEADS_PER_BLOCK} heads, chunks of {i4.CHUNK} "
+          f"positions, {blocks / sms:.2f} blocks ({blocks * warps / sms:.1f} warps) per SM on "
+          f"{sms} SMs")
+    max_abs, row, per_launch = 0.0, {"plan": {"warps": warps, "blocks": blocks,
+                                              "warps_per_sm": blocks * warps / sms}}, {}
     for D in (128, 64):
         caches = random_int4_cache(g, L, B, H, D, cap_pad, dev)
         q = torch.randn(B, H, 1, D, device=dev, generator=g).to(torch.bfloat16)
         valid = torch.randint(1, cap + 1, (B,), device=dev, generator=g)
-        mask = ((torch.rand(B, cap, device=dev, generator=g) < 0.9)
-                & (torch.arange(cap, device=dev)[None] < valid[:, None]))
-        mask[:, 0] = True
-        acc, m, lse = k4(q, layer, *caches, mask)
-        torch.cuda.synchronize()
-        racc, rm, rl = k4p(q, layer, *caches, mask)
-        err = max(rel_err(acc / lse, racc / rl), rel_err(m, rm))
-        max_abs = max(max_abs, (acc / lse - racc / rl).abs().max().item())
-        ok = err <= ATTN_BOUND and bool(torch.isfinite(acc / lse).all())
-        phase("kernels", f"decode_attention_int4 B={B} H={H} D={D} cap={cap} layer={layer}: "
-              f"max rel err of acc/l and m {err:.3e} (bound {ATTN_BOUND:.0e}) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError("decode_attention_int4 disagrees with its plain version")
-        if D != KV["head_dim"]:
-            continue
+        ragged = ((torch.rand(B, cap, device=dev, generator=g) < 0.9)
+                  & (torch.arange(cap, device=dev)[None] < valid[:, None]))
+        ragged[:, 0] = True
+        # slot 0: a ring in its first 8 s; slot 1: every position masked
+        edges = ragged.clone()
+        edges[0] = False
+        edges[0, :100] = True
+        edges[1] = False
+        for kind, mask in (("ragged", ragged), ("first100+masked", edges)):
+            acc, m, lse = k4(q, layer, *caches, mask)
+            torch.cuda.synchronize()
+            racc, rm, rl = k4p(q, layer, *caches, mask)
+            live = torch.ones(B, dtype=torch.bool, device=dev)
+            masked_ok = True
+            if kind != "ragged":
+                live[1] = False
+                masked_ok = bool((m[1] == i4.MASKED).all()) and bool((lse[1] == cap).all())
+            err = max(rel_err(acc[live] / lse[live], racc[live] / rl[live]),
+                      rel_err(m[live], rm[live]))
+            max_abs = max(max_abs, (acc[live] / lse[live] - racc[live] / rl[live]).abs().max()
+                          .item())
+            ok = err <= ATTN_BOUND and bool(torch.isfinite(acc / lse).all()) and masked_ok
+            note = "" if kind == "ragged" else (", fully masked slot: m = -1e30 and l = cap"
+                                                if masked_ok else ", fully masked slot WRONG")
+            phase("kernels", f"decode_attention_int4 B={B} H={H} D={D} cap={cap} layer={layer} "
+                  f"{kind} mask: max rel err of acc/l and m {err:.3e} (bound "
+                  f"{ATTN_BOUND:.0e}){note} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("decode_attention_int4 disagrees with its plain version")
+        mask = ragged
         ops = [(q, li, *caches, mask) for li in range(L)]
         t = {"ms": time_ms(k4, ops), "plain_ms": time_ms(k4p, ops, iters=4)}
 
@@ -400,9 +429,12 @@ def check_attention(dev, g) -> dict:
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, scaled_dot_product_attention "
               f"on the dequantized bf16 layer {t['library_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); "
-              f"{nbytes / t['ms'] / 1e6:.1f} GB/s")
-        row["per_launch"] = t
-        del ops, lib_ops
+              f"{nbytes / t['ms'] / 1e6:.1f} GB/s, {t['bound_ms'] / t['ms']:.0%} of the bound")
+        per_launch[D] = t
+        del ops, lib_ops, caches
+        torch.cuda.empty_cache()
+    row["per_launch"] = per_launch[KV["head_dim"]]
+    row["per_launch_by_head_dim"] = per_launch
     row["max_abs_err"] = max_abs
     return row
 
@@ -1095,7 +1127,8 @@ def main() -> None:
     for name, log in logs.items():
         regs, spills = ptxas_summary(log)
         phase("build", f"{name}: max {regs} registers, {spills} bytes of spill stores")
-        if name in ("q4_mma", "int8_mma", "decode_attention_int8") and spills:
+        if name in ("q4_mma", "int8_mma", "decode_attention_int8",
+                    "decode_attention_int4") and spills:
             raise RuntimeError(f"{name} spills registers")
 
     g = torch.Generator(device=dev).manual_seed(SEED)

@@ -12,8 +12,11 @@ Counterpart of moshi_tpu/ops/int4_attention.py (`decode_attention_int4_stats`,
 - cap_pad is the logical capacity rounded up to a multiple of 128; the pad
   lanes are never attended.
 
-On CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernels or raise.
+The attention kernel's blocks take the query heads of one slot that share
+a KV head (up to 8, the n8 side of its tensor-core tiles), and their warps
+split the positions in chunks of CHUNK; `plan_warps` sizes the blocks so
+that the grid fits on the card at once.  On CPU tensors the wrappers run
+the plain versions; on CUDA tensors they launch the kernels or raise.
 """
 
 import math
@@ -22,9 +25,36 @@ import torch
 
 from ..utils.quantize import unpack_nibbles
 from . import build
+from .q4matmul import _num_sms
 
 HEAD_DIMS = (64, 128)  # the kernel's template instances
 MASKED = -1e30         # score of a masked lane, as in the JAX package
+CHUNK = 64             # decode_attention_int4.cu kChunk: positions of a warp's step
+MAX_WARPS = 8          # decode_attention_int4.cu kMaxWarps: warps of a block
+HEADS_PER_BLOCK = 8    # decode_attention_int4.cu kHeads: query heads of a block
+SMEM_LIMIT = 48 * 1024  # shared memory a launch takes without opting in
+# plan_warps gives each SM at most this many warps: the kernel's registers
+# (ptxas on the H100, PERF.md) let 16 warps share an SM
+WARPS_PER_SM = 16
+
+
+def attention_blocks(B: int, H: int, Hkv: int) -> int:
+    """Blocks of a launch: one per slot, KV head and group of up to
+    HEADS_PER_BLOCK query heads that read it."""
+    return B * Hkv * -(-(H // Hkv) // HEADS_PER_BLOCK)
+
+
+def smem_bytes(D: int, warps: int) -> int:
+    """decode_attention_int4.cu smem_bytes: the warps' partials."""
+    return 4 * warps * HEADS_PER_BLOCK * (D + 2)
+
+
+def plan_warps(B: int, H: int, Hkv: int, cap: int, num_sms: int) -> int:
+    """Warps of a block: the most (at most MAX_WARPS, and no more than the
+    cap's chunks of CHUNK positions) that keep the grid within WARPS_PER_SM
+    warps per SM, so that every block is resident at once; at least 1."""
+    fit = WARPS_PER_SM * num_sms // attention_blocks(B, H, Hkv)
+    return max(1, min(MAX_WARPS, -(-cap // CHUNK), fit))
 
 
 def _dequant_layer(packed: torch.Tensor, scale: torch.Tensor, cap: int) -> torch.Tensor:
@@ -104,6 +134,10 @@ def decode_attention_int4_stats(q, layer: int, k_all, v_all, k_scale, v_scale, m
         raise ValueError(f"decode_attention_int4: cap_pad {cap_pad} not a multiple of 128")
     if not all(t.is_contiguous() for t in (q, k_all, v_all, k_scale, v_scale, mask)):
         raise ValueError("decode_attention_int4: operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in (k_all, v_all, k_scale, v_scale)):
+        raise ValueError("decode_attention_int4: caches and scales must be 16-byte aligned")
+    Hkv, cap = k_scale.shape[2], mask.shape[1]
+    warps = plan_warps(B, H, Hkv, cap, _num_sms(q.device.index or 0))
     acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
     lse = torch.empty_like(m)
@@ -111,7 +145,7 @@ def decode_attention_int4_stats(q, layer: int, k_all, v_all, k_scale, v_scale, m
     err = lib.decode_attention_int4(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), mask.data_ptr(), acc.data_ptr(), m.data_ptr(), lse.data_ptr(),
-        int(layer), B, H, k_scale.shape[2], D, mask.shape[1], cap_pad,
+        int(layer), B, H, Hkv, D, cap, cap_pad, warps,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "decode_attention_int4")
     decode_attention_int4_stats.launches += 1

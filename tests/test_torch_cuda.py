@@ -348,10 +348,13 @@ def _stats_err(got, ref):
     return max(_rel(acc / l, racc / rl), _rel(m, rm))
 
 
-# (B, H, Hkv, D, cap, layer): the main path's shape, D = 64, a capacity
-# that is no multiple of the 1024-lane chunk, grouped KV heads
+# (B, H, Hkv, D, cap, layer): the main path's shape, D = 64, capacities that
+# are no multiple of the 64-position chunk (1001, 200, 5), grouped KV heads
+# (kv_repeat 2, 4, and 9: two groups of query heads on one KV head)
 ATTN = [(16, 32, 32, 128, 3000, 5), (16, 32, 32, 64, 3000, 1), (3, 4, 4, 128, 1500, 2),
-        (2, 8, 2, 64, 200, 0), (1, 4, 4, 128, 2048, 1)]
+        (2, 8, 2, 64, 200, 0), (1, 4, 4, 128, 2048, 1), (16, 32, 16, 128, 3000, 1),
+        (16, 32, 8, 64, 3000, 2), (3, 4, 4, 128, 1001, 1), (2, 4, 4, 64, 5, 0),
+        (2, 18, 2, 128, 333, 1)]
 
 
 @pytest.mark.parametrize("B,H,Hkv,D,cap,layer", ATTN)
@@ -360,9 +363,11 @@ def test_decode_attention_int4(B, H, Hkv, D, cap, layer, gen):
     caches = _int4_cache(gen, layer + 1, B, Hkv, D, cap_pad)
     q = torch.randn(B, H, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
     mask = torch.rand(B, cap, device="cuda", generator=gen) < 0.8
-    mask[:, -1] = True                         # the last lane of a ragged chunk
+    mask[:, -1] = True                         # the last position of a ragged chunk
+    n = i4.decode_attention_int4_stats.launches
     got = i4.decode_attention_int4_stats(q, layer, *caches, mask)
     torch.cuda.synchronize()
+    assert i4.decode_attention_int4_stats.launches == n + 1
     ref = i4.decode_attention_int4_stats_plain(q, layer, *caches, mask)
     assert all(t.dtype == torch.float32 for t in got)
     assert _stats_err(got, ref) <= BOUND[torch.bfloat16]
@@ -383,6 +388,75 @@ def test_decode_attention_int4_one_lane(D, gen):
     assert _stats_err([t[:1] for t in got], [t[:1] for t in ref]) <= BOUND[torch.bfloat16]
     torch.testing.assert_close(got[2][1], ref[2][1])          # l = cap on slot 1
     assert (got[1][1] == -1e30).all()
+
+
+@pytest.mark.parametrize("D", [128, 64])
+def test_decode_attention_int4_main_shape_masks(D, gen):
+    """Moshi's B = 16, H = 32 at cap 3000, layer 3: slot 0 with positions
+    0..99 only (a ring in its first seconds, so most warps see no position),
+    slot 1 with every position masked (m = -1e30, l = cap), the rest
+    ragged."""
+    B, H, cap = 16, 32, 3000
+    caches = _int4_cache(gen, 4, B, H, D, 3072)
+    q = torch.randn(B, H, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.rand(B, cap, device="cuda", generator=gen) < 0.9
+    mask[0] = False
+    mask[0, :100] = True
+    mask[1] = False
+    got = i4.decode_attention_int4_stats(q, 3, *caches, mask)
+    torch.cuda.synchronize()
+    ref = i4.decode_attention_int4_stats_plain(q, 3, *caches, mask)
+    live = [0] + list(range(2, B))
+    assert _stats_err([t[live] for t in got], [t[live] for t in ref]) <= BOUND[torch.bfloat16]
+    assert (got[1][1] == -1e30).all()
+    assert (got[2][1] == cap).all()
+    assert torch.isfinite(got[0]).all()
+
+
+def test_decode_attention_int4_deterministic_and_slot_invariant(gen):
+    """Two calls give the same bits, and two slots with the same q, cache
+    bytes, scales and mask give the same bits (the merge order is fixed and
+    depends on nothing but the slot's own data)."""
+    B, H, D, cap = 4, 8, 128, 1500
+    k, v, ks, vs = _int4_cache(gen, 2, B, H, D, 1536)
+    for t in (k, v, ks, vs):
+        t[:, 3] = t[:, 1]
+    q = torch.randn(B, H, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+    q[3] = q[1]
+    mask = torch.rand(B, cap, device="cuda", generator=gen) < 0.7
+    mask[3] = mask[1]
+    a = i4.decode_attention_int4_stats(q, 1, k, v, ks, vs, mask)
+    b = i4.decode_attention_int4_stats(q, 1, k, v, ks, vs, mask)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+        assert torch.equal(x[3], x[1])
+
+
+def test_decode_attention_int4_c_entry_rejects_what_it_does_not_take(gen):
+    """The C entry launches nothing and returns cudaErrorInvalidValue for 0
+    or 9 warps, a cap past cap_pad, a cap_pad off the 64-position chunk,
+    misaligned caches and a head dim other than 64 and 128."""
+    from moshi_tpu_torch.ops import build
+    B, H, D, cap, cap_pad = 2, 4, 64, 200, 256
+    k, v, ks, vs = _int4_cache(gen, 1, B, H, D, cap_pad)
+    q = torch.randn(B, H, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.ones(B, cap, dtype=torch.bool, device="cuda")
+    out = [torch.empty(B, H, D, device="cuda"), torch.empty(B, H, 1, device="cuda"),
+           torch.empty(B, H, 1, device="cuda")]
+    lib = build.load("decode_attention_int4")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(kp=k.data_ptr(), D_=D, cap_=cap, cap_pad_=cap_pad, warps=2):
+        return lib.decode_attention_int4(q.data_ptr(), kp, v.data_ptr(), ks.data_ptr(),
+                                         vs.data_ptr(), mask.data_ptr(),
+                                         *(t.data_ptr() for t in out), 0, B, H, H, D_, cap_,
+                                         cap_pad_, warps, stream)
+    assert call() == 0
+    torch.cuda.synchronize()
+    for bad in (dict(warps=0), dict(warps=9), dict(cap_=cap_pad + 1), dict(cap_pad_=cap_pad - 32),
+                dict(kp=k.data_ptr() + 8), dict(D_=96)):
+        assert call(**bad) == 1, bad      # cudaErrorInvalidValue
 
 
 @pytest.mark.parametrize("kv_repeat", [1, 2])

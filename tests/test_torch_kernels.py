@@ -22,7 +22,7 @@ from moshi_tpu.ops.q4matmul import q4gemm, q4gemm_stacked
 from moshi_tpu.ops.qmatmul import qgemv
 from moshi_tpu.utils import quantize as jq
 from moshi_tpu.utils.matmul import wdot as jax_wdot
-from moshi_tpu_torch.ops import decode_attention as da8, q4matmul, qmatmul
+from moshi_tpu_torch.ops import decode_attention as da8, int4_attention as i4, q4matmul, qmatmul
 from moshi_tpu_torch.utils import quantize as tq
 from moshi_tpu_torch.utils.params import from_jax
 from test_torch_port import rel_err, to_np
@@ -406,3 +406,66 @@ def test_decode_attention_int8_is_built_by_name():
     p, i = build.SIGNATURES["int8_gemv"][0], build.SIGNATURES["int8_gemv"][5]
     assert build.SIGNATURES["decode_attention_int8"] == [p] * 7 + [i] * 9 + [p]
     assert build.library_path("decode_attention_int8").name.startswith("decode_attention_int8-")
+
+
+# decode_attention_int4's shapes (B, H, Hkv, cap): Moshi's B = 16 int4 frame,
+# grouped KV heads, small and ragged caps, two groups of query heads on one
+# KV head
+K4_SHAPES = ((16, 32, 32, 3000), (16, 32, 16, 3000), (16, 32, 8, 3000), (3, 4, 4, 1001),
+             (2, 8, 2, 200), (1, 18, 2, 5))
+
+
+@pytest.mark.parametrize("B,H,Hkv,cap", K4_SHAPES)
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("num_sms", [132, 114])
+def test_int4_attention_plans_fit_the_card(B, H, Hkv, cap, D, num_sms):
+    """plan_warps gives 1..8 warps, no more than the cap has chunks, whose
+    grid fits on the card at once at WARPS_PER_SM warps per SM (a grid of
+    more blocks than that takes one warp each), and whose shared memory
+    stays within 48 KB.  Moshi's B = 16 frame runs 512 blocks: 4 warps each
+    on 132 SMs, 3 on 114."""
+    warps = i4.plan_warps(B, H, Hkv, cap, num_sms)
+    blocks = i4.attention_blocks(B, H, Hkv)
+    assert 1 <= warps <= i4.MAX_WARPS == 8
+    assert warps <= -(-cap // i4.CHUNK)
+    assert blocks * warps <= i4.WARPS_PER_SM * num_sms or warps == 1
+    assert i4.smem_bytes(D, warps) <= i4.SMEM_LIMIT == 48 * 1024
+    if (B, H, Hkv, cap) == (16, 32, 32, 3000):
+        assert blocks == 512 and warps == {132: 4, 114: 3}[num_sms]
+
+
+@pytest.mark.parametrize("cap", [1, 5, 63, 64, 65, 200, 1001, 3000, 3072])
+def test_int4_attention_chunks_cover_cap(cap):
+    """The kernel's chunks of CHUNK positions cover cap exactly, the last
+    one inside the cache's cap_pad (cap rounded up to 128); the warps of a
+    block, taking chunks w, w + warps, .., take every chunk once."""
+    cap_pad = -(-cap // 128) * 128
+    n = -(-cap // i4.CHUNK)
+    assert (n - 1) * i4.CHUNK < cap <= n * i4.CHUNK <= cap_pad
+    assert cap_pad % i4.CHUNK == 0
+    for warps in range(1, i4.MAX_WARPS + 1):
+        assert sorted(c for w in range(warps) for c in range(w, n, warps)) == list(range(n))
+
+
+def test_int4_attention_constants_are_the_kernels():
+    """The wrapper's CHUNK, MAX_WARPS and HEADS_PER_BLOCK are the kernel
+    source's kChunk (8 * kW), kMaxWarps and kHeads."""
+    import re
+    src = (i4.build.CSRC / "decode_attention_int4.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert re.search(r"constexpr int kChunk = 8 \* kW;", src)
+    assert i4.CHUNK == 8 * const("kW")
+    assert i4.MAX_WARPS == const("kMaxWarps")
+    assert i4.HEADS_PER_BLOCK == const("kHeads")
+
+
+def test_decode_attention_int4_is_built_by_name():
+    """decode_attention_int4's C signature: q, k_all, v_all, k_scale,
+    v_scale, mask, acc, m, l; layer, B, H, Hkv, D, cap, cap_pad, warps;
+    stream."""
+    from moshi_tpu_torch.ops import build
+    p, i = build.SIGNATURES["int8_gemv"][0], build.SIGNATURES["int8_gemv"][5]
+    assert build.SIGNATURES["decode_attention_int4"] == [p] * 9 + [i] * 8 + [p]
+    assert build.library_path("decode_attention_int4").name.startswith("decode_attention_int4-")
