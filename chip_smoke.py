@@ -16,8 +16,13 @@ Phases, each printing its own line(s):
                decode_attention_int4 at B = 16, H = 32, D = 128 and
                64 with its plan (warps, blocks per SM), a ragged mask and
                one with a slot of positions 0..99 only and a fully masked
-               slot, timed at both head dims; cache_write_int4 byte for
-               byte,
+               slot, timed at both head dims; decode_attention_int4_write
+               (the same launch also writing the layer's new column, which
+               replaces cache_write_int4) at L = 32, B = 16, D = 128 and
+               64 over two frames of the ring (lanes 0, 63, 64, cap - 1, a
+               frozen slot, a fully masked one), every cache byte against
+               the plain write, deterministic, timed beside the attention
+               alone,
                decode_attention_int8 at the ASR path's B = 256, H = 8, cap
                750 and Moshi's B = 16, H = 32, cap 3000, D = 128 and 64, a
                ragged mask and a slot with every position masked (at
@@ -46,7 +51,8 @@ Phases, each printing its own line(s):
                a sampled run of 40 frames on all 16 slots (p50/p90 ms per
                batched frame), each with exact launch counts per frame of
                the kernels (the q4 linears on q4_mma and the int8 ones on
-               int8_mma at B = 16); then a
+               int8_mma at B = 16, 32 decode_attention_int4 launches, each
+               writing its layer's column); then a
                torch.profiler pass over a few frames for the card's busy
                time; then the greedy run once more with the int8 KV cache
                (32 decode_attention_int8 per frame) and a profiler pass
@@ -137,6 +143,12 @@ TPU_KERNELS = {
     "decode_attention_int8": "moshi_tpu/ops/decode_attention.py:90",
 }
 SOURCES = {name: f"moshi_tpu_torch/csrc/{name}.cu" for name in TPU_KERNELS}
+# the cache write runs in decode_attention_int4's launch
+SOURCES["cache_write_int4"] = SOURCES["decode_attention_int4"]
+# the designs before the write moved into the attention's launch, on the
+# H100 (PERF.md §6): the standalone cache_write_int4 kernel per int4 B = 16
+# frame, and the attention alone per launch at that frame's shape
+EARLIER_MS = {"cache_write_int4 per frame": 0.174, "decode_attention_int4 per launch": 0.0880}
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s
 PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
 
@@ -439,46 +451,143 @@ def check_attention(dev, g) -> dict:
     return row
 
 
-def check_cache_write(dev, g) -> dict:
-    """cache_write_int4 against its plain version byte for byte at the
-    batched path's shapes (every slot written, a frozen one too); times."""
-    from moshi_tpu_torch.ops.int4_attention import (cache_write_int4 as k5,
-                                                    cache_write_int4_plain as k5p)
+def main_path_rows(g, B, Hkv, D, dev):
+    """Current rows as the int4 step passes them: kk contiguous, vv a view
+    of a qkv-like [B, 3 * Hkv * D] tensor (its slots 3 * Hkv * D apart)."""
+    kk = torch.randn(B, Hkv, D, device=dev, generator=g).to(torch.bfloat16)
+    qkv = torch.randn(B, 3 * Hkv * D, device=dev, generator=g).to(torch.bfloat16)
+    return kk, qkv[:, Hkv * D:2 * Hkv * D].view(B, Hkv, D)
 
-    L, B, H, D, cap = KV["layers"], SLOTS, KV["heads"], KV["head_dim"], KV["cap"]
+
+def check_fused_write(dev, g) -> dict:
+    """decode_attention_int4_write, the attention whose launch also writes
+    the layer's new column, at the batched path's shape (L = 32, B = SLOTS,
+    H = Hkv = 32, cap 3000), D = 128 and 64, layer 5, over two launches as
+    two frames of the ring: slots 0-3 at lanes 0, 63, 64 and cap - 1, slot
+    2 frozen (its second write lands on its first's lane), slot 4 with
+    every position masked, the second launch attending the lanes the first
+    wrote.  After each launch the four caches must equal, byte for byte,
+    the plain quantization of the rows' CPU copies written by
+    cache_write_int4_plain into a copy of the caches on the card (so every
+    other byte is unchanged), and the stats must be within ATTN_BOUND of
+    the plain version's; two calls on copies of one cache must give the
+    same bits.  Prints how many column bytes and scales the plain
+    quantization on the card's copies gives otherwise (torch divides a CUDA
+    tensor by a Python scalar as a multiply by its reciprocal).  Then, on
+    the same operands, the fused launch's time beside the attention alone:
+    their difference is the write's cost."""
+    from moshi_tpu_torch.ops import int4_attention as i4
+
+    k4w, k4 = i4.decode_attention_int4_write, i4.decode_attention_int4_stats
+    L, B, H, cap, layer = KV["layers"], SLOTS, KV["heads"], KV["cap"], 5
     cap_pad = -(-cap // 128) * 128
-    caches = random_int4_cache(g, L, B, H, D, cap_pad, dev)
-    cols = [torch.randint(-128, 128, (L, B, H * D // 2), device=dev, generator=g,
-                          dtype=torch.int8) for _ in range(2)]
-    scols = [torch.randn(L, B, H, device=dev, generator=g).to(torch.bfloat16)
-             for _ in range(2)]
-    pos = torch.randint(0, cap, (B,), device=dev, generator=g)
-    ref = k5p(pos, *cols, *scols, *(c.clone() for c in caches))
-    got = k5(pos, *cols, *scols, *caches)
-    torch.cuda.synchronize()
-    ok = all(torch.equal(a, b) for a, b in zip(got, ref))
-    phase("kernels", f"cache_write_int4 L={L} B={B} H={H} D={D} cap_pad={cap_pad}: "
-          f"{'byte-equal to the plain version' if ok else 'FAIL'}")
-    if not ok:
-        raise RuntimeError("cache_write_int4 disagrees with its plain version")
-    del ref
-    ops = [(pos, *cols, *scols, *caches)]
-    li = torch.arange(L, device=dev)[:, None, None]
-    bi = torch.arange(B, device=dev)[None, :, None]
-    pi = pos[None, :, None]
+    frozen, masked = 2, 4
+    lanes = torch.arange(cap, device=dev)[None]
+    max_abs, per_launch = 0.0, {}
+    for D in (128, 64):
+        caches = random_int4_cache(g, L, B, H, D, cap_pad, dev)
+        expected = [c.clone() for c in caches]
+        pos = torch.cat([torch.tensor([0, 63, 64, cap - 1], device=dev),
+                         torch.randint(0, cap, (B - 4,), device=dev, generator=g)])
+        card_vs_cpu = 0
+        for step in range(2):
+            if step:
+                pos = torch.where(torch.arange(B, device=dev) == frozen, pos, (pos + 1) % cap)
+            # each slot's ring holds its lanes below the write lane and, from
+            # an earlier lap, those past 2900
+            mask = ((lanes < pos[:, None]) | (lanes > 2900)) & (lanes != pos[:, None])
+            mask[masked] = False
+            q = torch.randn(B, H, 1, D, device=dev, generator=g).to(torch.bfloat16)
+            kk, vv = main_path_rows(g, B, H, D, dev)
+            racc, rm, rl = i4.decode_attention_int4_stats_plain(q, layer, *expected, mask)
+            cols = [c.to(dev) for c in i4.int4_columns(kk.cpu(), vv.cpu())]
+            card_vs_cpu += sum(int((a != b).sum()) for a, b in zip(cols, i4.int4_columns(kk, vv)))
+            i4.cache_write_int4_plain(pos, *cols, *(e[layer:layer + 1] for e in expected))
+            acc, m, lse = k4w(q, kk, vv, pos, layer, *caches, mask)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(c, e) for c, e in zip(caches, expected))
+            live = torch.arange(B, device=dev) != masked
+            err = max(rel_err(acc[live] / lse[live], racc[live] / rl[live]),
+                      rel_err(m[live], rm[live]))
+            max_abs = max(max_abs, (acc[live] / lse[live] - racc[live] / rl[live]).abs().max()
+                          .item())
+            masked_ok = bool((m[masked] == i4.MASKED).all()) and bool((lse[masked] == cap).all())
+            ok = equal and err <= ATTN_BOUND and masked_ok and bool(torch.isfinite(acc).all())
+            phase("kernels", f"decode_attention_int4_write L={L} B={B} H={H} D={D} cap={cap} "
+                  f"layer={layer} frame {step + 1} (lanes {pos[:5].tolist()}, slot {frozen} "
+                  f"frozen, slot {masked} fully masked): caches "
+                  f"{'byte-equal to the plain write' if equal else 'DIFFER'}, max rel err of "
+                  f"acc/l and m {err:.3e} (bound {ATTN_BOUND:.0e}), fully masked slot "
+                  f"{'m = -1e30 and l = cap' if masked_ok else 'WRONG'} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("decode_attention_int4_write disagrees with its plain version")
+        phase("kernels", f"decode_attention_int4_write D={D}: the plain quantization on the "
+              f"card's copies of the rows differs from the CPU's in {card_vs_cpu} column bytes "
+              f"and scales over the two frames")
+        del expected
+        small = random_int4_cache(g, 2, B, H, D, cap_pad, dev)
+        runs = []
+        for _ in range(2):
+            copy = [c.clone() for c in small]
+            runs.append(k4w(q, kk, vv, pos, 1, *copy, mask) + tuple(copy))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        phase("kernels", f"decode_attention_int4_write D={D}: two calls on copies of one cache "
+              f"(slot {masked} fully masked) give {'the same bits' if same else 'OTHER BITS'}")
+        if not same:
+            raise RuntimeError("decode_attention_int4_write is not deterministic")
+        del small, runs
 
-    def index_put(pos_, kc, vc, ksc, vsc, k_all, v_all, ks_all, vs_all):
-        for col, cache in ((kc, k_all), (vc, v_all), (ksc, ks_all), (vsc, vs_all)):
-            ri = torch.arange(col.shape[-1], device=dev)[None, None, :]
-            cache.index_put_((li, bi, ri, pi), col)
-    t = {"ms": time_ms(k5, ops), "plain_ms": time_ms(k5p, ops),
-         "library_ms": time_ms(index_put, ops)}
-    nbytes = 2 * (2 * L * B * H * D // 2 + 2 * 2 * L * B * H) + 8 * B
-    t["bound_ms"], bound_by = bound(nbytes, 0)
-    phase("kernels", f"cache_write_int4: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms,"
-          f" index_put_ on each of the 4 caches {t['library_ms']:.4f} ms, bound "
-          f"{t['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB read + written)")
-    return {"per_launch": t, "bound_by": bound_by, "max_abs_err": 0.0}
+        ops_w = [(q, kk, vv, pos, li, *caches, mask) for li in range(L)]
+        ops_s = [(q, li, *caches, mask) for li in range(L)]
+        # in turns after a discarded reading: the first timing after the
+        # checks read ~6 us high in three calls out of three
+        time_ms(k4w, ops_w)
+        fused = [time_ms(k4w, ops_w)]
+        alone = [time_ms(k4, ops_s), time_ms(k4, ops_s)]
+        fused.append(time_ms(k4w, ops_w))
+        t_fused, t_alone = sum(fused) / 2, sum(alone) / 2
+        cols = i4.int4_columns(kk, vv)
+        bi, pi = torch.arange(B, device=dev)[:, None], pos[:, None]
+
+        def write_plain(kk_, vv_, pos_, li, k_all, v_all, ks_all, vs_all):
+            at = slice(li, li + 1)
+            i4.cache_write_int4_plain(pos_, *i4.int4_columns(kk_, vv_), k_all[at], v_all[at],
+                                      ks_all[at], vs_all[at])
+
+        def index_put(li, k_all, v_all, ks_all, vs_all):
+            for col, cache in zip(cols, (k_all, v_all, ks_all, vs_all)):
+                ri = torch.arange(col.shape[-1], device=dev)[None]
+                cache[li].index_put_((bi, ri, pi), col[0])
+        write_ops = [(kk, vv, pos, li, *caches) for li in range(L)]
+        write_bytes = 2 * B * H * D * 2 + 8 * B + 2 * B * H * D // 2 + 2 * 2 * B * H
+        attn_bytes = (2 * B * H * D // 2 * cap + 2 * 2 * B * H * cap + B * cap + 2 * B * H * D
+                      + 4 * B * H * (D + 2))
+        write = {"ms": t_fused - t_alone, "plain_ms": time_ms(write_plain, write_ops),
+                 "library_ms": time_ms(index_put, [(li, *caches) for li in range(L)])}
+        write["bound_ms"], _ = bound(write_bytes, 0)
+        k4_row = {"ms": t_fused, "attention_alone_ms": t_alone,
+                  "plain_ms": time_ms(i4.decode_attention_int4_write_plain, ops_w, iters=4)}
+        k4_row["bound_ms"], _ = bound(attn_bytes + write_bytes, 4 * B * H * cap * D)
+        phase("kernels", f"decode_attention_int4_write B={B} H={H} D={D} cap={cap}: fused "
+              f"launch {fused[0]:.4f} / {fused[1]:.4f} ms, the attention alone "
+              f"{alone[0]:.4f} / {alone[1]:.4f} ms: the write costs "
+              f"{write['ms'] * 1e3:.2f} us per launch, {write['ms'] * L:.4f} ms per frame "
+              f"({L} launches; bound {write['bound_ms'] * L:.5f} ms, "
+              f"{write_bytes * L / 1e6:.2f} MB read + written; the plain write "
+              f"{write['plain_ms'] * L:.3f} ms, index_put_ of the packed columns into the 4 "
+              f"caches {write['library_ms'] * L:.3f} ms); earlier designs (PERF.md): the "
+              f"standalone cache_write_int4 {EARLIER_MS['cache_write_int4 per frame']} ms per "
+              f"frame, the attention {EARLIER_MS['decode_attention_int4 per launch']} ms per "
+              f"launch")
+        per_launch[D] = {"write": write, "k4": k4_row}
+        del ops_w, ops_s, write_ops, caches
+        torch.cuda.empty_cache()
+    at_d = per_launch[KV["head_dim"]]
+    return {"per_launch": at_d["write"], "k4_per_launch": at_d["k4"],
+            "per_launch_by_head_dim": per_launch, "bound_by": "bytes", "max_abs_err": 0.0,
+            "stats_max_abs_err": max_abs}
 
 
 def random_int8_cache(g, L, B, cap, Hkv, D, dev):
@@ -581,9 +690,9 @@ def per_step_launches(cfg, params, batch: int) -> dict:
     that q4matmul.use_mma picks for bf16 x of `batch` rows; each int8
     depformer linear once per layer and codebook, plus depformer_in and the
     output head per codebook, each on the kernel that qmatmul.use_mma
-    picks; with the int4 KV cache, one
-    decode_attention_int4 per layer and one cache_write_int4; with the int8
-    KV cache, one decode_attention_int8 per layer."""
+    picks; with the int4 KV cache, one decode_attention_int4 per layer,
+    each writing its layer's column (counted as cache_write_int4 too); with
+    the int8 KV cache, one decode_attention_int8 per layer."""
     from moshi_tpu_torch.ops import q4matmul, qmatmul
     from moshi_tpu_torch.utils.quantize import QTensor, QTensor4
 
@@ -615,21 +724,23 @@ def per_step_launches(cfg, params, batch: int) -> dict:
         raise RuntimeError(f"launches per step {per_step} do not match the shape tables")
     int4 = cfg.kv_cache_dtype == "int4"
     per_step["decode_attention_int4"] = cfg.num_layers if int4 else 0
-    per_step["cache_write_int4"] = 1 if int4 else 0
+    per_step["cache_write_int4"] = cfg.num_layers if int4 else 0
     per_step["decode_attention_int8"] = cfg.num_layers if cfg.kv_cache_dtype == "int8" else 0
     return per_step
 
 
 def counters() -> dict:
-    """The launch-counted wrappers, by kernel name."""
+    """The launch-counted wrappers, by kernel name: decode_attention_int4
+    counts every launch of that kernel, cache_write_int4 those that write."""
     from moshi_tpu_torch.ops.decode_attention import decode_attention_int8
-    from moshi_tpu_torch.ops.int4_attention import cache_write_int4, decode_attention_int4_stats
+    from moshi_tpu_torch.ops.int4_attention import (decode_attention_int4_stats,
+                                                    decode_attention_int4_write)
     from moshi_tpu_torch.ops.q4matmul import q4_gemv, q4_mma
     from moshi_tpu_torch.ops.qmatmul import int8_gemv, int8_mma
     return {"q4_gemv": q4_gemv, "q4_mma": q4_mma, "int8_gemv": int8_gemv,
             "int8_mma": int8_mma,
             "decode_attention_int4": decode_attention_int4_stats,
-            "cache_write_int4": cache_write_int4,
+            "cache_write_int4": decode_attention_int4_write,
             "decode_attention_int8": decode_attention_int8}
 
 
@@ -1134,7 +1245,9 @@ def main() -> None:
     g = torch.Generator(device=dev).manual_seed(SEED)
     gemvs = check_gemvs(dev, g)
     attn = check_attention(dev, g)
-    write = check_cache_write(dev, g)
+    write = check_fused_write(dev, g)
+    # K4's row: the launch of the main path, the write included
+    attn["per_launch"] = {**attn["per_launch"], **write["k4_per_launch"]}
     attn8 = check_attention_int8(dev, g)
     torch.cuda.empty_cache()
 
@@ -1156,7 +1269,8 @@ def main() -> None:
     # launches of the kernel (bf16, operands cold in L2) on the path it
     # runs, from the per-shape (GEMVs) or per-launch times: the B = 1 frame
     # for the q4_gemv kernel, a B = 16 batched frame for q4_mma, int8_gemv,
-    # decode_attention_int4 and cache_write_int4, a B = 256 ASR frame for
+    # decode_attention_int4 (the fused launch) and cache_write_int4 (the
+    # fused launch's time over the attention alone), a B = 256 ASR frame for
     # decode_attention_int8; "per_frame_by_batch" has the GEMVs' frames at
     # each batch timed (the int8_gemv kernel runs no launch of either path:
     # its row is its B = 16 frame, beside int8_mma's)
@@ -1172,6 +1286,8 @@ def main() -> None:
                         **k})
     for k in kernels:
         name = k["name"]
+        if name == "cache_write_int4":
+            k["runs_in"] = "decode_attention_int4's launch"
         k.update({"route": "cuda", "source": SOURCES[name], "replaces": TPU_KERNELS[name],
                   "launches": sum(v[name] for v in by_path.values()),
                   "launches_by_path": {p: v[name] for p, v in by_path.items()},

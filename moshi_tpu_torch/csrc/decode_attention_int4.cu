@@ -1,9 +1,12 @@
 // decode_attention_int4: T = 1 flash decode over the int4-packed KV cache,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), and the in-place write of the layer's new column.
 //
-// Replaces the Pallas TPU kernel moshi_tpu/ops/int4_attention.py
+// Replaces two Pallas TPU kernels of moshi_tpu/ops/int4_attention.py:
 // `decode_attention_int4_stats` (`_kernel` for D = 128, `_kernel_folded` for
-// D < 128): one template covers both head dims here.
+// D < 128; one template covers both head dims here) and `cache_write_int4`
+// (`_write_kernel`), which the JAX package runs once after the layer scan
+// for every layer.  Here each layer's launch also quantizes the layer's
+// current K and V rows and stores them at lane pos[b] (see "The write").
 //
 // Layout (the JAX package's, kept so the caches compare byte for byte):
 //   k_all, v_all int8 [L, B, Hkv*D/2, cap_pad]: byte (row r, lane s) holds
@@ -70,6 +73,48 @@
 //  - one block per (slot, KV head, group of 8 query heads), its warp count
 //    from ops/int4_attention.py `plan_warps` so the grid fits on the card at
 //    once.  The layer is a pointer offset into the [L, ...] stack.
+//
+// The write (pos non-null): kk, vv bf16 [B, Hkv, D] are the layer's current
+// rows (rope'd; a slot's heads D apart, slots kk_stride / vv_stride
+// elements apart).  For each slot b with pos[b] in [0, cap_pad), frozen
+// slots too, block (g, b) quantizes KV head g's two rows as the JAX
+// package's `_quant_rows_int4` does, in IEEE f32 (no fast math, so the
+// bytes equal the plain version's): amax over D by warp shuffles, scale =
+// max(amax, 1e-6) / 7, values rint(x / scale) (half to even) clamped to
+// [-7, 7], channel 2r in the low nibble of row r's byte and 2r + 1 in the
+// high one.  It stores the D/2 bytes of each at lane pos[b] of layer
+// `layer` (one byte per row) and the scales rounded to bf16.  The JAX
+// package writes every layer's column after the scan; writing layer l's
+// inside layer l's pass gives the same cache, because layer l's cache is
+// read only by layer l's pass within a step and the pass masks lane pos[b].
+//  - Who writes, and when: after the position loop and the block's
+//    barrier, warp w* = (pos[b] / kChunk) % warps, the warp that loaded the
+//    chunk holding the lane.  Nothing of the write is live across the loop
+//    (123 registers at D = 128, as without it).
+//  - What it costs: one byte store per row, and in this layout a column's
+//    bytes lie cap_pad apart, so a launch dirties ~65K lone 32-byte sectors
+//    at Moshi's B = 16 that go back to device memory one by one: ~8 us per
+//    launch beside the ~0.09 ms attention.  The loads and quantization
+//    alone cost ~0.3 us; storing right after w*'s step on that chunk, when
+//    its sectors were just brought into L2, or with streaming (.cs) or
+//    write-through (.wt) stores, cost the same (scripts/time_k4_variants.py,
+//    PERF.md).
+//  - Why nothing reads a stored address after the store: the bytes and
+//    scales of (slot b, head g) at lane pos[b] are read only by block
+//    (g, b), and in it only by warp w*'s loads of that chunk (the mask
+//    hides the lane, but a slot with every position masked still weighs
+//    it: p = 1, l = cap, as the plain order of attend, then write).  Every
+//    load of the block feeds the partials it puts in shared memory before
+//    the barrier (the K and V bytes through mma.sync, which no lane passes
+//    before every lane's operands have arrived), and each scale is stored
+//    by a lane that loaded it.  So the reads keep the read-only path
+//    (`__restrict__ const`, ld.global.nc, no L1 allocation) and the stores
+//    go through separate non-const pointers.  The next launch that reads
+//    the lane sees the stored bytes: the non-coherent caches do not
+//    outlive a launch.
+//  - Only when one block reads a KV head (H / Hkv <= kHeads): with more,
+//    blocks of other head groups read the lane while it is written, so the
+//    C entry refuses a write there (no configuration of the repo has one).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -144,6 +189,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 
+// One head's current row (D bf16 values, a warp's lanes taking D/32 channels
+// each) quantized to int4 and stored at one lane of the packed cache: byte
+// r of the column at dst + r * cap_pad, the bf16 scale at *scale_dst, by
+// lane scale_lane.
+template <int D>
+__device__ __forceinline__ void store_column(const __nv_bfloat16* row, int8_t* dst,
+                                             __nv_bfloat16* scale_dst, int cap_pad,
+                                             int lane, int scale_lane) {
+  constexpr int kC = D / 32;  // channels of a lane
+  float x[kC];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kC; ++i) {
+    x[i] = __bfloat162float(row[kC * lane + i]);
+    amax = fmaxf(amax, fabsf(x[i]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float scale = fmaxf(amax, 1e-6f) / 7.0f;
+#pragma unroll
+  for (int r = 0; r < kC / 2; ++r) {
+    const int lo = static_cast<int>(fminf(fmaxf(rintf(x[2 * r] / scale), -7.f), 7.f));
+    const int hi = static_cast<int>(fminf(fmaxf(rintf(x[2 * r + 1] / scale), -7.f), 7.f));
+    dst[static_cast<size_t>(kC / 2 * lane + r) * cap_pad] =
+        static_cast<int8_t>(((hi & 15) << 4) | (lo & 15));
+  }
+  if (lane == scale_lane) *scale_dst = __float2bfloat16_rn(scale);
+}
+
 // What a lane (gid, tig) = (lane / 4, lane % 4) holds of one chunk, in two
 // parts, each loaded just before it is used:
 //  - Scores: k[i], bytes kW*gid .. kW*gid + kW - 1 of packed K row
@@ -171,14 +245,19 @@ struct Values {
 
 // grid (Hkv * ceil(rep / kHeads), B) of `warps`-warp blocks, rep = H / Hkv.
 // Block (x, b) takes query heads g * rep + hg * kHeads .. (up to kHeads of
-// them, g = x / hgroups, hg = x % hgroups) of slot b, KV head g.
+// them, g = x / hgroups, hg = x % hgroups) of slot b, KV head g.  With pos
+// non-null (and hgroups = 1) it also writes KV head g's column of slot b
+// through k_w, v_w, ks_w, vs_w, the caches' addresses as stores see them.
 template <int D>
 __global__ void __launch_bounds__(32 * kMaxWarps, 2) decode_attention_int4_kernel(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_all,
     const int8_t* __restrict__ v_all, const __nv_bfloat16* __restrict__ k_scale,
     const __nv_bfloat16* __restrict__ v_scale, const bool* __restrict__ mask,
     float* __restrict__ acc_out, float* __restrict__ m_out, float* __restrict__ l_out,
-    int layer, int B, int H, int Hkv, int cap, int cap_pad) {
+    const __nv_bfloat16* __restrict__ kk, const __nv_bfloat16* __restrict__ vv,
+    const int64_t* __restrict__ pos, int8_t* k_w, int8_t* v_w, __nv_bfloat16* ks_w,
+    __nv_bfloat16* vs_w, int layer, int B, int H, int Hkv, int cap, int cap_pad,
+    int kk_stride, int vv_stride) {
   constexpr int kRows = D / 2;      // packed rows of one KV head
   constexpr int kSteps = D / 16;    // k16 steps of a score tile, m16 tiles of PV
   constexpr int kPart = kHeads * (D + 2);  // floats of a warp's partial
@@ -353,6 +432,19 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) decode_attention_int4_kerne
     }
   };
 
+  // The write of KV head g's column at lane p (see the header): from the
+  // rows' addresses, the lane and blockIdx (g = blockIdx.x: one head group).
+  // The lane of the warp that loaded the scales of p stores them.
+  auto write_lane = [&](int p) {
+    const size_t col = (static_cast<size_t>(layer) * B + blockIdx.y) * Hkv + blockIdx.x;
+    const size_t rows_off = col * kRows * cap_pad + p, scale_off = col * cap_pad + p;
+    const int scale_lane = 4 * ((p % kChunk) / kW);
+    store_column<D>(kk + static_cast<size_t>(blockIdx.y) * kk_stride + blockIdx.x * D,
+                    k_w + rows_off, ks_w + scale_off, cap_pad, lane, scale_lane);
+    store_column<D>(vv + static_cast<size_t>(blockIdx.y) * vv_stride + blockIdx.x * D,
+                    v_w + rows_off, vs_w + scale_off, cap_pad, lane, scale_lane);
+  };
+
   for (int c = warp; c < nchunks; c += warps) {
     Scores<D> kpart;
     Values<D> vpart;
@@ -383,6 +475,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) decode_attention_int4_kerne
   }
   __syncthreads();
 
+  // ---- the write: every load of the block has fed the partials above
+  if (pos != nullptr) {
+    const int64_t p = pos[blockIdx.y];
+    if (p >= 0 && p < cap_pad && warp == static_cast<int>(p / kChunk) % warps)
+      write_lane(static_cast<int>(p));
+  }
+
   // ---- the warps' partials in warp order, weighted by exp(m_w - max m)
   for (int e = threadIdx.x; e < nh * D; e += blockDim.x) {
     const int n = e / D, d = e % D;
@@ -410,10 +509,10 @@ __host__ __device__ constexpr size_t smem_bytes(int D, int warps) {
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k_all, const void* v_all,
-                   const void* k_scale, const void* v_scale, const void* mask,
-                   void* acc, void* m, void* l, int layer, int B, int H, int Hkv,
-                   int cap, int cap_pad, int warps, cudaStream_t stream) {
+cudaError_t launch(const void* q, void* k_all, void* v_all, void* k_scale, void* v_scale,
+                   const void* mask, const void* kk, const void* vv, const void* pos,
+                   void* acc, void* m, void* l, int layer, int B, int H, int Hkv, int cap,
+                   int cap_pad, int warps, int kk_stride, int vv_stride, cudaStream_t stream) {
   const int hgroups = (H / Hkv + kHeads - 1) / kHeads;
   decode_attention_int4_kernel<D><<<dim3(Hkv * hgroups, B), 32 * warps, smem_bytes(D, warps),
                                     stream>>>(
@@ -421,7 +520,11 @@ cudaError_t launch(const void* q, const void* k_all, const void* v_all,
       static_cast<const int8_t*>(v_all), static_cast<const __nv_bfloat16*>(k_scale),
       static_cast<const __nv_bfloat16*>(v_scale), static_cast<const bool*>(mask),
       static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
-      layer, B, H, Hkv, cap, cap_pad);
+      static_cast<const __nv_bfloat16*>(kk), static_cast<const __nv_bfloat16*>(vv),
+      static_cast<const int64_t*>(pos), static_cast<int8_t*>(k_all),
+      static_cast<int8_t*>(v_all), static_cast<__nv_bfloat16*>(k_scale),
+      static_cast<__nv_bfloat16*>(v_scale), layer, B, H, Hkv, cap, cap_pad, kk_stride,
+      vv_stride);
   return cudaGetLastError();
 }
 
@@ -429,28 +532,37 @@ cudaError_t launch(const void* q, const void* k_all, const void* v_all,
 
 // C interface, loaded with ctypes by moshi_tpu_torch/ops/int4_attention.py.
 // acc, m, l are f32 outputs of B*H*D, B*H and B*H elements.  Blocks of
-// `warps` warps (1..8) split the positions.  The caches and scales must be
-// 16-byte aligned and cap_pad a multiple of 32; anything else returns
-// cudaErrorInvalidValue and launches nothing.  Returns the launch's error
-// code.
-extern "C" int decode_attention_int4(const void* q, const void* k_all, const void* v_all,
-                                     const void* k_scale, const void* v_scale,
-                                     const void* mask, void* acc, void* m, void* l,
-                                     int layer, int B, int H, int Hkv, int D, int cap,
-                                     int cap_pad, int warps, void* stream) {
+// `warps` warps (1..8) split the positions.  pos null: the attention alone
+// (kk, vv and the strides are not read).  pos int64 [B]: also the write of
+// the rows kk, vv bf16 [B, Hkv, D] (slot strides kk_stride, vv_stride >=
+// Hkv*D elements) at lane pos[b] of layer `layer`, in place; it needs
+// H / Hkv <= 8.  The caches and scales must be 16-byte aligned and cap_pad a
+// multiple of 64; anything else returns cudaErrorInvalidValue and launches
+// nothing.  Returns the launch's error code.
+extern "C" int decode_attention_int4(const void* q, void* k_all, void* v_all, void* k_scale,
+                                     void* v_scale, const void* mask, const void* kk,
+                                     const void* vv, const void* pos, void* acc, void* m,
+                                     void* l, int layer, int B, int H, int Hkv, int D,
+                                     int cap, int cap_pad, int warps, int kk_stride,
+                                     int vv_stride, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || cap <= 0 || cap > cap_pad ||
       cap_pad % kChunk != 0 || layer < 0 || warps < 1 || warps > kMaxWarps ||
       misaligned(k_all) || misaligned(v_all) || misaligned(k_scale) || misaligned(v_scale))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (pos != nullptr && (kk == nullptr || vv == nullptr || H / Hkv > kHeads ||
+                         kk_stride < Hkv * D || vv_stride < Hkv * D))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64:
-      return static_cast<int>(launch<64>(q, k_all, v_all, k_scale, v_scale, mask, acc, m,
-                                         l, layer, B, H, Hkv, cap, cap_pad, warps, s));
+      return static_cast<int>(launch<64>(q, k_all, v_all, k_scale, v_scale, mask, kk, vv,
+                                         pos, acc, m, l, layer, B, H, Hkv, cap, cap_pad,
+                                         warps, kk_stride, vv_stride, s));
     case 128:
-      return static_cast<int>(launch<128>(q, k_all, v_all, k_scale, v_scale, mask, acc, m,
-                                          l, layer, B, H, Hkv, cap, cap_pad, warps, s));
+      return static_cast<int>(launch<128>(q, k_all, v_all, k_scale, v_scale, mask, kk, vv,
+                                          pos, acc, m, l, layer, B, H, Hkv, cap, cap_pad,
+                                          warps, kk_stride, vv_stride, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,10 +14,11 @@ int4 KV paths of batched serving.
   so the row is overwritten by its next executed step and never attended
   before that.
 - `kv_cache_dtype="int4"`: the JAX package's nibble-packed cache in its
-  layout (ops/int4_attention.py); a T = 1 step reads it with the
-  `decode_attention_int4` kernel, merges the current unquantized row with
-  the flash rule and writes every layer's new column after the layer loop
-  with `cache_write_int4` (moshi_tpu transformer.py:749-921).
+  layout (ops/int4_attention.py); a T = 1 step reads each layer with the
+  `decode_attention_int4` kernel, whose launch also writes the layer's new
+  column, and merges the current unquantized row with the flash rule
+  (moshi_tpu transformer.py:749-921, which writes every layer's column
+  after the layer scan).
 - `kv_cache_dtype="int8"`: the ring layout of the model-dtype cache in int8,
   with a bf16 scale per (position, head) row.  A T = 1 step writes the
   current row quantized at `offset % cap` for every slot, then attends over
@@ -41,7 +42,8 @@ import torch.nn.functional as F
 from .norm import LayerScale, make_norm
 from .rope import apply_rope
 from ..ops.decode_attention import decode_attention_int8
-from ..ops.int4_attention import cache_write_int4, decode_attention_int4_stats
+from ..ops.int4_attention import (_pack_nibble_cols, _quant_rows_int4,  # noqa: F401
+                                  decode_attention_int4_write)
 from ..utils.matmul import wdot
 from ..utils.params import trunc_normal
 
@@ -89,23 +91,6 @@ def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     amax = xf.abs().amax(dim=-1, keepdim=True)
     scale = amax.clamp(min=1e-6) / 127.0
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
-
-
-def _quant_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int4 quantization per (batch, time, head) row of [B, T, H,
-    D]: values in [-7, 7] as int8 and the f32 scale [B, T, H, 1].
-    torch.round rounds half to even, as jnp.round does."""
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = amax.clamp(min=1e-6) / 7.0
-    return torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int8), scale
-
-
-def _pack_nibble_cols(vals: torch.Tensor) -> torch.Tensor:
-    """int4 values [B, H*D] (one position's channels) -> channel-pair
-    packed bytes [B, H*D/2]: channel 2r in the low nibble, 2r+1 in the
-    high."""
-    return (vals[:, 1::2] << 4) | (vals[:, 0::2] & 15)
 
 
 def layer_view(tree, layer: int):
@@ -292,24 +277,19 @@ class StreamingTransformer:
 
     def _int4_attention(self, q, kk, vv, *, state, layer, ctx):
         """Decode attention over the packed int4 cache plus the current row.
-        q [B, 1, H, D] and kk, vv [B, 1, Hkv, D], rope'd.  Quantizes and
-        packs the current rows into ctx's column buffers for the deferred
-        write, runs the cache pass (the kernel on the card, its plain
-        version on the CPU) and flash-merges the current unquantized row,
-        whose score counts only for executing slots (moshi_tpu
-        transformer.py:857-921).  Returns [B, 1, H*D]."""
+        q [B, 1, H, D] and kk, vv [B, 1, Hkv, D], rope'd.  One op runs the
+        cache pass with lane ctx["wp"] masked and writes the current rows,
+        quantized, at that lane of this layer (the kernel on the card, its
+        plain version on the CPU); then the current unquantized row is
+        flash-merged, its score counting only for executing slots
+        (moshi_tpu transformer.py:857-921).  Returns [B, 1, H*D]."""
         c = self.config
         B, _, H, D = q.shape
-        (kq, ks), (vq, vs) = _quant_rows_int4(kk), _quant_rows_int4(vv)
-        ctx["kcols"][layer] = _pack_nibble_cols(kq.reshape(B, -1))
-        ctx["vcols"][layer] = _pack_nibble_cols(vq.reshape(B, -1))
-        ctx["kscols"][layer] = ks[:, 0, :, 0]
-        ctx["vscols"][layer] = vs[:, 0, :, 0]
-        qh = q.transpose(1, 2).contiguous()                    # [B, H, 1, D]
-        acc, m, lse = decode_attention_int4_stats(qh, layer, state["k"], state["v"],
-                                                  state["k_scale"], state["v_scale"],
-                                                  ctx["mask"])
         k_cur, v_cur = kk[:, 0], vv[:, 0]                      # [B, Hkv, D]
+        qh = q.transpose(1, 2).contiguous()                    # [B, H, 1, D]
+        acc, m, lse = decode_attention_int4_write(qh, k_cur, v_cur, ctx["wp"], layer,
+                                                  state["k"], state["v"], state["k_scale"],
+                                                  state["v_scale"], ctx["mask"])
         if c.kv_repeat > 1:
             k_cur = k_cur.repeat_interleave(c.kv_repeat, dim=1)
             v_cur = v_cur.repeat_interleave(c.kv_repeat, dim=1)
@@ -405,13 +385,16 @@ class StreamingTransformer:
 
     def _step_int4_decode(self, params, state, x, exec_mask, widx):
         """One T = 1 step over the int4 cache (moshi_tpu
-        transformer.py:749-855).  The lane at the write position holds a
-        stale row and is masked out of the cache pass; the current row is
-        merged in unquantized.  Every layer's new column is written after
-        the layer loop, at `offset % cap`, for every slot."""
+        transformer.py:749-855).  The lane at the write position `offset %
+        cap` holds a stale row and is masked out of the cache pass; the
+        current row is merged in unquantized.  Each layer's new column is
+        written at that lane, for every slot, by the layer's own attention
+        op after its pass.  The JAX package writes every layer's column
+        after the layer scan instead; the caches end equal, because layer
+        l's cache is read only by layer l's pass in a step and that pass
+        does not attend the lane."""
         c = self.config
         B = x.shape[0]
-        L, Hkv = c.num_layers, c.num_kv_heads
         offset = state["offset"]
         cap = c.kv_capacity  # the cache's lane axis is padded past it
         wp = offset % cap
@@ -421,19 +404,12 @@ class StreamingTransformer:
         if c.context is not None:
             mask &= delta < c.context
         mask &= torch.arange(cap, device=x.device)[None] != wp[:, None]
-        hd2 = state["k"].shape[2]
-        ctx = {"mask": mask,
+        ctx = {"mask": mask, "wp": wp,
                "cur_valid": (torch.ones(B, dtype=torch.bool, device=x.device)
-                             if exec_mask is None else exec_mask),
-               "kcols": torch.empty((L, B, hd2), dtype=torch.int8, device=x.device),
-               "vcols": torch.empty((L, B, hd2), dtype=torch.int8, device=x.device),
-               "kscols": torch.empty((L, B, Hkv), dtype=torch.bfloat16, device=x.device),
-               "vscols": torch.empty((L, B, Hkv), dtype=torch.bfloat16, device=x.device)}
-        for layer in range(L):
+                             if exec_mask is None else exec_mask)}
+        for layer in range(c.num_layers):
             attend = partial(self._int4_attention, state=state, layer=layer, ctx=ctx)
             x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx)
-        cache_write_int4(wp, ctx["kcols"], ctx["vcols"], ctx["kscols"], ctx["vscols"],
-                         state["k"], state["v"], state["k_scale"], state["v_scale"])
         offset.copy_(offset_next)
         return x, state
 

@@ -44,12 +44,9 @@ SIGNATURES = {
     "int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, q, scale, out, batch, din, dout, rows_per_block, cluster, stream
     "int8_mma": [_P] * 4 + [_I] * 5 + [_P],
-    # q, k_all, v_all, k_scale, v_scale, mask, acc, m, l, layer, B, H, Hkv, D,
-    # cap, cap_pad, warps, stream
-    "decode_attention_int4": [_P] * 9 + [_I] * 8 + [_P],
-    # pos, kcols, vcols, kscols, vscols, k_all, v_all, ks_all, vs_all, L, B,
-    # hd2, Hkv, cap_pad, stream
-    "cache_write_int4": [_P] * 9 + [_I] * 5 + [_P],
+    # q, k_all, v_all, k_scale, v_scale, mask, kk, vv, pos, acc, m, l, layer,
+    # B, H, Hkv, D, cap, cap_pad, warps, kk_stride, vv_stride, stream
+    "decode_attention_int4": [_P] * 12 + [_I] * 10 + [_P],
     # q, k_all, v_all, k_scale, v_scale, mask, out, layer, B, H, Hkv, D, cap,
     # per_split, splits, warps, stream
     "decode_attention_int8": [_P] * 7 + [_I] * 9 + [_P],

@@ -1,9 +1,11 @@
-"""Flash decode over the int4-packed KV cache and its in-place cache write:
-the wrappers of the CUDA kernels `csrc/decode_attention_int4.cu` and
-`csrc/cache_write_int4.cu`, and their plain PyTorch versions.
+"""Flash decode over the int4-packed KV cache, and the in-place write of
+the layer's new column: the wrappers of the CUDA kernel
+`csrc/decode_attention_int4.cu` and their plain PyTorch versions.
 
 Counterpart of moshi_tpu/ops/int4_attention.py (`decode_attention_int4_stats`,
-`cache_write_int4`), in its layout:
+`cache_write_int4`) and of the quantization of moshi_tpu
+modules/transformer.py (`_quant_rows_int4`, `_pack_nibble_cols`), in the
+JAX package's layout:
 - k_all, v_all int8 [L, B, Hkv*D/2, cap_pad]: the byte at (row r, lane s) of
   a slot holds channels 2r (low nibble) and 2r+1 (high nibble) of position
   s, each signed in [-7, 7];
@@ -12,11 +14,16 @@ Counterpart of moshi_tpu/ops/int4_attention.py (`decode_attention_int4_stats`,
 - cap_pad is the logical capacity rounded up to a multiple of 128; the pad
   lanes are never attended.
 
-The attention kernel's blocks take the query heads of one slot that share
-a KV head (up to 8, the n8 side of its tensor-core tiles), and their warps
-split the positions in chunks of CHUNK; `plan_warps` sizes the blocks so
-that the grid fits on the card at once.  On CPU tensors the wrappers run
-the plain versions; on CUDA tensors they launch the kernels or raise.
+The kernel's blocks take the query heads of one slot that share a KV head
+(up to 8, the n8 side of its tensor-core tiles), and their warps split the
+positions in chunks of CHUNK; `plan_warps` sizes the blocks so that the
+grid fits on the card at once.  `decode_attention_int4_write` is the
+decode step's op: the same launch also quantizes the layer's current K/V
+rows and stores them at the slot's ring lane (the JAX package's
+`cache_write_int4`, there one launch for all layers after the layer scan).
+`decode_attention_int4_stats` is the attention alone.  On CPU tensors the
+wrappers run the plain versions; on CUDA tensors they launch the kernel or
+raise.
 """
 
 import math
@@ -109,18 +116,8 @@ def _check_attention(q, k_all, v_all, k_scale, v_scale, mask):
         raise TypeError(f"decode_attention_int4: scales {k_scale.dtype}, {v_scale.dtype}")
 
 
-def decode_attention_int4_stats(q, layer: int, k_all, v_all, k_scale, v_scale, mask):
-    """Unnormalized flash attention of q [B, H, 1, D] (rope'd, unscaled)
-    over layer `layer` of the packed cache; mask [B, cap] bool over the
-    logical capacity.  Query head h reads KV head h // (H // Hkv).  Returns
-    (acc [B, H, D], m [B, H, 1], l [B, H, 1]) in f32: the caller merges
-    further rows with the flash rule and divides by l."""
-    _check_attention(q, k_all, v_all, k_scale, v_scale, mask)
-    if q.device.type == "cpu":
-        return decode_attention_int4_stats_plain(q, layer, k_all, v_all, k_scale, v_scale,
-                                                 mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_int4: unsupported device {q.device}")
+def _launch(q, layer, k_all, v_all, k_scale, v_scale, mask, rows=None):
+    """One launch of the kernel; rows = (kk, vv, pos) adds the write."""
     B, H, _, D = q.shape
     L, _, _, cap_pad = k_all.shape
     if D not in HEAD_DIMS:
@@ -137,6 +134,24 @@ def decode_attention_int4_stats(q, layer: int, k_all, v_all, k_scale, v_scale, m
     if any(t.data_ptr() % 16 for t in (k_all, v_all, k_scale, v_scale)):
         raise ValueError("decode_attention_int4: caches and scales must be 16-byte aligned")
     Hkv, cap = k_scale.shape[2], mask.shape[1]
+    kk_ptr = vv_ptr = pos_ptr = None
+    kk_stride = vv_stride = 0
+    if rows is not None:
+        kk, vv, pos = rows
+        if H // Hkv > HEADS_PER_BLOCK:
+            raise ValueError(f"decode_attention_int4_write: {H // Hkv} query heads per KV "
+                             f"head, more than the {HEADS_PER_BLOCK} of a block: another "
+                             f"block would read the lane while it is written")
+        if kk.dtype != torch.bfloat16 or vv.dtype != torch.bfloat16:
+            raise TypeError(f"decode_attention_int4_write: rows {kk.dtype}, {vv.dtype} on "
+                            f"the card, the kernel takes bf16")
+        if any(t.stride(2) != 1 or t.stride(1) != D for t in (kk, vv)):
+            raise ValueError("decode_attention_int4_write: each slot's rows must be "
+                             "contiguous [Hkv, D]")
+        if not pos.is_contiguous():
+            raise ValueError("decode_attention_int4_write: pos must be contiguous")
+        kk_ptr, vv_ptr, pos_ptr = kk.data_ptr(), vv.data_ptr(), pos.data_ptr()
+        kk_stride, vv_stride = kk.stride(0), vv.stride(0)
     warps = plan_warps(B, H, Hkv, cap, _num_sms(q.device.index or 0))
     acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
@@ -144,73 +159,125 @@ def decode_attention_int4_stats(q, layer: int, k_all, v_all, k_scale, v_scale, m
     lib = build.load("decode_attention_int4")
     err = lib.decode_attention_int4(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), mask.data_ptr(), acc.data_ptr(), m.data_ptr(), lse.data_ptr(),
-        int(layer), B, H, Hkv, D, cap, cap_pad, warps,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        v_scale.data_ptr(), mask.data_ptr(), kk_ptr, vv_ptr, pos_ptr, acc.data_ptr(),
+        m.data_ptr(), lse.data_ptr(), int(layer), B, H, Hkv, D, cap, cap_pad, warps,
+        kk_stride, vv_stride, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "decode_attention_int4")
     decode_attention_int4_stats.launches += 1
     return acc, m, lse
 
 
+def decode_attention_int4_stats(q, layer: int, k_all, v_all, k_scale, v_scale, mask):
+    """Unnormalized flash attention of q [B, H, 1, D] (rope'd, unscaled)
+    over layer `layer` of the packed cache; mask [B, cap] bool over the
+    logical capacity.  Query head h reads KV head h // (H // Hkv).  Returns
+    (acc [B, H, D], m [B, H, 1], l [B, H, 1]) in f32: the caller merges
+    further rows with the flash rule and divides by l.  `.launches` counts
+    every launch of the kernel, decode_attention_int4_write's too."""
+    _check_attention(q, k_all, v_all, k_scale, v_scale, mask)
+    if q.device.type == "cpu":
+        return decode_attention_int4_stats_plain(q, layer, k_all, v_all, k_scale, v_scale,
+                                                 mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_int4: unsupported device {q.device}")
+    return _launch(q, layer, k_all, v_all, k_scale, v_scale, mask)
+
+
 decode_attention_int4_stats.launches = 0
 
 
+def _quant_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int4 quantization per (batch, time, head) row of [B, T, H,
+    D]: values in [-7, 7] as int8 and the f32 scale [B, T, H, 1].
+    torch.round rounds half to even, as jnp.round does."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp(min=1e-6) / 7.0
+    return torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int8), scale
+
+
+def _pack_nibble_cols(vals: torch.Tensor) -> torch.Tensor:
+    """int4 values [B, H*D] (one position's channels) -> channel-pair
+    packed bytes [B, H*D/2]: channel 2r in the low nibble, 2r+1 in the
+    high."""
+    return (vals[:, 1::2] << 4) | (vals[:, 0::2] & 15)
+
+
 def cache_write_int4_plain(pos, kcols, vcols, kscols, vscols, k_all, v_all, ks_all, vs_all):
-    """Advanced-index assignment, as the JAX package's dynamic-update-slice
-    fallback (moshi_tpu transformer.py:840-850)."""
-    b = torch.arange(kcols.shape[1], device=pos.device)
-    k_all[:, b, :, pos] = kcols.transpose(0, 1)
-    v_all[:, b, :, pos] = vcols.transpose(0, 1)
-    ks_all[:, b, :, pos] = kscols.transpose(0, 1)
-    vs_all[:, b, :, pos] = vscols.transpose(0, 1)
+    """Write packed columns kcols/vcols [L, B, Hkv*D/2] int8 and scales
+    kscols/vscols [L, B, Hkv] bf16 at lane pos[b] of every layer of slot b,
+    in place, for every slot (frozen ones too); a position outside [0,
+    cap_pad) writes nothing (its slot's lane 0 or cap_pad - 1 gets its own
+    bytes back, so nothing waits on the host).  Advanced-index assignment,
+    as the JAX package's dynamic-update-slice fallback (moshi_tpu
+    transformer.py:840-850).  Returns the four caches."""
+    cap_pad = k_all.shape[-1]
+    keep = ((pos >= 0) & (pos < cap_pad))[:, None, None]
+    b, p = torch.arange(pos.shape[0], device=pos.device), pos.clamp(0, cap_pad - 1)
+    for col, cache in ((kcols, k_all), (vcols, v_all), (kscols, ks_all), (vscols, vs_all)):
+        cache[:, b, :, p] = torch.where(keep, col.transpose(0, 1), cache[:, b, :, p])
     return k_all, v_all, ks_all, vs_all
 
 
-def _check_write(pos, kcols, vcols, kscols, vscols, k_all, v_all, ks_all, vs_all):
-    ts = (pos, kcols, vcols, kscols, vscols, k_all, v_all, ks_all, vs_all)
-    devs = {t.device for t in ts}
+def int4_columns(kk, vv):
+    """The current rows kk, vv [B, Hkv, D] as the cache stores them (the
+    JAX package's `_int4_attention` columns): packed int8 [1, B, Hkv*D/2]
+    each and bf16 scales [1, B, Hkv] each, one layer's worth."""
+    B = kk.shape[0]
+    (kq, ks), (vq, vs) = _quant_rows_int4(kk[:, None]), _quant_rows_int4(vv[:, None])
+    return ([_pack_nibble_cols(x.reshape(B, -1))[None] for x in (kq, vq)]
+            + [x[None, :, 0, :, 0].to(torch.bfloat16) for x in (ks, vs)])
+
+
+def decode_attention_int4_write_plain(q, kk, vv, pos, layer, k_all, v_all, k_scale, v_scale,
+                                      mask):
+    """The JAX package's order (moshi_tpu transformer.py:828-921): quantize
+    and pack the current rows, attend over the layer with the dense
+    fallback, then write the layer's column (the JAX package writes every
+    layer's after the scan, which gives the same cache)."""
+    cols = int4_columns(kk, vv)
+    out = decode_attention_int4_stats_plain(q, layer, k_all, v_all, k_scale, v_scale, mask)
+    at = slice(layer, layer + 1)
+    cache_write_int4_plain(pos, *cols, k_all[at], v_all[at], k_scale[at], v_scale[at])
+    return out
+
+
+def _check_rows(q, kk, vv, pos, k_scale):
+    devs = {t.device for t in (q, kk, vv, pos)}
     if len(devs) != 1:
-        raise ValueError(f"cache_write_int4: tensors on {sorted(map(str, devs))}")
-    if k_all.ndim != 4 or ks_all.ndim != 4 or kcols.ndim != 3 or kscols.ndim != 3:
-        raise ValueError(f"cache_write_int4: caches {tuple(k_all.shape)}, "
-                         f"{tuple(ks_all.shape)}, columns {tuple(kcols.shape)}")
-    L, B, hd2, cap_pad = k_all.shape
-    Hkv = ks_all.shape[2]
-    if (tuple(v_all.shape) != tuple(k_all.shape)
-            or tuple(ks_all.shape) != (L, B, Hkv, cap_pad)
-            or tuple(vs_all.shape) != tuple(ks_all.shape)
-            or tuple(kcols.shape) != (L, B, hd2) or tuple(vcols.shape) != (L, B, hd2)
-            or tuple(kscols.shape) != (L, B, Hkv) or tuple(vscols.shape) != (L, B, Hkv)
+        raise ValueError(f"decode_attention_int4_write: tensors on {sorted(map(str, devs))}")
+    B, _, _, D = q.shape
+    Hkv = k_scale.shape[2]
+    if (tuple(kk.shape) != (B, Hkv, D) or tuple(vv.shape) != (B, Hkv, D)
             or tuple(pos.shape) != (B,)):
-        raise ValueError("cache_write_int4: columns, positions and caches do not fit "
-                         "together")
-    if not (k_all.dtype == v_all.dtype == kcols.dtype == vcols.dtype == torch.int8
-            and ks_all.dtype == vs_all.dtype == kscols.dtype == vscols.dtype
-            == torch.bfloat16 and pos.dtype == torch.int64):
-        raise TypeError("cache_write_int4: caches and columns int8, scales bf16, "
-                        "positions int64")
+        raise ValueError(f"decode_attention_int4_write: rows {tuple(kk.shape)}, "
+                         f"{tuple(vv.shape)} and pos {tuple(pos.shape)} do not fit q "
+                         f"{tuple(q.shape)} and {Hkv} KV heads")
+    if pos.dtype != torch.int64:
+        raise TypeError(f"decode_attention_int4_write: pos {pos.dtype}, not int64")
 
 
-def cache_write_int4(pos, kcols, vcols, kscols, vscols, k_all, v_all, ks_all, vs_all):
-    """Write one frame's packed columns kcols/vcols [L, B, Hkv*D/2] int8
-    and scales kscols/vscols [L, B, Hkv] bf16 at lane pos[b] of every layer
-    of slot b, in place, for every slot (frozen ones too).  Returns the four
-    caches."""
-    args = (pos, kcols, vcols, kscols, vscols, k_all, v_all, ks_all, vs_all)
-    _check_write(*args)
-    if pos.device.type == "cpu":
-        return cache_write_int4_plain(*args)
-    if pos.device.type != "cuda":
-        raise ValueError(f"cache_write_int4: unsupported device {pos.device}")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("cache_write_int4: operands must be contiguous")
-    L, B, hd2, cap_pad = k_all.shape
-    lib = build.load("cache_write_int4")
-    err = lib.cache_write_int4(*(t.data_ptr() for t in args), L, B, hd2, ks_all.shape[2],
-                               cap_pad, torch.cuda.current_stream(pos.device).cuda_stream)
-    build.check(lib, err, "cache_write_int4")
-    cache_write_int4.launches += 1
-    return k_all, v_all, ks_all, vs_all
+def decode_attention_int4_write(q, kk, vv, pos, layer: int, k_all, v_all, k_scale, v_scale,
+                                mask):
+    """decode_attention_int4_stats of q over layer `layer`, and in the same
+    launch the write of that layer's column: the current rows kk, vv [B,
+    Hkv, D] (rope'd) quantized to int4 and stored with their bf16 scales at
+    lane pos[b] (int64 [B]) of slot b, in place, for every slot (frozen
+    ones too); a position outside [0, cap_pad) writes nothing.  The mask
+    must hide lane pos[b] from the pass (the lane holds a stale row).
+    Returns (acc, m, l) of the cache as it was before the write.  On the
+    card it needs H / Hkv <= HEADS_PER_BLOCK.  `.launches` counts its
+    launches."""
+    _check_attention(q, k_all, v_all, k_scale, v_scale, mask)
+    _check_rows(q, kk, vv, pos, k_scale)
+    if q.device.type == "cpu":
+        return decode_attention_int4_write_plain(q, kk, vv, pos, layer, k_all, v_all, k_scale,
+                                                 v_scale, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_int4_write: unsupported device {q.device}")
+    out = _launch(q, layer, k_all, v_all, k_scale, v_scale, mask, rows=(kk, vv, pos))
+    decode_attention_int4_write.launches += 1
+    return out
 
 
-cache_write_int4.launches = 0
+decode_attention_int4_write.launches = 0

@@ -4,17 +4,18 @@
 
 Each variant is moshi_tpu_torch/csrc/decode_attention_int4.cu with one
 textual edit that takes back one choice of its design (VARIANTS says
-which).  With --parent DIR (a checkout of an earlier commit, e.g. unpacked
-from `git archive`), the decode_attention_int4.cu of that checkout is timed
-too, with its C entry of 7 ints, and so is a diagnostic copy of it whose
-nibble conversion (integer ops and an I2F per nibble) is the f32
-magic-number trick (one LOP3 and one FADD), each at the compiler's register
-count and capped at 64 registers.  Sources and libraries go to
-build/k4_variants/ (gitignored).  Every variant is checked against the plain
-version at Moshi's B = 16, H = 32, cap 3000 (the load-only diagnostic
-excepted) and timed with chip_smoke.time_ms (CUDA-graph replay, operands
-cold in L2) at D = 128 and 64, in the listed order and again in reverse;
-ptxas registers and spills and the card's name and power limit are printed.
+which); "kernel_write" is the committed source launched with the write of
+the layer's new column (the main path's launch), the others are launched
+for the attention alone.  With --parent DIR (a checkout of an earlier
+commit, e.g. unpacked from `git archive`), the decode_attention_int4.cu of
+that checkout is timed too; its C entry must be the attention-only one of 9
+pointers and 8 ints.  Sources and libraries go to build/k4_variants/
+(gitignored).  Every variant is checked against the plain version at
+Moshi's B = 16, H = 32, cap 3000 (the load-only diagnostic excepted; the
+mask hides each slot's write lane, as on the main path) and timed with
+chip_smoke.time_ms (CUDA-graph replay, operands cold in L2) at D = 128 and
+64, in the listed order and again in reverse; ptxas registers and spills
+and the card's name and power limit are printed.
 """
 
 import argparse
@@ -33,7 +34,10 @@ import chip_smoke as cs  # noqa: E402
 from moshi_tpu_torch.ops import build, int4_attention as i4  # noqa: E402
 
 OUT = ROOT / "build" / "k4_variants"
-B, H, CAP, LAYERS = 16, 32, 3000, 2
+# 24 layers: the 20 calls of a timing cycle read and write 20 distinct
+# layers, as a frame does, so the written sectors go back to memory (over
+# 2 layers they stay dirty in L2 between calls and the write looks 3x cheaper)
+B, H, CAP, LAYERS = 16, 32, 3000, 24
 
 LOOP = """  for (int c = warp; c < nchunks; c += warps) {
     Scores<D> kpart;
@@ -89,14 +93,26 @@ LOADS_ONLY = """  uint32_t sink = 0;
     sink ^= kpart.valid;
   }
   if (sink == 0x12345678u) acc[0][0] = 1.f;"""
-CAP_REGS = ("__launch_bounds__(32 * kMaxWarps, 2)", "__launch_bounds__(32 * kMaxWarps)")
-MAGIC = """__device__ __forceinline__ float nib_f32(int v) {
-  return __uint_as_float(0x4B000000u | ((v ^ 8) & 0xF)) - 8388616.0f;
-}
+BYTE_STORE = """    dst[static_cast<size_t>(kC / 2 * lane + r) * cap_pad] =
+        static_cast<int8_t>(((hi & 15) << 4) | (lo & 15));"""
+SCALE_STORE = "  if (lane == scale_lane) *scale_dst = __float2bfloat16_rn(scale);"
+V_WRITE = """    store_column<D>(vv + static_cast<size_t>(blockIdx.y) * vv_stride + blockIdx.x * D,
+                    v_w + rows_off, vs_w + scale_off, cap_pad, lane, scale_lane);"""
+POST_LOOP_WRITE = """  if (pos != nullptr) {
+    const int64_t p = pos[blockIdx.y];
+    if (p >= 0 && p < cap_pad && warp == static_cast<int>(p / kChunk) % warps)
+      write_lane(static_cast<int>(p));
+  }
 """
+IN_LOOP_WRITE = """    if (pos != nullptr && pos[blockIdx.y] >= 0 && pos[blockIdx.y] < cap_pad &&
+        c == pos[blockIdx.y] / kChunk)
+      write_lane(static_cast<int>(pos[blockIdx.y]));
+"""
+CAP_REGS = ("__launch_bounds__(32 * kMaxWarps, 2)", "__launch_bounds__(32 * kMaxWarps)")
 # name -> (what the edit takes back, [(old, new), ...])
 VARIANTS = {
     "kernel": ("the committed source", []),
+    "kernel_write": ("the committed source, launched with the layer's cache write", []),
     "rows_32B": ("32 bytes of a row per warp load (chunks of 32 positions)",
                  [("constexpr int kW = 8;", "constexpr int kW = 4;")]),
     "rows_128B": ("128 bytes of a row per warp load (chunks of 128 positions)",
@@ -110,21 +126,27 @@ VARIANTS = {
     "no_register_cap": ("no cap of 128 registers (launch bounds without a minimum of 2 "
                         "blocks)", [CAP_REGS]),
     "loads_only": ("diagnostic: the kernel's loads with no arithmetic", [(LOOP, LOADS_ONLY)]),
+    # diagnostics of the write (launched with it): what it costs, by part
+    "write_in_loop": ("the write stored right after w*'s step on the lane's chunk, when its "
+                      "sectors were just loaded into L2 (not after the loop)",
+                      [(POST_LOOP_WRITE, ""), (LOOP, LOOP.replace("    pv(vpart, pb);\n",
+                                                                  "    pv(vpart, pb);\n"
+                                                                  + IN_LOOP_WRITE))]),
+    "write_no_stores": ("diagnostic: the write's loads and quantization, no stores",
+                        [(BYTE_STORE, "    if (cap_pad < 0) {\n" + BYTE_STORE + "\n    }"),
+                         (SCALE_STORE, SCALE_STORE.replace("lane == scale_lane",
+                                                           "cap_pad < 0"))]),
+    "write_k_only": ("diagnostic: the write of the K column alone", [(V_WRITE, "")]),
+    "write_streaming": ("the write's byte stores marked streaming (st.global.cs)",
+                        [(BYTE_STORE, """    asm volatile("st.global.cs.b8 [%0], %1;" ::
+                 "l"(dst + static_cast<size_t>(kC / 2 * lane + r) * cap_pad),
+                 "r"(((hi & 15) << 4) | (lo & 15)));""")]),
+    "write_through": ("the write's byte stores written through to memory (st.global.wt)",
+                      [(BYTE_STORE, """    asm volatile("st.global.wt.b8 [%0], %1;" ::
+                 "l"(dst + static_cast<size_t>(kC / 2 * lane + r) * cap_pad),
+                 "r"(((hi & 15) << 4) | (lo & 15)));""")]),
 }
-PARENT_VARIANTS = {
-    "parent": ("the parent's kernel", []),
-    "parent_magic": ("the parent's kernel, nibbles by the f32 magic number, no I2F",
-                     [("namespace {\n", "namespace {\n" + MAGIC),
-                      ("static_cast<float>(sign_nibble(byte))", "nib_f32(byte)"),
-                      ("static_cast<float>(sign_nibble(byte >> 4))", "nib_f32(byte >> 4)")]),
-    "parent_64regs": ("the parent's kernel at 64 registers",
-                      [("__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 4)")]),
-    "parent_magic_64regs": ("parent_magic at 64 registers",
-                            [("namespace {\n", "namespace {\n" + MAGIC),
-                             ("static_cast<float>(sign_nibble(byte))", "nib_f32(byte)"),
-                             ("static_cast<float>(sign_nibble(byte >> 4))", "nib_f32(byte >> 4)"),
-                             ("__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 4)")]),
-}
+PARENT_VARIANTS = {"parent": ("the parent's kernel", [])}
 
 
 def edited(src: str, edits) -> str:
@@ -153,8 +175,8 @@ def build_variants(sources: dict) -> dict:
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         _, spills = cs.ptxas_summary(log)
         fn = getattr(ctypes.CDLL(str(OUT / f"{name}.so")), "decode_attention_int4")
-        n_ints = 7 if name.startswith("parent") else 8
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = (build.SIGNATURES["decode_attention_int4"] if not name.startswith("parent")
+                       else [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         entries[name] = fn
         print(f"[variants] {name}: registers per instance {regs}, {spills} bytes of spill "
@@ -165,6 +187,7 @@ def build_variants(sources: dict) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="checkout whose kernel is timed beside")
+    ap.add_argument("--only", nargs="+", metavar="NAME", help="time these variants alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_k4_variants.py: torch sees no CUDA device")
@@ -174,6 +197,8 @@ def main() -> None:
         parent = (args.parent / "moshi_tpu_torch" / "csrc" / "decode_attention_int4.cu").read_text()
         table.update({name: (what, edited(parent, edits))
                       for name, (what, edits) in PARENT_VARIANTS.items()})
+    if args.only:
+        table = {name: table[name] for name in args.only}
     for name, (what, _) in table.items():
         print(f"[variants] {name}: {what}", flush=True)
     entries = build_variants({name: text for name, (_, text) in table.items()})
@@ -187,18 +212,26 @@ def main() -> None:
     for D in (128, 64):
         caches = cs.random_int4_cache(g, LAYERS, B, H, D, cap_pad, dev)
         q = torch.randn(B, H, 1, D, device=dev, generator=g).to(torch.bfloat16)
+        pos = torch.randint(0, CAP, (B,), device=dev, generator=g)
         mask = torch.rand(B, CAP, device=dev, generator=g) < 0.9
+        mask[torch.arange(B, device=dev), pos] = False
+        kk, vv = cs.main_path_rows(g, B, H, D, dev)
         ref = i4.decode_attention_int4_stats_plain(q, 1, *caches, mask)
         outs = (torch.empty(B, H, D, device=dev), torch.empty(B, H, 1, device=dev),
                 torch.empty(B, H, 1, device=dev))
 
         def launcher(name):
-            fn, extra = entries[name], (() if name.startswith("parent") else (warps,))
+            fn = entries[name]
+            rows, strides = (), ()
+            if not name.startswith("parent"):
+                rows = ((kk.data_ptr(), vv.data_ptr(), pos.data_ptr()) if "write" in name
+                        else (None, None, None))
+                strides = (kk.stride(0), vv.stride(0))
 
             def call(q_, layer, k, v, ks, vs, m_):
                 err = fn(q_.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-                         m_.data_ptr(), *(o.data_ptr() for o in outs), layer, B, H, H, D, CAP,
-                         cap_pad, *extra, torch.cuda.current_stream().cuda_stream)
+                         m_.data_ptr(), *rows, *(o.data_ptr() for o in outs), layer, B, H, H, D,
+                         CAP, cap_pad, warps, *strides, torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             return call
@@ -209,8 +242,8 @@ def main() -> None:
             call = launcher(name)
             call(*ops[1])
             torch.cuda.synchronize()
-            if name == "loads_only":
-                check = "not checked (no arithmetic)"
+            if name in ("loads_only", "write_no_stores", "write_k_only"):
+                check = "not checked (a diagnostic)"
             else:
                 err = max(cs.rel_err(outs[0] / outs[2], ref[0] / ref[2]),
                           cs.rel_err(outs[1], ref[1]))

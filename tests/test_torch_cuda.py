@@ -436,7 +436,9 @@ def test_decode_attention_int4_deterministic_and_slot_invariant(gen):
 def test_decode_attention_int4_c_entry_rejects_what_it_does_not_take(gen):
     """The C entry launches nothing and returns cudaErrorInvalidValue for 0
     or 9 warps, a cap past cap_pad, a cap_pad off the 64-position chunk,
-    misaligned caches and a head dim other than 64 and 128."""
+    misaligned caches and a head dim other than 64 and 128; and, for a
+    write, missing rows, more than 8 query heads per KV head and row
+    strides shorter than a slot's rows."""
     from moshi_tpu_torch.ops import build
     B, H, D, cap, cap_pad = 2, 4, 64, 200, 256
     k, v, ks, vs = _int4_cache(gen, 1, B, H, D, cap_pad)
@@ -447,37 +449,173 @@ def test_decode_attention_int4_c_entry_rejects_what_it_does_not_take(gen):
     lib = build.load("decode_attention_int4")
     stream = torch.cuda.current_stream().cuda_stream
 
-    def call(kp=k.data_ptr(), D_=D, cap_=cap, cap_pad_=cap_pad, warps=2):
+    rows = torch.randn(B, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    pos = torch.full((B,), 7, device="cuda")
+
+    def call(kp=k.data_ptr(), D_=D, cap_=cap, cap_pad_=cap_pad, warps=2, kk=None, pp=None,
+             H_=H, stride=H * D):
         return lib.decode_attention_int4(q.data_ptr(), kp, v.data_ptr(), ks.data_ptr(),
-                                         vs.data_ptr(), mask.data_ptr(),
-                                         *(t.data_ptr() for t in out), 0, B, H, H, D_, cap_,
-                                         cap_pad_, warps, stream)
+                                         vs.data_ptr(), mask.data_ptr(), kk, kk, pp,
+                                         *(t.data_ptr() for t in out), 0, B, H_, H, D_, cap_,
+                                         cap_pad_, warps, stride, stride, stream)
     assert call() == 0
+    assert call(kk=rows.data_ptr(), pp=pos.data_ptr()) == 0
     torch.cuda.synchronize()
     for bad in (dict(warps=0), dict(warps=9), dict(cap_=cap_pad + 1), dict(cap_pad_=cap_pad - 32),
-                dict(kp=k.data_ptr() + 8), dict(D_=96)):
+                dict(kp=k.data_ptr() + 8), dict(D_=96), dict(pp=pos.data_ptr()),
+                dict(kk=rows.data_ptr(), pp=pos.data_ptr(), H_=9 * H),
+                dict(kk=rows.data_ptr(), pp=pos.data_ptr(), stride=H * D - 1)):
         assert call(**bad) == 1, bad      # cudaErrorInvalidValue
 
 
-@pytest.mark.parametrize("kv_repeat", [1, 2])
-def test_cache_write_int4(kv_repeat, gen):
-    """Byte for byte the plain version's writes, for every slot: slot 1 is
-    the frozen one, at a lane it wrote before."""
-    L, B, H, D, cap_pad = 3, 4, 8, 128, 384
-    Hkv = H // kv_repeat
-    caches = _int4_cache(gen, L, B, Hkv, D, cap_pad)
-    cols = [torch.randint(-128, 128, (L, B, Hkv * D // 2), device="cuda", generator=gen,
-                          dtype=torch.int8) for _ in range(2)]
-    scols = [torch.randn(L, B, Hkv, device="cuda", generator=gen).to(torch.bfloat16)
-             for _ in range(2)]
-    pos = torch.tensor([0, 7, 383, 200], device="cuda")
-    ref = i4.cache_write_int4_plain(pos, *cols, *scols, *(c.clone() for c in caches))
-    n = i4.cache_write_int4.launches
-    got = i4.cache_write_int4(pos, *cols, *scols, *caches)
+def _rows(gen, B, Hkv, D):
+    """The current rows kk (contiguous) and vv (a view whose slots lie 3 x
+    Hkv x D apart, as the qkv projection's slice), bf16 [B, Hkv, D]."""
+    kk = torch.randn(B, Hkv, D, device="cuda", generator=gen).to(torch.bfloat16)
+    qkv = torch.randn(B, 3 * Hkv * D, device="cuda", generator=gen).to(torch.bfloat16)
+    return kk, qkv[:, Hkv * D:2 * Hkv * D].view(B, Hkv, D)
+
+
+def _edge_positions(B, cap, cap_pad, gen):
+    """Write lanes: the chunk edges 0, 63, 64, 127, 128, cap - 1, a pad
+    lane (cap_pad - 1, never attended) and -1 (nothing written), then
+    random lanes below cap."""
+    edges = [p for p in (0, 63, 64, 127, 128, cap - 1, cap_pad - 1, -1) if p < cap or
+             p in (cap_pad - 1, -1)]
+    rest = torch.randint(0, cap, (max(B - len(edges), 0),), generator=gen,
+                         device="cuda").tolist()
+    return torch.tensor((edges + rest)[:B], device="cuda")
+
+
+def _write_mask(gen, B, cap, pos):
+    """A ragged mask with each slot's write lane hidden and the last slot
+    fully masked."""
+    mask = torch.rand(B, cap, device="cuda", generator=gen) < 0.8
+    for b, p in enumerate(pos.tolist()):
+        if 0 <= p < cap:
+            mask[b, p] = False
+    mask[-1] = False
+    return mask
+
+
+def _write_plain_on_cpu(q, kk, vv, pos, layer, caches, mask):
+    """The fused op's plain version on CPU copies: torch divides a CUDA
+    tensor by a Python scalar as a multiply by its reciprocal, which can
+    move a scale by one ulp; the CPU divides, as the kernel and the JAX
+    package do.  Returns the stats and the written caches."""
+    cpu = [t.cpu() for t in caches]
+    out = i4.decode_attention_int4_write_plain(q.cpu(), kk.cpu(), vv.cpu(), pos.cpu(), layer,
+                                               *cpu, mask.cpu())
+    return out, cpu
+
+
+# (B, H, Hkv, D, cap, layer): Moshi's B = 16 int4 frame and D = 64, grouped
+# KV heads (2 and 8 query heads per KV head, the most a writing block
+# takes), caps that are no multiple of the 64-position chunk
+WRITE = [(16, 32, 32, 128, 3000, 5), (16, 32, 32, 64, 3000, 1), (4, 8, 4, 128, 1001, 2),
+         (3, 16, 2, 64, 200, 0), (2, 4, 4, 128, 5, 1)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,D,cap,layer", WRITE)
+def test_decode_attention_int4_write(B, H, Hkv, D, cap, layer, gen):
+    """The fused launch against its plain version: every byte of the four
+    caches equal (the written lanes of `layer` and every other byte
+    unchanged), the stats within the attention's bound, the fully masked
+    slot at m = -1e30 and l = cap; one launch, counted by both counters."""
+    cap_pad = -(-cap // 128) * 128
+    caches = _int4_cache(gen, layer + 1, B, Hkv, D, cap_pad)
+    before = [c.clone() for c in caches]
+    q = torch.randn(B, H, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+    kk, vv = _rows(gen, B, Hkv, D)
+    pos = _edge_positions(B, cap, cap_pad, gen)
+    mask = _write_mask(gen, B, cap, pos)
+    ref, ref_caches = _write_plain_on_cpu(q, kk, vv, pos, layer, caches, mask)
+    n, nw = i4.decode_attention_int4_stats.launches, i4.decode_attention_int4_write.launches
+    got = i4.decode_attention_int4_write(q, kk, vv, pos, layer, *caches, mask)
     torch.cuda.synchronize()
-    assert i4.cache_write_int4.launches == n + 1
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+    assert i4.decode_attention_int4_stats.launches == n + 1
+    assert i4.decode_attention_int4_write.launches == nw + 1
+    for c, r, c0 in zip(caches, ref_caches, before):
+        assert torch.equal(c.cpu(), r)
+        written = [b for b, p in enumerate(pos.tolist()) if 0 <= p < cap_pad]
+        assert not torch.equal(c[layer, written], c0[layer, written])
+    live = list(range(B - 1))
+    assert _stats_err([t[live] for t in got], [t[live].cuda() for t in ref]) <= \
+        BOUND[torch.bfloat16]
+    assert (got[1][-1] == -1e30).all() and (got[2][-1] == cap).all()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_attention_int4_write_two_steps_and_frozen_slot(D, gen):
+    """Two decode steps, as the ring fills: the second launch attends the
+    lanes the first one wrote, slot 1 is frozen (its second write lands on
+    the lane of its first), and the caches and stats of both steps follow
+    the plain version's."""
+    B, H, cap, layer = 4, 8, 700, 1
+    cap_pad = 768
+    caches = _int4_cache(gen, 2, B, H, D, cap_pad)
+    cpu_caches = [c.cpu() for c in caches]
+    pos = torch.tensor([63, 64, 0, 699], device="cuda")
+    lanes = torch.arange(cap, device="cuda")[None]
+    for step in range(2):
+        if step:
+            pos = torch.where(torch.tensor([True, False, True, True], device="cuda"),
+                              (pos + 1) % cap, pos)
+        mask = (lanes < pos[:, None]) | (lanes > 650)
+        mask &= lanes != pos[:, None]
+        q = torch.randn(B, H, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+        kk, vv = _rows(gen, B, H, D)
+        got = i4.decode_attention_int4_write(q, kk, vv, pos, layer, *caches, mask)
+        torch.cuda.synchronize()
+        ref = i4.decode_attention_int4_write_plain(q.cpu(), kk.cpu(), vv.cpu(), pos.cpu(),
+                                                   layer, *cpu_caches, mask.cpu())
+        for c, r in zip(caches, cpu_caches):
+            assert torch.equal(c.cpu(), r), step
+        assert _stats_err(got, [t.cuda() for t in ref]) <= BOUND[torch.bfloat16]
+
+
+def test_decode_attention_int4_write_deterministic(gen):
+    """Two calls on copies of the same caches give the same bits, stats and
+    caches, the fully masked slot's (which weighs the lane's old bytes)
+    included."""
+    B, H, D, cap = 4, 32, 128, 3000
+    caches = _int4_cache(gen, 2, B, H, D, 3072)
+    q = torch.randn(B, H, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+    kk, vv = _rows(gen, B, H, D)
+    pos = torch.tensor([5, 64, 2999, 100], device="cuda")
+    mask = _write_mask(gen, B, cap, pos)
+    runs = []
+    for _ in range(2):
+        cs = [c.clone() for c in caches]
+        runs.append((i4.decode_attention_int4_write(q, kk, vv, pos, 1, *cs, mask), cs))
+    torch.cuda.synchronize()
+    (a, ca), (b, cb) = runs
+    for x, y in zip(a + tuple(ca), b + tuple(cb)):
+        assert torch.equal(x, y)
+    assert (a[1][-1] == -1e30).all() and (a[2][-1] == cap).all()
+
+
+def test_decode_attention_int4_write_rejects_what_the_kernel_does_not_take(gen):
+    """A write where a KV head has more than 8 query heads (its lane would
+    be read by another block while written) raises, while the attention
+    alone takes that shape; so do f32 rows and rows whose heads are not D
+    apart."""
+    B, D, cap = 2, 64, 200
+    caches = _int4_cache(gen, 1, B, 2, D, 256)
+    q = torch.randn(B, 18, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+    kk, vv = _rows(gen, B, 2, D)
+    pos = torch.tensor([3, 4], device="cuda")
+    mask = torch.ones(B, cap, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        i4.decode_attention_int4_write(q, kk, vv, pos, 0, *caches, mask)    # 9 per KV head
+    i4.decode_attention_int4_stats(q, 0, *caches, mask)
+    q = q[:, :16].contiguous()
+    with pytest.raises(TypeError):
+        i4.decode_attention_int4_write(q, kk.float(), vv, pos, 0, *caches, mask)
+    wide = torch.randn(B, 2, 2 * D, device="cuda", generator=gen).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        i4.decode_attention_int4_write(q, wide[..., :D], vv, pos, 0, *caches, mask)
+    torch.cuda.synchronize()
 
 
 def test_int4_wrappers_reject_what_the_kernels_do_not_take(gen):

@@ -1,8 +1,9 @@
 """The port's int4 KV cache against moshi_tpu's, in f32 on the CPU: the
 quantized and packed bytes, StreamingTransformer.step over the packed cache
 with a per-slot exec_mask schedule (outputs, offsets and every cache byte),
-and the plain versions of the two kernels against the JAX package's dense
-fallback and its Pallas kernels run in interpret mode."""
+and the plain versions of the attention, of the cache write and of the
+op that fuses them against the JAX package's dense fallback and its Pallas
+kernels run in interpret mode."""
 
 import functools
 
@@ -199,7 +200,8 @@ def test_plain_attention_matches_pallas_kernel(D, pallas_interpret):
 
 
 def test_plain_cache_write_matches_pallas_kernel(pallas_interpret):
-    """The plain K5 writes the bytes of the TPU kernel, frozen slots too."""
+    """cache_write_int4_plain, the reference of the fused write, writes the
+    bytes of the TPU kernel, frozen slots too."""
     rs = np.random.RandomState(7)
     L, B, H, D, cap_pad = 2, 3, 4, 16, 256
     cache = _random_cache(rs, L, B, H, D, cap_pad)
@@ -212,9 +214,105 @@ def test_plain_cache_write_matches_pallas_kernel(pallas_interpret):
     def tt(a):
         return (torch.from_numpy(a) if a.dtype == np.int8
                 else torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16))
-    got = tia.cache_write_int4(torch.from_numpy(pos), *(tt(a) for a in cols + scols + cache))
+    got = tia.cache_write_int4_plain(torch.from_numpy(pos),
+                                     *(tt(a) for a in cols + scols + cache))
     for g, r in zip(got, ref):
         assert _bytes_equal(g, r)
+
+
+def _tt(a):
+    """A copy of a numpy int8, bf16 or f32 array as a torch tensor of its
+    dtype."""
+    if a.dtype == np.int8 or a.dtype == np.float32:
+        return torch.from_numpy(a.copy())
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+
+def _repeat_heads(cache, rep):
+    """Caches of Hkv KV heads -> caches of Hkv * rep, each head repeated (a
+    grouped-query cache as the Pallas kernel, which takes H = Hkv, sees it)."""
+    k, v, ks, vs = cache
+    L, B, hd2, cap_pad = k.shape
+    Hkv = ks.shape[2]
+
+    def rows(c):
+        return np.repeat(c.reshape(L, B, Hkv, hd2 // Hkv, cap_pad), rep, axis=2).reshape(
+            L, B, hd2 * rep, cap_pad)
+    return [rows(k), rows(v), np.repeat(ks, rep, axis=2), np.repeat(vs, rep, axis=2)]
+
+
+@pytest.mark.parametrize("kv_repeat", [1, 2])
+def test_fused_write_plain_matches_jax(kv_repeat, pallas_interpret):
+    """decode_attention_int4_write's plain version against the JAX package
+    at D = 128, layer 1 of 2: its stats against the Pallas kernel in
+    interpret mode (TOL_KERNEL; at kv_repeat 2 on the caches with each KV
+    head repeated) and against `_int4_attention`'s dense fallback
+    (TOL_PLAIN); its caches byte for byte against `_int4_attention`'s
+    columns written by the Pallas `cache_write_int4`: lanes 0, 100 and
+    cap - 1, and a frozen slot's, of layer 1, every other byte unchanged."""
+    rs = np.random.RandomState(10 + kv_repeat)
+    L, B, H, D, cap, cap_pad, layer = 2, 4, 4, 128, 200, 256, 1
+    Hkv = H // kv_repeat
+    cache = _random_cache(rs, L, B, Hkv, D, cap_pad)
+    q = rs.randn(B, 1, H, D).astype(np.float32)
+    kk, vv = (rs.randn(B, 1, Hkv, D).astype(np.float32) for _ in range(2))
+    pos = np.array([0, 100, cap - 1, 37])
+    mask = rs.rand(B, cap) < 0.7
+    mask[np.arange(B), pos] = False              # the lane being written
+    cfg = jtr.TransformerConfig(**dict(CFG, d_model=H * D, num_heads=H, num_layers=L,
+                                       context=cap), kv_repeat=kv_repeat)
+    ictx = {"layer": layer, "k_all": jnp.asarray(cache[0]), "v_all": jnp.asarray(cache[1]),
+            "ks_all": jnp.asarray(cache[2]), "vs_all": jnp.asarray(cache[3]),
+            "mask": jnp.asarray(mask), "cur_valid": jnp.zeros((B,), bool), "cap": cap}
+    dense = jtr.StreamingTransformer(cfg)._int4_attention(
+        jnp.asarray(q), jnp.asarray(kk), jnp.asarray(vv), ictx)
+    qh = q.transpose(0, 2, 1, 3)
+    jacc, jm, jl = jia.decode_attention_int4_stats(
+        jnp.asarray(qh), layer, *(jnp.asarray(c) for c in _repeat_heads(cache, kv_repeat)),
+        jnp.asarray(mask))
+    # every layer's column: layer 1's from _int4_attention, the others the
+    # bytes already at the lane, so the Pallas write changes layer 1 alone
+    b = np.arange(B)
+    cols = [np.asarray(c).copy() for c in (cache[0][:, b, :, pos], cache[1][:, b, :, pos],
+                                           cache[2][:, b, :, pos], cache[3][:, b, :, pos])]
+    cols = [c.transpose(1, 0, 2).copy() for c in cols]
+    for c, new in zip(cols, ictx["cols"]):
+        c[layer] = np.asarray(new)
+    ref = jia.cache_write_int4(jnp.asarray(pos, jnp.int32),
+                               *(jnp.asarray(c) for c in cols + cache))
+
+    tcache = [_tt(c) for c in cache]
+    acc, m, lse = tia.decode_attention_int4_write(
+        torch.from_numpy(qh.copy()), torch.from_numpy(kk[:, 0].copy()),
+        torch.from_numpy(vv[:, 0].copy()), torch.from_numpy(pos), layer, *tcache,
+        torch.from_numpy(mask))
+    assert max_abs((acc / lse).reshape(B, 1, H * D).numpy(), dense) <= TOL_PLAIN
+    assert rel_err((acc / lse).numpy(), np.asarray(jacc / jl)) <= TOL_KERNEL
+    assert rel_err(m.numpy(), np.asarray(jm)) <= TOL_KERNEL
+    for got, want in zip(tcache, ref):
+        assert _bytes_equal(got, want)
+    assert not _bytes_equal(tcache[0], cache[0])  # the write did write
+
+
+def test_fused_write_plain_skips_lanes_outside_the_cache():
+    """A pos outside [0, cap_pad) writes nothing (as the kernel), and the
+    stats are the attention-only op's."""
+    rs = np.random.RandomState(12)
+    L, B, H, D, cap = 2, 3, 4, 16, 100
+    cache = [_tt(c) for c in _random_cache(rs, L, B, H, D, 128)]
+    before = [c.clone() for c in cache]
+    q = torch.from_numpy(rs.randn(B, H, 1, D).astype(np.float32))
+    kk, vv = (torch.from_numpy(rs.randn(B, H, D).astype(np.float32)) for _ in range(2))
+    mask = torch.from_numpy(rs.rand(B, cap) < 0.8)
+    pos = torch.tensor([-1, 128, 5])
+    got = tia.decode_attention_int4_write(q, kk, vv, pos, 0, *cache, mask)
+    want = tia.decode_attention_int4_stats(q, 0, *before, mask)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    for c, c0 in zip(cache, before):
+        assert torch.equal(c[:, :2], c0[:, :2])    # slots 0 and 1: nothing written
+        assert torch.equal(c[1], c0[1])             # layer 1 untouched
+    assert not torch.equal(cache[0][0, 2, :, 5], before[0][0, 2, :, 5])
 
 
 def test_int4_prefill_and_int8_are_refused():
@@ -245,11 +343,13 @@ def test_int4_wrappers_reject_bad_operands():
         tia.decode_attention_int4_stats(q, 0, k, v, ks, vs, mask[:, :0])  # no lanes
     with pytest.raises(TypeError):
         tia.decode_attention_int4_stats(q, 0, k, v, ks.float(), vs, mask)
-    cols = torch.zeros(2, 2, 32, dtype=torch.int8)
-    scols = torch.zeros(2, 2, 4, dtype=torch.bfloat16)
+    rows = torch.zeros(2, 4, 16)
+    pos = torch.zeros(2, dtype=torch.long)
     with pytest.raises(ValueError):
-        tia.cache_write_int4(torch.zeros(3, dtype=torch.long), cols, cols, scols, scols,
-                             k, v, ks, vs)                                # slots
+        tia.decode_attention_int4_write(q, rows, rows, torch.zeros(3, dtype=torch.long), 0,
+                                        k, v, ks, vs, mask)               # slots
+    with pytest.raises(ValueError):
+        tia.decode_attention_int4_write(q, rows[:, :3], rows, pos, 0, k, v, ks, vs,
+                                        mask)                             # KV heads
     with pytest.raises(TypeError):
-        tia.cache_write_int4(torch.zeros(2, dtype=torch.int32), cols, cols, scols, scols,
-                             k, v, ks, vs)
+        tia.decode_attention_int4_write(q, rows, rows, pos.int(), 0, k, v, ks, vs, mask)

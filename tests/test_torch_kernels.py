@@ -463,9 +463,17 @@ def test_int4_attention_constants_are_the_kernels():
 
 def test_decode_attention_int4_is_built_by_name():
     """decode_attention_int4's C signature: q, k_all, v_all, k_scale,
-    v_scale, mask, acc, m, l; layer, B, H, Hkv, D, cap, cap_pad, warps;
-    stream."""
+    v_scale, mask, kk, vv, pos, acc, m, l; layer, B, H, Hkv, D, cap,
+    cap_pad, warps, kk_stride, vv_stride; stream."""
     from moshi_tpu_torch.ops import build
     p, i = build.SIGNATURES["int8_gemv"][0], build.SIGNATURES["int8_gemv"][5]
-    assert build.SIGNATURES["decode_attention_int4"] == [p] * 9 + [i] * 8 + [p]
+    assert build.SIGNATURES["decode_attention_int4"] == [p] * 12 + [i] * 10 + [p]
+
+
+def test_every_kernel_source_is_built():
+    """build.SIGNATURES names exactly the sources in csrc/ (the cache write
+    has no source of its own: it runs in decode_attention_int4's launch)."""
+    from moshi_tpu_torch.ops import build
+    assert set(build.SIGNATURES) == {f.stem for f in build.CSRC.glob("*.cu")}
+    assert "cache_write_int4" not in build.SIGNATURES
     assert build.library_path("decode_attention_int4").name.startswith("decode_attention_int4-")
