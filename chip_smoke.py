@@ -36,27 +36,37 @@ Phases, each printing its own line(s):
                torch.matmul at 16 x 64, beside a one-element add_);
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
-               seed on the card; ServerState.warmup(), then 3 sessions of 40
-               frames of seeded PCM with sampling on (sessions 1 and 3 share
-               a seed).  Checks PCM, token ranges, that sessions 1 and 3
-               agree, and that the kernel launch counts are exactly what the
-               config implies per LMGen.step (the q4 linears on the q4_gemv
-               kernel at B = 1, the int8 ones on int8_mma); prints the p50
-               ms per frame;
+               seed on the card; the graphed ServerState: warm-up, then 3
+               sessions of 40 frames of seeded PCM with sampling on
+               (sessions 1 and 3 share a seed), each frame replays of the
+               three graphs (encode, LMGen.step, decode) captured at its
+               first frame.  Checks PCM, token ranges, that sessions 1 and 3
+               agree and 1 and 2 do not, that the captured step's kernel
+               launches are exactly what the config implies per
+               LMGen.step (the q4 linears on the q4_gemv kernel at B = 1,
+               the int8 ones on int8_mma) and the replay counts; prints
+               p50/p90 ms per frame, a profiler pass over 5 graphed frames
+               (card busy ms, idle share, device ops per frame), then one
+               session of the eager path (p50/p90, a launch count per
+               frame, whether its sampled tokens equal the graphed ones);
   5. batched - the same weights with the int4 KV cache, B = 16 slots of
-               BatchedMoshiState: a greedy run of 40 frames whose slots
-               must agree token for token (two slots with one PCM, a slot
-               that joins 5 frames late, one frozen for frames 10-14, one
-               reset at frame 20 that replays the PCM from the start), then
-               a sampled run of 40 frames on all 16 slots (p50/p90 ms per
-               batched frame), each with exact launch counts per frame of
-               the kernels (the q4 linears on q4_mma and the int8 ones on
-               int8_mma at B = 16, 32 decode_attention_int4 launches, each
-               writing its layer's column); then a
-               torch.profiler pass over a few frames for the card's busy
-               time; then the greedy run once more with the int8 KV cache
-               (32 decode_attention_int8 per frame) and a profiler pass
-               over 5 of its frames;
+               BatchedMoshiState, each frame one replay of the graph
+               captured at its first frame: a greedy run of 40 frames whose
+               slots must agree token for token (two slots with one PCM, a
+               slot that joins 5 frames late, one frozen for frames 10-14,
+               one reset at frame 20 that replays the PCM from the start),
+               run graphed and eagerly, whose tokens, PCM and every state
+               byte must be equal; then a sampled run of 40 graphed frames
+               on all 16 slots (p50/p75/p90 ms per batched frame, peak
+               memory) and 10 eager ones; launch counts of the kernels (the
+               q4 linears on q4_mma and the int8 ones on int8_mma at
+               B = 16, 32 decode_attention_int4 launches, each writing its
+               layer's column) exact per captured frame and per eager
+               frame; a torch.profiler pass over 5 graphed frames for the
+               card's busy time; then the greedy runs once more with the
+               int8 KV cache (32 decode_attention_int8 per frame), 5 frames
+               of every slot graphed and eager, and a profiler pass over 5
+               graphed ones;
   6. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
@@ -74,6 +84,7 @@ last line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
 """
 
+import gc
 import json
 import re
 import subprocess
@@ -92,6 +103,7 @@ import torch  # noqa: E402
 SEED = 1234
 SESSIONS = (11, 12, 11)  # session seeds; the first and last are equal
 FRAMES = 40
+EAGER_FRAMES = 10        # the eager comparison run of [batched]'s sampled run
 SLOTS = 16               # B of the batched phase
 ASR_SLOTS = 256          # B of the asr phase
 ASR_DELAY = 6            # asr_delay_in_tokens: 0.5 s at 12.5 Hz
@@ -107,10 +119,12 @@ CROSSOVER_BATCHES = (1, 2, 4, 8, SLOTS)  # both kernels of each GEMV family time
 # stream settles on a few tokens and never emits a pad; with these factors
 # the pads win on some frames, words end, and slot 0's session holds Word
 # and EndWord messages.  The stream turns on near-ties, so it moves with
-# the attention's rounding: these factors gave slot 0 words with the kernel
-# of csrc/decode_attention_int8.cu, with its plain version and with the
-# kernel it replaced alike (PERF.md), and run_asr checks the plain one's.
-ASR_PAD_LOGIT_SCALE = {0: 15.0, 3: 60.0}
+# any rounding on the path (the attention's, the int8 KV quantization's):
+# of 36 pairs tried, only these gave slot 0 words with the kernel of
+# csrc/decode_attention_int8.cu and with its plain version alike once the
+# quantization divided on the card as on the CPU (PERF.md), and run_asr
+# checks the plain one's.
+ASR_PAD_LOGIT_SCALE = {0: 25.0, 3: 50.0}
 # max |kernel - plain| / max |plain|
 BOUNDS = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # decode_attention_int4 takes q / sqrt(D) in bf16 (as the TPU kernel does):
@@ -157,6 +171,15 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
+def free_memory() -> None:
+    """Return what dropped engines held to the card before the next phase
+    measures memory: an engine and its graphed steps reference each other
+    (a step holds the engine's bound method), so only the cycle collector
+    frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -178,18 +201,17 @@ def time_ms(fn, operands, iters: int = 20, reps: int = 3) -> float:
     """Device ms per call.  `iters` calls, cycling through `operands`
     (copies larger in total than the 50 MB L2, so each call reads its
     operands from device memory as the main path does), are captured in a
-    CUDA graph; the graph's replays are timed with CUDA events, so the
-    host's launch cost is not in the number."""
+    CUDA graph after one warm-up call per operand set on the capture's side
+    stream (moshi_tpu_torch.utils.graphs); the graph's replays are timed
+    with CUDA events, so the host's launch cost is not in the number."""
+    from moshi_tpu_torch.utils.graphs import capture, side_stream
+
     side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
+    with side_stream(side):
         for ops in operands:
             fn(*ops)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(*operands[i % len(operands)])
+    graph, _ = capture(lambda: [fn(*operands[i % len(operands)]) for i in range(iters)],
+                       stream=side)
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -444,7 +466,7 @@ def check_attention(dev, g) -> dict:
               f"{nbytes / t['ms'] / 1e6:.1f} GB/s, {t['bound_ms'] / t['ms']:.0%} of the bound")
         per_launch[D] = t
         del ops, lib_ops, caches
-        torch.cuda.empty_cache()
+        free_memory()
     row["per_launch"] = per_launch[KV["head_dim"]]
     row["per_launch_by_head_dim"] = per_launch
     row["max_abs_err"] = max_abs
@@ -467,15 +489,14 @@ def check_fused_write(dev, g) -> dict:
     2 frozen (its second write lands on its first's lane), slot 4 with
     every position masked, the second launch attending the lanes the first
     wrote.  After each launch the four caches must equal, byte for byte,
-    the plain quantization of the rows' CPU copies written by
-    cache_write_int4_plain into a copy of the caches on the card (so every
-    other byte is unchanged), and the stats must be within ATTN_BOUND of
-    the plain version's; two calls on copies of one cache must give the
-    same bits.  Prints how many column bytes and scales the plain
-    quantization on the card's copies gives otherwise (torch divides a CUDA
-    tensor by a Python scalar as a multiply by its reciprocal).  Then, on
-    the same operands, the fused launch's time beside the attention alone:
-    their difference is the write's cost."""
+    the plain quantization of the rows on the card written by
+    cache_write_int4_plain into a copy of the caches (so every other byte
+    is unchanged), and the stats must be within ATTN_BOUND of the plain
+    version's; two calls on copies of one cache must give the same bits.
+    The plain quantization on the card must give the bytes and scales of
+    the rows' CPU copies (the JAX package's).  Then, on the same operands,
+    the fused launch's time beside the attention alone: their difference
+    is the write's cost."""
     from moshi_tpu_torch.ops import int4_attention as i4
 
     k4w, k4 = i4.decode_attention_int4_write, i4.decode_attention_int4_stats
@@ -500,8 +521,9 @@ def check_fused_write(dev, g) -> dict:
             q = torch.randn(B, H, 1, D, device=dev, generator=g).to(torch.bfloat16)
             kk, vv = main_path_rows(g, B, H, D, dev)
             racc, rm, rl = i4.decode_attention_int4_stats_plain(q, layer, *expected, mask)
-            cols = [c.to(dev) for c in i4.int4_columns(kk.cpu(), vv.cpu())]
-            card_vs_cpu += sum(int((a != b).sum()) for a, b in zip(cols, i4.int4_columns(kk, vv)))
+            cols = i4.int4_columns(kk, vv)
+            card_vs_cpu += sum(int((a.cpu() != b).sum())
+                               for a, b in zip(cols, i4.int4_columns(kk.cpu(), vv.cpu())))
             i4.cache_write_int4_plain(pos, *cols, *(e[layer:layer + 1] for e in expected))
             acc, m, lse = k4w(q, kk, vv, pos, layer, *caches, mask)
             torch.cuda.synchronize()
@@ -523,8 +545,10 @@ def check_fused_write(dev, g) -> dict:
             if not ok:
                 raise RuntimeError("decode_attention_int4_write disagrees with its plain version")
         phase("kernels", f"decode_attention_int4_write D={D}: the plain quantization on the "
-              f"card's copies of the rows differs from the CPU's in {card_vs_cpu} column bytes "
-              f"and scales over the two frames")
+              f"card differs from the CPU's in {card_vs_cpu} column bytes and scales over the "
+              f"two frames {'ok' if card_vs_cpu == 0 else 'FAIL'}")
+        if card_vs_cpu:
+            raise RuntimeError("the plain int4 quantization on the card is not the CPU's")
         del expected
         small = random_int4_cache(g, 2, B, H, D, cap_pad, dev)
         runs = []
@@ -583,7 +607,7 @@ def check_fused_write(dev, g) -> dict:
               f"launch")
         per_launch[D] = {"write": write, "k4": k4_row}
         del ops_w, ops_s, write_ops, caches
-        torch.cuda.empty_cache()
+        free_memory()
     at_d = per_launch[KV["head_dim"]]
     return {"per_launch": at_d["write"], "k4_per_launch": at_d["k4"],
             "per_launch_by_head_dim": per_launch, "bound_by": "bytes", "max_abs_err": 0.0,
@@ -678,7 +702,7 @@ def check_attention_int8(dev, g) -> dict:
             per_launch[path] = t
             del ops, lib_ops
         del caches
-        torch.cuda.empty_cache()
+        free_memory()
     return {"per_launch": per_launch["asr"], "per_launch_by_shape": per_launch,
             "bound_by": bound_by, "max_abs_err": max_abs, "plans": plans}
 
@@ -782,7 +806,7 @@ def build_models(dev):
     lm = LMModel(cfg)
     g = torch.Generator(device=dev).manual_seed(SEED)
     lm_params = quantize_lm_params(lm.init_params(g, torch.bfloat16, dev), mode="int4")
-    torch.cuda.empty_cache()
+    free_memory()
     mimi = MimiModel(mimi_v0_1_config(cfg.dep_q))
     mimi_params = mimi.init_params(g, torch.bfloat16, dev)
     torch.cuda.synchronize()
@@ -792,7 +816,12 @@ def build_models(dev):
     return lm, lm_params, mimi, mimi_params
 
 
-def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> tuple[dict, float]:
+def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> dict:
+    """ServerState (B = 1) as the server runs it on the card: warm-up, then
+    SESSIONS of FRAMES frames, each frame replays of the three graphs
+    captured at its first frame (encode, LMGen.step, decode); launch counts
+    from the captured step; a profiler pass over 5 graphed frames; then one
+    session of the same path eagerly, for the comparison."""
     from moshi_tpu_torch.serve.server import ServerState, serve_sessions
 
     cfg = lm.config
@@ -800,6 +829,8 @@ def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> tuple[dict, f
     if expected["q4_mma"]:
         raise RuntimeError(f"the B = 1 frame would run q4_mma: {expected}")
     state = ServerState(mimi, mimi_params, lm, lm_params, device=dev)
+    if not state.graphed:
+        raise RuntimeError("ServerState on the card is not graphed")
     state.warmup()
     torch.cuda.synchronize()
 
@@ -808,7 +839,11 @@ def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> tuple[dict, f
     launches = read_counts()
 
     steps = len(SESSIONS) * FRAMES
-    check_counts(launches, expected, steps, "slice")
+    check_counts(launches, expected, 1, "slice (the captured LMGen.step)")
+    replays = {name: getattr(state, name).replays for name in ("encode", "step", "decode")}
+    generated = len(SESSIONS) * (FRAMES - cfg.max_delay)
+    if replays != {"encode": steps, "step": steps, "decode": generated}:
+        raise RuntimeError(f"slice: replays {replays}")
     for i, (tokens, audio, _) in enumerate(results):
         if len(tokens) != FRAMES - cfg.max_delay:
             raise RuntimeError(f"session {i}: {len(tokens)} frames generated")
@@ -819,12 +854,34 @@ def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> tuple[dict, f
     if np.array_equal(results[0][0], results[1][0]):
         raise RuntimeError("sessions 1 and 2 have different seeds but equal tokens")
     ms = np.concatenate([r[2] for r in results])
-    p50 = float(np.percentile(ms, 50))
-    phase("slice", f"{len(SESSIONS)} sessions x {FRAMES} frames: launches {launches} "
-          f"= per step {expected} x {steps}; sessions 1 and 3 identical; "
-          f"p50 {p50:.2f} ms/frame, p90 {np.percentile(ms, 90):.2f} ms/frame "
-          f"({card})")
-    return launches, p50
+    p50, p90 = (float(np.percentile(ms, p)) for p in (50, 90))
+    phase("slice", f"graphed, {len(SESSIONS)} sessions x {FRAMES} frames: launches {launches} "
+          f"= per step {expected} x 1 captured step; replays {replays}; sessions 1 and 3 "
+          f"identical, 1 and 2 not; p50 {p50:.2f} ms/frame, p90 {p90:.2f} ms/frame ({card})")
+    pcm = (0.1 * np.random.RandomState(SEED + 6).randn(5, mimi.frame_size)).astype(np.float32)
+    prof = profile_frames(lambda i: state.step_frame(pcm[i]), len(pcm))
+    prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / p50
+    phase("slice", f"profiler over 5 graphed frames: {profile_line(prof)}")
+    del state
+    free_memory()
+
+    eager = ServerState(mimi, mimi_params, lm, lm_params, device=dev, graphed=False)
+    eager.warmup()
+    zero_counts()
+    (tokens, _, ems), = serve_sessions(eager, SESSIONS[:1], FRAMES)
+    eager_launches = read_counts()
+    check_counts(eager_launches, expected, FRAMES, "slice, eager")
+    same = np.array_equal(tokens, results[0][0])
+    e50, e90 = (float(np.percentile(ems, p)) for p in (50, 90))
+    phase("slice", f"eager, 1 session x {FRAMES} frames: p50 {e50:.2f} ms/frame, p90 "
+          f"{e90:.2f} ms/frame; launches {eager_launches}; its sampled tokens "
+          f"{'equal' if same else 'DIFFER from'} the graphed session's of the same seed")
+    del eager
+    free_memory()
+    return {"launches": launches, "replays": replays, "p50_ms": p50, "p90_ms": p90,
+            "profile": prof, "eager": {"p50_ms": e50, "p90_ms": e90, "frames": len(ems),
+                                       "launches": eager_launches,
+                                       "sampled_tokens_equal_graphed": same}}
 
 
 # ---------------------------------------------------------------- batched
@@ -889,28 +946,89 @@ def profile_frames(run_frame, n: int) -> dict:
             "top_device_ms_per_frame": top}
 
 
+def profile_line(prof: dict) -> str:
+    return (f"card busy {prof['busy_ms_per_frame']:.2f} ms/frame, idle share "
+            f"{prof['idle_share']:.3f} (host {prof['host_ms_per_frame']:.2f} ms/frame under the "
+            f"profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}; "
+            f"{prof['device_ops_per_frame']:.0f} device ops/frame, the most costly "
+            f"{json.dumps(prof['top_device_ms_per_frame'])}")
+
+
+def state_leaves(state) -> list:
+    """Every tensor of a batched engine's streaming state (Mimi encode and
+    decode, LMGen), in a fixed order."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            out.append(t)
+    for tree in (state.enc_state, state.dec_state, state.gen_state):
+        walk(tree)
+    return out
+
+
+def every_slot_frame(state, seed: int, frames: int):
+    """run_frame(i): frame i of `frames` frames of every slot sending seeded
+    PCM, its outputs read back."""
+    pcm = (0.1 * np.random.RandomState(seed).randn(frames, SLOTS, 1, state.frame_size)
+           ).astype(np.float32)
+
+    def run_frame(i):
+        out, audio = state.frame(pcm[i], np.ones(SLOTS, bool))
+        out.cpu(), audio.cpu()
+    return run_frame
+
+
+def host_ms(run_frame, n: int) -> list:
+    """Host ms of run_frame(i) for i < n, each ending in a read back."""
+    ms = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        run_frame(i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
 def greedy_isolation(dev, lm, lm_params, mimi, mimi_params, what: str,
-                     profile: bool = False) -> tuple[dict, dict | None]:
+                     profile: bool = False) -> tuple[dict, dict]:
     """The greedy run of BatchedMoshiState at B = SLOTS over the isolation
-    script: token checks, exact launch counts per frame.  With `profile`,
-    then 5 frames of every slot timed and 5 more under the profiler (card
-    busy ms, kernel ms per frame, idle share of those frames' p50).
-    Returns the launches and the profile (or None)."""
+    script, graphed (the main path: token checks, launch counts from the
+    captured frame, one replay per frame), then eagerly (a launch count per
+    frame), and the two held equal: tokens and PCM of every session, and
+    every state byte at the end.  With `profile`, then 5 frames of every
+    slot timed on each engine and 5 graphed ones under the profiler (card
+    busy ms, kernel ms per frame, idle share of the graphed p50).  Returns
+    the graphed launches and a summary."""
     from moshi_tpu_torch.serve.batched_moshi import BatchedMoshiState, serve_batched
 
     cfg = lm.config
     expected = per_step_launches(cfg, lm_params, SLOTS)
-    state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
-                              use_sampling=False)
-    kshape = tuple(state.gen_state["transformer"]["k"].shape)
-    phase("batched", f"{what}: B = {SLOTS}, {cfg.kv_cache_dtype} KV cache {kshape} int8 x 2 "
-          f"+ bf16 scales; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card")
-    state.warmup()
     schedule, frames, same_as_0 = isolation_script(mimi.frame_size)
-    zero_counts()
-    sessions, ms = serve_batched(state, schedule, frames)
-    launches = read_counts()
-    check_counts(launches, expected, len(ms), f"batched {what} run")
+    runs = {}
+    for graphed in (True, False):
+        state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
+                                  graphed=graphed, use_sampling=False)
+        if graphed:
+            kshape = tuple(state.gen_state["transformer"]["k"].shape)
+            phase("batched", f"{what}: B = {SLOTS}, {cfg.kv_cache_dtype} KV cache {kshape} "
+                  f"int8 x 2 + bf16 scales; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+                  f"on the card")
+        state.warmup()
+        zero_counts()
+        sessions, ms = serve_batched(state, schedule, frames)
+        launches = read_counts()
+        kind = "graphed" if graphed else "eager"
+        check_counts(launches, expected, 1 if graphed else len(ms), f"batched {what} {kind} run")
+        runs[kind] = (state, sessions, ms, launches)
+    state, sessions, ms, launches = runs["graphed"]
+    if state.step.replays != len(ms):
+        raise RuntimeError(f"{what}: {state.step.replays} replays for {len(ms)} frames")
     ref = sessions[0][0][0]
     if len(ms) != FRAMES or len(ref) != FRAMES - cfg.max_delay:
         raise RuntimeError(f"{what}: {len(ms)} frames, slot 0 generated {len(ref)}")
@@ -926,41 +1044,49 @@ def greedy_isolation(dev, lm, lm_params, mimi, mimi_params, what: str,
     distinct = sum(not np.array_equal(sessions[s][0][0], ref) for s in range(5, SLOTS))
     if distinct == 0:
         raise RuntimeError(f"{what}: no slot with its own PCM differs from slot 0")
-    phase("batched", f"{what}, {len(ms)} frames: slots 1 (same PCM), 2 (joined 5 frames "
-          f"late), 3 (frozen on frames 10-14) and 4 (reset at frame 20) repeat slot 0's "
-          f"tokens; {distinct} of {SLOTS - 5} other slots differ; launches "
-          f"{launches} = per frame {expected} x {len(ms)}")
-    prof = None
+    eager, eager_sessions, eager_ms, eager_launches = runs["eager"]
+    same_tokens = all(np.array_equal(a[0], b[0]) and all(np.array_equal(x, y)
+                                                         for x, y in zip(a[1], b[1]))
+                      for s in range(SLOTS)
+                      for a, b in zip(sessions[s], eager_sessions[s]))
+    same_state = all(torch.equal(a, b) for a, b in zip(state_leaves(state), state_leaves(eager)))
+    p50, p90 = (float(np.percentile(ms, p)) for p in (50, 90))
+    e50, e90 = (float(np.percentile(eager_ms, p)) for p in (50, 90))
+    phase("batched", f"{what}, {len(ms)} frames graphed: slots 1 (same PCM), 2 (joined 5 "
+          f"frames late), 3 (frozen on frames 10-14) and 4 (reset at frame 20) repeat slot 0's "
+          f"tokens; {distinct} of {SLOTS - 5} other slots differ; launches {launches} = per "
+          f"frame {expected} x 1 captured frame, {state.step.replays} replays; p50 {p50:.2f} "
+          f"ms, p90 {p90:.2f} ms per batched frame (eager: p50 {e50:.2f}, p90 {e90:.2f}; "
+          f"launches {eager_launches}); graphed against eager: tokens and PCM "
+          f"{'equal' if same_tokens else 'DIFFER'}, every state byte "
+          f"{'equal' if same_state else 'DIFFERS'}")
+    if not (same_tokens and same_state):
+        raise RuntimeError(f"{what}: the graphed frames differ from the eager ones")
+    summary = {"p50_ms": p50, "p90_ms": p90, "replays": state.step.replays,
+               "eager": {"p50_ms": e50, "p90_ms": e90, "launches": eager_launches}}
     if profile:
-        pcm = (0.1 * np.random.RandomState(SEED + 5).randn(10, SLOTS, 1, mimi.frame_size)
-               ).astype(np.float32)
-
-        def run_frame(i):
-            out, audio = state.frame(pcm[i], np.ones(SLOTS, bool))
-            out.cpu(), audio.cpu()
-        frame_ms = []
-        for i in range(5):
-            t0 = time.perf_counter()
-            run_frame(i)
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-        prof = profile_frames(lambda i: run_frame(5 + i), 5)
-        prof["p50_ms"] = float(np.percentile(frame_ms, 50))
+        eager_all = host_ms(every_slot_frame(eager, SEED + 5, 5), 5)
+        graphed_all = host_ms(every_slot_frame(state, SEED + 5, 5), 5)
+        prof = profile_frames(every_slot_frame(state, SEED + 7, 5), 5)
+        prof["p50_ms"] = float(np.percentile(graphed_all, 50))
+        prof["p90_ms"] = float(np.percentile(graphed_all, 90))
+        prof["eager_p50_ms"] = float(np.percentile(eager_all, 50))
+        prof["eager_p90_ms"] = float(np.percentile(eager_all, 90))
         prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / prof["p50_ms"]
-        phase("batched", f"{what}, every slot, 5 frames: p50 {prof['p50_ms']:.2f} ms per "
-              f"batched frame; profiler over 5 more: card busy "
-              f"{prof['busy_ms_per_frame']:.2f} ms/frame, idle share "
-              f"{prof['idle_share']:.3f} (host {prof['host_ms_per_frame']:.2f} ms/frame under "
-              f"the profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}; "
-              f"{prof['device_ops_per_frame']:.0f} device ops/frame, the most costly "
-              f"{json.dumps(prof['top_device_ms_per_frame'])}")
-    del state, sessions
-    torch.cuda.empty_cache()
-    return launches, prof
+        phase("batched", f"{what}, every slot, 5 frames: graphed p50 {prof['p50_ms']:.2f} ms, "
+              f"p90 {prof['p90_ms']:.2f} ms per batched frame (eager p50 "
+              f"{prof['eager_p50_ms']:.2f}, p90 {prof['eager_p90_ms']:.2f}); profiler over 5 "
+              f"graphed frames: {profile_line(prof)}")
+        summary["profile"] = prof
+    del runs, state, sessions, eager, eager_sessions
+    free_memory()
+    return launches, summary
 
 
 def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
-    """The batched path at B = SLOTS with the int4 KV cache, then its greedy
-    run with the int8 KV cache."""
+    """The batched path at B = SLOTS with the int4 KV cache (its greedy run,
+    then a sampled run of every slot, graphed, then a shorter eager one),
+    then its greedy run with the int8 KV cache."""
     from dataclasses import replace
 
     from moshi_tpu_torch.models.lm import LMModel, lm_config_v0_1
@@ -972,65 +1098,68 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
     if expected["q4_gemv"] or expected["int8_gemv"]:
         raise RuntimeError(f"the B = {SLOTS} frame would run a CUDA-core GEMV kernel: {expected}")
 
-    # 1. greedy isolation run
-    greedy_launches, _ = greedy_isolation(dev, lm, lm_params, mimi, mimi_params, "greedy")
+    # 1. greedy isolation run, graphed and eager
+    greedy_launches, greedy = greedy_isolation(dev, lm, lm_params, mimi, mimi_params, "greedy")
 
-    # 2. sampled run, every slot active
-    state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
-                              rng_seed=SEED, use_sampling=True)
-    state.warmup()
+    # 2. sampled run, every slot active: graphed (the main path), then eager
     rs = np.random.RandomState(SEED + 2)
     frames = {s: (0.1 * rs.randn(FRAMES + 1, mimi.frame_size)).astype(np.float32)
               for s in range(SLOTS)}
-    schedule = ([dict.fromkeys(range(SLOTS), "join")]
-                + [dict.fromkeys(range(SLOTS), "send")] * FRAMES)
-    torch.cuda.reset_peak_memory_stats(dev)
-    zero_counts()
-    sessions, ms = serve_batched(state, schedule, frames)
-    sampled_launches = read_counts()
-    check_counts(sampled_launches, expected, len(ms), "batched sampled run")
-    for s in range(SLOTS):
-        tokens, audio = sessions[s][0]
-        if len(tokens) != FRAMES - cfg.max_delay:
-            raise RuntimeError(f"sampled slot {s}: {len(tokens)} frames generated")
-        check_tokens(tokens, cfg, f"sampled slot {s}")
-        check_pcm(audio, mimi.frame_size, f"sampled slot {s}")
-    p50, p75, p90 = (float(np.percentile(ms, p)) for p in (50, 75, 90))
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    phase("batched", f"sampled, {len(ms)} frames x {SLOTS} slots: p50 {p50:.2f} ms, p75 "
-          f"{p75:.2f} ms, p90 {p90:.2f} ms per batched frame; {p50 / SLOTS:.2f} ms per "
-          f"user-frame at p50; "
-          f"peak {peak:.2f} GiB; launches {sampled_launches} = per frame {expected} x "
-          f"{len(ms)} ({card})")
-    pcm = (0.1 * np.random.RandomState(SEED + 1).randn(5, SLOTS, 1, mimi.frame_size)
-           ).astype(np.float32)
-
-    def run_frame(i):
-        out, audio = state.frame(pcm[i], np.ones(SLOTS, bool))
-        out.cpu(), audio.cpu()
-    prof = profile_frames(run_frame, len(pcm))
-    # the profiler slows the host, so the idle share is taken against the
-    # frame time measured without it
-    prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / p50
-    phase("batched", f"profiler over 5 sampled frames: card busy "
-          f"{prof['busy_ms_per_frame']:.2f} ms/frame, idle share {prof['idle_share']:.3f} "
-          f"of the p50 frame (host {prof['host_ms_per_frame']:.2f} ms/frame under the "
-          f"profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}; "
-          f"{prof['device_ops_per_frame']:.0f} device ops/frame, the most costly "
-          f"{json.dumps(prof['top_device_ms_per_frame'])}")
-    del state
-    torch.cuda.empty_cache()
+    runs = {}
+    for graphed, n in ((True, FRAMES), (False, EAGER_FRAMES)):
+        state = BatchedMoshiState(mimi, mimi_params, lm, lm_params, SLOTS, device=dev,
+                                  rng_seed=SEED, graphed=graphed, use_sampling=True)
+        state.warmup()
+        schedule = [dict.fromkeys(range(SLOTS), "join")] + [dict.fromkeys(range(SLOTS), "send")] * n
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        sessions, ms = serve_batched(state, schedule, frames)
+        launches = read_counts()
+        kind = "graphed" if graphed else "eager"
+        check_counts(launches, expected, 1 if graphed else len(ms), f"batched sampled {kind} run")
+        for s in range(SLOTS):
+            tokens, audio = sessions[s][0]
+            if len(tokens) != n - cfg.max_delay:
+                raise RuntimeError(f"sampled {kind} slot {s}: {len(tokens)} frames generated")
+            check_tokens(tokens, cfg, f"sampled {kind} slot {s}")
+            check_pcm(audio, mimi.frame_size, f"sampled {kind} slot {s}")
+        runs[kind] = {"launches": launches, "frames": len(ms),
+                      **{f"p{p}_ms": float(np.percentile(ms, p)) for p in (50, 75, 90)},
+                      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                      "reserved_gib": torch.cuda.memory_reserved(dev) / 2 ** 30}
+        if graphed:
+            if state.step.replays != len(ms):
+                raise RuntimeError(f"sampled: {state.step.replays} replays for {len(ms)} frames")
+            runs[kind]["replays"] = state.step.replays
+            # the profiler slows the host, so the idle share is taken against
+            # the frame time measured without it
+            prof = profile_frames(every_slot_frame(state, SEED + 1, 5), 5)
+            prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / runs[kind]["p50_ms"]
+            runs[kind]["profile"] = prof
+        del state, sessions
+        free_memory()
+    g, e = runs["graphed"], runs["eager"]
+    phase("batched", f"sampled, {g['frames']} frames x {SLOTS} slots graphed: p50 "
+          f"{g['p50_ms']:.2f} ms, p75 {g['p75_ms']:.2f} ms, p90 {g['p90_ms']:.2f} ms per batched "
+          f"frame; {g['p50_ms'] / SLOTS:.2f} ms per user-frame at p50; peak {g['peak_gib']:.2f} "
+          f"GiB allocated, {g['reserved_gib']:.2f} GiB reserved; launches {g['launches']} = per "
+          f"frame {expected} x 1 captured frame, {g['replays']} replays ({card})")
+    phase("batched", f"sampled, {e['frames']} frames x {SLOTS} slots eager: p50 "
+          f"{e['p50_ms']:.2f} ms, p90 {e['p90_ms']:.2f} ms per batched frame; peak "
+          f"{e['peak_gib']:.2f} GiB allocated, {e['reserved_gib']:.2f} GiB reserved; launches "
+          f"{e['launches']} ({card})")
+    phase("batched", f"profiler over 5 graphed sampled frames: {profile_line(g['profile'])}")
 
     # 3. the greedy run with the int8 KV cache (the worker's kv_cache = "int8")
     lm8 = LMModel(replace(cfg, kv_cache_dtype="int8"))
-    int8_launches, int8_prof = greedy_isolation(dev, lm8, lm_params, mimi, mimi_params,
-                                                "int8 greedy", profile=True)
-    return {"launches": {"greedy": greedy_launches, "sampled": sampled_launches,
+    int8_launches, int8 = greedy_isolation(dev, lm8, lm_params, mimi, mimi_params,
+                                           "int8 greedy", profile=True)
+    return {"launches": {"greedy": greedy_launches, "sampled": g["launches"],
                          "int8_greedy": int8_launches},
             "per_frame": {"int4": expected,
                           "int8": per_step_launches(lm8.config, lm_params, SLOTS)},
-            "p50_ms": p50, "p75_ms": p75, "p90_ms": p90, "frames": len(ms), "peak_gib": peak,
-            "profile": prof, "int8_profile": int8_prof}
+            "sampled": g, "sampled_eager": e, "greedy": greedy, "int8_greedy": int8}
 
 
 # -------------------------------------------------------------------- asr
@@ -1180,7 +1309,7 @@ def run_asr(dev, card: str) -> dict:
           f"{prof['device_ops_per_frame']:.0f} device ops/frame, the most costly "
           f"{json.dumps(prof['top_device_ms_per_frame'])}")
     del state
-    torch.cuda.empty_cache()
+    free_memory()
 
     # The seeded random model's text stream turns on near-ties, so the
     # kernel's rounding can move it.  A second witness: slot 0 must say
@@ -1209,7 +1338,7 @@ def run_asr(dev, card: str) -> dict:
         raise RuntimeError("asr: with the plain attention slot 0 said no word, so the Word "
                            "check rests on the kernel's rounding")
     del state, plain_sessions, asr, lm_params, mimi_params
-    torch.cuda.empty_cache()
+    free_memory()
     return {"launches": launches, "per_frame": expected, "p50_ms": p50, "p75_ms": p75,
             "p90_ms": p90, "frames": len(ms), "peak_gib": peak,
             "all_slots_p50_ms": full_p50,
@@ -1249,17 +1378,19 @@ def main() -> None:
     # K4's row: the launch of the main path, the write included
     attn["per_launch"] = {**attn["per_launch"], **write["k4_per_launch"]}
     attn8 = check_attention_int8(dev, g)
-    torch.cuda.empty_cache()
+    free_memory()
 
     lm, lm_params, mimi, mimi_params = build_models(dev)
-    slice_launches, p50 = run_slice(dev, card, lm, lm_params, mimi, mimi_params)
-    torch.cuda.empty_cache()
+    slice_ = run_slice(dev, card, lm, lm_params, mimi, mimi_params)
+    free_memory()
     batched = run_batched(dev, card, lm_params, mimi, mimi_params)
     del lm, lm_params, mimi, mimi_params
-    torch.cuda.empty_cache()
+    free_memory()
     asr = run_asr(dev, card)
 
-    by_path = {"slice_b1": slice_launches,
+    # the main paths' runs: the graphed engines' (their launches counted at
+    # capture) and the eager ASR engine's
+    by_path = {"slice_b1": slice_["launches"],
                **{f"batched_{p}": v for p, v in batched["launches"].items()},
                "asr": asr["launches"]}
     per_frame_by_path = {"batched": batched["per_frame"]["int4"],
@@ -1292,10 +1423,9 @@ def main() -> None:
                   "launches": sum(v[name] for v in by_path.values()),
                   "launches_by_path": {p: v[name] for p, v in by_path.items()},
                   "launches_per_frame": {p: v[name] for p, v in per_frame_by_path.items()}})
-    print(json.dumps({"kernels": kernels, "frame_p50_ms": p50,
-                      "batched": {key: batched[key] for key in ("p50_ms", "p75_ms", "p90_ms",
-                                                                "frames", "peak_gib",
-                                                                "profile", "int8_profile")},
+    print(json.dumps({"kernels": kernels, "slice": slice_,
+                      "batched": {key: batched[key] for key in ("sampled", "sampled_eager",
+                                                                "greedy", "int8_greedy")},
                       "asr": {key: v for key, v in asr.items()
                               if key not in ("launches", "per_frame")}}), flush=True)
     print(f"card: {card}", flush=True)

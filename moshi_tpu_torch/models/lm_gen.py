@@ -54,10 +54,12 @@ class LMGen:
         c = model.config
         self.max_delay = c.max_delay
         self.num_input_audio = c.num_codebooks - c.dep_q - 1
+        self._delays_on: dict[torch.device, torch.Tensor] = {}
 
     def init_state(self, batch_size: int, generator: torch.Generator | None,
                    dtype=torch.bfloat16, device=None) -> dict:
         c = self.model.config
+        self._delays(device)
         return {
             "cache": torch.full((batch_size, c.num_codebooks, self.max_delay + 2),
                                 UNGENERATED_TOKEN, dtype=torch.long, device=device),
@@ -67,7 +69,15 @@ class LMGen:
         }
 
     def _delays(self, device) -> torch.Tensor:
-        return torch.tensor(self.model.config.delays, dtype=torch.long, device=device)
+        """The delays [K] on `device`, copied from the host once per device
+        (by init_state, before any step) and kept: a step makes no
+        host-to-device copy, and a CUDA graph that captured the tensor keeps
+        reading a live one.  "cuda" and "cuda:0" name one tensor."""
+        device = torch.device(device if device is not None else "cpu")
+        if device not in self._delays_on:
+            t = torch.tensor(self.model.config.delays, dtype=torch.long, device=device)
+            self._delays_on[device] = self._delays_on.setdefault(t.device, t)
+        return self._delays_on[device]
 
     def _scatter_inputs(self, cache, offsets, input_tokens, exec_mask):
         """Write the user's audio tokens at offset + delay and gather this

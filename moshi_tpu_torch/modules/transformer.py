@@ -46,6 +46,7 @@ from ..ops.int4_attention import (_pack_nibble_cols, _quant_rows_int4,  # noqa: 
                                   decode_attention_int4_write)
 from ..utils.matmul import wdot
 from ..utils.params import trunc_normal
+from ..utils.quantize import divide
 
 
 def gating_hidden_dim(dim: int, dim_feedforward: int) -> int:
@@ -89,7 +90,7 @@ def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     rounds half to even, as jnp.round does."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = amax.clamp(min=1e-6) / 127.0
+    scale = divide(amax.clamp(min=1e-6), 127.0)
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 

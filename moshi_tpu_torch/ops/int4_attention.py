@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from ..utils.quantize import unpack_nibbles
+from ..utils.quantize import divide, unpack_nibbles
 from . import build
 from .q4matmul import _num_sms
 
@@ -192,7 +192,7 @@ def _quant_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     torch.round rounds half to even, as jnp.round does."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = amax.clamp(min=1e-6) / 7.0
+    scale = divide(amax.clamp(min=1e-6), 7.0)
     return torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int8), scale
 
 

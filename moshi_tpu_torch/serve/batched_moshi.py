@@ -4,9 +4,10 @@ stepped together one 80 ms frame at a time.  A slot with no audio ready is
 frozen by its exec_mask entry: it computes, but its streaming state does not
 advance and it outputs nothing.
 
-The websocket/opus handlers, the asyncio loop, session resume (snapshots)
-and the multi-card mesh are not ported yet; `serve_batched` plays the
-loop's role over a scripted schedule of PCM frames.
+On a CUDA device the frame runs as replays of one CUDA graph.  The
+websocket/opus handlers, the asyncio loop, session resume (snapshots) and
+the multi-card mesh are not ported yet; `serve_batched` plays the loop's
+role over a scripted schedule of PCM frames.
 """
 
 import time
@@ -16,6 +17,7 @@ import torch
 
 from ..models.lm import UNGENERATED_TOKEN
 from ..models.lm_gen import LMGen, LMGenConfig
+from ..utils.graphs import GraphedStep
 from ..utils.trees import masked_reset, state_batch_axes
 
 _GEN_KEYS = ("cache", "offsets", "transformer")  # the per-slot part of LMGen's state
@@ -24,23 +26,41 @@ _GEN_KEYS = ("cache", "offsets", "transformer")  # the per-slot part of LMGen's 
 class BatchedMoshiState:
     """One model, one LMGen, B streaming slots on `device`.  The codec runs
     in the dtype of its parameters; the LM's KV cache follows its config
-    (`kv_cache_dtype`).  Streaming state is updated in place."""
+    (`kv_cache_dtype`).  Streaming state is updated in place.
+
+    `graphed` (the default on a CUDA device) captures the whole frame as
+    one CUDA graph at the first frame after `warmup()` (the JAX package's
+    one jitted frame) and replays it at every frame after: PCM and
+    exec_mask are copied into static input buffers first, and the returned
+    tensors are the graph's static outputs.  Per-slot resets stay between
+    frames, outside the graph, writing in place.  `graphed=False` runs the
+    same function eagerly (the CPU's only path)."""
 
     def __init__(self, mimi, mimi_params, lm, lm_params, batch_size: int, *,
-                 device="cuda", rng_seed: int = 0, **lm_gen_kwargs):
+                 device="cuda", rng_seed: int = 0, graphed: bool | None = None,
+                 **lm_gen_kwargs):
         self.mimi, self.mimi_params = mimi, mimi_params
         self.lm, self.lm_params = lm, lm_params
         self.batch_size = batch_size
         self.device = dev = torch.device(device)
+        self.graphed = dev.type == "cuda" if graphed is None else graphed
+        if self.graphed and dev.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
         self.mimi_dtype = md = mimi_params["quantizer"]["rvq_first"]["embedding"].dtype
         self.frame_size = mimi.frame_size
         self.lm_gen = LMGen(lm, LMGenConfig.from_dict(lm_gen_kwargs))
         self._n_in = lm.config.num_codebooks - lm.config.dep_q - 1
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(rng_seed)
+        self.generator = torch.Generator(device=dev)
+        self.generator.manual_seed(rng_seed)
         self.enc_state = mimi.init_encode_state(batch_size, md, dev)
         self.dec_state = mimi.init_decode_state(batch_size, md, dev)
-        self.gen_state = self.lm_gen.init_state(batch_size, generator, torch.bfloat16, dev)
+        self.gen_state = self.lm_gen.init_state(batch_size, self.generator, torch.bfloat16,
+                                                dev)
+        self.pcm_in = torch.zeros((batch_size, 1, self.frame_size), dtype=torch.float32,
+                                  device=dev)
+        self.mask_in = torch.zeros(batch_size, dtype=torch.bool, device=dev)
+        self.step = GraphedStep(self._frame, graphed=self.graphed, device=dev,
+                                generators=(self.generator,))
         # frames still to drop after a slot's reset (the first-frame skip)
         self.skip_frames = np.zeros(batch_size, np.int64)
         # exact per-leaf batch axes: a shape rule mistakes the layer axis of
@@ -50,27 +70,37 @@ class BatchedMoshiState:
         self._ax_enc = state_batch_axes(lambda b, d: mimi.init_encode_state(b, md, d))
         self._ax_dec = state_batch_axes(lambda b, d: mimi.init_decode_state(b, md, d))
 
-    def frame(self, pcm, exec_mask):
-        """One batched frame: pcm [B, 1, frame_size] float32 (numpy or
-        tensor), exec_mask [B] bool.  Mimi encode -> LMGen.step -> Mimi
-        decode, state in place.  Returns (out [B, 1 + dep_q, 1] int64, pcm
-        [B, 1, frame_size] float32), on the device; a frozen slot's out is
-        UNGENERATED_TOKEN."""
-        dev = self.device
-        x = torch.as_tensor(pcm, dtype=torch.float32).to(dev, self.mimi_dtype)
-        mask = torch.as_tensor(exec_mask, dtype=torch.bool).to(dev)
-        codes, _ = self.mimi.encode_step(self.mimi_params, self.enc_state, x, mask)
+    def _frame(self, pcm, mask):
+        codes, _ = self.mimi.encode_step(self.mimi_params, self.enc_state,
+                                         pcm.to(self.mimi_dtype), mask)
         out, _ = self.lm_gen.step(self.lm_params, self.gen_state, codes[:, :self._n_in],
                                   mask)
         audio = out[:, 1:1 + self.mimi.num_codebooks].clamp(min=0)
         pcm_out, _ = self.mimi.decode_step(self.mimi_params, self.dec_state, audio, mask)
         return out, pcm_out.float()
 
+    def _inputs(self, pcm, exec_mask):
+        self.pcm_in.copy_(torch.as_tensor(pcm, dtype=torch.float32))
+        self.mask_in.copy_(torch.as_tensor(exec_mask, dtype=torch.bool))
+        return self.pcm_in, self.mask_in
+
+    def frame(self, pcm, exec_mask):
+        """One batched frame: pcm [B, 1, frame_size] float32 (numpy or
+        tensor), exec_mask [B] bool.  Mimi encode -> LMGen.step -> Mimi
+        decode, state in place.  Returns (out [B, 1 + dep_q, 1] int64, pcm
+        [B, 1, frame_size] float32), on the device; a frozen slot's out is
+        UNGENERATED_TOKEN.  Graphed, the next frame overwrites both: read
+        them first."""
+        return self.step(*self._inputs(pcm, exec_mask))
+
     def warmup(self):
-        """Three zero frames on every slot, then reset them all."""
+        """Three zero frames on every slot, eagerly (on the graph's side
+        stream when graphed), then reset them all.  A graphed engine needs
+        it before its first frame."""
         B = self.batch_size
         for _ in range(3):
-            self.frame(np.zeros((B, 1, self.frame_size), np.float32), np.ones(B, bool))
+            self.step.warm_up(*self._inputs(np.zeros((B, 1, self.frame_size), np.float32),
+                                            np.ones(B, bool)))
         self.reset_all()
 
     def _reset(self, mask):

@@ -4,7 +4,7 @@ encode -> LMGen.step -> Mimi decode on one 80 ms frame of PCM at a time.
 
 The websocket/opus transport, the session queue, snapshots and the
 migration vault are not ported yet; `main` serves sessions of PCM frames
-made from a seed.
+made from a seed (each frame as CUDA-graph replays on a CUDA device).
 
     python -m moshi_tpu_torch.serve.server --device cuda --sessions 2 --frames 20
 """
@@ -17,59 +17,101 @@ import torch
 
 from ..models.lm import UNGENERATED_TOKEN
 from ..models.lm_gen import LMGen, LMGenConfig
+from ..utils.graphs import GraphedStep
+from ..utils.trees import copy_into
 
 
 class ServerState:
     """One model, one LMGen, B = 1 streaming state on `device`.  The codec
     runs in the dtype of its parameters; the KV cache is bf16, as in the
-    JAX server."""
+    JAX server.
+
+    The frame runs as the JAX server's three programs: Mimi encode,
+    LMGen.step, and Mimi decode (skipped while the LM's output is still
+    UNGENERATED_TOKEN).  `graphed` (the default on a CUDA device) captures
+    each as a CUDA graph at its first frame after `warmup()` and replays
+    it at every frame after; the state, the generator and the PCM input
+    buffer are allocated once and written in place.  `graphed=False` runs
+    the same functions eagerly (the CPU's only path)."""
 
     def __init__(self, mimi, mimi_params, lm, lm_params, *, device="cuda",
-                 rng_seed: int = 0, **lm_gen_kwargs):
+                 rng_seed: int = 0, graphed: bool | None = None, **lm_gen_kwargs):
         self.mimi, self.mimi_params = mimi, mimi_params
         self.lm, self.lm_params = lm, lm_params
-        self.device = torch.device(device)
-        self.mimi_dtype = mimi_params["quantizer"]["rvq_first"]["embedding"].dtype
+        self.device = dev = torch.device(device)
+        self.graphed = dev.type == "cuda" if graphed is None else graphed
+        if self.graphed and dev.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
+        self.mimi_dtype = md = mimi_params["quantizer"]["rvq_first"]["embedding"].dtype
         self.frame_size = mimi.frame_size
         self.lm_gen = LMGen(lm, LMGenConfig.from_dict(lm_gen_kwargs))
         self.session_seed = rng_seed
+        self.generator = torch.Generator(device=dev)
+        self.enc_state = mimi.init_encode_state(1, md, dev)
+        self.dec_state = mimi.init_decode_state(1, md, dev)
+        self.gen_state = self.lm_gen.init_state(1, self.generator, torch.bfloat16, dev)
+        self.pcm_in = torch.zeros(self.frame_size, dtype=torch.float32, device=dev)
+        self.encode = GraphedStep(self._encode, graphed=self.graphed, device=dev)
+        self.step = GraphedStep(self._step, graphed=self.graphed, device=dev,
+                                generators=(self.generator,))
+        self.decode = GraphedStep(self._decode, graphed=self.graphed, device=dev)
         self.session_tokens: list[np.ndarray] = []
         self.reset()
 
+    def _encode(self, pcm):
+        codes, _ = self.mimi.encode_step(self.mimi_params, self.enc_state,
+                                         pcm.to(self.mimi_dtype)[None, None])
+        return codes
+
+    def _step(self, codes):
+        out, _ = self.lm_gen.step(self.lm_params, self.gen_state, codes)
+        return out
+
+    def _decode(self, out):
+        pcm, _ = self.mimi.decode_step(self.mimi_params, self.dec_state,
+                                       out[:, 1:].clamp(min=0))
+        return pcm[0, 0].float()
+
     def reset(self):
-        """A fresh session: new streaming states and a generator seeded
-        with `session_seed`."""
-        dev = self.device
-        self.enc_state = self.mimi.init_encode_state(1, self.mimi_dtype, dev)
-        self.dec_state = self.mimi.init_decode_state(1, self.mimi_dtype, dev)
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(self.session_seed)
-        self.gen_state = self.lm_gen.init_state(1, generator, torch.bfloat16, dev)
+        """A fresh session: the streaming states rewritten in place with the
+        values of new ones, the generator reseeded with `session_seed`.  No
+        tensor moves, so captured graphs stay valid."""
+        dev, md = self.device, self.mimi_dtype
+        copy_into(self.enc_state, self.mimi.init_encode_state(1, md, dev))
+        copy_into(self.dec_state, self.mimi.init_decode_state(1, md, dev))
+        copy_into(self.gen_state, self.lm_gen.init_state(1, None, torch.bfloat16, dev))
+        self.generator.manual_seed(self.session_seed)
         self.steps_done = 0
         self.session_tokens = []
 
     def warmup(self):
-        """Run 4 zero frames through the whole path, then reset."""
-        for _ in range(4):
-            self.step_frame(np.zeros(self.frame_size, np.float32))
+        """Run zero frames eagerly through the whole path (decode included:
+        max_delay + 2 frames, at least 4), on the graphs' side streams when
+        graphed, then reset.  A graphed engine needs it before its first
+        frame."""
+        for _ in range(max(4, self.lm.config.max_delay + 2)):
+            self._frame(np.zeros(self.frame_size, np.float32), warm=True)
         self.reset()
 
     def step_frame(self, chunk: np.ndarray):
         """One 80 ms frame of PCM [frame_size] -> (pcm [frame_size] float32
         or None, text token or None).  Nothing is decoded while the LM's
         output is still UNGENERATED_TOKEN (the first max_delay frames)."""
+        return self._frame(chunk, warm=False)
+
+    def _frame(self, chunk, warm: bool):
+        def run(step, *args):
+            return step.warm_up(*args) if warm else step(*args)
+
         self.steps_done += 1
-        x = torch.as_tensor(chunk, dtype=torch.float32).to(self.device)
-        codes, _ = self.mimi.encode_step(self.mimi_params, self.enc_state,
-                                         x.to(self.mimi_dtype)[None, None])
-        out, _ = self.lm_gen.step(self.lm_params, self.gen_state, codes)
+        self.pcm_in.copy_(torch.as_tensor(chunk, dtype=torch.float32))
+        out = run(self.step, run(self.encode, self.pcm_in))
         out_np = out.cpu().numpy()
         if (out_np == UNGENERATED_TOKEN).any():
             return None, None
         self.session_tokens.append(out_np[0, :, 0])
-        pcm, _ = self.mimi.decode_step(self.mimi_params, self.dec_state,
-                                       out[:, 1:].clamp(min=0))
-        return pcm[0, 0].float().cpu().numpy(), int(out_np[0, 0, 0])
+        pcm = run(self.decode, out)
+        return pcm.cpu().numpy(), int(out_np[0, 0, 0])
 
 
 def serve_sessions(state: ServerState, seeds, frames: int):

@@ -1,0 +1,87 @@
+"""CUDA-graph capture of a streaming step: the port's counterpart of the JAX
+package's jitted frame programs over donated state (moshi_tpu
+serve/server.py `_encode`, `_step`, `_decode`; serve/batched_moshi.py
+`frame`), each dispatched once per frame.
+
+A `GraphedStep` wraps a function of tensors whose streaming state is
+updated in place.  Graphed, it runs eagerly once on a side stream
+(`warm_up`: the kernels' libraries load, the libraries' handles and
+workspaces are made), is captured at its first call after that, and every
+call replays the graph: the first call's tensors are the graph's static
+inputs, its outputs the static outputs, overwritten by each replay.  The
+caller copies new inputs into those tensors before a call and reads the
+outputs before the next.  A session's `torch.Generator` is registered with
+the graph, so each replay draws new numbers and `manual_seed` between
+replays takes effect.
+
+Nothing falls back: a capture or replay that fails raises, and so does a
+graphed call before `warm_up` or with other tensors than the captured
+ones.  The hand-written kernels launch on `torch.cuda.current_stream`,
+which capture sets; their Python launch counters tick when the capture
+records a launch, not on a replay.
+"""
+
+import contextlib
+
+import torch
+
+
+@contextlib.contextmanager
+def side_stream(stream: torch.cuda.Stream):
+    """Run the body on `stream`, after the current stream's work so far and
+    before its later work."""
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        yield
+    current.wait_stream(stream)
+
+
+def capture(fn, *args, stream: torch.cuda.Stream, generators=()):
+    """Capture fn(*args) on `stream` into a new CUDA graph, with each of
+    `generators` registered.  Records, runs nothing.  Returns (graph,
+    fn's outputs: the graph's static outputs)."""
+    graph = torch.cuda.CUDAGraph()
+    for generator in generators:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=stream):
+        outputs = fn(*args)
+    return graph, outputs
+
+
+class GraphedStep:
+    """fn(*args) per call: eagerly, or (graphed) as replays of one capture.
+
+    `replays` counts the replays, the one after the capture included."""
+
+    def __init__(self, fn, *, graphed: bool, device=None, generators=()):
+        self.fn, self.graphed, self.generators = fn, graphed, tuple(generators)
+        self.stream = torch.cuda.Stream(device) if graphed else None
+        self.graph = self.inputs = self.outputs = None
+        self.warm = False
+        self.replays = 0
+
+    def warm_up(self, *args):
+        """One eager call, on the capture's side stream when graphed."""
+        if not self.graphed:
+            return self.fn(*args)
+        with side_stream(self.stream):
+            out = self.fn(*args)
+        self.warm = True
+        return out
+
+    def __call__(self, *args):
+        if not self.graphed:
+            return self.fn(*args)
+        if self.graph is None:
+            if not self.warm:
+                raise RuntimeError("a graphed step needs an eager warm_up call before its "
+                                   "capture")
+            self.graph, self.outputs = capture(self.fn, *args, stream=self.stream,
+                                               generators=self.generators)
+            self.inputs = args
+        elif len(args) != len(self.inputs) or any(a is not b for a, b in zip(args, self.inputs)):
+            raise ValueError("a graphed step is called with the tensors it was captured with")
+        self.graph.replay()
+        self.replays += 1
+        return self.outputs

@@ -27,6 +27,16 @@ def unpack_nibbles(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return low, high
 
 
+def divide(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """x / divisor as an IEEE division on every device.  On a CUDA tensor
+    torch divides by a Python scalar (a CPU scalar) as a multiply by its
+    reciprocal, which rounds otherwise now and then; the CPU, the JAX
+    package and the kernels divide.  A 0-dim divisor made on x's device (a
+    fill, no copy from the host, so a CUDA graph can capture it) is divided
+    by."""
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
+
+
 def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     """int8 [..., din, dout] * scale [..., 1, dout], in `dtype`."""
     return q.to(dtype) * scale.to(dtype)
@@ -90,7 +100,7 @@ def _per_member(fn, w: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> No
 def _quantize8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     wf = w.to(torch.float32)
     amax = wf.abs().amax(dim=-2, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = divide(torch.clamp(amax, min=1e-8), 127.0)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -99,7 +109,7 @@ def _quantize4(w: torch.Tensor, group_size: int) -> tuple[torch.Tensor, torch.Te
     din, dout = w.shape[-2:]
     wf = w.to(torch.float32).reshape(din // group_size, group_size, dout)
     amax = wf.abs().amax(dim=-2, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 7.0
+    scale = divide(torch.clamp(amax, min=1e-8), 7.0)
     q = torch.clamp(torch.round(wf / scale), -7, 7).to(torch.int8)
     q = q.reshape(din // 2, 2, dout)
     packed = (q[:, 0] & 0x0F) | ((q[:, 1] & 0x0F) << 4)

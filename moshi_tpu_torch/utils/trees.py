@@ -82,6 +82,19 @@ def masked_reset(state, init_state, reset_mask, axes):
     return state
 
 
+def copy_into(state, fresh):
+    """Write every tensor leaf of `fresh` into the same leaf of `state`, in
+    place, so that whatever holds state's tensors (a captured CUDA graph)
+    sees the new values; other leaves (a generator) are left as they are.
+    Returns state."""
+    def put(s, f):
+        if isinstance(s, torch.Tensor):
+            s.copy_(f)
+        return s
+    _map(put, state, fresh)
+    return state
+
+
 def take_slots(state, idx, axes):
     """A new state holding slots `idx` ([N] ints) of every leaf, with a
     size-N batch axis; leaves with axis None are passed through whole."""

@@ -6,9 +6,11 @@ imports no JAX, so it also runs on a machine that has none:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
+from moshi_tpu_torch.modules.transformer import _quant_rows
 from moshi_tpu_torch.ops import decode_attention as da8, int4_attention as i4, q4matmul, qmatmul
 from moshi_tpu_torch.utils import quantize as tq
 
@@ -812,3 +814,270 @@ def test_decode_attention_int8_c_entry_rejects_what_it_does_not_take(gen):
     torch.cuda.synchronize()
     ref = da8.decode_attention_int8_plain(q, 0, k, v, ks, vs, mask, splits=2)
     assert _rel(out, ref) <= BOUND[torch.bfloat16]
+
+
+# ------------------------------------------------ C.7: quantization bytes
+def _cpu_rows(gen, shape):
+    """Seeded bf16 rows on the CPU, as the step's K/V rows."""
+    return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+
+def _cpu_weights(gen, shape):
+    """A seeded bf16 [din, dout] weight on the CPU, as init_params makes."""
+    return (torch.randn(*shape, generator=gen) / shape[0] ** 0.5).to(torch.bfloat16)
+
+
+# function -> (the function on one tensor, [(input maker, shape)]): the
+# chip_smoke.py shapes, i.e. the int8 KV rows of Moshi B = 16 and ASR
+# B = 256, the int4 KV rows at D = 128 and 64, the depformer's int8
+# weights and the temporal q4 weights
+QUANTIZERS = {
+    "_quant_rows": (_quant_rows, [(_cpu_rows, (16, 1, 32, 128)),
+                                  (_cpu_rows, (256, 1, 8, 128))]),
+    "_quant_rows_int4": (i4._quant_rows_int4, [(_cpu_rows, (16, 1, 32, 128)),
+                                               (_cpu_rows, (16, 1, 32, 64))]),
+    "_quantize8": (tq._quantize8, [(_cpu_weights, (1024, 3072)),
+                                   (_cpu_weights, (2816, 1024)),
+                                   (_cpu_weights, (4096, 1024))]),
+    "_quantize4": (lambda w: tq._quantize4(w, 32), [(_cpu_weights, (4096, 12288)),
+                                                    (_cpu_weights, (11264, 4096))]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(QUANTIZERS))
+def test_quantization_on_the_card_gives_the_cpus_bytes(name, gen):
+    """The same seeded rows and weights quantized on the card and on the
+    CPU give equal bytes and equal scales (the CPU's are the JAX package's,
+    tests/test_torch_int8_kv.py, tests/test_torch_int4_kv.py): nothing
+    divides by a Python scalar, which torch runs on a CUDA tensor as a
+    multiply by the reciprocal."""
+    fn, cases = QUANTIZERS[name]
+    cpu_gen = torch.Generator().manual_seed(7)
+    for make, shape in cases:
+        x = make(cpu_gen, shape)
+        q_cpu, s_cpu = fn(x)
+        q_card, s_card = fn(x.cuda())
+        assert torch.equal(q_card.cpu(), q_cpu), (name, shape)
+        assert torch.equal(s_card.cpu(), s_cpu), (name, shape)
+
+
+@pytest.mark.parametrize("top_k", [0, 25, 250])
+def test_written_out_draw_is_multinomials_on_the_card(top_k, gen):
+    """On the card too, sample_token's exponential race draws what
+    torch.multinomial draws for the same seeded CUDA generator, with and
+    without top-k, over a run of draws from one generator."""
+    from moshi_tpu_torch.utils.sampling import sample_token
+    ours = torch.Generator(device="cuda").manual_seed(3)
+    theirs = torch.Generator(device="cuda").manual_seed(3)
+    for V in (64, 2048, 32000):
+        logits = 3 * torch.randn(16, V, device="cuda", generator=gen)
+        for temp in (0.7, 1.0):
+            got = sample_token(ours, logits, use_sampling=True, temp=temp, top_k=top_k)
+            if top_k:
+                vals, idx = torch.topk(logits, min(top_k, V), dim=-1)
+                want = torch.gather(idx, -1, torch.multinomial(
+                    torch.softmax(vals / temp, dim=-1), 1, generator=theirs))[..., 0]
+            else:
+                want = torch.multinomial(torch.softmax(logits / temp, dim=-1), 1,
+                                         generator=theirs)[..., 0]
+            assert torch.equal(got, want), (V, temp)
+
+
+# --------------------------------------------- frames as CUDA-graph replays
+def _tiny_moshi(kv_cache_dtype="model"):
+    """A small Moshi LM (2 layers, dim 256, 2 heads of 128, q4 temporal
+    linears and text head, int8 depformer) and a small bf16 Mimi, both
+    from a seed on the card: every kernel of the frame path runs."""
+    from moshi_tpu_torch.models.lm import LmConfig, LMModel
+    from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
+    from moshi_tpu_torch.modules.seanet import SEANetConfig
+    from moshi_tpu_torch.modules.transformer import TransformerConfig
+    from moshi_tpu_torch.quantization.vq import RVQConfig
+
+    cfg = LmConfig(dim=256, num_heads=2, num_layers=2, n_q=4, dep_q=2, card=128,
+                   text_card=128, context=12, depformer_dim=64, depformer_num_heads=2,
+                   depformer_num_layers=2, depformer_dim_feedforward=192,
+                   delays=(0, 0, 1, 0, 2), kv_cache_dtype=kv_cache_dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    lm = LMModel(cfg)
+    lm_params = tq.quantize_lm_params(lm.init_params(g, torch.bfloat16, "cuda"),
+                                      min_size=1, mode="int4")
+    mcfg = MimiConfig(
+        sample_rate=1200, seanet=SEANetConfig(dimension=32, n_filters=4, ratios=(4, 3, 2)),
+        transformer=TransformerConfig(d_model=32, num_heads=2, num_layers=2,
+                                      dim_feedforward=64, context=25, gating="none",
+                                      norm="layer_norm", layer_scale=0.01),
+        quantizer=RVQConfig(dimension=16, input_dimension=32, output_dimension=32, n_q=8,
+                            bins=32),
+        num_codebooks=4)
+    mimi = MimiModel(mcfg)
+    return mimi, mimi.init_params(g, torch.bfloat16, "cuda"), lm, lm_params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _states_equal(a, b):
+    """Every state tensor of two engines, byte for byte."""
+    for key in ("enc_state", "dec_state", "gen_state"):
+        la, lb = list(_leaves(getattr(a, key))), list(_leaves(getattr(b, key)))
+        assert len(la) == len(lb) > 0
+        for x, y in zip(la, lb):
+            assert torch.equal(x, y), key
+
+
+def _server(graphed, **kw):
+    from moshi_tpu_torch.serve.server import ServerState
+    state = ServerState(*_tiny_moshi(), device="cuda", graphed=graphed, **kw)
+    state.warmup()
+    return state
+
+
+def test_graphed_server_equals_eager_across_a_reset(gen):
+    """B = 1, greedy: two sessions with a reset between (the ring of 12
+    wraps in 20 frames).  The graphed server's tokens and PCM equal the
+    eager server's, and after each session every KV cache and Mimi state
+    byte does; reset moves no tensor and each graph is captured once."""
+    from moshi_tpu_torch.serve.server import serve_sessions
+    graphed, eager = _server(True, use_sampling=False), _server(False, use_sampling=False)
+    ptrs = [t.data_ptr() for t in _leaves(graphed.gen_state)]
+    for seed in (3, 4):
+        (tg, ag, _), = serve_sessions(graphed, [seed], 20)
+        (te, ae, _), = serve_sessions(eager, [seed], 20)
+        assert len(tg) == 20 - graphed.lm.config.max_delay
+        np.testing.assert_array_equal(tg, te)
+        assert len(ag) == len(ae) == len(tg)
+        for x, y in zip(ag, ae):
+            np.testing.assert_array_equal(x, y)
+        _states_equal(graphed, eager)
+    assert [t.data_ptr() for t in _leaves(graphed.gen_state)] == ptrs
+    assert graphed.step.replays == 40 and graphed.decode.replays == 2 * len(tg)
+
+
+def test_init_state_keeps_the_delays_tensor_a_step_reads(gen):
+    """LMGen copies the delays to the card once: a later init_state (a
+    reset) on "cuda" returns the "cuda:0" tensor a captured step reads,
+    not a new one (the old one freed, the graph would read whatever took
+    its memory)."""
+    from moshi_tpu_torch.models.lm_gen import LMGen
+    _, _, lm, _ = _tiny_moshi()
+    lm_gen = LMGen(lm)
+    lm_gen.init_state(1, None, torch.bfloat16, torch.device("cuda"))
+    first = lm_gen._delays(torch.device("cuda", 0))
+    lm_gen.init_state(1, None, torch.bfloat16, torch.device("cuda"))
+    lm_gen.init_state(1, None, torch.bfloat16, "cuda:0")
+    assert lm_gen._delays(torch.device("cuda")) is first
+    assert lm_gen._delays(torch.device("cuda", 0)) is first
+
+
+def test_graphed_server_sampling_follows_the_session_seed(gen):
+    """Sampling on: one seed replays its tokens across a reset, two seeds
+    differ, and the graph's draws are the eager server's (the generator is
+    registered with the graph, so each replay draws on and manual_seed
+    takes effect)."""
+    from moshi_tpu_torch.serve.server import serve_sessions
+    graphed = serve_sessions(_server(True), [5, 5, 6], 16)
+    np.testing.assert_array_equal(graphed[0][0], graphed[1][0])
+    assert not np.array_equal(graphed[0][0], graphed[2][0])
+    eager = serve_sessions(_server(False), [5, 6], 16)
+    np.testing.assert_array_equal(graphed[0][0], eager[0][0])
+    np.testing.assert_array_equal(graphed[2][0], eager[1][0])
+
+
+def _graph_schedule():
+    """tick -> {slot: action} at B = 4: the schedule of
+    tests/test_torch_batched_server.py (slot 2 joins late, slot 1 freezes
+    for two ticks, slot 0 resets at tick 9), with slot 3 joining at tick 1,
+    frozen at ticks 6-7 and reset at tick 12."""
+    ticks = ([{0: "join", 1: "join"}] + [{0: "send", 1: "send"}] * 3
+             + [{0: "send", 1: "send", 2: "join"}, {0: "send", 1: "send", 2: "send"}]
+             + [{0: "send", 2: "send"}] * 2 + [{0: "send", 1: "send", 2: "send"}]
+             + [{0: "join", 1: "send", 2: "send"}] + [{0: "send", 1: "send", 2: "send"}] * 2
+             + [{0: "send", 1: "send"}] + [{0: "send", 1: "send", 2: "send"}] * 5)
+    ticks = [dict(t) for t in ticks]
+    for i, tick in enumerate(ticks):
+        if i in (1, 12):
+            tick[3] = "join"
+        elif i > 1 and i not in (6, 7):
+            tick[3] = "send"
+    return ticks
+
+
+GRAPH_SCHEDULE = _graph_schedule()
+
+
+@pytest.mark.parametrize("kv", ["int4", "int8"])
+def test_graphed_batched_frames_equal_eager(kv, gen):
+    """B = 4, greedy, over joins, freezes and resets: the graphed engine's
+    tokens and PCM equal the eager engine's session by session, and every
+    KV cache and Mimi state byte does at the end; the frame is captured
+    once and replayed at every frame (the first tick, two joins whose
+    frames are dropped, runs none)."""
+    from moshi_tpu_torch.serve.batched_moshi import BatchedMoshiState, serve_batched
+    models = _tiny_moshi(kv)
+    rs = np.random.RandomState(0)
+    frames = {s: rs.randn(len(GRAPH_SCHEDULE), models[0].frame_size).astype(np.float32)
+              for s in range(4)}
+    runs = []
+    for graphed in (True, False):
+        state = BatchedMoshiState(*models, 4, device="cuda", graphed=graphed,
+                                  use_sampling=False)
+        state.warmup()
+        runs.append((state, *serve_batched(state, GRAPH_SCHEDULE, frames)))
+    (g, sg, msg), (e, se, _) = runs
+    assert g.step.replays == len(msg) == len(GRAPH_SCHEDULE) - 1
+    for s in range(4):
+        assert len(sg[s]) == len(se[s]) == (2 if s in (0, 3) else 1)
+        for (tg, ag), (te, ae) in zip(sg[s], se[s]):
+            assert len(tg) > 0
+            np.testing.assert_array_equal(tg, te)
+            for x, y in zip(ag, ae):
+                np.testing.assert_array_equal(x, y)
+    _states_equal(g, e)
+
+
+def test_graphed_frame_counts_its_launches_once(gen):
+    """The kernels' counters tick when the capture records a launch: after
+    warm-up, three graphed frames count what one eager frame counts."""
+    from moshi_tpu_torch.serve.batched_moshi import BatchedMoshiState
+    counted = [q4matmul.q4_gemv, q4matmul.q4_mma, qmatmul.int8_gemv, qmatmul.int8_mma,
+               i4.decode_attention_int4_stats, i4.decode_attention_int4_write,
+               da8.decode_attention_int8]
+    models = _tiny_moshi("int4")
+    pcm = np.zeros((4, 1, models[0].frame_size), np.float32)
+    counts = []
+    for graphed, frames in ((False, 1), (True, 3)):
+        state = BatchedMoshiState(*models, 4, device="cuda", graphed=graphed)
+        state.warmup()
+        for fn in counted:
+            fn.launches = 0
+        for _ in range(frames):
+            state.frame(pcm, np.ones(4, bool))
+        torch.cuda.synchronize()
+        counts.append([fn.launches for fn in counted])
+    assert counts[0] == counts[1] and sum(counts[0]) > 0
+    assert counts[0][4] == counts[0][5] == 2  # a fused K4 write per layer
+
+
+def test_graphed_step_refuses_what_it_cannot_replay(gen):
+    """A graphed step raises before its warm-up call, and when called with
+    other tensors than those it was captured with."""
+    from moshi_tpu_torch.utils.graphs import GraphedStep
+    step = GraphedStep(lambda x: x * 2, graphed=True)
+    x = torch.arange(4.0, device="cuda")
+    with pytest.raises(RuntimeError):
+        step(x)
+    step.warm_up(x)
+    assert torch.equal(step(x), 2 * x)
+    x.add_(1)
+    assert torch.equal(step(x), 2 * x) and step.replays == 2
+    with pytest.raises(ValueError):
+        step(x.clone())

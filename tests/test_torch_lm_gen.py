@@ -125,3 +125,43 @@ def test_lm_gen_embedding_fuzz():
             assert (out[:, 0] < cfg.text_card).all() and (out[:, 1:] < cfg.card).all()
             assert (out >= 0).all()
 
+
+
+def _multinomial_token(generator, logits, temp, top_k):
+    """The draw of utils/sampling.py before it was written out: the same
+    temperature and top-k, then torch.multinomial."""
+    if top_k > 0:
+        vals, idx = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1)
+        choice = torch.multinomial(torch.softmax(vals / temp, dim=-1), 1, generator=generator)
+        return torch.gather(idx, -1, choice)[..., 0]
+    return torch.multinomial(torch.softmax(logits / temp, dim=-1), 1, generator=generator)[..., 0]
+
+
+@pytest.mark.parametrize("top_k", [0, 25, 250])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_written_out_draw_is_multinomials(top_k, seed):
+    """sample_token's exponential race draws what torch.multinomial drew for
+    the same seeded CPU generator, with and without top-k, over a run of
+    draws from one generator (so its state advances alike)."""
+    from moshi_tpu_torch.utils.sampling import sample_token
+    rs = np.random.RandomState(seed)
+    ours, theirs = torch.Generator().manual_seed(seed), torch.Generator().manual_seed(seed)
+    for V in (64, 2048, 32000):
+        logits = torch.from_numpy(3 * rs.randn(4, V).astype(np.float32))
+        for temp in (0.7, 1.0):
+            got = sample_token(ours, logits, use_sampling=True, temp=temp, top_k=top_k)
+            want = _multinomial_token(theirs, logits, temp, top_k)
+            assert torch.equal(got, want), (V, temp)
+
+
+def test_init_state_keeps_the_delays_tensor():
+    """The delays are copied to a device once: a step reads the tensor that
+    the first init_state made, whatever init_state runs after (a CUDA graph
+    captured over it must not read freed memory)."""
+    _, _, _, tmodel, _ = _models()
+    gen = TGen(tmodel, TGenConfig(use_sampling=False))
+    gen.init_state(B, None, torch.float32)
+    first = gen._delays(torch.device("cpu"))
+    gen.init_state(B, None, torch.float32, "cpu")
+    gen.init_state(B, None, torch.float32, torch.device("cpu"))
+    assert gen._delays(None) is first and gen._delays("cpu") is first

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from moshi_tpu.models.lm import LMModel as JLM
 from moshi_tpu.models.loaders import CheckpointInfo
@@ -82,6 +83,71 @@ def test_reset_replays_the_first_session(servers):
         np.testing.assert_array_equal(a, b)
     assert first[0].shape == (FRAMES - tstate.lm.config.max_delay,
                               1 + tstate.lm.config.dep_q)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def test_reset_rewrites_the_state_in_place(servers):
+    """reset writes fresh values into the tensors the engine already holds
+    (a CUDA graph captured over them stays valid): no state tensor moves,
+    each state equals a new init_*_state, the generator is the same object
+    and its seed the session's."""
+    _, tstate = servers
+    trees = (tstate.enc_state, tstate.dec_state, tstate.gen_state)
+    ptrs = [t.data_ptr() for tree in trees for t in _tensors(tree)]
+    generator = tstate.generator
+    for chunk in _pcm(tstate.frame_size)[:6]:
+        tstate.step_frame(chunk)
+    tstate.session_seed = 9
+    tstate.reset()
+    assert [t.data_ptr() for tree in trees for t in _tensors(tree)] == ptrs
+    assert tstate.generator is generator and tstate.gen_state["generator"] is generator
+    assert generator.initial_seed() == 9
+    md = tstate.mimi_dtype
+    fresh = (tstate.mimi.init_encode_state(1, md, "cpu"),
+             tstate.mimi.init_decode_state(1, md, "cpu"),
+             tstate.lm_gen.init_state(1, None, torch.bfloat16, "cpu"))
+    for tree, new in zip(trees, fresh):
+        got, want = _tensors(tree), _tensors(new)
+        assert len(got) == len(want) > 0
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert tstate.session_tokens == [] and tstate.steps_done == 0
+
+
+def test_sampled_sessions_of_one_seed_repeat_in_place(servers):
+    """Sampling on, one engine: two sessions with one seed give the same
+    tokens (reset reseeds the one generator), a third seed others."""
+    _, tstate = servers
+    sampled = TServerState(tstate.mimi, tstate.mimi_params, tstate.lm, tstate.lm_params,
+                           device="cpu")
+    assert not sampled.graphed and sampled.lm_gen.gc.use_sampling
+    sampled.warmup()
+    a, b, c = serve_sessions(sampled, [5, 5, 6], FRAMES)
+    np.testing.assert_array_equal(a[0], b[0])
+    assert not np.array_equal(a[0], c[0])
+
+
+def test_graphed_engines_need_a_cuda_device(servers):
+    """graphed=True on the CPU raises; the CPU's engines run eagerly."""
+    from moshi_tpu_torch.serve.batched_moshi import BatchedMoshiState
+    from moshi_tpu_torch.utils.graphs import GraphedStep
+    _, t = servers
+    with pytest.raises(ValueError):
+        TServerState(t.mimi, t.mimi_params, t.lm, t.lm_params, device="cpu", graphed=True)
+    with pytest.raises(ValueError):
+        BatchedMoshiState(t.mimi, t.mimi_params, t.lm, t.lm_params, 2, device="cpu",
+                          graphed=True)
+    step = GraphedStep(lambda x: x + 1, graphed=False)
+    x = torch.zeros(2)
+    assert torch.equal(step.warm_up(x), x + 1) and torch.equal(step(x), x + 1)
+    assert step.graph is None and step.replays == 0
 
 
 def test_port_imports_no_jax():
