@@ -70,15 +70,25 @@ Phases, each printing its own line(s):
   6. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
-               BatchedAsrState: warm-up, then the greedy isolation run of the
-               batched phase over 40 frames (text tokens and Word / EndWord
-               messages; the text head's pad columns are scaled up so that
-               words end), with exactly 16 decode_attention_int8 and no GEMV
-               launches per frame, p50 / p75 / p90 ms per batched frame; 10
-               frames of every slot for the host ms of the word trackers;
-               peak memory; a profiler pass; then the greedy run once more
-               with decode_attention_int8_plain in the kernel's place, in
-               which slot 0 must say words too.
+               BatchedAsrState, each frame replays of StreamingASR's two
+               graphs (Mimi encode, the temporal step) captured at its
+               first frame after the warm-up: the greedy isolation run of
+               the batched phase over 40 frames (text tokens and Word /
+               EndWord messages; the text head's pad columns are scaled up
+               so that words end) with a session resume in it (a session
+               leaves at frame 15, a new tenant takes its slot, it resumes
+               on another slot and must repeat an unbroken slot's tokens,
+               messages and device rows), run graphed and eagerly, whose
+               tokens, messages and every state byte must be equal; exactly
+               16 decode_attention_int8 and no GEMV launches per captured
+               step (and per eager frame), the replay counts; p50 / p75 /
+               p90 ms per batched frame; 10 frames of every slot on both
+               engines (frame times, the word trackers' host ms, peak
+               memory, a profiler pass); then the greedy run eagerly with
+               decode_attention_int8_plain in the kernel's place, in which
+               slot 0 must say words too; then graphed engines at B = 256,
+               512 and 1024, 20 frames of every slot each (p50 / p90, peak
+               memory), naming the largest B whose p90 stays under 80 ms.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
@@ -106,6 +116,7 @@ FRAMES = 40
 EAGER_FRAMES = 10        # the eager comparison run of [batched]'s sampled run
 SLOTS = 16               # B of the batched phase
 ASR_SLOTS = 256          # B of the asr phase
+ASR_SWEEP = (256, 512, 1024)  # B of the asr phase's batch sweep
 ASR_DELAY = 6            # asr_delay_in_tokens: 0.5 s at 12.5 Hz
 # the `delay` conditioner of the asr phase (no checkpoint on the card's
 # machine: its width and value are this script's choice)
@@ -173,9 +184,8 @@ def phase(name: str, msg: str) -> None:
 
 def free_memory() -> None:
     """Return what dropped engines held to the card before the next phase
-    measures memory: an engine and its graphed steps reference each other
-    (a step holds the engine's bound method), so only the cycle collector
-    frees them."""
+    measures memory: the cycle collector for anything still in a
+    reference cycle, then the allocator's cached blocks."""
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -885,6 +895,11 @@ def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> dict:
 
 
 # ---------------------------------------------------------------- batched
+# the isolation script's copies of slot 0: slot -> (its session index,
+# frames it executes in that session)
+SAME_AS_0 = {1: (0, FRAMES), 2: (0, FRAMES - 5), 3: (0, FRAMES - 5), 4: (1, FRAMES - 20)}
+
+
 def isolation_script(frame_size: int, slots: int = SLOTS):
     """The greedy run's schedule and PCM: (schedule, frames, the slots whose
     session must equal slot 0's)."""
@@ -909,9 +924,7 @@ def isolation_script(frame_size: int, slots: int = SLOTS):
         if tick == 20:
             t[4] = "join"          # slot 4: reset, then slot 0's PCM again
         schedule.append(t)
-    # slot -> (its session index, frames it executes in that session)
-    same_as_0 = {1: (0, FRAMES), 2: (0, FRAMES - 5), 3: (0, FRAMES - 5), 4: (1, FRAMES - 20)}
-    return schedule, frames, same_as_0
+    return schedule, frames, SAME_AS_0
 
 
 def profile_frames(run_frame, n: int) -> dict:
@@ -954,23 +967,19 @@ def profile_line(prof: dict) -> str:
             f"{json.dumps(prof['top_device_ms_per_frame'])}")
 
 
+def tensor_leaves(tree) -> list:
+    """Every tensor of a tree of dicts, lists and tuples, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
 def state_leaves(state) -> list:
     """Every tensor of a batched engine's streaming state (Mimi encode and
     decode, LMGen), in a fixed order."""
-    out = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            for v in t.values():
-                walk(v)
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
-        elif isinstance(t, torch.Tensor):
-            out.append(t)
-    for tree in (state.enc_state, state.dec_state, state.gen_state):
-        walk(tree)
-    return out
+    return tensor_leaves([state.enc_state, state.dec_state, state.gen_state])
 
 
 def every_slot_frame(state, seed: int, frames: int):
@@ -1167,11 +1176,11 @@ def build_asr(dev):
     """asr_300m_202501 at full width with the int8 KV cache and bf16
     weights (the text head's pad columns scaled by ASR_PAD_LOGIT_SCALE), the
     bf16 Mimi v0.1 with 32 codebooks and the `delay` condition, all from a
-    seed; the StreamingASR engine at B = ASR_SLOTS."""
+    seed.  Returns the models for asr_engine."""
     from dataclasses import replace
 
     from moshi_tpu_torch.conditioners import ConditionProvider, ContinuousAttributeConditioner
-    from moshi_tpu_torch.models.asr import StreamingASR, asr_sum_condition
+    from moshi_tpu_torch.models.asr import asr_sum_condition
     from moshi_tpu_torch.models.lm import LMModel, lm_config_asr_300m_202501
     from moshi_tpu_torch.models.mimi import MimiModel, mimi_v0_1_config
 
@@ -1189,161 +1198,340 @@ def build_asr(dev):
         max_period=ASR_COND["max_period"])})
     cond = asr_sum_condition(provider, provider.init_params(g, torch.float32, dev), cfg.dim,
                              conditioning_delay=ASR_COND["delay"])
-    asr = StreamingASR(mimi, lm, ASR_SLOTS, asr_delay_in_tokens=ASR_DELAY, temperature=0.0,
-                       mimi_dtype=torch.bfloat16, sum_condition=cond, device=dev)
     torch.cuda.synchronize()
     phase("asr", f"asr_300m_202501 bf16 (dim {cfg.dim}, {cfg.num_layers} layers, "
           f"{cfg.num_heads} heads x {cfg.transformer_config.head_dim}, n_q {cfg.n_q}, ctx "
           f"{cfg.context}) + Mimi bf16 with {mimi.num_codebooks} codebooks built from seed "
           f"{SEED + 3} in {time.perf_counter() - t0:.1f} s")
-    return asr, lm_params, mimi_params
+    return {"mimi": mimi, "lm": lm, "mimi_params": mimi_params, "lm_params": lm_params,
+            "cond": cond}
 
 
-def asr_greedy(dev, asr, lm_params, mimi_params):
-    """A BatchedAsrState of `asr` and a warm-up (three zero frames on every
-    slot, then every session closed), then the greedy isolation run of the
-    batched phase's script, one frame per tick, with the launches counted.
-    Returns (state, sessions, ms, launches, peak GiB, same_as_0)."""
-    from moshi_tpu_torch.serve.batched_asr import BatchedAsrState, serve_asr
+def asr_engine(dev, models, batch: int, graphed: bool):
+    """A warmed-up BatchedAsrState at B = batch over a StreamingASR of the
+    models (graphed: Mimi encode and the temporal step as CUDA graphs)."""
+    from moshi_tpu_torch.models.asr import StreamingASR
+    from moshi_tpu_torch.serve.batched_asr import BatchedAsrState
 
-    B, fs = ASR_SLOTS, asr.mimi.frame_size
-    state = BatchedAsrState(asr, mimi_params, lm_params)
-    kv = state.state["transformer"]
-    phase("asr", f"B = {B}, int8 KV cache {tuple(kv['k'].shape)} x 2 + bf16 scales "
-          f"{tuple(kv['k_scale'].shape)}; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
-          f"on the card")
-    # warm-up: three zero frames on every slot, then every session closed
-    for s in range(B):
-        state.acquire_slot(s)
-        state.feed_pcm(s, np.zeros(3 * fs, np.float32))
-    for _ in range(3):
-        state.tick()
-    for s in range(B):
-        state.release_slot(s)
+    asr = StreamingASR(models["mimi"], models["lm"], batch, asr_delay_in_tokens=ASR_DELAY,
+                       temperature=0.0, mimi_dtype=torch.bfloat16, sum_condition=models["cond"],
+                       device=dev, graphed=graphed)
+    if asr.graphed != graphed:
+        raise RuntimeError(f"StreamingASR on the card: graphed {asr.graphed}")
+    state = BatchedAsrState(asr, models["mimi_params"], models["lm_params"])
+    state.warmup()
     torch.cuda.synchronize()
+    return state
 
-    # greedy isolation run: the batched phase's script, one frame per tick
-    schedule, frames, same_as_0 = isolation_script(fs, B)
-    torch.cuda.reset_peak_memory_stats(dev)
+
+def reckoned_kv_gib(cfg, batch: int) -> float:
+    """The int8 K and V caches and their bf16 scales at B = batch."""
+    tc = cfg.transformer_config
+    rows = 2 * cfg.num_layers * batch * tc.kv_capacity * tc.num_kv_heads
+    return rows * (tc.head_dim + 2) / 2 ** 30
+
+
+# the resume within the asr greedy run: slot U sends slot 0's PCM with a
+# pause on ticks 15-16; slot S sends the same until its session leaves at
+# tick 15, then a new tenant joins slot S (tick 16) with PCM of its own; the
+# session resumes on slot R at tick 17 and goes on with U.  Two more ticks
+# let U and R reach slot 0's 40 frames.
+ASR_RESUME = {"U": 5, "S": 6, "R": 7, "leave": 15, "resume": 17, "extra_ticks": 2}
+
+
+def asr_script(frame_size: int, slots: int):
+    """The batched phase's isolation script at B = slots with ASR_RESUME:
+    (schedule, frames)."""
+    schedule, frames, _ = isolation_script(frame_size, slots)
+    schedule = [dict(t) for t in schedule[:FRAMES]]
+    u, s, r = ASR_RESUME["U"], ASR_RESUME["S"], ASR_RESUME["R"]
+    leave, resume = ASR_RESUME["leave"], ASR_RESUME["resume"]
+    ref = frames[0]
+    tenant = np.random.RandomState(SEED + 8).randn(FRAMES, frame_size).astype(np.float32)
+    frames[u], frames[s], frames[r] = ref, np.concatenate([ref[:leave], tenant]), ref[leave:]
+    schedule += [{} for _ in range(ASR_RESUME["extra_ticks"])]
+    for i, tick in enumerate(schedule):
+        for slot in (u, s, r):
+            tick.pop(slot, None)
+        if i < FRAMES:
+            if not leave <= i < resume:
+                tick[u] = "join" if i == 0 else "send"
+            if i <= leave:
+                tick[s] = "join" if i == 0 else "send" if i < leave else "leave"
+        else:
+            tick[u] = "send"
+        if i > leave:
+            tick[s] = "join" if i == leave + 1 else "send"
+        if i >= resume:
+            tick[r] = ("resume", s) if i == resume else "send"
+    return schedule, frames
+
+
+def asr_leaves(state) -> list:
+    """Every tensor of a BatchedAsrState's streaming state, in a fixed
+    order."""
+    return tensor_leaves([state.state["mimi"], state.state["transformer"]])
+
+
+def same_bytes(a, b) -> bool:
+    """Equal bit for bit, NaN included (a slot frozen at offset 0 writes NaN
+    rows into Mimi's KV cache, as the JAX package's does)."""
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def asr_greedy(dev, models, graphed: bool):
+    """A warmed-up engine at B = ASR_SLOTS, then the greedy run of
+    asr_script, one frame per tick, with the launches counted.  Returns
+    (state, sessions, ms, launches)."""
+    from moshi_tpu_torch.serve.batched_asr import serve_asr
+
+    state = asr_engine(dev, models, ASR_SLOTS, graphed)
+    schedule, frames = asr_script(state.frame_size, ASR_SLOTS)
+    ptrs = [t.data_ptr() for t in asr_leaves(state)]
     zero_counts()
-    sessions, ms = serve_asr(state, schedule[:FRAMES], frames)
+    sessions, ms = serve_asr(state, schedule, frames)
     launches = read_counts()
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    return state, sessions, ms, launches, peak, same_as_0
+    if [t.data_ptr() for t in asr_leaves(state)] != ptrs:
+        raise RuntimeError("asr: a reset or a restore moved a state tensor")
+    return state, sessions, ms, launches
 
 
-def run_asr(dev, card: str) -> dict:
-    """The batched STT path at B = ASR_SLOTS over the isolation script, then
-    the same greedy run with the plain attention in the kernel's place."""
-    asr, lm_params, mimi_params = build_asr(dev)
-    state, sessions, ms, launches, peak, same_as_0 = asr_greedy(dev, asr, lm_params,
-                                                                mimi_params)
-    cfg, B, fs = asr.lm.config, ASR_SLOTS, asr.mimi.frame_size
-    expected = {name: 0 for name in TPU_KERNELS}
-    expected["decode_attention_int8"] = cfg.num_layers
-    check_counts(launches, expected, len(ms), "asr greedy run")
+def asr_runs(dev, models, graphed: bool):
+    """One engine at B = ASR_SLOTS: its greedy run, then 10 frames of every
+    slot sending and a profiler pass over 5 more.  Returns (state, summary
+    with the peak memory over the engine's life so far: allocated, and
+    above what was allocated before it)."""
+    free_memory()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, sessions, ms, launches = asr_greedy(dev, models, graphed)
+    if graphed:
+        kv = state.state["transformer"]
+        phase("asr", f"B = {ASR_SLOTS}, int8 KV cache {tuple(kv['k'].shape)} x 2 + bf16 scales "
+              f"{tuple(kv['k_scale'].shape)}; {(torch.cuda.memory_allocated(dev) - before) / 2**30:.2f} "
+              f"GiB for the engine")
+        del kv
+    # the resumed session against the unbroken slot, before they part
+    u, r = ASR_RESUME["U"], ASR_RESUME["R"]
+    resume = {"rows_equal": all(same_bytes(a, b) for a, b in zip(*(
+        tensor_leaves(state.asr.extract_slot_arrays(state.state, slot)) for slot in (u, r)))),
+        "clock": state.asr.items[r].step_idx, "resumed": state.slot_resumed.get(r),
+        "left_at": ASR_RESUME["leave"], "resumed_at": ASR_RESUME["resume"]}
+    every = every_slot_asr(state, SEED + 4, 10, True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    return state, {"sessions": sessions, "ms": ms, "launches": launches, "resume": resume,
+                   "every_slot": every, "peak_gib": peak / 2 ** 30,
+                   "engine_peak_gib": (peak - before) / 2 ** 30}
+
+
+def words(msgs):
+    return [m for m in msgs if m["type"] in ("Word", "EndWord")]
+
+
+def check_asr_sessions(cfg, sessions, ms) -> dict:
+    """The greedy run's checks: token ranges and Word / EndWord messages,
+    slots 1-4 and U repeating slot 0, the resumed session (S then R)
+    repeating slot 0, other slots differing.  Returns what it counted."""
+    B = len(sessions)
+    u, s, r = ASR_RESUME["U"], ASR_RESUME["S"], ASR_RESUME["R"]
     ref = sessions[0][0][0]
-    if len(ms) != FRAMES or len(ref) != FRAMES:
+    if len(ms) != FRAMES + ASR_RESUME["extra_ticks"] or len(ref) != FRAMES:
         raise RuntimeError(f"asr: {len(ms)} frames, slot 0 has {len(ref)} tokens")
     said = {"Word": 0, "EndWord": 0}
-    for s in range(B):
-        for tokens, msgs in sessions[s]:
+    for slot in range(B):
+        for tokens, msgs in sessions[slot]:
             if not ((tokens >= 0).all() and (tokens < cfg.text_card).all()):
-                raise RuntimeError(f"asr slot {s}: text token out of range")
+                raise RuntimeError(f"asr slot {slot}: text token out of range")
             for m in msgs:
                 said[m["type"]] = said.get(m["type"], 0) + 1
     if not (said["Word"] and said["EndWord"]):
         raise RuntimeError(f"asr: no Word or no EndWord message came out: {said}")
-
-    def words(msgs):
-        return [m for m in msgs if m["type"] in ("Word", "EndWord")]
     ref_words = words(sessions[0][0][1])
     if not ref_words:
         raise RuntimeError("asr: slot 0 said no word, so its copies have nothing to repeat")
-    for s, (session, executed) in same_as_0.items():
-        got = sessions[s][session][0]
-        if len(got) != executed or not np.array_equal(got, ref[:len(got)]):
-            raise RuntimeError(f"asr: slot {s} session {session} does not repeat slot 0's "
-                               f"text tokens")
+    (left_t, left_m), _ = sessions[s]
+    (resumed_t, resumed_m), = sessions[r]
+    copies = {**{slot: sessions[slot][i] for slot, (i, _) in SAME_AS_0.items()},
+              u: sessions[u][0],
+              "resumed": (np.concatenate([left_t, resumed_t]), left_m + resumed_m)}
+    executed = {**{slot: n for slot, (_, n) in SAME_AS_0.items()}, u: FRAMES,
+                "resumed": FRAMES}
+    for slot, (got, msgs) in copies.items():
+        if len(got) != executed[slot] or not np.array_equal(got, ref[:len(got)]):
+            raise RuntimeError(f"asr: slot {slot} does not repeat slot 0's text tokens")
         # a slot that executed fewer frames said what slot 0 said in them
-        got_words = words(sessions[s][session][1])
-        if got_words != ref_words[:len(got_words)] or (s == 1 and got_words != ref_words):
-            raise RuntimeError(f"asr: slot {s} session {session} does not repeat slot 0's "
-                               f"Word / EndWord messages")
-    distinct = sum(not np.array_equal(sessions[s][0][0], ref) for s in range(5, B))
+        got_words = words(msgs)
+        if got_words != ref_words[:len(got_words)] or (
+                executed[slot] == FRAMES and got_words != ref_words):
+            raise RuntimeError(f"asr: slot {slot} does not repeat slot 0's Word / EndWord "
+                               f"messages")
+    if len(left_t) != ASR_RESUME["leave"]:
+        raise RuntimeError(f"asr: the session left after {len(left_t)} frames")
+    distinct = sum(not np.array_equal(sessions[slot][0][0], ref) for slot in range(8, B))
     if distinct == 0:
         raise RuntimeError("asr: no slot with its own PCM differs from slot 0")
-    p50, p75, p90 = (float(np.percentile(ms, p)) for p in (50, 75, 90))
-    phase("asr", f"greedy, {len(ms)} frames x {B} slots: slots 1 (same PCM), 2 (joined 5 "
-          f"frames late), 3 (frozen on frames 10-14) and 4 (reset at frame 20) repeat slot "
-          f"0's text tokens and its {len(ref_words)} Word / EndWord messages; {distinct} of "
-          f"{B - 5} other slots differ; messages by type {said}; launches {launches} = per "
-          f"frame {expected} x {len(ms)}")
-    phase("asr", f"p50 {p50:.2f} ms, p75 {p75:.2f} ms, p90 {p90:.2f} ms per batched frame; "
-          f"{p50 / B:.3f} ms per user-frame at p50; peak {peak:.2f} GiB ({card})")
+    return {"said": said, "ref_words": len(ref_words), "distinct": distinct}
 
-    # every slot sends every frame: the word trackers' host ms, then the profiler
-    rs = np.random.RandomState(SEED + 4)
-    pcm = rs.randn(15, B, fs).astype(np.float32)
-    host, full = [], []
+
+def every_slot_asr(state, seed: int, frames: int, profile: bool):
+    """Every slot of an engine sends `frames` frames of unit-RMS noise, one
+    tick each: host ms per batched frame (the tick), the word trackers' host
+    ms, then a profiler pass over 5 more frames when asked.  The engine's
+    slots must all be open."""
+    B, fs = state.batch_size, state.frame_size
+    pcm = np.random.RandomState(seed).randn(frames + 5, B, fs).astype(np.float32)
 
     def run_frame(i):
-        for s in range(B):
-            state.feed_pcm(s, pcm[i, s])
+        for slot in range(B):
+            state.feed_pcm(slot, pcm[i, slot])
         state.tick()
-    for i in range(10):
+    full, host = [], []
+    for i in range(frames):
         run_frame(i)
-        host.append(asr.host_ms)
         full.append(state.frame_ms)
-    full_p50 = float(np.percentile(full, 50))
-    prof = profile_frames(lambda i: run_frame(10 + i), 5)
-    # against the p50 of the same kind of frame (every slot sending), taken
-    # without the profiler
-    prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / full_p50
-    phase("asr", f"all {B} slots, 10 frames: p50 {full_p50:.2f} ms per "
-          f"batched frame, of it {np.percentile(host, 50):.2f} ms of host Python in the "
-          f"per-slot input and word-tracker loops; profiler over 5 frames: card busy "
-          f"{prof['busy_ms_per_frame']:.2f} ms/frame, idle share {prof['idle_share']:.3f} of "
-          f"the p50 frame (host {prof['host_ms_per_frame']:.2f} ms/frame under the "
-          f"profiler); kernels ms/frame {json.dumps(prof['kernel_ms_per_frame'])}; "
-          f"{prof['device_ops_per_frame']:.0f} device ops/frame, the most costly "
-          f"{json.dumps(prof['top_device_ms_per_frame'])}")
-    del state
-    free_memory()
+        host.append(state.asr.host_ms)
+    out = {f"p{p}_ms": float(np.percentile(full, p)) for p in (50, 75, 90)}
+    out["host_ms_p50"] = float(np.percentile(host, 50))
+    out["frames"] = frames
+    if profile:
+        prof = profile_frames(lambda i: run_frame(frames + i), 5)
+        # against the p50 of the same kind of frame, taken without the profiler
+        prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / out["p50_ms"]
+        out["profile"] = prof
+    return out
 
-    # The seeded random model's text stream turns on near-ties, so the
-    # kernel's rounding can move it.  A second witness: slot 0 must say
-    # words with the plain attention too, so the pad factors do not rest on
-    # one kernel's rounding; the frames up to the streams' first difference
-    # are printed.
+
+def asr_sweep(dev, models, card: str) -> dict:
+    """Graphed engines at ASR_SWEEP slots, every slot sending: one frame
+    (the capture), then 20 timed; p50 / p90 ms per batched frame and peak
+    memory at each B.  Names the largest B whose p90 stays under 80 ms."""
+    cfg, out = models["lm"].config, {}
+    for B in ASR_SWEEP:
+        free_memory()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = asr_engine(dev, models, B, True)
+        for slot in range(B):
+            state.acquire_slot(slot)
+        every_slot_asr(state, SEED + 9, 1, False)
+        r = every_slot_asr(state, SEED + 10, 20, False)
+        r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        r["engine_peak_gib"] = r["peak_gib"] - before / 2 ** 30
+        r["reckoned_kv_gib"] = reckoned_kv_gib(cfg, B)
+        r["replays"] = state.asr.step.replays
+        out[B] = r
+        phase("asr", f"sweep B = {B}, graphed, 20 frames of every slot: p50 {r['p50_ms']:.2f} "
+              f"ms, p90 {r['p90_ms']:.2f} ms per batched frame ({r['p50_ms'] / B:.4f} ms per "
+              f"stream at p50); peak {r['peak_gib']:.2f} GiB allocated, {r['engine_peak_gib']:.2f} "
+              f"GiB of it above what the card held before the engine, of that the int8 KV cache "
+              f"and scales {r['reckoned_kv_gib']:.2f} GiB reckoned ({card})")
+        del state
+    real_time = [B for B, r in out.items() if r["p90_ms"] < 80.0]
+    largest = max(real_time) if real_time else None
+    phase("asr", f"sweep: the largest B of {list(ASR_SWEEP)} whose p90 stays under 80 ms: "
+          f"{largest}")
+    return {"by_batch": out, "largest_real_time_batch": largest}
+
+
+def asr_plain_witness(dev, models, ref, ref_words) -> dict:
+    """The greedy run eagerly with the plain attention in the kernel's
+    place.  The seeded random model's text stream turns on near-ties, so
+    the kernel's rounding can move it: slot 0 must say words with the plain
+    attention too, so the pad factors do not rest on one kernel's rounding;
+    the frames up to the streams' first difference are printed (graphed or
+    not changes no bit)."""
     from moshi_tpu_torch.modules import transformer
     from moshi_tpu_torch.ops.decode_attention import decode_attention_int8_plain
 
     transformer.decode_attention_int8 = decode_attention_int8_plain
     try:
-        state, plain_sessions, _, plain_launches, _, _ = asr_greedy(dev, asr, lm_params,
-                                                                     mimi_params)
+        _, sessions, _, launches = asr_greedy(dev, models, False)
     finally:
         transformer.decode_attention_int8 = counters()["decode_attention_int8"]
-    plain_ref = plain_sessions[0][0][0]
-    plain_words = words(plain_sessions[0][0][1])
+    plain_ref, plain_words = sessions[0][0][0], words(sessions[0][0][1])
     same = next((i for i in range(FRAMES) if plain_ref[i] != ref[i]), FRAMES)
-    phase("asr", f"the greedy run with decode_attention_int8_plain in the kernel's place: "
-          f"slot 0 says {len(plain_words)} Word / EndWord messages (with the kernel "
+    phase("asr", f"the greedy run with decode_attention_int8_plain in the kernel's place, "
+          f"eager: slot 0 says {len(plain_words)} Word / EndWord messages (with the kernel "
           f"{len(ref_words)}); its text tokens equal the kernel run's for the first {same} of "
           f"{FRAMES} frames")
-    if any(plain_launches.values()):
-        raise RuntimeError(f"asr: the plain run launched kernels: {plain_launches}")
+    if any(launches.values()):
+        raise RuntimeError(f"asr: the plain run launched kernels: {launches}")
     if not plain_words:
         raise RuntimeError("asr: with the plain attention slot 0 said no word, so the Word "
                            "check rests on the kernel's rounding")
-    del state, plain_sessions, asr, lm_params, mimi_params
+    return {"words": len(plain_words), "same_tokens_frames": same}
+
+
+def run_asr(dev, card: str) -> dict:
+    """The batched STT path at B = ASR_SLOTS: the greedy run of asr_script
+    graphed (the main path), then every slot sending; the same on an eager
+    engine, the two held equal; the greedy run eagerly with the plain
+    attention in the kernel's place; then the batch sweep, graphed."""
+    models = build_asr(dev)
+    cfg, B = models["lm"].config, ASR_SLOTS
+    expected = {name: 0 for name in TPU_KERNELS}
+    expected["decode_attention_int8"] = cfg.num_layers
+    state, g = asr_runs(dev, models, True)
+    eager, e = asr_runs(dev, models, False)
+    ms, sessions = g["ms"], g["sessions"]
+    check_counts(g["launches"], expected, 1, "asr greedy graphed run (the captured step)")
+    check_counts(e["launches"], expected, len(e["ms"]), "asr greedy eager run")
+    replays = {"encode": state.asr.encode.replays, "step": state.asr.step.replays}
+    if replays != {"encode": len(ms) + 15, "step": len(ms) + 15}:
+        raise RuntimeError(f"asr: replays {replays} for {len(ms)} + 15 frames")
+    counted = check_asr_sessions(cfg, sessions, ms)
+    u, r = ASR_RESUME["U"], ASR_RESUME["R"]
+    rows_equal = g["resume"]["rows_equal"]
+    resumed = g["resume"]["resumed"] and g["resume"]["clock"] == FRAMES
+    same_tokens = all(len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and x[1] == y[1] for x, y in zip(a, b))
+        for a, b in zip(sessions.values(), e["sessions"].values()))
+    same_state = all(same_bytes(a, b) for a, b in zip(asr_leaves(state), asr_leaves(eager)))
+    del state, eager
+    p50, p75, p90 = (float(np.percentile(ms, p)) for p in (50, 75, 90))
+    e50, e90 = (float(np.percentile(e["ms"], p)) for p in (50, 90))
+    phase("asr", f"greedy, {len(ms)} frames x {B} slots graphed: slots 1 (same PCM), 2 (joined "
+          f"5 frames late), 3 (frozen on frames 10-14), 4 (reset at frame 20) and {u} (paused on "
+          f"ticks 15-16) repeat slot 0's text tokens and its {counted['ref_words']} Word / "
+          f"EndWord messages, and so does the session that left slot {ASR_RESUME['S']} at "
+          f"frame {ASR_RESUME['leave']} and resumed on slot {r} after a new tenant took slot "
+          f"{ASR_RESUME['S']}; its device rows at the end "
+          f"{'equal' if rows_equal else 'DIFFER from'} slot {u}'s, bit for bit; "
+          f"{counted['distinct']} of {B - 8} other slots differ; messages by type "
+          f"{counted['said']}; launches {g['launches']} = per step {expected} x 1 captured "
+          f"step, replays {replays} (with 15 frames of every slot); eager launches "
+          f"{e['launches']} = x {len(e['ms'])}; graphed against eager: text tokens and messages "
+          f"{'equal' if same_tokens else 'DIFFER'}, every state byte after the same frames "
+          f"{'equal' if same_state else 'DIFFERS'}")
+    if not (rows_equal and resumed):
+        raise RuntimeError("asr: the resumed session's rows or clock differ from the unbroken "
+                           "slot's")
+    if not (same_tokens and same_state):
+        raise RuntimeError("asr: the graphed frames differ from the eager ones")
+    phase("asr", f"greedy run: graphed p50 {p50:.2f} ms, p75 {p75:.2f} ms, p90 {p90:.2f} ms per "
+          f"batched frame (the capture's frame included), {p50 / B:.4f} ms per stream at p50; "
+          f"eager p50 {e50:.2f} ms, p90 {e90:.2f} ms ({card})")
+    for kind, run in (("graphed", g), ("eager", e)):
+        every = run["every_slot"]
+        phase("asr", f"all {B} slots, 10 frames {kind}: p50 {every['p50_ms']:.2f} ms, p75 "
+              f"{every['p75_ms']:.2f} ms, p90 {every['p90_ms']:.2f} ms per batched frame, "
+              f"{every['p50_ms'] / B:.4f} ms per stream at p50, of it {every['host_ms_p50']:.2f} "
+              f"ms of host Python in the per-slot input and word-tracker loops; peak "
+              f"{run['peak_gib']:.2f} GiB allocated, {run['engine_peak_gib']:.2f} GiB of it "
+              f"above what the card held before the engine; profiler over 5 frames: "
+              f"{profile_line(every['profile'])} ({card})")
+    witness = asr_plain_witness(dev, models, sessions[0][0][0], words(sessions[0][0][1]))
+    sweep = asr_sweep(dev, models, card)
+    del models
     free_memory()
-    return {"launches": launches, "per_frame": expected, "p50_ms": p50, "p75_ms": p75,
-            "p90_ms": p90, "frames": len(ms), "peak_gib": peak,
-            "all_slots_p50_ms": full_p50,
-            "host_ms_p50": float(np.percentile(host, 50)), "profile": prof,
-            "plain_witness": {"words": len(plain_words), "same_tokens_frames": same}}
+    summary = {key: v for key, v in g.items() if key != "sessions"}
+    summary.update({"per_frame": expected, "replays": replays, "p50_ms": p50, "p75_ms": p75,
+                    "p90_ms": p90, "frames": len(ms),
+                    "eager": {key: v for key, v in e.items() if key not in ("sessions", "ms")},
+                    "sweep": sweep, "plain_witness": witness})
+    summary["eager"].update({"p50_ms": e50, "p90_ms": e90})
+    del summary["ms"]
+    return summary
 
 
 def main() -> None:
@@ -1388,8 +1576,7 @@ def main() -> None:
     free_memory()
     asr = run_asr(dev, card)
 
-    # the main paths' runs: the graphed engines' (their launches counted at
-    # capture) and the eager ASR engine's
+    # the main paths' runs, all graphed: their launches counted at capture
     by_path = {"slice_b1": slice_["launches"],
                **{f"batched_{p}": v for p, v in batched["launches"].items()},
                "asr": asr["launches"]}

@@ -14,12 +14,20 @@ A frozen slot (exec_mask False) gets zero audio and the text start token,
 computes, and keeps its offsets and its host state.  Streaming state is
 updated in place.
 
+On a CUDA device the frame's device work runs as replays of two CUDA
+graphs (the JAX package's two jitted programs): Mimi encode over static
+PCM and exec_mask buffers, and the temporal step with the text token's
+choice over a static token buffer and the same mask.  The host loops of
+`step_tokens` (the delayed inputs before the step, the word tracker after
+it) run between them.  Per-slot resets, and the single-slot extract and
+restore of session resume, write the state in place between frames, so
+the captured graphs stay valid.
+
 With a `text_tokenizer` (text/spm.py) a word's tokens are also decoded to
 its `text`, as the reference server does.
 
 Not ported: `mimi_chunks`, a work-around for XLA's rematerialization at
-B = 512 whose results do not depend on it, and the single-slot snapshot
-extract/restore of session resume.
+B = 512 whose results do not depend on it.
 """
 
 import time
@@ -28,8 +36,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils.graphs import GraphedStep
 from ..utils.sampling import sample_token
-from ..utils.trees import masked_reset, state_batch_axes
+from ..utils.trees import masked_reset, put_slots, state_batch_axes, take_slots
 
 
 @dataclass
@@ -114,11 +123,22 @@ class StreamingASR:
     """B slots of streaming ASR on `device`.  The codec runs in
     `mimi_dtype` (its parameters must be in it too); the LM's KV cache
     follows its config (`kv_cache_dtype`).  `text_tokenizer` (anything with
-    `decode(ids) -> str`, or None) gives each AsrWord its `text`."""
+    `decode(ids) -> str`, or None) gives each AsrWord its `text`.
+
+    `graphed` (the default on a CUDA device) captures Mimi encode and the
+    temporal step as two CUDA graphs at the first frame after `warmup()`
+    and replays them at every frame after; PCM, exec_mask and the step's
+    tokens are copied into static buffers first (a missing exec_mask as all
+    True), and a graphed engine steps the one state it was captured with.
+    `graphed=False` runs the same functions eagerly (the CPU's only path).
+    With temperature > 0 the draws come from the engine's own generator,
+    seeded with `rng_seed` (registered with the step's graph), unless
+    `init_state` is given another one (eager only)."""
 
     def __init__(self, mimi, lm, batch_size: int, asr_delay_in_tokens: int,
                  temperature: float = 0.0, text_tokenizer=None, mimi_dtype=torch.float32,
-                 sum_condition=None, device="cuda"):
+                 sum_condition=None, device="cuda", graphed: bool | None = None,
+                 rng_seed: int = 0):
         self.mimi, self.lm = mimi, lm
         self.text_tokenizer = text_tokenizer
         self.batch_size = batch_size
@@ -126,6 +146,10 @@ class StreamingASR:
         self.temperature = temperature
         self.mimi_dtype = mimi_dtype
         self.device = dev = torch.device(device)
+        self.graphed = dev.type == "cuda" if graphed is None else graphed
+        if self.graphed and dev.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
+        # lives as long as the engine, so the step's graph reads a live tensor
         self.sum_condition = (None if sum_condition is None
                               else torch.as_tensor(sum_condition).to(dev))
         c = lm.config
@@ -136,6 +160,16 @@ class StreamingASR:
                       for _ in range(batch_size)]
         self.model_step_idx = 0
         self.host_ms = 0.0  # host time of the last step's per-slot loops
+        self.generator = torch.Generator(device=dev)
+        self.generator.manual_seed(rng_seed)
+        # the graphs' static inputs
+        self.pcm_in = torch.zeros((batch_size, 1, mimi.frame_size), dtype=mimi_dtype,
+                                  device=dev)
+        self.mask_in = torch.ones(batch_size, dtype=torch.bool, device=dev)
+        self.tokens_in = torch.zeros((batch_size, 1 + c.n_q, 1), dtype=torch.long, device=dev)
+        self.encode = GraphedStep(self._encode, graphed=self.graphed, device=dev)
+        self.step = GraphedStep(self._device_step, graphed=self.graphed, device=dev,
+                                generators=(self.generator,))
         # exact per-leaf batch axes: a shape rule mistakes the layer axis of
         # a [L, B, ...] cache for the batch axis when B == L
         self._ax_mimi = state_batch_axes(lambda b, d: mimi.init_encode_state(b, mimi_dtype, d))
@@ -143,6 +177,12 @@ class StreamingASR:
             lambda b, d: lm.transformer.init_state(b, torch.bfloat16, d))
 
     # ------------------------------------------------------------- device part
+    def _encode(self, mimi_params, mimi_state, pcm, exec_mask):
+        """pcm [B, 1, frame_size] in the codec's dtype -> codes [B, K, 1];
+        the encoder's state in place."""
+        codes, _ = self.mimi.encode_step(mimi_params, mimi_state, pcm, exec_mask)
+        return codes
+
     def _device_step(self, lm_params, state, tokens, exec_mask):
         """tokens [B, 1 + n_q, 1] -> (text tokens [B], extra-head
         probabilities of class 0 [n_heads, B] or None).  One temporal step,
@@ -155,23 +195,26 @@ class StreamingASR:
         probs = self.lm.extra_head_probs(lm_params, h)
         return text_token, None if probs is None else probs[:, :, 0, 0]
 
+    @staticmethod
+    def _run(step: GraphedStep, warm: bool, *args):
+        return step.warm_up(*args) if warm else step(*args)
+
     # --------------------------------------------------------------- state mgmt
     def init_state(self, generator: torch.Generator | None = None,
                    dtype=torch.bfloat16) -> dict:
         """Fresh state: the Mimi encoder's, the temporal transformer's (KV
         in `dtype` for a model-dtype cache) and the generator that draws
-        samples when temperature > 0."""
+        samples when temperature > 0 (the engine's own by default)."""
+        if generator is None:
+            generator = self.generator
+        elif self.graphed and generator is not self.generator:
+            raise ValueError("a graphed engine draws from its own generator (rng_seed)")
         dev = self.device
         return {"mimi": self.mimi.init_encode_state(self.batch_size, self.mimi_dtype, dev),
                 "transformer": self.lm.transformer.init_state(self.batch_size, dtype, dev),
                 "generator": generator}
 
-    def reset_batch_idx(self, state: dict, batch_idx: int) -> dict:
-        """A new session on slot `batch_idx`: its host state and its rows of
-        the device state reset, in place."""
-        self.items[batch_idx].reset()
-        mask = np.zeros(self.batch_size, bool)
-        mask[batch_idx] = True
+    def _reset(self, state: dict, mask: np.ndarray) -> dict:
         dev = self.device
         masked_reset(state["mimi"], self.mimi.init_encode_state(1, self.mimi_dtype, dev),
                      mask, self._ax_mimi)
@@ -180,26 +223,85 @@ class StreamingASR:
                      mask, self._ax_tr)
         return state
 
+    def reset_batch_idx(self, state: dict, batch_idx: int) -> dict:
+        """A new session on slot `batch_idx`: its host state and its rows of
+        the device state reset, in place."""
+        self.items[batch_idx].reset()
+        mask = np.zeros(self.batch_size, bool)
+        mask[batch_idx] = True
+        return self._reset(state, mask)
+
+    def warmup(self, mimi_params, lm_params, state: dict) -> dict:
+        """Three zero frames on every slot, eagerly (on the graphs' side
+        streams when graphed), then every slot reset; the step clock and
+        the messages are left as they were.  A graphed engine needs it
+        before its first frame."""
+        B, clock = self.batch_size, self.model_step_idx
+        for _ in range(3):
+            self._step_pcm(mimi_params, lm_params, state,
+                           np.zeros((B, 1, self.mimi.frame_size), np.float32), None, True)
+        for item in self.items:
+            item.reset()
+        self.model_step_idx = clock
+        return self._reset(state, np.ones(B, bool))
+
+    # ------------------------------------------------- single-slot snapshots
+    def extract_slot_arrays(self, state: dict, slot: int):
+        """Slot `slot`'s device rows, (Mimi, transformer), each a state at
+        batch size 1 (copies): the device half of a session-resume
+        snapshot."""
+        idx = [int(slot)]
+        return (take_slots(state["mimi"], idx, self._ax_mimi),
+                take_slots(state["transformer"], idx, self._ax_tr))
+
+    def restore_slot_arrays(self, state: dict, arrays, slot: int) -> dict:
+        """Inverse of extract_slot_arrays: write the rows (on any device)
+        into slot `slot`, in place."""
+        m, tr = arrays
+        idx = [int(slot)]
+        put_slots(state["mimi"], m, idx, self._ax_mimi)
+        put_slots(state["transformer"], tr, idx, self._ax_tr)
+        return state
+
     # ---------------------------------------------------------------- stepping
     def step_pcm(self, mimi_params, lm_params, state: dict, pcm,
                  exec_mask=None) -> tuple[list, dict]:
-        """pcm [B, 1, n * frame_size] float32 (numpy or tensor) -> (messages,
-        state)."""
-        dev = self.device
-        x = torch.as_tensor(pcm, dtype=torch.float32).to(dev, self.mimi_dtype)
-        mask = None if exec_mask is None else torch.as_tensor(exec_mask,
-                                                              dtype=torch.bool).to(dev)
-        codes, _ = self.mimi.encode_step(mimi_params, state["mimi"], x, mask)
-        return self.step_tokens(lm_params, state, codes.cpu().numpy(), exec_mask)
+        """pcm [B, 1, n * frame_size] float32 (numpy or tensor; n = 1 when
+        graphed) -> (messages, state)."""
+        return self._step_pcm(mimi_params, lm_params, state, pcm, exec_mask, False)
+
+    def _step_pcm(self, mimi_params, lm_params, state, pcm, exec_mask, warm: bool):
+        pcm = torch.as_tensor(pcm, dtype=torch.float32)
+        if self.graphed:
+            self.pcm_in.copy_(pcm)
+            x = self.pcm_in
+        else:
+            x = pcm.to(self.device, self.mimi_dtype)
+        mask = self._device_mask(exec_mask)
+        codes = self._run(self.encode, warm, mimi_params, state["mimi"], x, mask)
+        return self._step_tokens(lm_params, state, codes.cpu().numpy(), exec_mask, mask, warm)
+
+    def _device_mask(self, exec_mask):
+        """The frame's exec_mask on the device: graphed, the mask buffer
+        (all True for None); eager, a new tensor or None."""
+        if self.graphed:
+            self.mask_in.copy_(torch.ones(self.batch_size, dtype=torch.bool) if exec_mask is None
+                               else torch.as_tensor(exec_mask, dtype=torch.bool))
+            return self.mask_in
+        return None if exec_mask is None else torch.as_tensor(
+            exec_mask, dtype=torch.bool).to(self.device)
 
     def step_tokens(self, lm_params, state: dict, audio_tokens: np.ndarray,
                     exec_mask=None) -> tuple[list, dict]:
         """audio_tokens [B, K, steps] int -> (messages, state)."""
+        return self._step_tokens(lm_params, state, audio_tokens, exec_mask,
+                                 self._device_mask(exec_mask), False)
+
+    def _step_tokens(self, lm_params, state, audio_tokens, exec_mask, mask, warm: bool):
         B, K, steps = audio_tokens.shape
         if B != self.batch_size:
             raise ValueError(f"{B} slots of tokens for a batch of {self.batch_size}")
         exec_np = np.ones(B, bool) if exec_mask is None else np.asarray(exec_mask, bool)
-        mask = None if exec_mask is None else torch.as_tensor(exec_np).to(self.device)
         msgs: list = []
         self.host_ms = 0.0
         for s in range(steps):
@@ -220,8 +322,13 @@ class StreamingASR:
             tokens = np.concatenate([text_in[:, None], audio_in], axis=1)[:, :, None]
             t1 = time.perf_counter()
 
-            text_token, pr_first = self._device_step(
-                lm_params, state, torch.from_numpy(tokens).to(self.device, torch.long), mask)
+            if self.graphed:
+                self.tokens_in.copy_(torch.from_numpy(tokens))
+                tokens_t = self.tokens_in
+            else:
+                tokens_t = torch.from_numpy(tokens).to(self.device, torch.long)
+            # graphed, these are the graph's static outputs: read before the next replay
+            text_token, pr_first = self._run(self.step, warm, lm_params, state, tokens_t, mask)
             self.model_step_idx += 1
             text_np = text_token.cpu().numpy()
             if pr_first is not None:

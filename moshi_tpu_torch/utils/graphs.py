@@ -19,9 +19,16 @@ graphed call before `warm_up` or with other tensors than the captured
 ones.  The hand-written kernels launch on `torch.cuda.current_stream`,
 which capture sets; their Python launch counters tick when the capture
 records a launch, not on a replay.
+
+A step holds a bound method of its engine weakly: the engine holds its
+steps, so a strong reference back would make a cycle, and a dropped engine
+(its state, its graphs' memory) would stay on the card until Python's cycle
+collector ran.
 """
 
 import contextlib
+import inspect
+import weakref
 
 import torch
 
@@ -55,11 +62,19 @@ class GraphedStep:
     `replays` counts the replays, the one after the capture included."""
 
     def __init__(self, fn, *, graphed: bool, device=None, generators=()):
-        self.fn, self.graphed, self.generators = fn, graphed, tuple(generators)
+        self._fn = weakref.WeakMethod(fn) if inspect.ismethod(fn) else (lambda: fn)
+        self.graphed, self.generators = graphed, tuple(generators)
         self.stream = torch.cuda.Stream(device) if graphed else None
         self.graph = self.inputs = self.outputs = None
         self.warm = False
         self.replays = 0
+
+    @property
+    def fn(self):
+        fn = self._fn()
+        if fn is None:
+            raise RuntimeError("the engine of this step is gone")
+        return fn
 
     def warm_up(self, *args):
         """One eager call, on the capture's side stream when graphed."""

@@ -112,3 +112,9 @@ def put_slots(state, slot_state, idx, axes):
         return s
     _map(put, state, slot_state, axes)
     return state
+
+
+def to_device(state, device):
+    """`state` with every tensor leaf moved to `device` (a leaf already
+    there is kept, not copied); other leaves are passed through."""
+    return _map(lambda s: s.to(device) if isinstance(s, torch.Tensor) else s, state)

@@ -8,7 +8,8 @@ scaled (chip_smoke.ASR_PAD_LOGIT_SCALE), and its greedy stream turns on
 near-ties, so any change of rounding on the path can move it.  For every
 pair of factors (the first argument lists the end-pad's, the second the
 pad's) this builds the model as chip_smoke.build_asr does and runs
-chip_smoke.asr_greedy (B = 256, the isolation script) twice, with the
+chip_smoke.asr_greedy (B = 256, eager, the isolation script with its
+resume) twice, with the
 decode_attention_int8 kernel and with its plain version, and prints how
 many Word / EndWord messages slot 0's session holds in each: a pair for
 the check gives slot 0 words under both, ideally with neighbours that do
@@ -35,13 +36,14 @@ from moshi_tpu_torch.ops.decode_attention import (decode_attention_int8,  # noqa
 def slot0_words(dev) -> dict:
     """Slot 0's Word / EndWord messages with the kernel and the plain
     attention, for chip_smoke.ASR_PAD_LOGIT_SCALE as it stands."""
-    asr, lm_params, mimi_params = cs.build_asr(dev)
+    models = cs.build_asr(dev)
     words = {}
     try:
         for name, fn in (("kernel", decode_attention_int8),
                          ("plain", decode_attention_int8_plain)):
             transformer.decode_attention_int8 = fn
-            state, sessions, *_ = cs.asr_greedy(dev, asr, lm_params, mimi_params)
+            # eager: the graphed frames give the same bits
+            state, sessions, *_ = cs.asr_greedy(dev, models, graphed=False)
             words[name] = sum(m["type"] in ("Word", "EndWord") for m in sessions[0][0][1])
             del state, sessions
             cs.free_memory()

@@ -5,6 +5,7 @@ over joins, freezes and a reset with the model-dtype and the int8 KV cache
 the protocol payloads the batched servers send for them), and the batched
 engine of serve/batched_asr.py (markers, the backlog cap, the outboxes)."""
 
+import copy
 import dataclasses
 import sys
 from pathlib import Path
@@ -30,6 +31,7 @@ from moshi_tpu_torch.text import SentencePieceTokenizer as TTokenizer
 from moshi_tpu_torch.utils.params import from_jax
 from test_lm import tiny_lm_config
 from test_mimi import tiny_mimi_config
+from test_torch_int4_kv import _bytes_equal
 from test_torch_port import max_abs, port_lm_config, port_mimi_config
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
@@ -39,6 +41,7 @@ B = 3
 DELAY = 2           # asr_delay_in_tokens
 COND_TOL = 1e-6     # f32 sin/cos embedding and one product
 PRS_TOL = 1e-5      # f32 extra-head softmax after the whole temporal stack
+STATE_TOL = 1e-5    # f32 Mimi and KV state, accumulation order only (test_torch_transformer.py)
 # tick -> (slots reset before the frame, exec mask): slot 2 joins at tick 4
 # (frozen at offset 0 before it), slot 1 freezes on ticks 7-9, slot 0
 # starts a second session at tick 13
@@ -189,6 +192,24 @@ def _same_payloads(tbox, jbox):
             assert a == b
 
 
+def _play(jeng, jlp, jmp, teng, tlp, tmp, on_frame=lambda mask, jm, tm, tstate: None):
+    """Step both engines over the TICKS frames of the join/freeze/reset
+    schedule, calling on_frame(mask, moshi_tpu's messages, the port's, the
+    port's state) after each.  Returns the last (moshi_tpu state, port
+    state)."""
+    jstate = jeng.init_state(jax.random.PRNGKey(0), jnp.float32)
+    tstate = teng.init_state(None, torch.float32)
+    for t, pcm in enumerate(_pcm(teng.mimi.frame_size)):
+        for slot in RESETS.get(t, []):
+            jstate = jeng.reset_batch_idx(jstate, slot)
+            tstate = teng.reset_batch_idx(tstate, slot)
+        mask = _mask(t)
+        jm, jstate = jeng.step_pcm(jmp, jlp, jstate, pcm, exec_mask=mask)
+        tm, tstate = teng.step_pcm(tmp, tlp, tstate, pcm, exec_mask=mask)
+        on_frame(mask, jm, tm, tstate)
+    return jstate, tstate
+
+
 @pytest.mark.parametrize("kv", ["model", "int8"])
 def test_streaming_asr_matches_jax(kv, tmp_path):
     """22 frames at B = 3 with a late join, a freeze and a reset: every
@@ -198,19 +219,12 @@ def test_streaming_asr_matches_jax(kv, tmp_path):
     tokenizer = tmp_path / "tokenizer.model"
     tokenizer.write_bytes(spm_model_bytes(tiny_lm_config().text_card))
     jeng, jlp, jmp, teng, tlp, tmp = _engines(kv, tokenizer)
-    jstate = jeng.init_state(jax.random.PRNGKey(0), jnp.float32)
-    tstate = teng.init_state(None, torch.float32)
-    if kv == "int8":
-        assert tstate["transformer"]["k"].dtype == torch.int8
     counts = {"words": 0, "ends": 0}
     tbox, jbox = _Outbox(), _Outbox()
-    for t, pcm in enumerate(_pcm(teng.mimi.frame_size)):
-        for slot in RESETS.get(t, []):
-            jstate = jeng.reset_batch_idx(jstate, slot)
-            tstate = teng.reset_batch_idx(tstate, slot)
-        mask = _mask(t)
-        jm, jstate = jeng.step_pcm(jmp, jlp, jstate, pcm, exec_mask=mask)
-        tm, tstate = teng.step_pcm(tmp, tlp, tstate, pcm, exec_mask=mask)
+
+    def on_frame(mask, jm, tm, tstate):
+        if kv == "int8":
+            assert tstate["transformer"]["k"].dtype == torch.int8
         assert ([i.text_token for i in teng.items] == [i.text_token for i in jeng.items])
         assert [i.step_idx for i in teng.items] == [i.step_idx for i in jeng.items]
         _same_messages(tm, jm, mask)
@@ -221,9 +235,49 @@ def test_streaming_asr_matches_jax(kv, tmp_path):
         counts["words"] += sum(isinstance(m, tasr.AsrWord) and m.text.startswith("w")
                                for m in tm)
         counts["ends"] += sum(isinstance(m, tasr.AsrEndWord) for m in tm)
+    _play(jeng, jlp, jmp, teng, tlp, tmp, on_frame)
     assert teng.model_step_idx == jeng.model_step_idx == TICKS
     assert counts["words"] >= 3 and counts["ends"] >= 3
     _same_payloads(tbox, jbox)
+
+
+def _tree_items(tree, prefix=()):
+    """(key path, leaf) pairs of a state tree, sorted by path."""
+    if isinstance(tree, dict):
+        return sorted(kv for k, v in tree.items() for kv in _tree_items(v, prefix + (k,)))
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in _tree_items(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def _same_rows(trows, jrows):
+    """The port's device rows of one slot against moshi_tpu's: integer and
+    bool leaves (offsets, int8 KV bytes) equal, bf16 (the int8 KV scales)
+    byte for byte, f32 (Mimi's conv and KV state, a model-dtype KV cache)
+    within STATE_TOL."""
+    titems, jitems = _tree_items(trows), _tree_items(jrows)
+    assert [k for k, _ in titems] == [k for k, _ in jitems]
+    for (key, t), (_, j) in zip(titems, jitems):
+        assert tuple(t.shape) == j.shape, key
+        if t.dtype == torch.bfloat16:
+            assert _bytes_equal(t, j), key
+        elif t.dtype == torch.float32:
+            assert max_abs(t.numpy(), j) <= STATE_TOL, key
+        else:
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=str(key))
+
+
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_extracted_rows_match_jax(kv):
+    """After the join/freeze/reset schedule, every slot's rows from the
+    port's extract_slot_arrays equal moshi_tpu's: the int8 caches' bytes
+    and scales exactly, the f32 state within STATE_TOL."""
+    jeng, jlp, jmp, teng, tlp, tmp = _engines(kv)
+    jstate, tstate = _play(jeng, jlp, jmp, teng, tlp, tmp)
+    for slot in range(B):
+        rows = teng.extract_slot_arrays(tstate, slot)
+        assert rows[1]["k"].dtype == (torch.int8 if kv == "int8" else torch.float32)
+        _same_rows(rows, jeng.extract_slot_arrays(jstate, slot))
 
 
 def _port_engine(kv="int8"):
@@ -314,6 +368,189 @@ def test_markers_and_backlog_cap():
     assert state.slot_pcm[2].shape == (cap,)
     state.release_slot(2)
     assert 2 in state.slots_free and 2 not in state.slot_outbox
+
+
+def _resume_script(frame_size):
+    """tests/test_asr_serving.py's resume scenario as a serve_asr schedule at
+    B = 3: slots 2 (unbroken) and 1 send the same 5 frames; slot 1's
+    session leaves (tick 5); a new tenant joins slot 1 and sends 2 frames of
+    its own while slot 2 waits; the session resumes on slot 0 (tick 8) and
+    sends the last 5 frames beside slot 2."""
+    rs = np.random.RandomState(3)
+    stream = (0.3 * rs.randn(10, frame_size)).astype(np.float32)
+    tenant = (0.3 * rs.randn(2, frame_size)).astype(np.float32)
+    schedule = ([{2: "join", 1: "join"}] + [{2: "send", 1: "send"}] * 4
+                + [{1: "leave"}, {1: "join"}, {1: "send"}, {2: "send", 0: ("resume", 1)}]
+                + [{2: "send", 0: "send"}] * 4)
+    frames = {2: stream, 1: np.concatenate([stream[:5], tenant]), 0: stream[5:]}
+    return schedule, frames
+
+
+def _serve_jax(jeng, jlp, jmp, schedule, frames):
+    """serve_asr's schedule played on moshi_tpu's StreamingASR by hand: a
+    "leave" extracts the slot's rows and copies its word state, a resume
+    restores both into the new slot.  Returns sessions as serve_asr does."""
+    jstate = jeng.init_state(jax.random.PRNGKey(0), jnp.float32)
+    taken, snaps = dict.fromkeys(frames, 0), {}
+    sessions = {s: [] for s in range(B)}
+    for tick in schedule:
+        chunk = np.zeros((B, 1, jeng.mimi.frame_size), np.float32)
+        mask = np.zeros(B, bool)
+        for s, action in tick.items():
+            if action == "leave":
+                snaps[s] = (jeng.extract_slot_arrays(jstate, s), copy.deepcopy(jeng.items[s]))
+                continue
+            if action == "join":
+                jstate = jeng.reset_batch_idx(jstate, s)
+                sessions[s].append(([], []))
+            elif action != "send":
+                rows, jeng.items[s] = snaps.pop(action[1])
+                jstate = jeng.restore_slot_arrays(jstate, rows, s)
+                sessions[s].append(([], []))
+            chunk[s, 0] = frames[s][taken[s]]
+            taken[s] += 1
+            mask[s] = True
+        if not mask.any():
+            continue
+        msgs, jstate = jeng.step_pcm(jmp, jlp, jstate, chunk, exec_mask=mask)
+        for s in np.nonzero(mask)[0]:
+            sessions[s][-1][0].append(jeng.items[s].text_token)
+        box = _Outbox()
+        for m in msgs:
+            jbatched.BatchedAsrState._dispatch(box, m, mask)
+        for s, payload in box.sent:
+            sessions[s][-1][1].append(payload)
+    return sessions
+
+
+def _words(msgs):
+    return [m for m in msgs if m["type"] in ("Word", "EndWord")]
+
+
+def test_serve_asr_resume_matches_jax():
+    """A session leaves, a new tenant dirties its slot, and the session
+    resumes on another slot: it keeps its clock, and after the same audio
+    its device rows are bit-equal to the unbroken slot's and its text
+    tokens and Word / EndWord messages go on as that slot's do; every
+    session's tokens and messages equal moshi_tpu's StreamingASR restoring
+    its own rows the same way."""
+    jeng, jlp, jmp, teng, tlp, tmp = _engines("int8")
+    schedule, frames = _resume_script(teng.mimi.frame_size)
+    state = BatchedAsrState(teng, tmp, tlp)
+    sessions, ms = serve_asr(state, schedule, frames)
+    assert len(ms) == len(schedule) - 1         # the tick where the session left runs no frame
+    assert state.slot_resumed == {2: False, 1: False, 0: True}
+    assert [teng.items[s].step_idx for s in range(B)] == [10, 2, 10]
+    assert [len(sessions[s]) for s in range(B)] == [1, 2, 1]
+    (unbroken, ref_msgs), = sessions[2]
+    (before, before_msgs), (resumed, resumed_msgs) = sessions[1][0], sessions[0][0]
+    assert len(before) == len(resumed) == 5
+    np.testing.assert_array_equal(np.concatenate([before, resumed]), unbroken)
+    assert _words(ref_msgs) and _words(before_msgs + resumed_msgs) == _words(ref_msgs)
+    rows = [_tree_items(teng.extract_slot_arrays(state.state, s)) for s in (0, 2)]
+    assert [k for k, _ in rows[0]] == [k for k, _ in rows[1]]
+    for (key, a), (_, b) in zip(*rows):
+        assert torch.equal(a, b), key
+
+    jsessions = _serve_jax(jeng, jlp, jmp, schedule, frames)
+    for s in range(B):
+        assert len(jsessions[s]) == len(sessions[s])
+        for (tt, tm), (jt, jm) in zip(sessions[s], jsessions[s]):
+            np.testing.assert_array_equal(tt, jt)
+            assert [m["type"] for m in tm] == [m["type"] for m in jm]
+            for a, b in zip(tm, jm):
+                if a["type"] == "Step":
+                    assert a["step_idx"] == b["step_idx"]
+                    assert max_abs(np.array(a["prs"]), np.array(b["prs"])) <= PRS_TOL
+                else:
+                    assert a == b
+
+
+def _state_leaves(state):
+    return [leaf for _, leaf in _tree_items({k: state[k] for k in ("mimi", "transformer")})]
+
+
+def test_all_true_mask_equals_no_mask():
+    """A graphed engine captures its frame with the mask buffer and fills it
+    with True where the caller gives no mask: an all-True exec_mask gives
+    the bits of exec_mask=None (tokens, messages, every state byte)."""
+    runs = []
+    for mask in (None, np.ones(B, bool)):
+        teng, tlp, tmp = _port_engine()
+        state = teng.init_state(None, torch.float32)
+        said = []
+        for pcm in _pcm(teng.mimi.frame_size)[:8]:
+            msgs, state = teng.step_pcm(tmp, tlp, state, pcm, exec_mask=mask)
+            said.append([(type(m).__name__, getattr(m, "tokens", None),
+                          getattr(m, "prs", np.zeros(0)).tobytes()) for m in msgs]
+                        + [i.text_token for i in teng.items])
+        runs.append((said, _state_leaves(state)))
+    (said_none, leaves_none), (said_true, leaves_true) = runs
+    assert said_none == said_true
+    assert len(leaves_none) == len(leaves_true) > 0
+    for a, b in zip(leaves_none, leaves_true):
+        assert torch.equal(a, b)
+
+
+def test_queued_ops_apply_before_the_frame():
+    """A snapshot, a reset and a restore queued between two ticks all apply,
+    in order, before the next tick's frame: the snapshot holds the rows the
+    slot had when it left (not the reset ones), the reset slot's frame runs
+    from offset 0 and the restored slot's from the snapshot's offset.  A
+    resume asked for before the snapshot was taken takes it first."""
+    teng, tlp, tmp = _port_engine()
+    fs = teng.mimi.frame_size
+    state = BatchedAsrState(teng, tmp, tlp)
+    pcm = _pcm(fs)
+    for s in range(B):
+        state.acquire_slot(s)
+    for t in range(4):                      # slot 2 sends 2 frames, slots 0 and 1 all 4
+        for s in range(B if t < 2 else 2):
+            state.feed_pcm(s, pcm[t, s, 0])
+        state.tick()
+    rid2 = state.issue_resume_id(2)
+    state.release_slot(2)
+    state.tick()                            # no frame: the snapshot of slot 2 is taken
+    assert rid2 in state.snapshots and not state.pending_ops
+
+    left = teng.extract_slot_arrays(state.state, 1)
+    rid1 = state.issue_resume_id(1)
+    state.release_slot(1)
+    state.acquire_slot(1)                   # a new tenant on slot 1
+    state.acquire_slot(2, resume=rid2)      # slot 2's session back on slot 2
+    assert [op[0] for op in state.pending_ops] == ["snapshot", "reset", "restore"]
+    for s in range(B):
+        state.feed_pcm(s, pcm[4, s, 0])
+    assert state.tick().all()
+    offsets = state.state["transformer"]["offset"].tolist()
+    assert offsets == [5, 1, 3]
+    assert [teng.items[s].step_idx for s in range(B)] == [5, 1, 3]
+    rows, meta = state.snapshots[rid1]
+    assert meta["item"].step_idx == 4 and state.slot_resumed == {0: False, 1: False, 2: True}
+    for (key, a), (_, b) in zip(_tree_items(rows), _tree_items(left)):
+        assert a.device.type == "cpu" and torch.equal(a, b), key
+
+    rid0 = state.issue_resume_id(0)
+    state.release_slot(0)
+    assert state.acquire_slot(0, resume=rid0) == 0 and state.slot_resumed[0]
+    assert [op[0] for op in state.pending_ops] == ["restore"]
+
+
+def test_graphed_needs_a_cuda_device():
+    """On the CPU an engine runs eagerly by default, and graphed=True
+    raises; warmup (three zero frames, then every slot reset) leaves the
+    state of a fresh engine and the step clock where it was."""
+    teng, tlp, tmp = _port_engine()
+    assert not teng.graphed
+    with pytest.raises(ValueError):
+        tasr.StreamingASR(teng.mimi, teng.lm, B, DELAY, device="cpu", graphed=True)
+    state = BatchedAsrState(teng, tmp, tlp)
+    fresh = _state_leaves(teng.init_state(None))
+    state.warmup()
+    assert teng.model_step_idx == 0
+    assert all(item.step_idx == 0 for item in teng.items)
+    for a, b in zip(_state_leaves(state.state), fresh):
+        assert torch.equal(a, b)
 
 
 def test_text_tokenizer_matches_jax(tmp_path):

@@ -1081,3 +1081,151 @@ def test_graphed_step_refuses_what_it_cannot_replay(gen):
     assert torch.equal(step(x), 2 * x) and step.replays == 2
     with pytest.raises(ValueError):
         step(x.clone())
+
+
+# ---------------------------------------- the ASR frame as CUDA-graph replays
+def _tiny_asr_models():
+    """A small speech-to-text LM (dep_q = 0, 2 layers, dim 256, 2 heads of
+    128, int8 KV cache over a ring of 12, two extra heads) in bf16, the
+    small bf16 Mimi of _tiny_moshi and a `delay`-like sum condition, all
+    from a seed on the card."""
+    from moshi_tpu_torch.models.lm import LmConfig, LMModel
+    mimi, mimi_params, _, _ = _tiny_moshi()
+    cfg = LmConfig(dim=256, num_heads=2, num_layers=2, n_q=4, dep_q=0, card=128,
+                   text_card=128, context=12, delays=(0,) * 5, kv_cache_dtype="int8",
+                   extra_heads_num_heads=2, extra_heads_dim=2)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    lm = LMModel(cfg)
+    cond = 0.1 * torch.randn((1, 1, cfg.dim), generator=g, device="cuda")
+    return mimi, mimi_params, lm, lm.init_params(g, torch.bfloat16, "cuda"), cond
+
+
+def _asr_engine(models, batch, graphed, **kw):
+    from moshi_tpu_torch.models.asr import StreamingASR
+    from moshi_tpu_torch.serve.batched_asr import BatchedAsrState
+    mimi, mimi_params, lm, lm_params, cond = models
+    asr = StreamingASR(mimi, lm, batch, asr_delay_in_tokens=2, mimi_dtype=torch.bfloat16,
+                       sum_condition=cond, device="cuda", graphed=graphed, **kw)
+    state = BatchedAsrState(asr, mimi_params, lm_params)
+    state.warmup()
+    return state
+
+
+def _asr_schedule(batch):
+    """GRAPH_SCHEDULE's joins, freezes and resets on slots 0-3, with slot
+    3's session leaving at tick 6 (a new tenant on slot 3 at tick 7) and
+    resuming on slot 1 at tick 10; slots 4.. join at tick 0 and send at
+    every tick."""
+    ticks = [dict(t) for t in GRAPH_SCHEDULE]
+    ticks[6][3] = "leave"
+    ticks[7][3] = "join"
+    ticks[10][1] = ("resume", 3)
+    for i, tick in enumerate(ticks):
+        tick.update(dict.fromkeys(range(4, batch), "join" if i == 0 else "send"))
+    return ticks
+
+
+def _asr_leaves(state):
+    return list(_leaves({k: state.state[k] for k in ("mimi", "transformer")}))
+
+
+def _same_bytes(a, b):
+    """Equal bit for bit, NaN included: a slot frozen at offset 0 writes
+    NaN rows into Mimi's KV cache, as the JAX package's does."""
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("batch", [4, 256])
+def test_graphed_asr_equals_eager(batch, gen):
+    """Greedy, over joins, freezes, resets and one resume: the graphed
+    engine's text tokens and messages equal the eager engine's session by
+    session, and so does every state byte at the end; resets and the
+    restore move no state tensor, each graph is captured once and replayed
+    at every frame, and the capture counted one frame's K6 launches."""
+    from moshi_tpu_torch.serve.batched_asr import serve_asr
+    models = _tiny_asr_models()
+    schedule = _asr_schedule(batch)
+    rs = np.random.RandomState(0)
+    frames = {s: rs.randn(len(schedule), models[0].frame_size).astype(np.float32)
+              for s in range(batch)}
+    runs = []
+    for graphed in (True, False):
+        state = _asr_engine(models, batch, graphed)
+        ptrs = [t.data_ptr() for t in _asr_leaves(state)]
+        da8.decode_attention_int8.launches = 0
+        sessions, ms = serve_asr(state, schedule, frames)
+        torch.cuda.synchronize()
+        assert [t.data_ptr() for t in _asr_leaves(state)] == ptrs
+        runs.append((state, sessions, ms, da8.decode_attention_int8.launches))
+    (g, sg, msg, kg), (e, se, mse, ke) = runs
+    layers = models[2].config.num_layers
+    assert len(msg) == len(mse) == len(schedule)
+    assert g.asr.encode.replays == g.asr.step.replays == len(msg)
+    assert kg == layers and ke == layers * len(mse)
+    assert g.slot_resumed[1] and g.asr.items[1].step_idx == e.asr.items[1].step_idx
+    for s in range(batch):
+        assert len(sg[s]) == len(se[s]) > 0
+        for (tg, mg), (te, me) in zip(sg[s], se[s]):
+            np.testing.assert_array_equal(tg, te)
+            assert mg == me
+    for a, b in zip(_asr_leaves(g), _asr_leaves(e)):
+        assert _same_bytes(a, b)
+
+
+def test_graphed_asr_sampling_draws_as_eager(gen):
+    """Temperature 0.8: the graphed engine draws from its own generator,
+    registered with the step's graph, the eager engine's draws from the
+    same seed; another seed draws otherwise."""
+    from moshi_tpu_torch.serve.batched_asr import serve_asr
+    models = _tiny_asr_models()
+    schedule = [dict.fromkeys(range(4), "join")] + [dict.fromkeys(range(4), "send")] * 11
+    rs = np.random.RandomState(1)
+    frames = {s: rs.randn(12, models[0].frame_size).astype(np.float32) for s in range(4)}
+    tokens = []
+    for graphed, seed in ((True, 5), (False, 5), (True, 6)):
+        state = _asr_engine(models, 4, graphed, temperature=0.8, rng_seed=seed)
+        sessions, _ = serve_asr(state, schedule, frames)
+        tokens.append(np.stack([sessions[s][0][0] for s in range(4)]))
+    np.testing.assert_array_equal(tokens[0], tokens[1])
+    assert not np.array_equal(tokens[0], tokens[2])
+
+
+def _engine_bytes(leaves):
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+@pytest.mark.parametrize("engine", ["asr", "server", "batched"])
+def test_dropped_engine_frees_its_memory_without_the_cycle_collector(engine, gen):
+    """A graphed engine and its GraphedSteps form no reference cycle: with
+    the cycle collector off, `del` frees the engine's state on the card."""
+    import gc
+    from moshi_tpu_torch.serve.batched_moshi import BatchedMoshiState
+    gc.collect()
+    gc.disable()
+    try:
+        if engine == "asr":
+            state = _asr_engine(_tiny_asr_models(), 16, True)
+            for s in range(16):
+                state.acquire_slot(s)
+                state.feed_pcm(s, np.zeros(2 * state.frame_size, np.float32))
+            for _ in range(2):
+                state.tick()
+            held = _engine_bytes(_asr_leaves(state))
+        elif engine == "server":
+            state = _server(True)
+            for _ in range(2):
+                state.step_frame(np.zeros(state.frame_size, np.float32))
+            held = _engine_bytes(_leaves([state.enc_state, state.dec_state, state.gen_state]))
+        else:
+            state = BatchedMoshiState(*_tiny_moshi("int8"), 16, device="cuda", graphed=True)
+            state.warmup()
+            for _ in range(2):
+                state.frame(np.zeros((16, 1, state.frame_size), np.float32), np.ones(16, bool))
+            held = _engine_bytes(_leaves([state.enc_state, state.dec_state, state.gen_state]))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        del state
+        after = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    assert held > 0 and before - after >= held
