@@ -33,7 +33,13 @@ Phases, each printing its own line(s):
                work, beside the least time the card could take (bound); the
                two q4 kernels and the two int8 kernels at B = 1, 2, 4, 8, 16
                (their crossovers); one launch's floor (int8_mma and
-               torch.matmul at 16 x 64, beside a one-element add_);
+               torch.matmul at 16 x 64, beside a one-element add_); at the
+               tts path's shapes (B = 16): every int8 linear of the frame on
+               the kernel its route takes (int8_mma, or int8_gemv for the
+               heads of 32001 and 2049 columns), the fused
+               decode_attention_int4 launch at L = 48, H = 32, D = 64, cap
+               1000 with its plan, and decode_attention_int8 at H = 32,
+               cap 1000, D = 64, each checked and timed as above;
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
                seed on the card; the graphed ServerState: warm-up, then 3
@@ -88,7 +94,30 @@ Phases, each printing its own line(s):
                decode_attention_int8_plain in the kernel's place, in which
                slot 0 must say words too; then graphed engines at B = 256,
                512 and 1024, 20 frames of every slot each (p50 / p90, peak
-               memory), naming the largest B whose p90 stays under 80 ms.
+               memory), naming the largest B whose p90 stays under 80 ms;
+  7. tts     - batched text-to-speech at the full width of tts_v0_1 (48
+               layers of dim 2048, 32 heads x 64, a 16-step depformer;
+               int8 weights, int4 KV at context 1000, bf16 Mimi with 16
+               codebooks, a seeded speaker_wavs condition over voices of
+               125 x 512 fused by cross-attention and a `cfg` LUT condition
+               summed in, the JAX benchmark's tokenizer stub and state
+               machine), B = 16 slots of BatchedTTSState, each frame
+               replays of its two graphs (scatter -> temporal step -> text
+               sampling; depformer -> commit -> Mimi decode) with the DSM
+               machines on the host between them: a greedy isolation run
+               of 44 frames (a voiceless slot alone first, two slots with
+               one script and voice, one joining 5 ticks late, one starved
+               of words for 5 ticks, one reset to them, one changing its
+               voice) whose copies must repeat slot 0's frames and Text
+               events, graphed and eager held equal in frames, events, PCM
+               and every state byte, with exact launches per captured
+               graph (int8_mma, int8_gemv, 48 fused decode_attention_int4,
+               no q4) and the replay counts; a sampled run of every slot
+               (40 graphed frames, 10 eager: p50/p75/p90, ms per stream,
+               the machines' host ms, peak memory, a profiler pass); then
+               the greedy run with the int8 KV cache (48
+               decode_attention_int8 per frame) and 5 frames of every
+               slot.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
@@ -151,9 +180,33 @@ INT8_SHAPES = {(1024, 3072): 48, (1024, 1024): 48, (1024, 5632): 48,
                (2816, 1024): 48, (1024, 2048): 8, (4096, 1024): 8}
 # the int4 KV cache of the batched phase: Moshi-7B, context 3000
 KV = {"layers": 32, "heads": 32, "head_dim": 128, "cap": 3000}
+# the tts phase: tts_v0_1 with int8 weights, int4 KV at context 1000, B = 16
+TTS_SLOTS = 16
+TTS_FRAMES = 44          # the greedy isolation run
+TTS_CONTEXT = 1000
+TTS_DELAY_STEPS = 25     # the JAX benchmark's machine (moshi_tpu/benchmark.py:352-359)
+TTS_TEMP = 0.6
+# speaker embeddings: frames x width (no voice file on the card's machine:
+# the script's choice), at most TTS_MAX_SPEAKERS of them in a condition
+TTS_VOICE = (125, 512)
+TTS_MAX_SPEAKERS = 5
+# the `cfg` LUT condition of a CFG-distilled checkpoint (the script's choice)
+TTS_CFG = {"n_bins": 7, "dim": 16,
+           "possible_values": ["1.0", "1.5", "2.0", "2.5", "3.0", "3.5", "4.0"]}
+# the TTS frame's int8 linears (din, dout) at B = 16 -> launches per frame:
+# 48 temporal layers x (in_proj, out_proj, linear1, linear2, cross q_proj,
+# cross out_proj) and the 32001-column text head; 16 depformer steps x 6
+# layers x 4 linears, depformer_in and the 2049-entry audio heads per step
+TTS_INT8_SHAPES = {(2048, 6144): 48, (2048, 2048): 3 * 48, (2048, 8192): 48,
+                   (8192, 2048): 48, (2048, 32001): 1,
+                   (1024, 3072): 96, (1024, 1024): 96, (1024, 5632): 96, (2816, 1024): 96,
+                   (2048, 1024): 16, (1024, 2049): 16}
+# K4 (fused with the write) and K6 at the TTS shapes: L, B, H, D, cap
+TTS_KV = {"layers": 48, "batch": TTS_SLOTS, "heads": 32, "head_dim": 64, "cap": TTS_CONTEXT}
 # decode_attention_int8's main-path shapes, (B, heads, cap) at head dim 128:
 # asr_300m_202501 at B = 256 (16 launches per frame), Moshi-7B at B = 16 (32)
-INT8_KV = {"asr": (ASR_SLOTS, 8, 750), "moshi_b16": (SLOTS, 32, 3000)}
+INT8_KV = {"asr": (ASR_SLOTS, 8, 750), "moshi_b16": (SLOTS, 32, 3000),
+           "tts": (TTS_SLOTS, TTS_KV["heads"], TTS_CONTEXT)}
 TPU_KERNELS = {
     # q4gemm and q4gemm_stacked: q4_gemv on the CUDA cores (B = 1, f32),
     # q4_mma on the tensor cores (bf16, B = MMA_MIN_BATCH..16)
@@ -349,6 +402,62 @@ def check_gemvs(dev, g, families=("q4", "int8")) -> list[dict]:
     return rows
 
 
+def check_tts_gemvs(dev, g) -> dict:
+    """The int8 GEMVs at the TTS frame's shapes (TTS_INT8_SHAPES), B =
+    TTS_SLOTS: each shape on the kernel its route takes (int8_mma where
+    qmatmul.use_mma says so, else the int8_gemv kernel, which the heads of
+    32001 and 2049 columns take) against the plain version in bf16 (the
+    int8_gemv kernel in f32 too); then in bf16, weights cold in L2, its time
+    beside the plain version's, torch.matmul's on the bf16 weights and the
+    bound, summed by kernel over one frame's launches.  Returns {kernel:
+    its summary}."""
+    from moshi_tpu_torch.ops import qmatmul
+    from moshi_tpu_torch.utils.quantize import dequantize, quantize_tensor
+
+    B, plain = TTS_SLOTS, qmatmul.int8_gemv_plain
+    out = {name: {"per_frame": dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0),
+                  "launches_per_frame": 0, "by_shape": {}, "max_abs_err": 0.0, "bound_by": set()}
+           for name in ("int8_mma", "int8_gemv")}
+    for (din, dout), n in TTS_INT8_SHAPES.items():
+        qt = quantize_tensor(torch.randn(din, dout, device=dev, generator=g) / din ** 0.5)
+        mma = qmatmul.use_mma(B, torch.bfloat16, din, dout)
+        name, fn = ("int8_mma", qmatmul.int8_mma) if mma else ("int8_gemv",
+                                                                qmatmul.int8_gemv_kernel)
+        row = out[name]
+        for dt in (torch.bfloat16,) if mma else (torch.bfloat16, torch.float32):
+            x = torch.randn(B, din, device=dev, generator=g).to(dt)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     _check_against_plain(name, fn, plain, qt, x))
+        bytes_w = qt.q.numel() + 4 * qt.scale.numel()
+        copies = [qt] + [quantize_tensor(dequantize(qt.q, qt.scale, torch.float32))
+                         for _ in range(copies_for_cold_l2(bytes_w) - 1)]
+        dense = [dequantize(qt.q, qt.scale, torch.bfloat16)
+                 for _ in range(copies_for_cold_l2(2 * din * dout))]
+        x = torch.randn(B, din, device=dev, generator=g).to(torch.bfloat16)
+        ops = [(x, c.q, c.scale) for c in copies]
+        t = {"ms": time_ms(fn, ops), "plain_ms": time_ms(plain, ops),
+             "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
+        t["bound_ms"], by = bound(bytes_w + 2 * B * (din + dout), 2 * B * din * dout)
+        row["bound_by"].add(by)
+        for k, v in t.items():
+            row["per_frame"][k] += n * v
+        row["launches_per_frame"] += n
+        row["by_shape"][f"{din}x{dout} B={B}"] = {**t, "launches_per_frame": n}
+        phase("kernels", f"tts {name} {din}x{dout} B={B} bf16 ({n} per frame): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; "
+              f"{bytes_w / t['ms'] / 1e6:.1f} GB/s of packed weight")
+        del copies, dense
+    for name, row in out.items():
+        row["bound_by"] = "operations" if row["bound_by"] == {"operations"} else "bytes"
+        f = row["per_frame"]
+        phase("kernels", f"tts per frame: {name} x {row['launches_per_frame']} at B={B}: "
+              f"kernel {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, torch.matmul on bf16 "
+              f"{f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms")
+    free_memory()
+    return out
+
+
 def launch_floor_ms(dev, g) -> dict:
     """What one launch costs whatever its work: int8_mma and torch.matmul
     on bf16 at the smallest shape int8_mma takes (16 x 64: one block),
@@ -406,10 +515,8 @@ def check_attention(dev, g) -> dict:
     per launch at both head dims beside the plain version,
     scaled_dot_product_attention and the bound (the frame's row: D = 128)."""
     from moshi_tpu_torch.ops import int4_attention as i4
-    from moshi_tpu_torch.ops.int4_attention import (_dequant_layer,
-                                                    decode_attention_int4_stats as k4,
+    from moshi_tpu_torch.ops.int4_attention import (decode_attention_int4_stats as k4,
                                                     decode_attention_int4_stats_plain as k4p)
-    import torch.nn.functional as F
 
     B, H, cap, L, layer = SLOTS, KV["heads"], KV["cap"], 8, 5
     cap_pad = -(-cap // 128) * 128
@@ -457,15 +564,8 @@ def check_attention(dev, g) -> dict:
                 raise RuntimeError("decode_attention_int4 disagrees with its plain version")
         mask = ragged
         ops = [(q, li, *caches, mask) for li in range(L)]
-        t = {"ms": time_ms(k4, ops), "plain_ms": time_ms(k4p, ops, iters=4)}
-
-        def dense(li):
-            return [_dequant_layer(c[li], s[li], cap).transpose(-1, -2)
-                    .to(torch.bfloat16).contiguous() for c, s in ((caches[0], caches[2]),
-                                                                  (caches[1], caches[3]))]
-        lib_ops = [(q, *dense(li), mask[:, None, None, :]) for li in range(2)]
-        t["library_ms"] = time_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
-            q_, k_, v_, attn_mask=m_), lib_ops)
+        t = {"ms": time_ms(k4, ops), "plain_ms": time_ms(k4p, ops, iters=4),
+             "library_ms": sdpa_dequantized_ms(q, caches, mask)}
         nbytes = (2 * B * H * D // 2 * cap + 2 * 2 * B * H * cap + B * cap + 2 * B * H * D
                   + 4 * B * H * (D + 2))
         t["bound_ms"], row["bound_by"] = bound(nbytes, 4 * B * H * cap * D)
@@ -475,12 +575,30 @@ def check_attention(dev, g) -> dict:
               f"{t['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); "
               f"{nbytes / t['ms'] / 1e6:.1f} GB/s, {t['bound_ms'] / t['ms']:.0%} of the bound")
         per_launch[D] = t
-        del ops, lib_ops, caches
+        del ops, caches
         free_memory()
     row["per_launch"] = per_launch[KV["head_dim"]]
     row["per_launch_by_head_dim"] = per_launch
     row["max_abs_err"] = max_abs
     return row
+
+
+def sdpa_dequantized_ms(q, caches, mask) -> float:
+    """Time of scaled_dot_product_attention of q [B, H, 1, D] over layers 0
+    and 1 of the packed int4 caches, dequantized to bf16 beforehand (the
+    library call for K4's work; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from moshi_tpu_torch.ops.int4_attention import _dequant_layer
+
+    cap = mask.shape[-1]
+
+    def dense(li):
+        return [_dequant_layer(c[li], s[li], cap).transpose(-1, -2).to(torch.bfloat16)
+                .contiguous() for c, s in ((caches[0], caches[2]), (caches[1], caches[3]))]
+    lib_ops = [(q, *dense(li), mask[:, None, None, :]) for li in range(2)]
+    return time_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=m_), lib_ops)
 
 
 def main_path_rows(g, B, Hkv, D, dev):
@@ -494,7 +612,8 @@ def main_path_rows(g, B, Hkv, D, dev):
 def check_fused_write(dev, g) -> dict:
     """decode_attention_int4_write, the attention whose launch also writes
     the layer's new column, at the batched path's shape (L = 32, B = SLOTS,
-    H = Hkv = 32, cap 3000), D = 128 and 64, layer 5, over two launches as
+    H = Hkv = 32, cap 3000), D = 128 and 64, and at the tts path's (L = 48,
+    cap 1000, D = 64), layer 5, over two launches as
     two frames of the ring: slots 0-3 at lanes 0, 63, 64 and cap - 1, slot
     2 frozen (its second write lands on its first's lane), slot 4 with
     every position masked, the second launch attending the lanes the first
@@ -510,12 +629,20 @@ def check_fused_write(dev, g) -> dict:
     from moshi_tpu_torch.ops import int4_attention as i4
 
     k4w, k4 = i4.decode_attention_int4_write, i4.decode_attention_int4_stats
-    L, B, H, cap, layer = KV["layers"], SLOTS, KV["heads"], KV["cap"], 5
-    cap_pad = -(-cap // 128) * 128
+    B, H, layer = SLOTS, KV["heads"], 5
     frozen, masked = 2, 4
-    lanes = torch.arange(cap, device=dev)[None]
     max_abs, per_launch = 0.0, {}
-    for D in (128, 64):
+    cases = [("moshi", KV["layers"], KV["cap"], 128), ("moshi", KV["layers"], KV["cap"], 64),
+             ("tts", TTS_KV["layers"], TTS_KV["cap"], TTS_KV["head_dim"])]
+    for path, L, cap, D in cases:
+        cap_pad = -(-cap // 128) * 128
+        lanes = torch.arange(cap, device=dev)[None]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = {"warps": i4.plan_warps(B, H, H, cap, sms), "blocks": i4.attention_blocks(B, H, H)}
+        plan["warps_per_sm"] = plan["blocks"] * plan["warps"] / sms
+        phase("kernels", f"decode_attention_int4_write {path} L={L} B={B} H={H} D={D} cap={cap} "
+              f"(cap_pad {cap_pad}) plan: {plan['blocks']} blocks of {plan['warps']} warps, "
+              f"{plan['warps_per_sm']:.1f} warps per SM on {sms} SMs")
         caches = random_int4_cache(g, L, B, H, D, cap_pad, dev)
         expected = [c.clone() for c in caches]
         pos = torch.cat([torch.tensor([0, 63, 64, cap - 1], device=dev),
@@ -525,8 +652,8 @@ def check_fused_write(dev, g) -> dict:
             if step:
                 pos = torch.where(torch.arange(B, device=dev) == frozen, pos, (pos + 1) % cap)
             # each slot's ring holds its lanes below the write lane and, from
-            # an earlier lap, those past 2900
-            mask = ((lanes < pos[:, None]) | (lanes > 2900)) & (lanes != pos[:, None])
+            # an earlier lap, its last 100
+            mask = ((lanes < pos[:, None]) | (lanes >= cap - 100)) & (lanes != pos[:, None])
             mask[masked] = False
             q = torch.randn(B, H, 1, D, device=dev, generator=g).to(torch.bfloat16)
             kk, vv = main_path_rows(g, B, H, D, dev)
@@ -602,10 +729,13 @@ def check_fused_write(dev, g) -> dict:
                  "library_ms": time_ms(index_put, [(li, *caches) for li in range(L)])}
         write["bound_ms"], _ = bound(write_bytes, 0)
         k4_row = {"ms": t_fused, "attention_alone_ms": t_alone,
-                  "plain_ms": time_ms(i4.decode_attention_int4_write_plain, ops_w, iters=4)}
+                  "plain_ms": time_ms(i4.decode_attention_int4_write_plain, ops_w, iters=4),
+                  "library_ms": sdpa_dequantized_ms(q, caches, mask)}
         k4_row["bound_ms"], _ = bound(attn_bytes + write_bytes, 4 * B * H * cap * D)
         phase("kernels", f"decode_attention_int4_write B={B} H={H} D={D} cap={cap}: fused "
-              f"launch {fused[0]:.4f} / {fused[1]:.4f} ms, the attention alone "
+              f"launch {fused[0]:.4f} / {fused[1]:.4f} ms (scaled_dot_product_attention on "
+              f"the dequantized bf16 layer {k4_row['library_ms']:.4f} ms, bound "
+              f"{k4_row['bound_ms']:.4f} ms), the attention alone "
               f"{alone[0]:.4f} / {alone[1]:.4f} ms: the write costs "
               f"{write['ms'] * 1e3:.2f} us per launch, {write['ms'] * L:.4f} ms per frame "
               f"({L} launches; bound {write['bound_ms'] * L:.5f} ms, "
@@ -615,12 +745,15 @@ def check_fused_write(dev, g) -> dict:
               f"standalone cache_write_int4 {EARLIER_MS['cache_write_int4 per frame']} ms per "
               f"frame, the attention {EARLIER_MS['decode_attention_int4 per launch']} ms per "
               f"launch")
-        per_launch[D] = {"write": write, "k4": k4_row}
+        per_launch[f"{path} L={L} cap={cap} D={D}"] = {"write": write, "k4": k4_row,
+                                                       "plan": plan}
         del ops_w, ops_s, write_ops, caches
         free_memory()
-    at_d = per_launch[KV["head_dim"]]
+    at_d = per_launch[f"moshi L={KV['layers']} cap={KV['cap']} D={KV['head_dim']}"]
+    tts = per_launch[f"tts L={TTS_KV['layers']} cap={TTS_KV['cap']} D={TTS_KV['head_dim']}"]
     return {"per_launch": at_d["write"], "k4_per_launch": at_d["k4"],
-            "per_launch_by_head_dim": per_launch, "bound_by": "bytes", "max_abs_err": 0.0,
+            "tts_per_launch": tts["write"], "tts_k4_per_launch": tts["k4"],
+            "per_launch_by_case": per_launch, "bound_by": "bytes", "max_abs_err": 0.0,
             "stats_max_abs_err": max_abs}
 
 
@@ -637,11 +770,12 @@ def random_int8_cache(g, L, B, cap, Hkv, D, dev):
 
 
 def check_attention_int8(dev, g) -> dict:
-    """decode_attention_int8 against its plain version at both main-path
-    shapes (INT8_KV), D = 128 and 64, layer 3 of 4, a ragged mask and slot 0
-    with every position masked (which must give 0); times per launch at
-    D = 128 beside scaled_dot_product_attention on the dequantized bf16
-    layer and the bound."""
+    """decode_attention_int8 against its plain version at the main paths'
+    shapes (INT8_KV), D = 128 and 64 (the TTS shape at its D = 64), layer
+    3 of 4, a ragged mask and slot 0 with every position masked (which must
+    give 0); times per launch at each path's head dim beside
+    scaled_dot_product_attention on the dequantized bf16 layer and the
+    bound."""
     import torch.nn.functional as F
 
     from moshi_tpu_torch.ops import decode_attention as da
@@ -651,7 +785,8 @@ def check_attention_int8(dev, g) -> dict:
     L, layer = 4, 3
     max_abs, per_launch, bound_by, plans = 0.0, {}, None, {}
     for path, (B, H, cap) in INT8_KV.items():
-        for D in (128, 64):
+        timed_d = TTS_KV["head_dim"] if path == "tts" else 128  # the path's head dim
+        for D in (64,) if path == "tts" else (128, 64):
             caches = random_int8_cache(g, L, B, cap, H, D, dev)
             q = torch.randn(B, H, D, device=dev, generator=g).to(torch.bfloat16)
             valid = torch.randint(1, cap + 1, (B,), device=dev, generator=g)
@@ -690,7 +825,7 @@ def check_attention_int8(dev, g) -> dict:
                 if not ok:
                     raise RuntimeError("decode_attention_int8 disagrees with its plain version")
             mask = ragged
-            if D != 128:
+            if D != timed_d:
                 continue
             ops = [(q, li, *caches, mask) for li in range(L)]
             t = {"ms": time_ms(k6, ops), "plain_ms": time_ms(k6p, ops, iters=4)}
@@ -1534,6 +1669,483 @@ def run_asr(dev, card: str) -> dict:
     return summary
 
 
+# -------------------------------------------------------------------- tts
+class TtsTokenizer:
+    """The JAX benchmark's host tokenizer stub (moshi_tpu/benchmark.py:352-354):
+    one token per word."""
+
+    def encode(self, word):
+        return [7 + (len(word) % 13)]
+
+
+def build_tts(dev):
+    """tts_v0_1 at full width from a seed on the card: int8 weights on every
+    linear the JAX package's `--weights int8` quantizes, the int4 KV cache
+    at context TTS_CONTEXT, the bf16 Mimi v0.1 with 16 codebooks, a
+    speaker_wavs tensor condition fused by cross and a `cfg` LUT condition
+    fused by sum."""
+    from moshi_tpu_torch.conditioners import (ConditionFuser, ConditionProvider,
+                                              LUTConditioner, TensorConditioner)
+    from moshi_tpu_torch.models.lm import LMModel, lm_config_tts_v0_1
+    from moshi_tpu_torch.models.mimi import MimiModel, mimi_v0_1_config
+    from moshi_tpu_torch.utils.quantize import quantize_lm_params
+    from moshi_tpu_torch.utils.serving import override_lm
+
+    t0 = time.perf_counter()
+    lm = override_lm(LMModel(lm_config_tts_v0_1()), kv_cache="int4", context=TTS_CONTEXT)
+    cfg = lm.config
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    lm_params = quantize_lm_params(lm.init_params(g, torch.bfloat16, dev), mode="int8")
+    free_memory()
+    mimi = MimiModel(mimi_v0_1_config(cfg.dep_q))
+    mimi_params = mimi.init_params(g, torch.bfloat16, dev)
+    provider = ConditionProvider({
+        "speaker_wavs": TensorConditioner(output_dim=cfg.dim, dim=TTS_VOICE[1]),
+        "cfg": LUTConditioner(output_dim=cfg.dim, **TTS_CFG)})
+    cp_params = provider.init_params(g, torch.float32, dev)
+    torch.cuda.synchronize()
+    tc = cfg.transformer_config
+    phase("tts", f"tts_v0_1 int8 (dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} "
+          f"heads x {tc.head_dim}, {cfg.kv_cache_dtype} KV at ctx {cfg.context}, text head "
+          f"{cfg.text_out_card}, card {cfg.card}, depformer {cfg.dep_q} x "
+          f"{cfg.depformer_num_layers} layers of {cfg.depformer_dim}) + Mimi bf16 with "
+          f"{mimi.num_codebooks} codebooks built from seed {SEED + 11} in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          f"on the card")
+    return {"lm": lm, "lm_params": lm_params, "mimi": mimi, "mimi_params": mimi_params,
+            "provider": provider, "cp_params": cp_params,
+            "fuser": ConditionFuser({"cross": ["speaker_wavs"], "sum": ["cfg"]})}
+
+
+def tts_engine(dev, models, lm, temp: float, graphed: bool):
+    """A warmed-up BatchedTTSState at B = TTS_SLOTS over `lm` (the models'
+    weights), the JAX benchmark's state machine and delays."""
+    from moshi_tpu_torch.models.tts import StateMachine, TokenIds, TTSModel
+    from moshi_tpu_torch.serve.batched_tts import BatchedTTSState
+
+    c = lm.config
+    tts = TTSModel(lm, models["mimi"], TtsTokenizer(),
+                   StateMachine(TokenIds(card=c.text_card + 1), max_padding=8,
+                                initial_padding=2),
+                   delay_steps=TTS_DELAY_STEPS, condition_provider=models["provider"],
+                   fuser=models["fuser"], max_speakers=TTS_MAX_SPEAKERS, temp=temp,
+                   n_q=c.dep_q, max_gen_length=10_000, final_padding=4)
+    state = BatchedTTSState(tts, models["lm_params"], models["mimi_params"], TTS_SLOTS,
+                            condition_params=models["cp_params"], voice_frames=TTS_VOICE[0],
+                            device=dev, graphed=graphed, rng_seed=SEED)
+    if state.graphed != graphed:
+        raise RuntimeError(f"BatchedTTSState on the card: graphed {state.graphed}")
+    state.warmup()
+    torch.cuda.synchronize()
+    return state
+
+
+def tts_launches(cfg, params, batch: int) -> dict:
+    """Kernel launches of one TTS frame at B = batch, by graph: "main" (graph
+    1 with the cross block: each temporal linear per layer, the cross q and
+    out projections per layer, the text head, and one K4 (int4 KV, each
+    writing its layer's column) or K6 (int8 KV) per layer), "main_plain"
+    (the same without the cross block, while no slot has a voice) and
+    "depth" (graph 2: each depformer linear per layer and step,
+    depformer_in and the audio head per step); each linear on the kernel
+    qmatmul.use_mma picks for bf16 x of `batch` rows; no q4."""
+    from moshi_tpu_torch.ops import qmatmul
+    from moshi_tpu_torch.utils.quantize import QTensor
+
+    tl, dl = params["transformer"]["layers"], params["depformer"]["layers"]
+    temporal = [tl["attn"]["in_proj"], tl["attn"]["out_proj"], tl["mlp"]["linear1"],
+                tl["mlp"]["linear2"]]
+    cross = [tl["cross_attn"]["q_proj"], tl["cross_attn"]["out_proj"]]
+    dep = [dl["attn"]["in_proj"], dl["attn"]["out_proj"], dl["mlp"]["linear_in"],
+           dl["mlp"]["linear_out"]]
+    head = [(params["text_linear"]["weight"], 1)]
+    graphs = {"main": [(w, cfg.num_layers) for w in temporal + cross] + head,
+              "main_plain": [(w, cfg.num_layers) for w in temporal] + head,
+              "depth": [(w, cfg.depformer_num_layers * cfg.dep_q) for w in dep]
+              + [(params["depformer_in"]["weight"], cfg.dep_q),
+                 (params["linears"]["weight"], cfg.dep_q)]}
+    out, shapes = {}, {}
+    for name, ws in graphs.items():
+        per = dict.fromkeys(TPU_KERNELS, 0)
+        for w, n in ws:
+            if not isinstance(w, QTensor):
+                raise RuntimeError("the tts tree is not int8 on every linear")
+            din, dout = w.q.shape[-2:]
+            per["int8_mma" if qmatmul.use_mma(batch, torch.bfloat16, din, dout)
+                else "int8_gemv"] += n
+            if name != "main_plain":
+                shapes[(din, dout)] = shapes.get((din, dout), 0) + n
+        if name != "depth":
+            kv = cfg.kv_cache_dtype
+            per["decode_attention_int4"] = per["cache_write_int4"] = (
+                cfg.num_layers if kv == "int4" else 0)
+            per["decode_attention_int8"] = cfg.num_layers if kv == "int8" else 0
+        out[name] = per
+    if shapes != TTS_INT8_SHAPES:
+        raise RuntimeError(f"the TTS frame's linears {shapes} are not TTS_INT8_SHAPES")
+    return out
+
+
+def tts_words(n: int, salt: int) -> list[str]:
+    """n words of a seeded vocabulary, different for each salt."""
+    vocab = ("the quick brown fox jumps over a lazy dog while seven wizards quietly hex "
+             "one jolly zebra near old stone bridges under bright winter skies").split()
+    rs = np.random.RandomState(SEED + 100 + salt)
+    return [vocab[i] for i in rs.randint(0, len(vocab), n)]
+
+
+# the tts isolation run: slot -> (its session index, frames it executes in
+# that session) of the copies of slot 0's session
+TTS_SAME_AS_0 = {1: (0, TTS_FRAMES - 2), 2: (0, TTS_FRAMES - 7), 3: (0, TTS_FRAMES - 7),
+                 4: (1, TTS_FRAMES - 22)}
+TTS_ROLES = {"voiceless": 6, "voice_change": 5, "starved": 3, "starved_ticks": 5}
+
+
+def tts_isolation_schedule():
+    """serve_tts's script at B = TTS_SLOTS over TTS_FRAMES ticks: slot 6
+    alone and voiceless on ticks 0-1 (the unconditioned mode), then slots 0
+    and 1 with one script and voice A, slot 2 with them joining 5 ticks late,
+    slot 3 with them starved of its last words for 5 ticks, slot 4 reset at
+    tick 22 to them, slot 5 changing its voice at tick 20, slots 7.. with
+    scripts and voices of their own."""
+    rs = np.random.RandomState(SEED + 12)
+    voice = [rs.randn(*TTS_VOICE).astype(np.float32) for _ in range(TTS_SLOTS + 2)]
+    script = tts_words(12, 0)
+    ref = [("join", voice[0]), ("words", [" ".join(script)]), "eos"]
+    sched = [{} for _ in range(TTS_FRAMES)]
+    sched[0] = {6: [("join", None), ("words", tts_words(12, 6))]}
+    sched[2] = {0: ref, 1: ref,
+                3: [("join", voice[0]), ("words", script[:2]),
+                    ("refill", TTS_ROLES["starved_ticks"], script[2:], True)],
+                4: [("join", voice[4]), ("words", tts_words(12, 4))],
+                5: [("join", voice[5]), ("words", tts_words(12, 5))],
+                **{s: [("join", voice[s]), ("words", tts_words(12, s))]
+                   for s in range(7, TTS_SLOTS)}}
+    sched[7] = {2: ref}
+    sched[20] = {5: [("voice", voice[TTS_SLOTS])]}
+    sched[22] = {4: ref}
+    return sched
+
+
+def tts_leaves(state) -> list:
+    """Every tensor of a BatchedTTSState's streaming state: LMGen's (the
+    caches, the cross K/V) and Mimi's decoder, and the summed condition."""
+    return tensor_leaves([state.gen_state_cross, state.dec_state, state.cond_sum])
+
+
+def check_tts_frames(tokens, cfg, what: str) -> None:
+    """Output frames past the delays: text ids in [0, text_card], audio ids
+    in [0, card) or the zero token of a codebook still within its delay."""
+    gen = tokens[(tokens != -2).all(axis=1)]
+    if not ((gen[:, 0] >= 0).all() and (gen[:, 0] <= cfg.text_card).all()
+            and (gen[:, 1:] >= -1).all() and (gen[:, 1:] < cfg.card).all()):
+        raise RuntimeError(f"{what}: token out of range")
+
+
+def slowest_ticks(ms: list, n: int = 5) -> dict:
+    """{tick: ms} of the n slowest ticks of a run."""
+    return {int(i): round(ms[i], 2) for i in np.argsort(ms)[::-1][:n]}
+
+
+def tts_greedy(dev, models, lm, what: str, profile: bool = False) -> tuple[dict, dict]:
+    """The greedy isolation run of BatchedTTSState (tts_isolation_schedule),
+    graphed (the main path: launch counts from the captures, replays), then
+    eagerly (launches per frame), the two held equal in output frames, Text
+    events, PCM and every state byte; the copies of slot 0's session must
+    repeat it, the starved slot must sit out exactly its ticks.  With
+    `profile`, then 5 frames of every slot on each engine and 5 graphed ones
+    under the profiler.  Returns the graphed launches and a summary."""
+    from moshi_tpu_torch.serve.batched_tts import serve_tts
+
+    cfg = lm.config
+    per = tts_launches(cfg, models["lm_params"], TTS_SLOTS)
+    per_frame = {k: per["main"][k] + per["depth"][k] for k in per["main"]}
+    schedule = tts_isolation_schedule()
+    runs = {}
+    for graphed in (True, False):
+        state = tts_engine(dev, models, lm, 0.0, graphed)
+        if graphed:
+            kv = state.gen_state_cross["transformer"]
+            phase("tts", f"{what}: B = {TTS_SLOTS}, {cfg.kv_cache_dtype} KV cache "
+                  f"{tuple(kv['k'].shape)}, cross K/V {tuple(kv['k_cross'].shape)} "
+                  f"{str(kv['k_cross'].dtype)[6:]} x 2; "
+                  f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card")
+            del kv
+        ptrs = [t.data_ptr() for t in tts_leaves(state)]
+        zero_counts()
+        sessions, ticks = serve_tts(state, schedule)
+        launches = read_counts()
+        if [t.data_ptr() for t in tts_leaves(state)] != ptrs:
+            raise RuntimeError(f"{what}: a reset or a voice change moved a state tensor")
+        runs["graphed" if graphed else "eager"] = (state, sessions, ticks, launches)
+    state, sessions, ticks, launches = runs["graphed"]
+    eager, e_sessions, e_ticks, e_launches = runs["eager"]
+    n = len(ticks)
+    replays = {"main_unconditioned": state.main[False].replays,
+               "main_conditioned": state.main[True].replays, "depth": state.depth.replays}
+    if n != TTS_FRAMES or replays != {"main_unconditioned": 2, "main_conditioned": n - 2,
+                                      "depth": n}:
+        raise RuntimeError(f"{what}: {n} frames, replays {replays}")
+    check_counts(launches, {k: sum(v[k] for v in per.values()) for k in per_frame}, 1,
+                 f"tts {what} graphed run (graph 1 captured with and without the cross "
+                 f"block, graph 2 once)")
+    check_counts(e_launches, {k: 2 * per["main_plain"][k] + (n - 2) * per["main"][k]
+                              + n * per["depth"][k] for k in per_frame}, 1,
+                 f"tts {what} eager run")
+    masks = np.stack([m for m, _ in ticks])
+    starved = TTS_ROLES["starved"]
+    frozen = np.nonzero(~masks[3:, starved])[0]
+    if len(frozen) != TTS_ROLES["starved_ticks"] or np.any(np.diff(frozen) != 1):
+        raise RuntimeError(f"{what}: the starved slot sat out ticks {frozen + 3}")
+    ref = sessions[0][0]
+    for s in range(TTS_SLOTS):
+        for sess in sessions[s]:
+            check_tts_frames(sess["tokens"], cfg, f"{what} slot {s}")
+            check_pcm(sess["pcm"], models["mimi"].frame_size, f"{what} slot {s}")
+    if len(ref["tokens"]) != TTS_FRAMES - 2 or not ref["events"] or not ref["pcm"]:
+        raise RuntimeError(f"{what}: slot 0 ran {len(ref['tokens'])} frames, "
+                           f"{len(ref['events'])} Text events, {len(ref['pcm'])} PCM frames")
+    for s, (i, executed) in TTS_SAME_AS_0.items():
+        got = sessions[s][i]
+        if (len(got["tokens"]) != executed
+                or not np.array_equal(got["tokens"], ref["tokens"][:executed])
+                or got["events"] != ref["events"][:len(got["events"])]
+                or (executed == len(ref["tokens"]) and got["events"] != ref["events"])):
+            raise RuntimeError(f"{what}: slot {s} session {i} does not repeat slot 0's frames "
+                               f"and Text events")
+    distinct = sum(not np.array_equal(sessions[s][0]["tokens"], ref["tokens"])
+                   for s in range(7, TTS_SLOTS))
+    if distinct == 0:
+        raise RuntimeError(f"{what}: no slot with its own script and voice differs from slot 0")
+    same = all(len(a) == len(b) and all(
+        np.array_equal(x["tokens"], y["tokens"]) and x["events"] == y["events"]
+        and x["eos"] == y["eos"] and len(x["pcm"]) == len(y["pcm"])
+        and all(np.array_equal(p, q) for p, q in zip(x["pcm"], y["pcm"]))
+        for x, y in zip(a, b)) for a, b in zip(sessions.values(), e_sessions.values()))
+    same_state = all(same_bytes(a, b) for a, b in zip(tts_leaves(state), tts_leaves(eager)))
+    ms = [t for _, t in ticks]
+    p50, p90 = (float(np.percentile(ms, p)) for p in (50, 90))
+    e_ms = [t for _, t in e_ticks]
+    e50, e90 = (float(np.percentile(e_ms, p)) for p in (50, 90))
+    events = sum(len(x["events"]) for v in sessions.values() for x in v)
+    pcm = sum(len(x["pcm"]) for v in sessions.values() for x in v)
+    phase("tts", f"{what}, {n} frames graphed: slots 1 (same script and voice), 2 (joined 5 "
+          f"ticks late), 3 (starved on ticks {(frozen + 3).tolist()}) and 4 (reset at tick 22) "
+          f"repeat slot 0's frames and Text events; {distinct} of {TTS_SLOTS - 7} other slots "
+          f"differ; slot 5 changed its voice at tick 20, slot 6 has none; {events} Text events, "
+          f"{pcm} PCM frames; launches {launches} = graph 1 {per['main']} (captured with the "
+          f"cross block) + {per['main_plain']} (without) + graph 2 {per['depth']}; replays "
+          f"{replays}; p50 {p50:.2f} ms, p90 {p90:.2f} ms per batched frame, the slowest "
+          f"ticks {slowest_ticks(ms)} (eager: p50 {e50:.2f}, p90 {e90:.2f}, the slowest "
+          f"{slowest_ticks(e_ms)}; launches {e_launches} over {len(e_ticks)} frames, 2 "
+          f"without the cross block); graphed against "
+          f"eager: frames, events and PCM {'equal' if same else 'DIFFER'}, every state byte "
+          f"{'equal' if same_state else 'DIFFERS'}")
+    if not (same and same_state):
+        raise RuntimeError(f"{what}: the graphed frames differ from the eager ones")
+    summary = {"p50_ms": p50, "p90_ms": p90, "max_ms": max(ms), "ms": ms, "replays": replays,
+               "frames": n, "text_events": events, "pcm_frames": pcm,
+               "eager": {"p50_ms": e50, "p90_ms": e90, "max_ms": max(e_ms),
+                         "launches": e_launches}}
+    if profile:
+        g_all = tts_every_slot(state, 5, SEED + 13)
+        e_all = tts_every_slot(eager, 5, SEED + 13)
+        prof = profile_frames(g_all["run_frame"], 5)
+        prof.update({f"p{p}_ms": float(np.percentile(g_all["ms"], p)) for p in (50, 90)})
+        prof.update({f"eager_p{p}_ms": float(np.percentile(e_all["ms"], p)) for p in (50, 90)})
+        prof.update(max_ms=max(g_all["ms"]), eager_max_ms=max(e_all["ms"]),
+                    parts=g_all["parts"], eager_parts=e_all["parts"])
+        prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / prof["p50_ms"]
+        # what a frame pays when the cycle collector sweeps every generation
+        t0 = time.perf_counter()
+        gc.collect()
+        prof["gc_full_ms"] = (time.perf_counter() - t0) * 1e3
+        prof["gc_objects"] = len(gc.get_objects())
+        phase("tts", f"{what}: one full pass of the cycle collector here {prof['gc_full_ms']:.2f} "
+              f"ms over {prof['gc_objects']} tracked objects")
+        phase("tts", f"{what}, every slot, 5 frames: graphed p50 {prof['p50_ms']:.2f} ms, p90 "
+              f"{prof['p90_ms']:.2f} ms, {slowest_frame(g_all)} per batched frame (eager p50 "
+              f"{prof['eager_p50_ms']:.2f}, p90 {prof['eager_p90_ms']:.2f}, "
+              f"{slowest_frame(e_all)}); profiler over 5 graphed frames: {profile_line(prof)}")
+        summary["profile"] = prof
+    del runs, state, eager, sessions, e_sessions
+    free_memory()
+    return launches, summary
+
+
+class GraphClock:
+    """Wraps an engine's GraphedStep: CUDA events around each call, so a
+    frame's card ms of the graph (its launch to its end on the stream) can
+    be read after the frame."""
+
+    def __init__(self, step):
+        self.step, self.events = step, []
+
+    def __call__(self, *args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.step(*args)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def take_ms(self) -> float:
+        """Card ms of the calls since the last take (their ends are read)."""
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events = []
+        return ms
+
+
+def tts_every_slot(state, frames: int, seed: int) -> dict:
+    """Every slot of `state` opened with a voice of its own (the resets and
+    the voices' conditions applied before any timing) and fed words as the
+    JAX benchmark feeds them (a sentence whenever fewer than 4 words wait),
+    then `frames` ticks, each timed on the host from its inputs to its
+    outputs read back, with its parts: the engine's host ms of its queued
+    ops, of each graph up to its outputs read back and of the state
+    machines, and the rest of the frame (feeding words, clearing the
+    outboxes); the card ms of each graph (CUDA events); the ms of the cycle
+    collector's passes in the frame and the oldest generation they swept
+    (-1: none).  Returns {"ms", "host_ms", "parts",
+    "run_frame", "voices_ms"}: parts holds one dict per frame; run_frame(i)
+    runs one more tick; voices_ms is the host ms of opening the slots with
+    their voices."""
+    rs = np.random.RandomState(seed)
+    for s in range(TTS_SLOTS):
+        if state.slots[s] is not None:
+            state.release_slot(s)
+        state.acquire_slot(s)
+        state.set_slot_voice(s, rs.randn(*TTS_VOICE).astype(np.float32))
+    # the joins and voices (one recompute of every slot's conditions and
+    # cross K/V), timed on their own and finished before the timed ticks
+    t0 = time.perf_counter()
+    state.apply_pending_ops()
+    torch.cuda.synchronize()
+    voices_ms = (time.perf_counter() - t0) * 1e3
+
+    def run_frame(i):
+        for s in range(TTS_SLOTS):
+            if len(state.slots[s].state.entries) < 4:
+                state.feed_words(s, ["hello world how are you today friend"])
+        if state.tick() is None:
+            raise RuntimeError("tts: no slot ran")
+        for s in range(TTS_SLOTS):
+            state.slots[s].outbox.clear()
+
+    gc_ms, gc_t0, gc_gen = [0.0], [0.0], [-1]
+
+    def gc_clock(event, info):
+        if event == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_t0[0]) * 1e3
+            gc_gen[0] = max(gc_gen[0], info["generation"])
+    steps = {"main": state.main[True], "depth": state.depth}
+    clocks = {k: GraphClock(v) for k, v in steps.items()}
+    state.main[True], state.depth = clocks["main"], clocks["depth"]
+    gc.callbacks.append(gc_clock)
+    ms, parts = [], []
+    try:
+        for i in range(frames):
+            gc_ms[0], gc_gen[0] = 0.0, -1
+            t0 = time.perf_counter()
+            run_frame(i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            parts.append({**{f"{k}_host_ms": v for k, v in state.frame_ms.items()},
+                          "other_host_ms": ms[-1] - sum(state.frame_ms.values()),
+                          **{f"{k}_card_ms": c.take_ms() for k, c in clocks.items()},
+                          "gc_ms": gc_ms[0], "gc_generation": gc_gen[0]})
+    finally:
+        gc.callbacks.remove(gc_clock)
+        state.main[True], state.depth = steps["main"], steps["depth"]
+    return {"ms": ms, "host_ms": [p["machines_host_ms"] for p in parts], "parts": parts,
+            "run_frame": run_frame, "voices_ms": voices_ms}
+
+
+def slowest_frame(r: dict) -> str:
+    """The slowest frame of a tts_every_slot run and its parts."""
+    i = int(np.argmax(r["ms"]))
+    return (f"max {r['ms'][i]:.2f} ms (frame {i} of {len(r['ms'])}: "
+            + ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in r["parts"][i].items()) + ")")
+
+
+def run_tts(dev, card: str) -> dict:
+    """The batched TTS path at B = TTS_SLOTS: the greedy isolation run with
+    the int4 KV cache, graphed and eager; a sampled run of every slot, 40
+    graphed frames and 10 eager ones, with a profiler pass; then the greedy
+    run with the int8 KV cache and 5 frames of every slot."""
+    from dataclasses import replace
+
+    from moshi_tpu_torch.models.lm import LMModel
+
+    models = build_tts(dev)
+    lm = models["lm"]
+    per = tts_launches(lm.config, models["lm_params"], TTS_SLOTS)
+    per_frame = {k: per["main"][k] + per["depth"][k] for k in per["main"]}
+    if any(per_frame[k] for k in ("q4_gemv", "q4_mma")):
+        raise RuntimeError("the tts frame would run a q4 kernel")
+    greedy_launches, greedy = tts_greedy(dev, models, lm, "greedy")
+
+    runs = {}
+    for graphed, n in ((True, FRAMES), (False, EAGER_FRAMES)):
+        free_memory()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = tts_engine(dev, models, lm, TTS_TEMP, graphed)
+        zero_counts()
+        r = tts_every_slot(state, n, SEED + 14)
+        launches = read_counts()
+        kind = "graphed" if graphed else "eager"
+        check_counts(launches, per_frame, 1 if graphed else n, f"tts sampled {kind} run")
+        run = {"launches": launches, "frames": n,
+               **{f"p{p}_ms": float(np.percentile(r["ms"], p)) for p in (50, 75, 90)},
+               "max_ms": max(r["ms"]), "slowest": slowest_frame(r), "parts": r["parts"],
+               "host_ms_p50": float(np.percentile(r["host_ms"], 50)),
+               "voices_ms": r["voices_ms"],
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               "engine_peak_gib": (torch.cuda.max_memory_allocated(dev) - before) / 2 ** 30}
+        if graphed:
+            run["replays"] = {"main": state.main[True].replays, "depth": state.depth.replays}
+            if run["replays"] != {"main": n, "depth": n}:
+                raise RuntimeError(f"tts sampled: replays {run['replays']} for {n} frames")
+            prof = profile_frames(r["run_frame"], 5)
+            prof["idle_share"] = 1 - prof["busy_ms_per_frame"] / run["p50_ms"]
+            run["profile"] = prof
+        for s in range(TTS_SLOTS):
+            if state.slots[s].state.transcript == []:
+                raise RuntimeError(f"tts sampled {kind}: slot {s} said no word")
+        runs[kind] = run
+        del state
+    g, e = runs["graphed"], runs["eager"]
+    phase("tts", f"sampled (temp {TTS_TEMP}), {g['frames']} frames x {TTS_SLOTS} slots graphed: "
+          f"p50 {g['p50_ms']:.2f} ms, p75 {g['p75_ms']:.2f} ms, p90 {g['p90_ms']:.2f} ms, "
+          f"{g['slowest']} per batched frame, {g['p50_ms'] / TTS_SLOTS:.3f} ms per stream "
+          f"at p50, of it "
+          f"{g['host_ms_p50']:.3f} ms of host Python in the DSM machines (opening the "
+          f"{TTS_SLOTS} slots with their voices, one recompute of every slot's conditions "
+          f"and cross K/V: {g['voices_ms']:.1f} ms); peak "
+          f"{g['peak_gib']:.2f} GiB allocated, {g['engine_peak_gib']:.2f} GiB of it above what "
+          f"the card held before the engine; launches {g['launches']} (1 captured frame), "
+          f"replays {g['replays']} ({card})")
+    phase("tts", f"sampled, {e['frames']} frames x {TTS_SLOTS} slots eager: p50 "
+          f"{e['p50_ms']:.2f} ms, p90 {e['p90_ms']:.2f} ms, {e['slowest']} per batched "
+          f"frame; peak {e['peak_gib']:.2f} GiB; launches {e['launches']} ({card})")
+    phase("tts", f"profiler over 5 graphed sampled frames: {profile_line(g['profile'])}")
+
+    lm8 = LMModel(replace(lm.config, kv_cache_dtype="int8"))
+    int8_launches, int8 = tts_greedy(dev, models, lm8, "int8 greedy", profile=True)
+    del models
+    free_memory()
+    return {"launches": {"tts_greedy": greedy_launches, "tts_sampled": g["launches"],
+                         "tts_int8_greedy": int8_launches},
+            "per_frame": {"tts": per_frame,
+                          "tts_int8": {**per_frame, "decode_attention_int4": 0,
+                                       "cache_write_int4": 0,
+                                       "decode_attention_int8": lm8.config.num_layers}},
+            "sampled": g, "sampled_eager": e, "greedy": greedy, "int8_greedy": int8}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch sees no CUDA device")
@@ -1566,6 +2178,7 @@ def main() -> None:
     # K4's row: the launch of the main path, the write included
     attn["per_launch"] = {**attn["per_launch"], **write["k4_per_launch"]}
     attn8 = check_attention_int8(dev, g)
+    tts_gemvs = check_tts_gemvs(dev, g)
     free_memory()
 
     lm, lm_params, mimi, mimi_params = build_models(dev)
@@ -1575,33 +2188,45 @@ def main() -> None:
     del lm, lm_params, mimi, mimi_params
     free_memory()
     asr = run_asr(dev, card)
+    free_memory()
+    tts = run_tts(dev, card)
 
     # the main paths' runs, all graphed: their launches counted at capture
     by_path = {"slice_b1": slice_["launches"],
                **{f"batched_{p}": v for p, v in batched["launches"].items()},
-               "asr": asr["launches"]}
+               "asr": asr["launches"], **tts["launches"]}
     per_frame_by_path = {"batched": batched["per_frame"]["int4"],
-                         "batched_int8": batched["per_frame"]["int8"], "asr": asr["per_frame"]}
+                         "batched_int8": batched["per_frame"]["int8"], "asr": asr["per_frame"],
+                         **tts["per_frame"]}
     kernels = []
     # ms / plain_ms / library_ms / bound_ms: card time of one frame's
     # launches of the kernel (bf16, operands cold in L2) on the path it
     # runs, from the per-shape (GEMVs) or per-launch times: the B = 1 frame
-    # for the q4_gemv kernel, a B = 16 batched frame for q4_mma, int8_gemv,
+    # for the q4_gemv kernel, a B = 16 batched frame for q4_mma, int8_mma,
     # decode_attention_int4 (the fused launch) and cache_write_int4 (the
     # fused launch's time over the attention alone), a B = 256 ASR frame for
-    # decode_attention_int8; "per_frame_by_batch" has the GEMVs' frames at
-    # each batch timed (the int8_gemv kernel runs no launch of either path:
-    # its row is its B = 16 frame, beside int8_mma's)
+    # decode_attention_int8 (int8_gemv: Moshi's depformer linears at B = 16,
+    # as int8_mma, though only the TTS heads launch it on a path);
+    # "per_frame_by_batch" has the GEMVs' Moshi frames at each batch timed,
+    # "tts" / "tts_per_frame" the TTS frame's launches
     for k in gemvs:
         main_b = 1 if k["name"] == "q4_gemv" else SLOTS
-        kernels.append({**k["per_frame"][main_b], "per_frame_by_batch": k["per_frame"],
-                        **{key: v for key, v in k.items() if key != "per_frame"}})
+        row = {**k["per_frame"][main_b], "per_frame_by_batch": k["per_frame"],
+               **{key: v for key, v in k.items() if key != "per_frame"}}
+        if k["name"] in tts_gemvs:
+            row["tts"] = tts_gemvs[k["name"]]
+        kernels.append(row)
+    tts_per_launch = {"decode_attention_int4": write["tts_k4_per_launch"],
+                      "cache_write_int4": write["tts_per_launch"],
+                      "decode_attention_int8": attn8["per_launch_by_shape"]["tts"]}
     for name, k, path in (("decode_attention_int4", attn, "batched"),
                           ("cache_write_int4", write, "batched"),
                           ("decode_attention_int8", attn8, "asr")):
         n = per_frame_by_path[path][name]
+        n_tts = per_frame_by_path["tts" if name != "decode_attention_int8" else "tts_int8"][name]
         kernels.append({"name": name, **{key: v * n for key, v in k["per_launch"].items()},
-                        **k})
+                        **k, "tts_per_frame": {key: v * n_tts for key, v
+                                               in tts_per_launch[name].items()}})
     for k in kernels:
         name = k["name"]
         if name == "cache_write_int4":
@@ -1614,6 +2239,8 @@ def main() -> None:
                       "batched": {key: batched[key] for key in ("sampled", "sampled_eager",
                                                                 "greedy", "int8_greedy")},
                       "asr": {key: v for key, v in asr.items()
+                              if key not in ("launches", "per_frame")},
+                      "tts": {key: v for key, v in tts.items()
                               if key not in ("launches", "per_frame")}}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,6 +18,11 @@
 // coalesced 32-bit words (four neighbouring columns per thread, 128
 // contiguous bytes per warp per row), converts in registers, and splits din
 // across blocks so that a 1024-column layer still spreads over the SMs.
+// Where dout is not a multiple of 4 (the TTS heads: 32001 text columns,
+// 2049 audio ones) a row does not start on a 32-bit boundary: the same
+// threads then read their four columns as four byte loads (the warp still
+// reads 128 contiguous bytes per row), and the columns past dout are
+// neither read nor written.
 
 #include "gemv_common.cuh"
 
@@ -29,7 +34,7 @@ using gemv::kThreads;
 // grid: (ceil(dout / (kCols * kThreads)), splits); split s covers rows
 // [s * rows_per_split, ...).  With one split the block writes y; else it
 // writes its unscaled partial sums to partial[s, b, col].
-template <typename T, int NB>
+template <typename T, int NB, bool kWords>
 __global__ void __launch_bounds__(kThreads) int8_gemv_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ q,
     const float* __restrict__ scale, T* __restrict__ out,
@@ -48,11 +53,23 @@ __global__ void __launch_bounds__(kThreads) int8_gemv_kernel(
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[b][c] = 0.f;
 
+  // columns of this thread inside dout (all kCols unless dout % kCols)
+  const int ncols = kWords ? kCols : min(kCols, dout - col);
   const int8_t* qp = q + static_cast<size_t>(row0) * dout + col;
-#pragma unroll 8
+  // the byte loads take more registers: a shorter unroll keeps them out of
+  // local memory
+#pragma unroll(kWords ? 8 : 4)
   for (int r = 0; r < rows; ++r) {
-    const unsigned int word =
-        __ldg(reinterpret_cast<const unsigned int*>(qp + static_cast<size_t>(r) * dout));
+    const int8_t* qr = qp + static_cast<size_t>(r) * dout;
+    unsigned int word;
+    if (kWords) {
+      word = __ldg(reinterpret_cast<const unsigned int*>(qr));
+    } else {
+      word = 0;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        if (c < ncols) word |= (static_cast<unsigned int>(__ldg(qr + c)) & 0xFFu) << (8 * c);
+    }
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const float w = static_cast<float>(static_cast<int8_t>((word >> (8 * c)) & 0xFFu));
@@ -64,17 +81,20 @@ __global__ void __launch_bounds__(kThreads) int8_gemv_kernel(
   if (gridDim.y == 1) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      const float s = scale[col + c];
+      if (c < ncols) {
+        const float s = scale[col + c];
 #pragma unroll
-      for (int b = 0; b < NB; ++b)
-        gemv::store(out + static_cast<size_t>(b) * dout + col + c, acc[b][c] * s);
+        for (int b = 0; b < NB; ++b)
+          gemv::store(out + static_cast<size_t>(b) * dout + col + c, acc[b][c] * s);
+      }
     }
   } else {
     float* p = partial + static_cast<size_t>(blockIdx.y) * NB * dout;
 #pragma unroll
     for (int b = 0; b < NB; ++b)
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) p[static_cast<size_t>(b) * dout + col + c] = acc[b][c];
+      for (int c = 0; c < kCols; ++c)
+        if (c < ncols) p[static_cast<size_t>(b) * dout + col + c] = acc[b][c];
   }
 }
 
@@ -85,7 +105,10 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* out,
   const dim3 grid((dout + kCols * kThreads - 1) / (kCols * kThreads), splits);
   const size_t smem = sizeof(float) * NB * rows_per_split;
   if (smem > sizeof(float) * gemv::kStageFloats) return cudaErrorInvalidValue;
-  int8_gemv_kernel<T, NB><<<grid, kThreads, smem, stream>>>(
+  // 32-bit weight loads need every row on a 4-byte boundary
+  const bool words = dout % kCols == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  auto kernel = words ? int8_gemv_kernel<T, NB, true> : int8_gemv_kernel<T, NB, false>;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(scale), static_cast<T*>(out),
       static_cast<float*>(partial), din, dout, rows_per_split);

@@ -6,10 +6,12 @@ the ASR presets).
 
 `kv_cache_dtype` ("model", "int8" or "int4") sets the temporal
 transformer's KV cache; the depformer, whose cache lives one frame, keeps
-the model dtype (moshi_tpu lm.py:153).
+the model dtype (moshi_tpu lm.py:153).  The TTS and vision presets add
+cross-attention to the temporal transformer (modules/transformer.py), and
+the TTS ones a text head of `text_card_out` columns; CFG runs through the
+depformer on a doubled batch (`depformer_step`'s `cfg_coef`).
 
-Not ported yet: the training forward, low-rank and demuxed embeddings,
-cross-attention and CFG in the depformer.
+Not ported yet: the training forward, low-rank and demuxed embeddings.
 """
 
 from dataclasses import dataclass
@@ -36,6 +38,7 @@ class LmConfig:
     dep_q: int = 8
     card: int = 1024
     text_card: int = 32000
+    text_card_out: int | None = None  # the text head's width (None: text_card)
     norm: str = "rms_norm_f32"
     context: int | None = 100
     max_period: float = 10_000.0
@@ -43,8 +46,14 @@ class LmConfig:
     positional_embedding: str = "rope"
     layer_scale: float | None = None
     kv_repeat: int = 1
+    cross_attention: bool = False
+    cross_attention_gating: str = "normal"
+    cross_attention_norm: str = "layer_norm"
+    cross_attention_kv_dim: int | None = None
+    shared_cross_attn: bool = False
     delays: tuple[int, ...] = (0,) * 9
     existing_text_padding_id: int = 3
+    existing_text_end_padding_id: int = 0
     depformer_dim: int = 256
     depformer_num_heads: int = 8
     depformer_num_layers: int = 2
@@ -77,6 +86,10 @@ class LmConfig:
         return self.text_card
 
     @property
+    def text_out_card(self) -> int:
+        return self.text_card if self.text_card_out is None else self.text_card_out
+
+    @property
     def max_delay(self) -> int:
         return max(self.delays)
 
@@ -88,7 +101,11 @@ class LmConfig:
             positional_embedding=self.positional_embedding, max_period=self.max_period,
             gating=self.gating, norm=self.norm, layer_scale=self.layer_scale,
             kv_repeat=self.kv_repeat, kv_cache_dtype=self.kv_cache_dtype,
-            attention_int8_qk=self.attention_int8_qk)
+            attention_int8_qk=self.attention_int8_qk, cross_attention=self.cross_attention,
+            cross_attention_gating=self.cross_attention_gating,
+            cross_attention_norm=self.cross_attention_norm,
+            cross_attention_kv_dim=self.cross_attention_kv_dim,
+            shared_cross_attn=self.shared_cross_attn)
 
     @property
     def depformer_config(self) -> TransformerConfig:
@@ -138,6 +155,69 @@ def lm_config_asr_300m_202501() -> LmConfig:
         card=2048, text_card=48000, n_q=32, dep_q=0, delays=(0,) * 33)
 
 
+def _depformer_kwargs(num_slices: int) -> dict:
+    """The depformer every preset below shares (moshi_tpu/models/loaders.py
+    `_depformer_kwargs`): d 1024, 16 heads, 6 layers, SiLU-gated, one
+    weight set per codebook, dep_q = num_slices."""
+    return dict(dep_q=num_slices, depformer_dim=1024, depformer_num_heads=16,
+                depformer_num_layers=6, depformer_dim_feedforward=int(4.125 * 1024),
+                depformer_gating="silu", depformer_pos_emb="none",
+                depformer_max_period=10_000.0, depformer_layer_scale=None)
+
+
+def _acoustic_delays(n_q: int, dep_q: int, delay: int) -> tuple[int, ...]:
+    """Text 0; for each stream its semantic codebook 0 and its acoustic
+    codebooks `delay` (moshi_tpu/models/loaders.py `_acoustic_delays`)."""
+    out = [0, 0] + [delay] * (dep_q - 1)
+    rest = n_q - dep_q
+    while rest > 0:
+        k = min(rest, dep_q)
+        out += [0] + [delay] * (k - 1)
+        rest -= k
+    return tuple(out)
+
+
+def lm_config_tts_v0_1() -> LmConfig:
+    """DSM TTS 1.6B (moshi_tpu/models/loaders.py): ungated LayerNorm
+    cross-attention over voice embeddings, plain GELU MLP, 32 heads of 64, a
+    32001-column text head and 2049-entry audio tables."""
+    return LmConfig(
+        dim=2048, num_heads=32, num_layers=48, hidden_scale=4.0,
+        context=4096, max_period=10_000.0, gating="none", norm="layer_norm",
+        positional_embedding="rope", layer_scale=None,
+        card=2049, text_card=32000, text_card_out=32001, n_q=16,
+        cross_attention=True, cross_attention_gating="normal",
+        cross_attention_norm="layer_norm",
+        delays=_acoustic_delays(16, 16, 2), **_depformer_kwargs(16))
+
+
+def lm_config_tts_202501() -> LmConfig:
+    """DSM TTS 2025-01 with 32 codebooks (moshi_tpu/models/loaders.py)."""
+    return LmConfig(
+        dim=2048, num_heads=32, num_layers=48, hidden_scale=4.125,
+        context=500, max_period=10_000.0, gating="silu", norm="rms_norm_f32",
+        positional_embedding="rope", layer_scale=None,
+        card=2048, text_card=8000, n_q=32,
+        cross_attention=True, cross_attention_gating="normal",
+        cross_attention_norm="layer_norm",
+        delays=_acoustic_delays(32, 32, 2), **_depformer_kwargs(32))
+
+
+def lm_config_v0_1_vision(num_slices: int = 8, streaming: bool = False) -> LmConfig:
+    """Moshi-7B with gated cross-attention for vision conditioning
+    (moshi_tpu/models/loaders.py): conditional sigmoid gates, an RMS
+    cross-norm, one projection set shared by every layer."""
+    n_q = 16 if streaming else 8
+    return LmConfig(
+        dim=4096, num_heads=32, num_layers=32, hidden_scale=4.125,
+        context=3000, max_period=10_000.0, gating="silu", norm="rms_norm_f32",
+        positional_embedding="rope", layer_scale=None,
+        card=2048, text_card=32000, n_q=n_q,
+        cross_attention=True, cross_attention_gating="conditional_gated_sigmoid",
+        cross_attention_norm="rms_norm_f32", shared_cross_attn=True,
+        delays=_acoustic_delays(n_q, num_slices, 1), **_depformer_kwargs(num_slices))
+
+
 def embed(table_params: dict, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
     """ScaledEmbedding lookup: ZERO_TOKEN embeds to exactly zero, and every
     other id is clamped into the table.  Clients can send any id; an
@@ -171,7 +251,7 @@ class LMModel:
             "transformer": self.transformer.init_params(generator, dtype, device),
             "out_norm": {k: v.float() for k, v in
                          self._out_norm.init_params(dtype, device).items()},
-            "text_linear": {"weight": trunc((c.dim, c.text_card), c.dim)},
+            "text_linear": {"weight": trunc((c.dim, c.text_out_card), c.dim)},
         }
         if c.extra_heads_num_heads:
             p["extra_heads"] = {"weight": trunc(
@@ -227,24 +307,35 @@ class LMModel:
     def depformer_step(self, params: dict, generator: torch.Generator | None,
                        text_token: torch.Tensor, h: torch.Tensor, *,
                        use_sampling: bool = True, temp: float = 0.8,
-                       top_k: int = 250) -> torch.Tensor:
+                       top_k: int = 250, cfg_coef: float = 1.0) -> torch.Tensor:
         """Sample the dep_q audio codebooks of one frame: text_token [B], h
-        [B, 1, dim] -> [B, dep_q].  A fresh depformer state each frame, the
-        per-step weights of step k, and depformer_in[k] applied to h per
-        codebook (an int8 GEMV each, instead of dequantizing the whole
-        stack as the JAX package does)."""
+        [B_model, 1, dim] -> [B, dep_q].  A fresh depformer state each
+        frame, the per-step weights of step k, and depformer_in[k] applied
+        to h per codebook (an int8 GEMV each, instead of dequantizing the
+        whole stack as the JAX package does).  With cfg_coef != 1, h holds
+        the conditioned rows then the unconditioned ones (B_model = 2B):
+        both run, each step's previous-token embedding is shared by the
+        pair, and the logits combine as uncond + (cond - uncond) *
+        cfg_coef."""
         c = self.config
-        B = text_token.shape[0]
+        B, B_model = text_token.shape[0], h.shape[0]
+        if B_model != (2 * B if cfg_coef != 1.0 else B):
+            raise ValueError(f"h has {B_model} rows for {B} tokens at cfg_coef {cfg_coef}")
         win = params["depformer_in"]["weight"]
         demb = params["depformer_emb"]["weight"]
-        dep_state = self.depformer.init_state(B, dtype=h.dtype, device=h.device)
+        dep_state = self.depformer.init_state(B_model, dtype=h.dtype, device=h.device)
         prev = embed(params["depformer_text_emb"], text_token, h.dtype)
         tokens = []
         for k in range(c.dep_q):
+            if cfg_coef != 1.0:
+                prev = prev.repeat(2, 1)
             x = (wdot(h[:, 0], win[k]) + prev)[:, None]
             y, dep_state = self.depformer.step(params["depformer"], dep_state, x,
                                                steps=(k,))
             logits = wdot(y[:, 0], params["linears"]["weight"][k])
+            if cfg_coef != 1.0:
+                cond, uncond = logits.chunk(2, dim=0)
+                logits = uncond + (cond - uncond) * cfg_coef
             token = sample_token(generator, logits, use_sampling=use_sampling,
                                  temp=temp, top_k=top_k)
             tokens.append(token)

@@ -26,10 +26,19 @@ int4 KV paths of batched serving.
   current row is read back quantized (moshi_tpu transformer.py:670-746,
   where XLA's `_attention` puts the scales on scores and weights).
 
+Cross-attention (the TTS and vision presets, moshi_tpu
+transformer.py:375-423 and :525-535): `precompute_cross` projects a
+conditioning source once into per-layer K/V [L, B, Ts, H, D] (or one
+shared [B, Ts, H, D]); a step attends them after self-attention whenever
+the state holds `k_cross`, with no mask, through norm_cross, q_proj,
+out_proj, the gate (`_apply_xa_gate`, the six gatings of the reference
+zoo) and layer_scale_cross.  It is plain torch in the JAX package's dtypes
+(XLA there, no Pallas kernel); q_proj and out_proj go through `wdot`.
+
 Not ported yet: T > 1 steps over the quantized caches (the prefill path,
-which LMGen and the ASR engine never take), `attention_int8_qk` (an
-XLA-only option), cross-attention, sinusoidal position embeddings and the
-offline `apply`.
+which LMGen, the ASR and the TTS engines never take), `attention_int8_qk`
+(an XLA-only option), sinusoidal position embeddings and the offline
+`apply`.
 """
 
 import math
@@ -46,7 +55,7 @@ from ..ops.int4_attention import (_pack_nibble_cols, _quant_rows_int4,  # noqa: 
                                   decode_attention_int4_write)
 from ..utils.matmul import wdot
 from ..utils.params import trunc_normal
-from ..utils.quantize import divide
+from ..utils.quantize import QTensor, QTensor4, dequantize, dequantize4, divide
 
 
 def gating_hidden_dim(dim: int, dim_feedforward: int) -> int:
@@ -94,6 +103,16 @@ def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
+def dense(w, dtype) -> torch.Tensor:
+    """A weight as a dense tensor in `dtype`: a QTensor or QTensor4
+    dequantized (the JAX package's `w.astype(dtype)`), a tensor cast."""
+    if isinstance(w, QTensor):
+        return dequantize(w.q, w.scale, dtype)
+    if isinstance(w, QTensor4):
+        return dequantize4(w.q, w.scale, dtype)
+    return w.to(dtype)
+
+
 def layer_view(tree, layer: int):
     """The parameters of one layer: every leaf of a stacked tree indexed at
     `layer` (views, no copies)."""
@@ -118,6 +137,13 @@ class TransformerConfig:
     weights_per_step: int = 0
     kv_cache_dtype: str = "model"  # model | int8 | int4
     attention_int8_qk: bool = False  # int8 x int8 scores on XLA; not ported
+    cross_attention: bool = False
+    # normal | constant_gated_{tanh,sigmoid} |
+    # conditional_gated_{tanh,sigmoid}[_learnable_bias]
+    cross_attention_gating: str = "normal"
+    cross_attention_norm: str = "layer_norm"
+    cross_attention_kv_dim: int | None = None  # the source's width (None: d_model)
+    shared_cross_attn: bool = False  # one projection set for every layer
 
     @property
     def head_dim(self) -> int:
@@ -143,6 +169,21 @@ class TransformerConfig:
     def hidden(self) -> int:
         return gating_hidden_dim(self.d_model, self.dim_feedforward)
 
+    @property
+    def xa_kv_dim(self) -> int:
+        return self.cross_attention_kv_dim or self.d_model
+
+    @property
+    def xa_gate_hidden(self) -> int:
+        """Hidden width of the conditional gate's MLP."""
+        return int(0.125 * self.d_model)
+
+
+XA_GATINGS = ("normal", "constant_gated_tanh", "constant_gated_sigmoid",
+              "conditional_gated_tanh", "conditional_gated_sigmoid",
+              "conditional_gated_tanh_learnable_bias",
+              "conditional_gated_sigmoid_learnable_bias")
+
 
 class StreamingTransformer:
     """Functional transformer; params and state are explicit trees."""
@@ -161,17 +202,22 @@ class StreamingTransformer:
                                       "XLA-only option of the JAX package) is not ported")
         if c.kv_cache_dtype not in ("model", "int8", "int4"):
             raise ValueError(f"kv_cache_dtype {c.kv_cache_dtype!r}")
+        if c.cross_attention_gating not in XA_GATINGS:
+            raise ValueError(f"cross_attention_gating {c.cross_attention_gating!r}")
         self.config = c
         self.rope = c.positional_embedding != "none"
         self.rope_interleave = c.positional_embedding != "rope_concat"
         self._norm1 = make_norm(c.norm, c.d_model)
         self._norm2 = make_norm(c.norm, c.d_model)
+        self._norm_cross = make_norm(c.cross_attention_norm, c.d_model)
         self._ls = LayerScale(c.d_model, c.layer_scale) if c.layer_scale is not None else None
 
     # ------------------------------------------------------------------ params
     def init_params(self, generator: torch.Generator, dtype=torch.bfloat16,
                     device=None) -> dict:
-        """{"layers": every layer's parameters stacked on a leading [L] axis}."""
+        """{"layers": every layer's parameters stacked on a leading [L] axis},
+        and with shared_cross_attn a "cross_attn_shared" projection set
+        beside them."""
         c = self.config
         L, W, d = c.num_layers, c.num_weights, c.d_model
         qkv_out = d + 2 * c.head_dim * c.num_kv_heads
@@ -200,7 +246,39 @@ class StreamingTransformer:
             for name in ("layer_scale_1", "layer_scale_2"):
                 p[name] = {"scale": torch.full((L, d), c.layer_scale, dtype=dtype,
                                                device=device)}
-        return {"layers": p}
+        out = {"layers": p}
+        if c.cross_attention:
+            if c.shared_cross_attn:
+                out["cross_attn_shared"] = self._init_xa_proj(trunc, ())
+            else:
+                p["cross_attn"] = self._init_xa_proj(trunc, (L,))
+            gate = self._init_xa_gate(trunc, (L,), dtype, device)
+            if gate is not None:
+                p["cross_attn_gate"] = gate
+            p["norm_cross"] = stack_norm(self._norm_cross)
+            if self._ls is not None:
+                p["layer_scale_cross"] = {"scale": torch.full((L, d), c.layer_scale,
+                                                              dtype=dtype, device=device)}
+        return out
+
+    def _init_xa_proj(self, trunc, lead: tuple) -> dict:
+        d, kv = self.config.d_model, self.config.xa_kv_dim
+        return {"q_proj": trunc(lead + (d, d), d), "kv_proj": trunc(lead + (kv, 2 * d), kv),
+                "out_proj": trunc(lead + (d, d), d)}
+
+    def _init_xa_gate(self, trunc, lead: tuple, dtype, device) -> dict | None:
+        c = self.config
+        g = c.cross_attention_gating
+        if g == "normal":
+            return None
+        if g.startswith("constant_gated"):
+            return {"alpha": torch.zeros(lead + (1, 1, 1), dtype=dtype, device=device)}
+        h = c.xa_gate_hidden
+        p = {"in_proj": trunc(lead + (c.d_model, h), c.d_model),
+             "out_proj": trunc(lead + (h, c.d_model), h)}
+        if g.endswith("learnable_bias"):
+            p["bias"] = torch.zeros(lead + (c.d_model,), dtype=dtype, device=device)
+        return p
 
     # ------------------------------------------------------------------ state
     def init_state(self, batch_size: int, dtype=torch.bfloat16, device=None) -> dict:
@@ -234,11 +312,77 @@ class StreamingTransformer:
         state["v"] = torch.zeros(shape, dtype=dtype, device=device)
         return state
 
+    def precompute_cross(self, params: dict, src: torch.Tensor, dtype=None,
+                         out: dict | None = None) -> dict:
+        """Cross-attention K/V of a conditioning source src [B, Ts, kv_dim]:
+        {"k_cross", "v_cross"} of [L, B, Ts, H, D], or [B, Ts, H, D] with
+        shared_cross_attn.  The product runs in src's dtype on the
+        dequantized kv_proj (moshi_tpu transformer.py:375-397), one layer at
+        a time; the result is stored in `dtype` (default src's), or written
+        in place into the tensors of `out`.  A step casts K/V to its own
+        dtype before attending, so storing them in the model's dtype gives
+        the JAX package's values."""
+        c = self.config
+        B, Ts, _ = src.shape
+        shared = c.shared_cross_attn
+        lead = () if shared else (c.num_layers,)
+        if out is None:
+            shape = lead + (B, Ts, c.num_heads, c.head_dim)
+            dt = src.dtype if dtype is None else dtype
+            out = {name: torch.empty(shape, dtype=dt, device=src.device)
+                   for name in ("k_cross", "v_cross")}
+        if shared:
+            kv_ws = [(params["cross_attn_shared"]["kv_proj"], out["k_cross"], out["v_cross"])]
+        else:
+            w = params["layers"]["cross_attn"]["kv_proj"]
+            kv_ws = [(w[li], out["k_cross"][li], out["v_cross"][li])
+                     for li in range(c.num_layers)]
+        for w, k_out, v_out in kv_ws:
+            kv = torch.matmul(src, dense(w, src.dtype))
+            k, v = kv.chunk(2, dim=-1)
+            k_out.copy_(k.reshape(B, Ts, c.num_heads, c.head_dim))
+            v_out.copy_(v.reshape(B, Ts, c.num_heads, c.head_dim))
+        return out
+
+    def _apply_xa_gate(self, gate: dict | None, x: torch.Tensor) -> torch.Tensor:
+        """The cross-attention block's output gate, after out_proj and before
+        the residual add (moshi_tpu transformer.py:399-423)."""
+        g = self.config.cross_attention_gating
+        if g == "normal" or gate is None:
+            return x
+        if g == "constant_gated_tanh":
+            return x * torch.tanh(gate["alpha"].float()).to(x.dtype)
+        if g == "constant_gated_sigmoid":
+            return x * torch.sigmoid(gate["alpha"].float() - 4.0).to(x.dtype)
+        a = torch.relu(torch.matmul(x, dense(gate["in_proj"], x.dtype)))
+        a = torch.matmul(a, dense(gate["out_proj"], a.dtype))
+        if "bias" in gate:
+            a = a + gate["bias"].to(a.dtype)
+        if "tanh" in g:
+            a = torch.tanh(a)
+        elif g.endswith("learnable_bias"):
+            a = torch.sigmoid(a)
+        else:
+            a = torch.sigmoid(a - 4.0)
+        return x * a
+
+    def _cross(self, params: dict, state: dict):
+        """The step's cross-attention operands: per layer l, (k, v, the
+        projection set) or None when the state holds no K/V."""
+        if "k_cross" not in state:
+            return lambda layer: None
+        shared = params.get("cross_attn_shared")
+        k, v = state["k_cross"], state["v_cross"]
+        if self.config.shared_cross_attn:
+            return lambda layer: (k, v, shared)
+        return lambda layer: (k[layer], v[layer], None)
+
     # ------------------------------------------------------------- layer body
     def _attention(self, q, k, v, mask):
-        """q [B, H, T, D]; k, v [B, S, Hkv, D]; mask [B, 1, T, S] bool.
-        Scores and softmax in f32 as in the JAX package (its scores einsum
-        asks for an f32 result); the products run in q's dtype."""
+        """q [B, H, T, D]; k, v [B, S, Hkv, D]; mask [B, 1, T, S] bool or
+        None (attend every position).  Scores and softmax in f32 as in the
+        JAX package (its scores einsum asks for an f32 result); the
+        products run in q's dtype."""
         c = self.config
         if c.kv_repeat > 1:
             k = k.repeat_interleave(c.kv_repeat, dim=2)
@@ -246,7 +390,8 @@ class StreamingTransformer:
         compute = q.dtype
         scores = torch.einsum("bhtd,bshd->bhts", q, k.to(compute)).float()
         scores = scores * (1.0 / math.sqrt(c.head_dim))
-        scores = scores.masked_fill(~mask, float("-inf"))
+        if mask is not None:
+            scores = scores.masked_fill(~mask, float("-inf"))
         w = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhts,bshd->bthd", w.to(compute), v.to(compute))
         return out.reshape(*out.shape[:2], -1)  # [B, T, H*D]
@@ -301,9 +446,11 @@ class StreamingTransformer:
         out = (acc * a1 + a2 * v_cur.float()) / (lse * a1 + a2 + 1e-30)
         return out.reshape(B, 1, H * D).to(q.dtype)
 
-    def _layer(self, pl, x, attend, offset, widx):
+    def _layer(self, pl, x, attend, offset, widx, cross=None):
         """One layer; attend(q [B, T, H, D], k, v [B, T, Hkv, D]) -> [B, T,
-        H*D] does the KV cache's part."""
+        H*D] does the KV cache's part; cross: (k_cross, v_cross [B, Ts, H,
+        D], the shared projection set or None) adds the cross-attention
+        block."""
         c = self.config
         B, T, d = x.shape
         H, Hkv, Dh = c.num_heads, c.num_kv_heads, c.head_dim
@@ -324,6 +471,17 @@ class StreamingTransformer:
         if "layer_scale_1" in pl:
             attn = pl["layer_scale_1"]["scale"].to(attn.dtype) * attn
         x = x + attn
+
+        if cross is not None:
+            k_cross, v_cross, shared = cross
+            proj = shared if shared is not None else pl["cross_attn"]
+            h = self._norm_cross.apply(pl["norm_cross"], x)
+            qx = wdot(h, proj["q_proj"]).reshape(B, T, H, Dh).transpose(1, 2)
+            ca = self._attention(qx, k_cross.to(x.dtype), v_cross.to(x.dtype), None)
+            ca = self._apply_xa_gate(pl.get("cross_attn_gate"), wdot(ca, proj["out_proj"]))
+            if "layer_scale_cross" in pl:
+                ca = pl["layer_scale_cross"]["scale"].to(ca.dtype) * ca
+            x = x + ca
 
         h = self._norm2.apply(pl["norm2"], x)
         if c.gating == "none":
@@ -371,6 +529,7 @@ class StreamingTransformer:
             mask &= delta < c.context
         mask = mask[:, None]
 
+        cross = self._cross(params, state)
         for layer in range(c.num_layers):
             # int8 KV (moshi_tpu transformer.py:670-746 at T = 1): the same
             # ring mask, the current row written quantized before attending
@@ -380,7 +539,8 @@ class StreamingTransformer:
             else:
                 attend = partial(self._ring_attention, state=state, layer=layer,
                                  write_idx=write_idx, mask=mask)
-            x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx)
+            x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx,
+                            cross(layer))
         offset.copy_(offset_next)
         return x, state
 
@@ -408,9 +568,11 @@ class StreamingTransformer:
         ctx = {"mask": mask, "wp": wp,
                "cur_valid": (torch.ones(B, dtype=torch.bool, device=x.device)
                              if exec_mask is None else exec_mask)}
+        cross = self._cross(params, state)
         for layer in range(c.num_layers):
             attend = partial(self._int4_attention, state=state, layer=layer, ctx=ctx)
-            x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx)
+            x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx,
+                            cross(layer))
         offset.copy_(offset_next)
         return x, state
 

@@ -290,6 +290,40 @@ def test_int8_mma_main_path_shapes(din, dout, B, gen):
     assert _rel(y, simt) <= BOUND[torch.bfloat16]
 
 
+# the TTS heads: dout not a multiple of 4 (32001 text columns, 2049 audio
+# ones), so rows are not 32-bit aligned and the int8_gemv kernel reads bytes
+ODD_DOUT = [(2048, 32001), (1024, 2049), (64, 5), (96, 1), (1000, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("din,dout", ODD_DOUT)
+def test_int8_gemv_odd_dout(din, dout, B, dtype, gen):
+    """Any dout: the entry point routes it to the int8_gemv kernel (not
+    int8_mma), which reads each column once and writes none past dout."""
+    qt = tq.quantize_tensor(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
+    x = torch.randn(B, din, device="cuda", generator=gen).to(dtype)
+    assert not qmatmul.use_mma(B, dtype, din, dout)
+    n, m = qmatmul.int8_gemv.launches, MMA8.launches
+    y = qmatmul.int8_gemv(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert (qmatmul.int8_gemv.launches, MMA8.launches) == (n + 1, m)
+    assert tuple(y.shape) == (B, dout) and bool(torch.isfinite(y).all())
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[dtype]
+
+
+def test_int8_gemv_unaligned_member_view(gen):
+    """Members of a stacked [3, 65, 7] weight start off a 4-byte boundary
+    (65 * 7 bytes apart): each view reads its own member."""
+    qt = tq.quantize_tensor(torch.randn(3, 65, 7, device="cuda", generator=gen))
+    x = torch.randn(16, 65, device="cuda", generator=gen).to(torch.bfloat16)
+    assert qt.q[1].data_ptr() % 4
+    for layer in range(3):
+        y = qmatmul.int8_gemv(x, qt.q[layer], qt.scale[layer])
+        ref = qmatmul.int8_gemv_plain(x, qt.q[layer], qt.scale[layer])
+        assert _rel(y, ref) <= BOUND[torch.bfloat16]
+
+
 def test_int8_mma_rejects_what_the_kernel_does_not_take(gen):
     x, qt = _mma8_case(gen, 4, 256, 128)
     with pytest.raises(TypeError):
@@ -1190,11 +1224,127 @@ def test_graphed_asr_sampling_draws_as_eager(gen):
     assert not np.array_equal(tokens[0], tokens[2])
 
 
+# ---------------------------------------- the TTS frame as CUDA-graph replays
+class _Tok:
+    def encode(self, word):
+        return [7 + len(word) % 13]
+
+
+def _tiny_tts(kv):
+    """A small TTS LM (2 layers, dim 128, 2 heads of 64 as in tts_v0_1,
+    cross-attention, a 129-column text head and 129-entry audio tables, int8
+    weights, `kv` cache over a ring of 12), the small bf16 Mimi of
+    _tiny_moshi, a speaker_wavs tensor condition (cross) and a `cfg` LUT
+    (sum), all from a seed on the card."""
+    from moshi_tpu_torch.conditioners import (ConditionFuser, ConditionProvider,
+                                              LUTConditioner, TensorConditioner)
+    from moshi_tpu_torch.models.lm import LmConfig, LMModel
+    from moshi_tpu_torch.models.tts import StateMachine, TokenIds, TTSModel
+    mimi, mimi_params, _, _ = _tiny_moshi()
+    cfg = LmConfig(dim=128, num_heads=2, num_layers=2, n_q=4, dep_q=4, card=129,
+                   text_card=128, text_card_out=129, context=12, depformer_dim=64,
+                   depformer_num_heads=2, depformer_num_layers=2,
+                   depformer_dim_feedforward=192, gating="none", norm="layer_norm",
+                   hidden_scale=4.0, cross_attention=True, delays=(0, 0, 2, 2, 2),
+                   kv_cache_dtype=kv)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    lm = LMModel(cfg)
+    lm_params = tq.quantize_lm_params(lm.init_params(g, torch.bfloat16, "cuda"), min_size=1)
+    provider = ConditionProvider({
+        "speaker_wavs": TensorConditioner(output_dim=cfg.dim, dim=16),
+        "cfg": LUTConditioner(output_dim=cfg.dim, n_bins=3, dim=8,
+                              possible_values=["1.0", "2.0", "3.0"])})
+    tts = TTSModel(lm, mimi, _Tok(), StateMachine(TokenIds(card=cfg.text_card + 1),
+                                                  max_padding=3, initial_padding=1),
+                   delay_steps=2, condition_provider=provider,
+                   fuser=ConditionFuser({"cross": ["speaker_wavs"], "sum": ["cfg"]}),
+                   max_speakers=2, temp=0.0, n_q=cfg.dep_q, final_padding=2)
+    return tts, lm_params, mimi_params, provider.init_params(g, torch.float32, "cuda")
+
+
+def _tts_engine(models, batch, graphed):
+    from moshi_tpu_torch.serve.batched_tts import BatchedTTSState
+    tts, lm_params, mimi_params, cp = models
+    state = BatchedTTSState(tts, lm_params, mimi_params, batch, condition_params=cp,
+                            voice_frames=5, device="cuda", graphed=graphed)
+    state.warmup()
+    return state
+
+
+def _tts_schedule(batch):
+    """30 ticks: slot 1 alone and voiceless first (the unconditioned mode),
+    slot 0 with voice A starving 3 ticks before its last words, slot 2 with
+    voice B taking voice C at tick 14, slot 0 reset at tick 20, slot 3
+    leaving at tick 22; slots 4.. join at tick 4 with voices of their own."""
+    rs = np.random.RandomState(7)
+    voice = [rs.randn(5, 16).astype(np.float32) for _ in range(batch + 3)]
+    sched = [{} for _ in range(30)]
+    sched[0] = {1: [("join", None), ("words", ["alpha beta gamma delta epsilon zeta"])]}
+    sched[2] = {0: [("join", voice[0]), ("words", ["one two"]),
+                    ("refill", 3, ["three four five six"], True)],
+                3: [("join", voice[3]), ("words", ["over there somewhere far"])]}
+    sched[4] = {s: [("join", voice[s]), ("words", ["words of slot", str(s)])]
+                for s in range(4, batch)}
+    sched[6] = {2: [("join", voice[1]), ("words", ["hello world again"]), "eos"]}
+    sched[14] = {2: [("voice", voice[2])]}
+    sched[20] = {0: [("join", voice[0]), ("words", ["one two three"]), "eos"]}
+    sched[22] = {3: ["leave"]}
+    return sched
+
+
+def _tts_leaves(state):
+    return list(_leaves([state.gen_state_cross, state.dec_state, state.cond_sum]))
+
+
+@pytest.mark.parametrize("kv", ["int4", "int8"])
+@pytest.mark.parametrize("batch", [4, 16])
+def test_graphed_tts_equals_eager(batch, kv, gen):
+    """Greedy, over a voiceless start, joins, a starve, a voice change, a
+    reset and a leave: the graphed engine's output frames, Text events and
+    PCM equal the eager engine's session by session, and every state byte
+    (the cross K/V and the summed condition too) does at the end; no op
+    between frames moves a state tensor; graph 1 is captured once in each
+    mode, graph 2 once, and the captures counted one frame's K4 or K6
+    launches per mode."""
+    from moshi_tpu_torch.serve.batched_tts import serve_tts
+    models = _tiny_tts(kv)
+    schedule = _tts_schedule(batch)
+    attn = i4.decode_attention_int4_stats if kv == "int4" else da8.decode_attention_int8
+    runs = []
+    for graphed in (True, False):
+        state = _tts_engine(models, batch, graphed)
+        ptrs = [t.data_ptr() for t in _tts_leaves(state)]
+        attn.launches = 0
+        sessions, ticks = serve_tts(state, schedule)
+        torch.cuda.synchronize()
+        assert [t.data_ptr() for t in _tts_leaves(state)] == ptrs
+        runs.append((state, sessions, ticks, attn.launches))
+    (g, sg, tg, kg), (e, se, te, ke) = runs
+    layers = models[0].lm.config.num_layers
+    assert len(tg) == len(te) == 30
+    assert g.main[False].replays == 2 and g.main[True].replays == 28
+    assert g.depth.replays == 30
+    assert kg == 2 * layers and ke == 30 * layers
+    pcm = 0
+    for s in range(batch):
+        assert len(sg[s]) == len(se[s]) > 0
+        for a, b in zip(sg[s], se[s]):
+            np.testing.assert_array_equal(a["tokens"], b["tokens"])
+            assert a["events"] == b["events"] and a["eos"] == b["eos"]
+            assert len(a["pcm"]) == len(b["pcm"])
+            for x, y in zip(a["pcm"], b["pcm"]):
+                np.testing.assert_array_equal(x, y)
+            pcm += len(a["pcm"])
+    assert pcm > 0 and sg[2][0]["eos"]
+    for a, b in zip(_tts_leaves(g), _tts_leaves(e)):
+        assert _same_bytes(a, b)
+
+
 def _engine_bytes(leaves):
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
-@pytest.mark.parametrize("engine", ["asr", "server", "batched"])
+@pytest.mark.parametrize("engine", ["asr", "server", "batched", "tts"])
 def test_dropped_engine_frees_its_memory_without_the_cycle_collector(engine, gen):
     """A graphed engine and its GraphedSteps form no reference cycle: with
     the cycle collector off, `del` frees the engine's state on the card."""
@@ -1216,6 +1366,15 @@ def test_dropped_engine_frees_its_memory_without_the_cycle_collector(engine, gen
             for _ in range(2):
                 state.step_frame(np.zeros(state.frame_size, np.float32))
             held = _engine_bytes(_leaves([state.enc_state, state.dec_state, state.gen_state]))
+        elif engine == "tts":
+            state = _tts_engine(_tiny_tts("int4"), 16, True)
+            for s in range(16):
+                state.acquire_slot(s)
+                state.set_slot_voice(s, np.ones((5, 16), np.float32))
+                state.feed_words(s, ["some words"])
+            for _ in range(2):
+                state.tick()
+            held = _engine_bytes(_tts_leaves(state))
         else:
             state = BatchedMoshiState(*_tiny_moshi("int8"), 16, device="cuda", graphed=True)
             state.warmup()

@@ -165,3 +165,104 @@ def test_init_state_keeps_the_delays_tensor():
     gen.init_state(B, None, torch.float32, "cpu")
     gen.init_state(B, None, torch.float32, torch.device("cpu"))
     assert gen._delays(None) is first and gen._delays("cpu") is first
+
+
+# the split API: (LMGenConfig options, cross-attention); heads of 64
+SPLIT_CASES = {
+    "plain": ({}, False),
+    "cfg": (dict(cfg_coef=2.0), True),
+    "cfg_no_text": (dict(cfg_coef=2.0, cfg_is_no_text=True), True),
+    "cfg_masked_until": (dict(cfg_coef=2.0, cfg_is_masked_until=True), False),
+    "rep_penalty": (dict(text_rep_penalty=1.6, text_rep_context=4), True),
+}
+
+
+def _split_models(cross: bool):
+    cfg = tiny_lm_config(dim=128, num_heads=2, depformer_dim=32, cross_attention=cross,
+                         text_card_out=66 if cross else None)
+    jlm = JLM(cfg)
+    params = jax.device_get(jlm.init_params(jax.random.PRNGKey(1), dtype=jnp.float32))
+    return cfg, jlm, params, tlm.LMModel(port_lm_config(cfg)), from_jax(params)
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_main_and_depth_step_match_jax(case):
+    """main_step, then depth_step with the host's rewritten text token,
+    1-D and 2-D audio_zero_mask, forced_audio, a replaced depformer and a
+    frozen slot: greedy text tokens, output frames and the delay cache
+    identical to JAX's, over CFG (with and without cfg_is_no_text, the
+    masked-prefix variant), the repetition penalty, a summed condition and
+    cross-attention K/V (CFG's null rows after the slots')."""
+    opts, cross = SPLIT_CASES[case]
+    cfg, jlm, params, tmodel, tparams = _split_models(cross)
+    jgen = JGen(jlm, JGenConfig(use_sampling=False, **opts))
+    tgen = TGen(tmodel, TGenConfig(use_sampling=False, **opts))
+    assert tgen.model_batch_mult == jgen.model_batch_mult
+    Bm = B * tgen.model_batch_mult
+    rs = np.random.RandomState(5)
+    jstate = jgen.init_state(B, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tstate = tgen.init_state(B, None, torch.float32)
+    cond_sum = rs.randn(Bm, 1, cfg.dim).astype(np.float32)
+    jsum, tsum = jnp.asarray(cond_sum), torch.from_numpy(cond_sum)
+    if cross:
+        src = rs.randn(Bm, 3, cfg.dim).astype(np.float32)
+        jstate = jgen.init_cross_state(jstate, params, jnp.asarray(src))
+        tgen.init_cross_state(tstate, tparams, torch.from_numpy(src))
+    until = np.array([3, 6])
+    jmain, jdepth = jax.jit(jgen.main_step), jax.jit(jgen.depth_step)
+    ones = np.ones(B, bool)
+    for f, toks in enumerate(_inputs(cfg, seed=6)):
+        exec_mask = ones if f % 7 != 4 else np.array([True, False])
+        masked = until if opts.get("cfg_is_masked_until") else None
+        jt, _, jh, jstate = jmain(params, jstate, jnp.asarray(toks, jnp.int32),
+                                  jnp.asarray(exec_mask), jsum,
+                                  None if masked is None else jnp.asarray(masked))
+        tt, _, th = tgen.main_step(tparams, tstate, torch.from_numpy(toks),
+                                   torch.from_numpy(exec_mask), tsum,
+                                   None if masked is None else torch.from_numpy(masked))
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        # the host rewrites the text token, as the TTS state machine does
+        text = (tt.numpy() + f) % cfg.text_card
+        zero = [None, rs.rand(cfg.dep_q) < 0.5, rs.rand(B, cfg.dep_q) < 0.5][f % 3]
+        forced = None
+        if f % 4 == 1:
+            forced = np.full((B, cfg.dep_q), tlm.UNGENERATED_TOKEN)
+            forced[0, 0] = 7
+        replace = np.full((B, cfg.dep_q, 1), 5) if f % 5 == 2 else None
+        j_args = [None if a is None else jnp.asarray(a, jnp.int32 if a.dtype != bool else bool)
+                  for a in (replace, zero, forced)]
+        t_args = [None if a is None else torch.from_numpy(a) for a in (replace, zero, forced)]
+        jo, jstate = jdepth(params, jstate, jnp.asarray(text, jnp.int32), jh,
+                            jnp.asarray(exec_mask), *j_args)
+        to = tgen.depth_step(tparams, tstate, torch.from_numpy(text), th,
+                             torch.from_numpy(exec_mask), *t_args)
+        np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(tstate["cache"].numpy(), np.asarray(jstate["cache"]))
+    if opts.get("text_rep_context"):
+        np.testing.assert_array_equal(tstate["text_history"].numpy(),
+                                      np.asarray(jstate["text_history"]))
+        np.testing.assert_array_equal(tstate["hist_pos"].numpy(), np.asarray(jstate["hist_pos"]))
+        assert (tstate["text_history"].numpy() >= 0).any()
+
+
+@pytest.mark.parametrize("case", ["plain", "cfg", "rep_penalty"])
+def test_step_is_main_then_depth_step(case):
+    """LMGen.step gives what main_step then depth_step (the text token
+    unchanged) give, sampled, from one generator seed."""
+    opts, cross = SPLIT_CASES[case]
+    cfg, _, _, tmodel, tparams = _split_models(False)
+    outs = []
+    for split in (False, True):
+        gen = TGen(tmodel, TGenConfig(use_sampling=True, **opts))
+        state = gen.init_state(B, torch.Generator().manual_seed(3), torch.float32)
+        rows = []
+        for toks in _inputs(cfg, seed=7):
+            toks = torch.from_numpy(toks)
+            if split:
+                text, _, h = gen.main_step(tparams, state, toks)
+                rows.append(gen.depth_step(tparams, state, text, h).numpy())
+            else:
+                rows.append(gen.step(tparams, state, toks)[0].numpy())
+        outs.append(np.stack(rows))
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert (outs[0][cfg.max_delay:] >= 0).all()

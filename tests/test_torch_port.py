@@ -93,3 +93,44 @@ def test_v0_1_configs_match_jax():
     assert port_mimi_config(jm) == tmimi.mimi_v0_1_config(8)
     assert jm.seanet.true_skip and jm.seanet.pad_mode == "constant"
     assert jm.seanet.activation == "elu"
+
+
+def test_tts_and_vision_presets_match_jax():
+    """The TTS and vision presets equal moshi_tpu's (the fields the port
+    takes), and moshi_tpu's use only what the port takes as given."""
+    from moshi_tpu.models import loaders
+    from moshi_tpu_torch.models import lm as tlm
+
+    for name in ("lm_config_tts_v0_1", "lm_config_tts_202501", "lm_config_v0_1_vision"):
+        j = getattr(loaders, name)()
+        assert port_lm_config(j) == getattr(tlm, name)(), name
+        assert j.depformer_multi_linear and j.depformer_weights_per_step
+        assert j.depformer_weights_per_step_schedule is None
+        assert j.depformer_low_rank_embeddings is None and not j.demux_second_text_stream
+    streaming = loaders.lm_config_v0_1_vision(num_slices=16, streaming=True)
+    assert port_lm_config(streaming) == tlm.lm_config_v0_1_vision(16, streaming=True)
+    tts = tlm.lm_config_tts_v0_1()
+    assert (tts.text_out_card, tts.card, tts.transformer_config.head_dim) == (32001, 2049, 64)
+
+
+def test_serving_overrides_match_jax():
+    """override_lm replaces the KV cache dtype and the context as
+    moshi_tpu's does; resolve_mimi_dtype reads the same strings."""
+    import torch
+    from moshi_tpu.models.lm import LMModel as JLM
+    from moshi_tpu.models.loaders import lm_config_tts_v0_1
+    from moshi_tpu.utils import serving as js
+    from moshi_tpu_torch.models.lm import LMModel as TLM
+    from moshi_tpu_torch.utils import serving as ts
+
+    jlm, tlm_ = JLM(lm_config_tts_v0_1()), TLM(port_lm_config(lm_config_tts_v0_1()))
+    assert ts.override_lm(tlm_) is tlm_
+    for kv, ctx in (("int4", 1000), ("int8", None), (None, 250)):
+        j, t = js.override_lm(jlm, kv, ctx), ts.override_lm(tlm_, kv, ctx)
+        assert port_lm_config(j.config) == t.config
+        assert t.transformer.config.kv_capacity == j.transformer.config.kv_capacity
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                     ("bfloat16", torch.bfloat16), (None, torch.float32)):
+        assert ts.resolve_mimi_dtype(name) == dt
+        assert str(js.resolve_mimi_dtype(name)) == str(dt)[6:]
+    assert ts.resolve_mimi_dtype(torch.bfloat16) == torch.bfloat16

@@ -99,3 +99,69 @@ def test_ring_positions_match_jax():
 def test_gating_hidden_dim_matches_jax():
     for d, ff in ((4096, int(4.125 * 4096)), (1024, 4224), (64, 256), (32, 64)):
         assert ttr.gating_hidden_dim(d, ff) == jtr.gating_hidden_dim(d, ff)
+
+
+# cross-attention: (gating, shared projections, KV cache); heads of 64 as
+# in the TTS presets
+XA = dict(d_model=128, num_heads=2, num_layers=2, dim_feedforward=256, context=6,
+          gating="none", norm="layer_norm", positional_embedding="rope",
+          cross_attention=True, cross_attention_kv_dim=24)
+XA_CASES = ([(g, shared, "model") for g in ttr.XA_GATINGS for shared in (False, True)]
+            + [(g, shared, kv) for g in ("normal", "conditional_gated_tanh_learnable_bias")
+               for shared in (False, True) for kv in ("int8", "int4")])
+
+
+@pytest.mark.parametrize("gating,shared,kv", XA_CASES)
+def test_cross_attention_step_matches_jax(gating, shared, kv):
+    """precompute_cross, then steps attending the cross K/V after
+    self-attention, through each gating (its parameters drawn away from
+    their zero init so every gate acts), shared or per-layer projections,
+    over the model, int8 and int4 caches."""
+    cfg = jtr.TransformerConfig(**XA, cross_attention_gating=gating, shared_cross_attn=shared,
+                                kv_cache_dtype=kv)
+    jmodel = jtr.StreamingTransformer(cfg)
+    params = jax.device_get(jmodel.init_params(jax.random.PRNGKey(0), dtype=jnp.float32))
+    rs = np.random.RandomState(2)
+    gate = params["layers"].get("cross_attn_gate", {})
+    for name in ("alpha", "bias"):
+        if name in gate:
+            gate[name] = rs.randn(*gate[name].shape).astype(np.float32)
+    tmodel = ttr.StreamingTransformer(port_config(ttr.TransformerConfig, cfg))
+    tparams = from_jax(params)
+    B, Ts = 2, 5
+    src = rs.randn(B, Ts, 24).astype(np.float32)
+    jcross = jmodel.precompute_cross(params, jnp.asarray(src))
+    tcross = tmodel.precompute_cross(tparams, torch.from_numpy(src))
+    lead = () if shared else (cfg.num_layers,)
+    assert tuple(tcross["k_cross"].shape) == lead + (B, Ts, 2, 64)
+    for name in ("k_cross", "v_cross"):
+        assert max_abs(to_np(tcross[name]), jcross[name]) <= TOL
+    jstate = {**jmodel.init_state(B, jnp.float32), **jcross}
+    tstate = {**tmodel.init_state(B, torch.float32), **tcross}
+    step = jax.jit(jmodel.step)
+    for x in rs.randn(9, B, 1, cfg.d_model).astype(np.float32):
+        yj, jstate = step(params, jstate, jnp.asarray(x))
+        yt, tstate = tmodel.step(tparams, tstate, torch.from_numpy(x))
+        assert max_abs(to_np(yt), yj) <= TOL
+    # the cross block acts: the same step without the cross K/V differs
+    plain = {k: v for k, v in tstate.items() if k not in ("k_cross", "v_cross")}
+    y_plain, _ = tmodel.step(tparams, plain, torch.from_numpy(x))
+    assert max_abs(to_np(y_plain), yj) > 10 * TOL
+
+
+def test_precompute_cross_writes_in_place():
+    """With `out`, precompute_cross writes the given tensors (a captured
+    graph keeps reading them), cast to their dtype."""
+    cfg = jtr.TransformerConfig(**XA)
+    params = jax.device_get(jtr.StreamingTransformer(cfg).init_params(
+        jax.random.PRNGKey(1), dtype=jnp.float32))
+    tmodel = ttr.StreamingTransformer(port_config(ttr.TransformerConfig, cfg))
+    tparams = from_jax(params)
+    src = torch.from_numpy(np.random.RandomState(3).randn(2, 4, 24).astype(np.float32))
+    ref = tmodel.precompute_cross(tparams, src)
+    out = {k: torch.zeros(v.shape, dtype=torch.bfloat16) for k, v in ref.items()}
+    ptrs = {k: v.data_ptr() for k, v in out.items()}
+    got = tmodel.precompute_cross(tparams, src, out=out)
+    assert got is out and {k: v.data_ptr() for k, v in got.items()} == ptrs
+    for k in ref:
+        assert torch.equal(got[k], ref[k].to(torch.bfloat16))
