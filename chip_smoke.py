@@ -39,7 +39,12 @@ Phases, each printing its own line(s):
                heads of 32001 and 2049 columns), the fused
                decode_attention_int4 launch at L = 48, H = 32, D = 64, cap
                1000 with its plan, and decode_attention_int8 at H = 32,
-               cap 1000, D = 64, each checked and timed as above;
+               cap 1000, D = 64, each checked and timed as above; q4_mma
+               above a decoding batch, at M = 32, 64 and 256 rows at the
+               five q4 shapes (checked, timed beside the plain version,
+               torch.matmul on the bf16 weight and the bound, summed over
+               one offline forward's 129 launches), and the f32 route (the
+               q4_gemv kernel in 16-row chunks) at M = 40;
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
                seed on the card; the graphed ServerState: warm-up, then 3
@@ -73,7 +78,20 @@ Phases, each printing its own line(s):
                int8 KV cache (32 decode_attention_int8 per frame), 5 frames
                of every slot graphed and eager, and a profiler pass over 5
                graphed ones;
-  6. asr     - batched speech-to-text at the full width of asr_300m_202501
+  6. offline - the offline halves on the same weights: Mimi v0.1's encode
+               and decode in f32 (the bf16 weights cast up) and in bf16,
+               over B = 4 x 50 frames of seeded PCM and one input 1000
+               samples longer, against encode_step / decode_step from a
+               fresh state (the share of equal codes, the decoded PCM's
+               relative error, each held to OFFLINE_BOUNDS; ms and seconds
+               of audio per second); then Moshi-7B's LMModel.forward over
+               seeded codes [2, 17, 128]: exactly 129 q4_mma launches of
+               256 rows and no other GEMV, finite logits and masks equal
+               to the plain ones, forward_text's text logits against 128
+               forward_text_step over the bf16 ring KV (relative error,
+               greedy argmax agreement), p50 of 5 calls, scored frames per
+               second and a profiler pass (card busy ms, q4_mma's share);
+  7. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
                BatchedAsrState, each frame replays of StreamingASR's two
@@ -95,13 +113,15 @@ Phases, each printing its own line(s):
                slot 0 must say words too; then graphed engines at B = 256,
                512 and 1024, 20 frames of every slot each (p50 / p90, peak
                memory), naming the largest B whose p90 stays under 80 ms;
-  7. tts     - batched text-to-speech at the full width of tts_v0_1 (48
+  8. tts     - batched text-to-speech at the full width of tts_v0_1 (48
                layers of dim 2048, 32 heads x 64, a 16-step depformer;
                int8 weights, int4 KV at context 1000, bf16 Mimi with 16
                codebooks, a seeded speaker_wavs condition over voices of
                125 x 512 fused by cross-attention and a `cfg` LUT condition
                summed in, the JAX benchmark's tokenizer stub and state
-               machine), B = 16 slots of BatchedTTSState, each frame
+               machine): TTSModel.get_prefix on 2 s of seeded PCM, whose
+               audio rows must equal that Mimi's offline encode; then B =
+               16 slots of BatchedTTSState, each frame
                replays of its two graphs (scatter -> temporal step -> text
                sampling; depformer -> commit -> Mimi decode) with the DSM
                machines on the host between them: a greedy isolation run
@@ -178,6 +198,26 @@ Q4_SHAPES = {(4096, 12288): 32, (4096, 4096): 32, (4096, 22528): 32,
              (11264, 4096): 32, (4096, 32000): 1}
 INT8_SHAPES = {(1024, 3072): 48, (1024, 1024): 48, (1024, 5632): 48,
                (2816, 1024): 48, (1024, 2048): 8, (4096, 1024): 8}
+# q4_mma above a decoding batch (the offline forward's M = B * T rows):
+# checked and timed at these row counts at every Q4_SHAPES shape, whose
+# counts are also the launches of one offline forward; the f32 route (the
+# q4_gemv kernel, one launch per 16 rows) checked at F32_ROUTE_ROWS
+OFFLINE_ROWS = (32, 64, 256)
+F32_ROUTE_ROWS = 40
+# the offline phase: Mimi v0.1 over B = 4 x 50 frames (4 s) of seeded PCM
+# plus one input 1000 samples longer (encode pads it to a whole frame), and
+# Moshi-7B's teacher-forced forward over seeded codes [2, 17, 128] (256 rows
+# for each q4 linear)
+OFFLINE_MIMI = {"batch": 4, "frames": 50, "extra": 1000}
+OFFLINE_LM = {"batch": 2, "frames": 128}
+# offline against streaming (PERF.md §6, stated before the first run): the
+# share of equal codes (at least) and max |offline - streaming| / max
+# |streaming| of the decoded PCM (at most), by Mimi's dtype; and
+# ||offline - streaming|| / ||streaming|| of the LM's bf16 text logits (the
+# norm over all 8.2M logits; the max-based error is printed beside it)
+OFFLINE_BOUNDS = {"f32": {"share": 0.999, "pcm": 1e-4},
+                  "bf16": {"share": 0.5, "pcm": 1e-1}, "lm_text_logits": 2e-2}
+TTS_PREFIX_SECONDS = 2   # the PCM of [tts]'s get_prefix call
 # the int4 KV cache of the batched phase: Moshi-7B, context 3000
 KV = {"layers": 32, "heads": 32, "head_dim": 128, "cap": 3000}
 # the tts phase: tts_v0_1 with int8 weights, int4 KV at context 1000, B = 16
@@ -209,7 +249,7 @@ INT8_KV = {"asr": (ASR_SLOTS, 8, 750), "moshi_b16": (SLOTS, 32, 3000),
            "tts": (TTS_SLOTS, TTS_KV["heads"], TTS_CONTEXT)}
 TPU_KERNELS = {
     # q4gemm and q4gemm_stacked: q4_gemv on the CUDA cores (B = 1, f32),
-    # q4_mma on the tensor cores (bf16, B = MMA_MIN_BATCH..16)
+    # q4_mma on the tensor cores (bf16, M >= MMA_MIN_BATCH rows)
     "q4_gemv": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     "q4_mma": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     # qgemv: int8_gemv on the CUDA cores (f32), int8_mma on the tensor cores
@@ -456,6 +496,75 @@ def check_tts_gemvs(dev, g) -> dict:
               f"{f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms")
     free_memory()
     return out
+
+
+def check_offline_q4(dev, g) -> dict:
+    """q4_mma above a decoding batch, at OFFLINE_ROWS rows and every
+    Q4_SHAPES shape: against the plain version in bf16, then (operands cold
+    in L2) its time beside the plain version's, torch.matmul's on the
+    dequantized bf16 weight and the bound, and the sums over one offline
+    forward's launches at each row count.  Then the f32 route (q4_gemv ->
+    the q4_gemv kernel, ceil(M / 16) launches) at F32_ROUTE_ROWS rows
+    against its plain version."""
+    from moshi_tpu_torch.ops import q4matmul
+    from moshi_tpu_torch.utils.quantize import dequantize4, quantize_tensor4
+
+    plain = q4matmul.q4_gemv_plain
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    per_forward = {M: dict.fromkeys(keys, 0.0) for M in OFFLINE_ROWS}
+    by_shape, max_abs, bound_by = {}, 0.0, {M: set() for M in OFFLINE_ROWS}
+    for (din, dout), n in Q4_SHAPES.items():
+        w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
+        qt = quantize_tensor4(w)
+        bytes_w = qt.q.numel() + 4 * qt.scale.numel()
+        copies = [qt] + [quantize_tensor4(w) for _ in range(copies_for_cold_l2(bytes_w) - 1)]
+        del w
+        dense = [dequantize4(qt.q, qt.scale, torch.bfloat16)
+                 for _ in range(copies_for_cold_l2(2 * din * dout))]
+        for M in OFFLINE_ROWS:
+            if not q4matmul.use_mma(M, torch.bfloat16, 32, dout):
+                raise RuntimeError(f"q4 {din}x{dout} at M = {M} would not run q4_mma")
+            x = torch.randn(M, din, device=dev, generator=g).to(torch.bfloat16)
+            max_abs = max(max_abs, _check_against_plain("q4_mma", q4matmul.q4_mma, plain, qt, x))
+            ops = [(x, c.q, c.scale) for c in copies]
+            t = {"ms": time_ms(q4matmul.q4_mma, ops), "plain_ms": time_ms(plain, ops),
+                 "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
+            t["bound_ms"], by = bound(bytes_w + 2 * M * (din + dout), 2 * M * din * dout)
+            t["bound_by"] = by
+            bound_by[M].add(by)
+            gps, splits = q4matmul.mma_plan_splits(din, dout, 32, torch.cuda.get_device_properties(
+                dev).multi_processor_count, M)
+            t["plan"] = {"groups_per_split": gps, "splits": splits}
+            by_shape[f"{din}x{dout} M={M}"] = t
+            for k in keys:
+                per_forward[M][k] += n * t[k]
+            phase("kernels", f"q4_mma {din}x{dout} M={M} bf16 ({splits} splits): kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}); "
+                  f"{2 * M * din * dout / t['ms'] / 1e9:.1f} TFLOP/s")
+        del copies, dense
+    for M in OFFLINE_ROWS:
+        f = per_forward[M]
+        f["bound_by"] = "operations" if bound_by[M] == {"operations"} else "bytes"
+        phase("kernels", f"q4 offline forward ({sum(Q4_SHAPES.values())} launches) M={M}: "
+              f"q4_mma {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, torch.matmul on bf16 "
+              f"{f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms ({f['bound_by']})")
+
+    M, (din, dout) = F32_ROUTE_ROWS, (4096, 4096)
+    qt = quantize_tensor4(torch.randn(din, dout, device=dev, generator=g) / din ** 0.5)
+    x = torch.randn(M, din, device=dev, generator=g)
+    before = (q4matmul.q4_gemv.launches, q4matmul.q4_mma.launches)
+    err = _check_against_plain("q4_gemv", q4matmul.q4_gemv, plain, qt, x)
+    launched = (q4matmul.q4_gemv.launches - before[0], q4matmul.q4_mma.launches - before[1])
+    if launched != (-(-M // q4matmul.MAX_BATCH), 0):
+        raise RuntimeError(f"the f32 route at M = {M} launched (q4_gemv, q4_mma) {launched}")
+    phase("kernels", f"q4 f32 route at M={M}: {launched[0]} q4_gemv kernel launches, "
+          f"max |kernel - plain| {err:.3e}")
+    free_memory()
+    return {"per_forward": per_forward, "by_shape": by_shape, "max_abs_err": max_abs,
+            "launches_per_forward": sum(Q4_SHAPES.values()),
+            "f32_route": {"rows": M, "shape": f"{din}x{dout}", "q4_gemv_launches": launched[0],
+                          "max_abs_err": err}}
 
 
 def launch_floor_ms(dev, g) -> dict:
@@ -1306,6 +1415,210 @@ def run_batched(dev, card: str, lm_params, mimi, mimi_params) -> dict:
             "sampled": g, "sampled_eager": e, "greedy": greedy, "int8_greedy": int8}
 
 
+# ---------------------------------------------------------------- offline
+def cast_tree(tree, dtype):
+    """A copy of a param tree with every floating tensor in `dtype`."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(v, dtype) for v in tree)
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def timed(fn, reps: int = 3):
+    """(result, p50 host ms) of reps calls of fn after one warm-up call,
+    each ending in a synchronize."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.percentile(ms, 50))
+
+
+def stream_encode(mimi, params, pcm, dtype):
+    """Codes of pcm [B, 1, n * frame_size] by encode_step, one frame at a
+    time from a fresh state."""
+    state = mimi.init_encode_state(pcm.shape[0], dtype, pcm.device)
+    fs = mimi.frame_size
+    return torch.cat([mimi.encode_step(params, state, pcm[..., f * fs:(f + 1) * fs])[0]
+                      for f in range(pcm.shape[-1] // fs)], dim=-1)
+
+
+def stream_decode(mimi, params, codes, dtype):
+    state = mimi.init_decode_state(codes.shape[0], dtype, codes.device)
+    return torch.cat([mimi.decode_step(params, state, codes[..., f:f + 1])[0]
+                      for f in range(codes.shape[-1])], dim=-1)
+
+
+def offline_mimi(dev, card: str, mimi, params, dtype) -> dict:
+    """Mimi's offline encode and decode in `dtype` against encode_step /
+    decode_step over the same input from a fresh state: the share of equal
+    codes (with the first difference's frame and codebook) and the relative
+    error of the decoded PCM, each held to OFFLINE_BOUNDS; the offline
+    calls' ms and seconds of audio per second."""
+    name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    B, n, extra = OFFLINE_MIMI["batch"], OFFLINE_MIMI["frames"], OFFLINE_MIMI["extra"]
+    fs = mimi.frame_size
+    rs = np.random.RandomState(SEED + 20)
+    pcm = torch.from_numpy((0.1 * rs.randn(B, 1, n * fs)).astype(np.float32)).to(dev, dtype)
+    longer = torch.from_numpy((0.1 * rs.randn(1, 1, n * fs + extra)).astype(np.float32)).to(
+        dev, dtype)
+    codes, enc_ms = timed(lambda: mimi.encode(params, pcm))
+    codes_long = mimi.encode(params, longer)
+    n_long = -(-longer.shape[-1] // fs)
+    if codes.shape != (B, mimi.num_codebooks, n) or codes_long.shape[-1] != n_long:
+        raise RuntimeError(f"offline {name}: codes {tuple(codes.shape)}, "
+                           f"{tuple(codes_long.shape)}")
+    ref = stream_encode(mimi, params, pcm, dtype)
+    ref_long = stream_encode(mimi, params, torch.nn.functional.pad(
+        longer, (0, n_long * fs - longer.shape[-1])), dtype)
+    equal = torch.cat([(codes == ref).flatten(), (codes_long == ref_long).flatten()])
+    share = equal.float().mean().item()
+    first = None
+    if share < 1.0:
+        diff = (codes != ref).nonzero()
+        diff = diff if len(diff) else (codes_long != ref_long).nonzero()
+        b, k, f = diff[diff[:, 2].argmin()].tolist()
+        first = {"slot": b, "codebook": k, "frame": f}
+    pcm_off, dec_ms = timed(lambda: mimi.decode(params, codes))
+    pcm_ref = stream_decode(mimi, params, codes, dtype)
+    if pcm_off.shape != pcm_ref.shape or not bool(torch.isfinite(pcm_off).all()):
+        raise RuntimeError(f"offline {name}: decode gave {tuple(pcm_off.shape)} or non-finite PCM")
+    err = rel_err(pcm_off, pcm_ref)
+    bounds = OFFLINE_BOUNDS[name]
+    seconds = B * n * fs / mimi.config.sample_rate
+    ok = share >= bounds["share"] and err <= bounds["pcm"]
+    phase("offline", f"Mimi v0.1 {name}, B = {B} x {n} frames ({seconds / B:.1f} s each) and "
+          f"one input {extra} samples longer: encode {enc_ms:.2f} ms "
+          f"({seconds / enc_ms * 1e3:.1f} s of audio per s), decode {dec_ms:.2f} ms "
+          f"({seconds / dec_ms * 1e3:.1f} s/s); codes equal to encode_step's: share "
+          f"{share:.6f} (bound >= {bounds['share']}; first difference {first}); decode against "
+          f"decode_step: rel err {err:.3e} (bound {bounds['pcm']:.0e}) "
+          f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise RuntimeError(f"offline Mimi {name} disagrees with its streaming path")
+    return {"encode_ms": enc_ms, "decode_ms": dec_ms, "audio_s": seconds,
+            "encode_audio_s_per_s": seconds / enc_ms * 1e3,
+            "decode_audio_s_per_s": seconds / dec_ms * 1e3, "codes_equal_share": share,
+            "first_difference": first, "pcm_rel_err": err}
+
+
+class RowsSeen:
+    """Records the rows of x of every q4_mma launch while it is entered (the
+    wrapper's counter counts launches only): the wrapper plans each launch
+    with one call of q4matmul.mma_plan_splits, whose last argument is M."""
+
+    def __enter__(self):
+        from moshi_tpu_torch.ops import q4matmul
+
+        self.rows, self._orig = [], q4matmul.mma_plan_splits
+
+        def spy(din, dout, group_size, num_sms, batch):
+            self.rows.append(batch)
+            return self._orig(din, dout, group_size, num_sms, batch)
+        q4matmul.mma_plan_splits = spy
+        return self
+
+    def __exit__(self, *exc):
+        from moshi_tpu_torch.ops import q4matmul
+
+        q4matmul.mma_plan_splits = self._orig
+
+
+def offline_lm(dev, card: str, lm, lm_params) -> dict:
+    """Moshi-7B's teacher-forced forward (LMModel.forward, q4 temporal
+    linears and text head, int8 depformer, bf16) over seeded codes
+    [OFFLINE_LM batch, 17, frames]: exact launches (one q4_mma of B * T rows
+    per q4 linear, no other GEMV), finite logits where the masks say and
+    masks equal to the plain ones on the CPU; forward_text's text logits
+    against forward_text_step over the bf16 ring KV cache one frame at a
+    time; p50 of 5 calls and a profiler pass."""
+    from moshi_tpu_torch.models.lm import undelay_logits
+
+    cfg = lm.config
+    B, T = OFFLINE_LM["batch"], OFFLINE_LM["frames"]
+    rs = np.random.RandomState(SEED + 21)
+    codes = rs.randint(0, cfg.card, (B, cfg.num_codebooks, T))
+    codes[:, 0] = rs.randint(0, cfg.text_card, (B, T))
+    codes = torch.from_numpy(codes).to(dev)
+    expected = dict.fromkeys(counters(), 0)
+    expected["q4_mma"] = sum(Q4_SHAPES.values())
+
+    zero_counts()
+    with RowsSeen() as seen:
+        out = lm.forward(lm_params, codes)
+    launches = read_counts()
+    if launches != expected or seen.rows != [B * T] * expected["q4_mma"]:
+        raise RuntimeError(f"offline forward: launches {launches} (expected {expected}), "
+                           f"q4_mma rows {sorted(set(seen.rows))}")
+    audio = slice(cfg.audio_offset, cfg.audio_offset + cfg.dep_q)
+    cpu = codes.cpu()
+    _, mask = undelay_logits(cfg.delays[audio], torch.zeros(B, cfg.dep_q, T, 1))
+    _, text_mask = undelay_logits(cfg.delays[:1], torch.zeros(B, 1, T, 1))
+    mask &= cpu[:, audio] != -1
+    text_mask &= cpu[:, :1] != -1
+    if not (torch.equal(out["mask"].cpu(), mask) and torch.equal(out["text_mask"].cpu(), text_mask)):
+        raise RuntimeError("offline forward: masks differ from the plain ones")
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if (shapes["logits"] != (B, cfg.dep_q, T, cfg.card)
+            or shapes["text_logits"] != (B, 1, T, cfg.text_out_card)
+            or not bool(torch.isfinite(out["logits"][out["mask"]]).all())
+            or not bool(torch.isfinite(out["text_logits"][out["text_mask"]]).all())
+            or not bool(torch.isnan(out["logits"][~out["mask"]]).all())):
+        raise RuntimeError(f"offline forward: outputs {shapes} not finite where the masks say")
+    del out
+    _, fwd_ms = timed(lambda: lm.forward(lm_params, codes), reps=5)
+    prof = profile_frames(lambda i: (lm.forward(lm_params, codes), torch.cuda.synchronize()), 1)
+    q4_ms = prof["kernel_ms_per_frame"].get("q4_mma", 0.0)
+
+    # streaming == offline: the text logits of forward_text against T single
+    # steps of forward_text_step over the bf16 ring KV cache
+    _, text_off = lm.forward_text(lm_params, codes)
+    state = lm.transformer.init_state(B, torch.bfloat16, dev)
+    text_step = torch.cat([lm.forward_text_step(lm_params, state, codes[:, :, t:t + 1])[1]
+                           for t in range(T)], dim=2)
+    diff = text_off.float() - text_step.float()
+    err = (diff.norm() / text_step.float().norm()).item()
+    err_max = rel_err(text_off, text_step)
+    argmax = (text_off.argmax(-1) == text_step.argmax(-1)).float().mean().item()
+    bound_ = OFFLINE_BOUNDS["lm_text_logits"]
+    ok = err <= bound_ and bool(torch.isfinite(text_off).all())
+    phase("offline", f"Moshi-7B q4 LMModel.forward over codes [{B}, {cfg.num_codebooks}, {T}]: "
+          f"launches {launches} (every q4_mma of {B * T} rows); masks equal the plain ones; "
+          f"p50 {fwd_ms:.2f} ms of 5, {B * T / fwd_ms * 1e3:.0f} scored frames/s; profiler: "
+          f"card busy {prof['busy_ms_per_frame']:.2f} ms, q4_mma {q4_ms:.2f} ms of it "
+          f"({q4_ms / prof['busy_ms_per_frame']:.3f}); top {json.dumps(prof['top_device_ms_per_frame'])} "
+          f"({card})")
+    phase("offline", f"forward_text against {T} forward_text_step over the bf16 ring KV: text "
+          f"logits ||diff|| / ||step|| {err:.3e} (bound {bound_:.0e}), max |diff| / max |step| "
+          f"{err_max:.3e}, greedy argmax agreement {argmax:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("offline text logits disagree with the streaming ones")
+    del state
+    free_memory()
+    return {"launches": launches, "q4_mma_rows": B * T, "p50_ms": fwd_ms,
+            "scored_frames_per_s": B * T / fwd_ms * 1e3, "profile": prof,
+            "q4_mma_busy_share": q4_ms / prof["busy_ms_per_frame"],
+            "text_logits_rel_err": err, "text_logits_max_rel_err": err_max,
+            "text_argmax_agreement": argmax}
+
+
+def run_offline(dev, card: str, lm, lm_params, mimi, mimi_params) -> dict:
+    """The offline halves at full width: Mimi v0.1's encode / decode in f32
+    (the bf16 weights cast up) and in bf16, then Moshi-7B's forward."""
+    mimi32 = cast_tree(mimi_params, torch.float32)
+    res = {"mimi_f32": offline_mimi(dev, card, mimi, mimi32, torch.float32)}
+    del mimi32
+    free_memory()
+    res["mimi_bf16"] = offline_mimi(dev, card, mimi, mimi_params, torch.bfloat16)
+    res.update(offline_lm(dev, card, lm, lm_params))
+    return res
+
+
 # -------------------------------------------------------------------- asr
 def build_asr(dev):
     """asr_300m_202501 at full width with the int8 KV cache and bf16
@@ -1717,19 +2030,52 @@ def build_tts(dev):
             "fuser": ConditionFuser({"cross": ["speaker_wavs"], "sum": ["cfg"]})}
 
 
+def tts_model(models, lm, temp: float):
+    """TTSModel over `lm` and the models' Mimi and conditioners, the JAX
+    benchmark's state machine and delays."""
+    from moshi_tpu_torch.models.tts import StateMachine, TokenIds, TTSModel
+
+    c = lm.config
+    return TTSModel(lm, models["mimi"], TtsTokenizer(),
+                    StateMachine(TokenIds(card=c.text_card + 1), max_padding=8,
+                                 initial_padding=2),
+                    delay_steps=TTS_DELAY_STEPS, condition_provider=models["provider"],
+                    fuser=models["fuser"], max_speakers=TTS_MAX_SPEAKERS, temp=temp,
+                    n_q=c.dep_q, max_gen_length=10_000, final_padding=4)
+
+
+def tts_get_prefix(dev, models, card: str) -> dict:
+    """TTSModel.get_prefix on TTS_PREFIX_SECONDS of seeded PCM through the
+    TTS engine's Mimi (bf16, 16 codebooks): its audio rows must equal that
+    Mimi's offline encode of the same PCM, its text row ZERO_TOKEN."""
+    from moshi_tpu_torch.models.lm import ZERO_TOKEN
+
+    mimi, params = models["mimi"], models["mimi_params"]
+    tts = tts_model(models, models["lm"], 0.0)
+    n_q = models["lm"].config.n_q
+    wav = (0.1 * np.random.RandomState(SEED + 22).randn(
+        TTS_PREFIX_SECONDS * mimi.config.sample_rate)).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefix = tts.get_prefix(params, wav)
+    ms = (time.perf_counter() - t0) * 1e3
+    codes = mimi.encode(params, torch.from_numpy(wav).to(dev, torch.bfloat16)[None, None])
+    ref = codes[0, :n_q, :-2].cpu().numpy()
+    if not (prefix.shape == (1 + n_q, ref.shape[1]) and np.array_equal(prefix[1:], ref)
+            and (prefix[0] == ZERO_TOKEN).all()):
+        raise RuntimeError(f"get_prefix {prefix.shape} differs from Mimi's encode {ref.shape}")
+    phase("tts", f"get_prefix of {TTS_PREFIX_SECONDS} s of PCM: {prefix.shape[1]} frames x "
+          f"{n_q} codebooks + the ZERO_TOKEN text row, equal to Mimi's offline encode; "
+          f"{ms:.2f} ms (the first call, from host PCM to host codes) ({card})")
+    return {"ms": ms, "frames": int(prefix.shape[1])}
+
+
 def tts_engine(dev, models, lm, temp: float, graphed: bool):
     """A warmed-up BatchedTTSState at B = TTS_SLOTS over `lm` (the models'
     weights), the JAX benchmark's state machine and delays."""
-    from moshi_tpu_torch.models.tts import StateMachine, TokenIds, TTSModel
     from moshi_tpu_torch.serve.batched_tts import BatchedTTSState
 
-    c = lm.config
-    tts = TTSModel(lm, models["mimi"], TtsTokenizer(),
-                   StateMachine(TokenIds(card=c.text_card + 1), max_padding=8,
-                                initial_padding=2),
-                   delay_steps=TTS_DELAY_STEPS, condition_provider=models["provider"],
-                   fuser=models["fuser"], max_speakers=TTS_MAX_SPEAKERS, temp=temp,
-                   n_q=c.dep_q, max_gen_length=10_000, final_padding=4)
+    tts = tts_model(models, lm, temp)
     state = BatchedTTSState(tts, models["lm_params"], models["mimi_params"], TTS_SLOTS,
                             condition_params=models["cp_params"], voice_frames=TTS_VOICE[0],
                             device=dev, graphed=graphed, rng_seed=SEED)
@@ -2085,6 +2431,7 @@ def run_tts(dev, card: str) -> dict:
     per_frame = {k: per["main"][k] + per["depth"][k] for k in per["main"]}
     if any(per_frame[k] for k in ("q4_gemv", "q4_mma")):
         raise RuntimeError("the tts frame would run a q4 kernel")
+    prefix = tts_get_prefix(dev, models, card)
     greedy_launches, greedy = tts_greedy(dev, models, lm, "greedy")
 
     runs = {}
@@ -2143,7 +2490,8 @@ def run_tts(dev, card: str) -> dict:
                           "tts_int8": {**per_frame, "decode_attention_int4": 0,
                                        "cache_write_int4": 0,
                                        "decode_attention_int8": lm8.config.num_layers}},
-            "sampled": g, "sampled_eager": e, "greedy": greedy, "int8_greedy": int8}
+            "sampled": g, "sampled_eager": e, "greedy": greedy, "int8_greedy": int8,
+            "get_prefix": prefix}
 
 
 def main() -> None:
@@ -2179,12 +2527,15 @@ def main() -> None:
     attn["per_launch"] = {**attn["per_launch"], **write["k4_per_launch"]}
     attn8 = check_attention_int8(dev, g)
     tts_gemvs = check_tts_gemvs(dev, g)
+    offline_q4 = check_offline_q4(dev, g)
     free_memory()
 
     lm, lm_params, mimi, mimi_params = build_models(dev)
     slice_ = run_slice(dev, card, lm, lm_params, mimi, mimi_params)
     free_memory()
     batched = run_batched(dev, card, lm_params, mimi, mimi_params)
+    free_memory()
+    offline = run_offline(dev, card, lm, lm_params, mimi, mimi_params)
     del lm, lm_params, mimi, mimi_params
     free_memory()
     asr = run_asr(dev, card)
@@ -2192,11 +2543,14 @@ def main() -> None:
     tts = run_tts(dev, card)
 
     # the main paths' runs, all graphed: their launches counted at capture
+    # (the offline forward is not graphed: its launches are one eager call's)
     by_path = {"slice_b1": slice_["launches"],
                **{f"batched_{p}": v for p, v in batched["launches"].items()},
+               "offline_forward": offline["launches"],
                "asr": asr["launches"], **tts["launches"]}
     per_frame_by_path = {"batched": batched["per_frame"]["int4"],
-                         "batched_int8": batched["per_frame"]["int8"], "asr": asr["per_frame"],
+                         "batched_int8": batched["per_frame"]["int8"],
+                         "offline_forward": offline["launches"], "asr": asr["per_frame"],
                          **tts["per_frame"]}
     kernels = []
     # ms / plain_ms / library_ms / bound_ms: card time of one frame's
@@ -2215,6 +2569,10 @@ def main() -> None:
                **{key: v for key, v in k.items() if key != "per_frame"}}
         if k["name"] in tts_gemvs:
             row["tts"] = tts_gemvs[k["name"]]
+        if k["name"] == "q4_mma":
+            # the offline forward's launches (M = B * T rows) at each row
+            # count timed, beside the top-level B = 16 frame's
+            row["offline"] = offline_q4
         kernels.append(row)
     tts_per_launch = {"decode_attention_int4": write["tts_k4_per_launch"],
                       "cache_write_int4": write["tts_per_launch"],
@@ -2238,6 +2596,7 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "slice": slice_,
                       "batched": {key: batched[key] for key in ("sampled", "sampled_eager",
                                                                 "greedy", "int8_greedy")},
+                      "offline": {key: v for key, v in offline.items() if key != "launches"},
                       "asr": {key: v for key, v in asr.items()
                               if key not in ("launches", "per_frame")},
                       "tts": {key: v for key, v in tts.items()

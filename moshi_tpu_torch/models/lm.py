@@ -1,8 +1,18 @@
-"""Moshi RQ-Transformer language model, inference half (counterpart of
+"""Moshi RQ-Transformer language model (counterpart of
 moshi_tpu/models/lm.py): token embeddings, the temporal transformer and its
 text head, the extra heads of the speech-to-text models, and the depformer
 that samples the audio codebooks of a frame (none when dep_q = 0, as in
 the ASR presets).
+
+The offline half: `forward_text` runs the temporal transformer's `apply`
+over a whole sequence, and `forward` is the teacher-forced forward of
+training and scoring (moshi_tpu lm.py:319-403): `delay_sequence`, the
+temporal pass, one depformer pass over all B * T frames with per-step
+weights (`forward_depformer_training`), then `undelay_logits` with NaN
+tails and validity masks.  With q4 temporal weights the temporal pass runs
+the q4 kernels at M = B * T rows; depformer_in, the depformer's per-step
+linears and the output heads are gathered, cast einsums there, as in the
+JAX package (no Pallas kernel).
 
 `kv_cache_dtype` ("model", "int8" or "int4") sets the temporal
 transformer's KV cache; the depformer, whose cache lives one frame, keeps
@@ -11,7 +21,8 @@ cross-attention to the temporal transformer (modules/transformer.py), and
 the TTS ones a text head of `text_card_out` columns; CFG runs through the
 depformer on a doubled batch (`depformer_step`'s `cfg_coef`).
 
-Not ported yet: the training forward, low-rank and demuxed embeddings.
+Not ported yet: low-rank and demuxed embeddings (`embed` raises on them,
+and `forward` with it), the backward pass and training.
 """
 
 from dataclasses import dataclass
@@ -19,7 +30,7 @@ from dataclasses import dataclass
 import torch
 
 from ..modules.norm import make_norm
-from ..modules.transformer import StreamingTransformer, TransformerConfig
+from ..modules.transformer import StreamingTransformer, TransformerConfig, dense
 from ..utils.matmul import wdot
 from ..utils.params import trunc_normal
 from ..utils.sampling import sample_token
@@ -231,6 +242,39 @@ def embed(table_params: dict, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
     return y if dtype is None else y.to(dtype)
 
 
+def delay_sequence(delays: tuple[int, ...], tokens: torch.Tensor,
+                   initial: torch.Tensor) -> torch.Tensor:
+    """tokens [B, K, T]: each codebook k rolled right by delays[k], its first
+    delays[k] steps set to initial[:, k] ([B, K])."""
+    if len(delays) != tokens.shape[1]:
+        raise ValueError(f"{len(delays)} delays for {tokens.shape[1]} codebooks")
+    outs = []
+    for k, d in enumerate(delays):
+        line = torch.roll(tokens[:, k], d, dims=1)
+        if d > 0:
+            line[:, :d] = initial[:, k, None]
+        outs.append(line)
+    return torch.stack(outs, dim=1)
+
+
+def undelay_logits(delays: tuple[int, ...], logits: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """logits [B, K, T, card]: each codebook k rolled left by delays[k], its
+    last delays[k] steps NaN; and the validity mask [B, K, T] bool."""
+    B, K, T = logits.shape[:3]
+    if len(delays) != K:
+        raise ValueError(f"{len(delays)} delays for {K} codebooks")
+    mask = torch.ones((B, K, T), dtype=torch.bool, device=logits.device)
+    outs = []
+    for k, d in enumerate(delays):
+        line = torch.roll(logits[:, k], -d, dims=1)
+        if d > 0:
+            line[:, T - d:] = float("nan")
+            mask[:, k, T - d:] = False
+        outs.append(line)
+    return torch.stack(outs, dim=1), mask
+
+
 class LMModel:
     def __init__(self, config: LmConfig):
         self.config = config
@@ -279,6 +323,70 @@ class LMModel:
     def _text_head(self, params: dict, h: torch.Tensor):
         h = self._out_norm.apply(params["out_norm"], h)
         return h, wdot(h, params["text_linear"]["weight"])
+
+    def forward_text(self, params: dict, sequence: torch.Tensor,
+                     sum_condition: torch.Tensor | None = None,
+                     cross_src: torch.Tensor | None = None):
+        """Offline temporal forward: sequence [B, K, T] -> (h [B, T, dim],
+        text_logits [B, 1, T, text_out_card]); sum_condition is added to the
+        input embeddings, cross_src [B, Ts, kv_dim] is the cross-attention
+        source."""
+        x = self.embed_inputs(params, sequence)
+        if sum_condition is not None:
+            x = x + sum_condition.to(x.dtype)
+        h = self.transformer.apply(params["transformer"], x, cross_src=cross_src)
+        h, text_logits = self._text_head(params, h)
+        return h, text_logits[:, None]
+
+    def forward(self, params: dict, codes: torch.Tensor,
+                sum_condition: torch.Tensor | None = None,
+                cross_src: torch.Tensor | None = None) -> dict:
+        """Teacher-forced forward of codes [B, K = 1 + n_q, T] (the text
+        stream first): {"logits" [B, dep_q, T, card], "mask" [B, dep_q, T],
+        "text_logits" [B, 1, T, text_out_card], "text_mask" [B, 1, T]}, all
+        aligned with the input codes; a mask is False where the delays
+        leave no prediction or the code is ZERO_TOKEN."""
+        c = self.config
+        B, K, T = codes.shape
+        if K != c.num_codebooks:
+            raise ValueError(f"{K} codebooks, the model has {c.num_codebooks}")
+        initial = self._initial_token(B, codes.device)
+        delayed = delay_sequence(c.delays, codes, initial)
+        delayed = torch.cat([initial[:, :, None], delayed], dim=2)
+        h, text_logits = self.forward_text(params, delayed[:, :, :-1], sum_condition,
+                                           cross_src)
+        logits = self.forward_depformer_training(params, delayed[:, :, 1:], h)
+        audio = slice(c.audio_offset, c.audio_offset + c.dep_q)
+        logits, mask = undelay_logits(c.delays[audio], logits)
+        mask &= codes[:, audio] != ZERO_TOKEN
+        text_logits, text_mask = undelay_logits(c.delays[:1], text_logits)
+        text_mask &= codes[:, :1] != ZERO_TOKEN
+        return {"logits": logits, "mask": mask,
+                "text_logits": text_logits, "text_mask": text_mask}
+
+    def forward_depformer_training(self, params: dict, delayed: torch.Tensor,
+                                   h: torch.Tensor) -> torch.Tensor:
+        """One depformer pass over all B * T frames: delayed [B, K, T] the
+        shifted target tokens, h [B, T, dim] the temporal output ->
+        logits [B, dep_q, T, card].  Each frame is a sequence of dep_q
+        positions with the per-step weights of steps 0..dep_q-1."""
+        c = self.config
+        B, _, T = delayed.shape
+        dd = c.depformer_dim
+        win = dense(params["depformer_in"]["weight"], h.dtype)       # [dep_q, dim, dd]
+        tr_in = torch.einsum("btd,kde->bkte", h, win)                 # [B, dep_q, T, dd]
+        demb = params["depformer_emb"]
+        tok_in = [embed(params["depformer_text_emb"], delayed[:, 0], tr_in.dtype)]
+        for k in range(1, c.dep_q):
+            table = {name: w[k - 1] for name, w in demb.items()}
+            tok_in.append(embed(table, delayed[:, k + c.audio_offset - 1], tr_in.dtype))
+        dep_input = (tr_in + torch.stack(tok_in, dim=1)).transpose(1, 2).reshape(
+            B * T, c.dep_q, dd)
+        dep_out = self.depformer.apply(params["depformer"], dep_input,
+                                       steps=range(c.dep_q))
+        wlin = dense(params["linears"]["weight"], dep_out.dtype)    # [dep_q, dd, card]
+        logits = torch.einsum("nkd,kdc->nkc", dep_out, wlin)
+        return logits.reshape(B, T, c.dep_q, c.card).transpose(1, 2)
 
     def forward_text_step(self, params: dict, tr_state: dict, sequence: torch.Tensor,
                           sum_condition: torch.Tensor | None = None,

@@ -1,9 +1,12 @@
 """Mimi: streaming neural audio codec, 24 kHz mono <-> 12.5 Hz RVQ tokens
-(counterpart of moshi_tpu/models/mimi.py, streaming path).
+(counterpart of moshi_tpu/models/mimi.py).
 
 Public shapes are the JAX package's: audio [B, C, T], codes [B, K, T].
-Streaming state is one tree of preallocated tensors that `encode_step` and
-`decode_step` update in place.  The encoder and decoder transformers run at
+The offline path (`encode`, `decode`, `decode_latent`, `encode_to_latent`)
+runs each module's `apply` over the whole input, which equals streaming it
+from a fresh state; `encode` right-pads the audio with zeros to a whole
+frame.  Streaming state is one tree of preallocated tensors that
+`encode_step` and `decode_step` update in place.  The encoder and decoder transformers run at
 the SEANet width, so the JAX package's ProjectedTransformer projections are
 identities here (its `output_projs` entries are empty) and are not ported.
 """
@@ -122,6 +125,46 @@ class MimiModel:
             "upsample": self.upsample.init_state(batch_size, dtype, device),
         }
 
+    # ---------------------------------------------------------------- offline
+    def _latent(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Audio [B, C, T] -> the 12.5 Hz latent [B, T_frames, dim] before
+        quantization, T zero-padded on the right to a whole frame."""
+        pad = -x.shape[-1] % self.frame_size
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        emb = self.encoder.apply(params["encoder"], x.transpose(1, 2))
+        emb = self.encoder_transformer.apply(params["encoder_transformer"], emb)
+        return self.downsample.apply(params["downsample"], emb)
+
+    def encode(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Audio [B, C, T] -> codes [B, K, ceil(T / frame_size)]."""
+        return self.quantizer.encode(params["quantizer"], self._latent(params, x))
+
+    def decode(self, params: dict, codes: torch.Tensor) -> torch.Tensor:
+        """Codes [B, K, T_frames] -> audio [B, C, T_frames * frame_size]."""
+        emb = self.quantizer.decode(params["quantizer"], codes)
+        emb = self.upsample.apply(params["upsample"], emb)
+        emb = self.decoder_transformer.apply(params["decoder_transformer"], emb)
+        return self.decoder.apply(params["decoder"], emb).transpose(1, 2)
+
+    def decode_latent(self, params: dict, codes: torch.Tensor) -> torch.Tensor:
+        """Codes [B, K, T_frames] -> the quantizer's latent [B, T_frames,
+        dim], before the upsample."""
+        return self.quantizer.decode(params["quantizer"], codes)
+
+    def encode_to_latent(self, params: dict, x: torch.Tensor,
+                         quantize: bool = True) -> torch.Tensor:
+        """Audio [B, C, T] -> the 12.5 Hz latent [B, T_frames, dim]: the
+        quantized one (encode, then decode_latent) or, with quantize=False,
+        the encoder's output (moshi_tpu mimi.py:148-167; TTS voice
+        embeddings are made from it)."""
+        emb = self._latent(params, x)
+        if not quantize:
+            return emb
+        q = params["quantizer"]
+        return self.quantizer.decode(q, self.quantizer.encode(q, emb))
+
+    # --------------------------------------------------------------- streaming
     def encode_step(self, params: dict, state: dict, x: torch.Tensor,
                     exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
         """x [B, C, n * frame_size] -> (codes [B, K, n], state).  exec_mask

@@ -8,13 +8,14 @@ the next entry.  The audio codebooks follow `delay_steps` frames behind the
 text.  A frame is `LMGen.main_step` (temporal step, text sampling), the
 machine, then `LMGen.depth_step` (depformer, audio forcing as tensors, the
 commit).  Voices condition the LM through cross-attention over speaker
-embeddings (`make_condition_attributes`), or through an audio prefix given
-as codes (`generate`'s `prefixes`); CFG's null condition drops every
+embeddings (`make_condition_attributes`), or through an audio prefix
+(`get_prefix` encodes its PCM with the offline Mimi encoder into the codes
+that `generate`'s `prefixes` take); CFG's null condition drops every
 condition.
 
-Not ported: `get_prefix`, which encodes a prefix's audio with the offline
-Mimi encoder (ROADMAP A.5), and `get_voice_path`, which resolves a voice
-name through the checkpoint loaders (A.11); both raise.
+Not ported: `get_voice_path`, which resolves a voice name through the
+checkpoint loaders (A.11), and reading a prefix voice's wav file in
+`simple_generate` (the port has no audio reader); both raise.
 """
 
 import re
@@ -281,8 +282,21 @@ class TTSModel:
         return np.transpose(emb, (0, 2, 1))
 
     def get_prefix(self, mimi_params, wav: np.ndarray) -> np.ndarray:
-        raise NotImplementedError("an audio prefix needs the offline Mimi encoder, which is "
-                                  "not ported (ROADMAP A.5): pass its codes as a prefix")
+        """Codes [1 + n_q, T - 2] of a voice's audio prefix wav [T] (float
+        PCM): the offline Mimi encode on the device and in the dtype of
+        mimi_params, trimmed to the LM's n_q codebooks and the last two
+        frames dropped (moshi_tpu tts.py:308-320).  Rows the codec lacks
+        stay UNGENERATED_TOKEN (sampled, not forced), and a ZERO_TOKEN text
+        row goes on top: generate's `prefixes` take it as it is."""
+        emb = mimi_params["quantizer"]["rvq_first"]["embedding"]
+        x = torch.as_tensor(np.asarray(wav, np.float32)).to(emb.device, emb.dtype)
+        codes = self.mimi.encode(mimi_params, x[None, None])
+        n_q = self.lm.config.n_q
+        avail = codes[0, :n_q, :-2].cpu().numpy()
+        prefix = np.full((n_q, avail.shape[1]), UNGENERATED_TOKEN, np.int64)
+        prefix[:avail.shape[0]] = avail
+        null_text = np.full((1, prefix.shape[1]), ZERO_TOKEN, np.int64)
+        return np.concatenate([null_text, prefix], axis=0)
 
     def conditions(self, attributes, condition_params, use_cfg: bool):
         """(condition_sum [B_model, 1, dim] or None, cross source [B_model,
@@ -426,8 +440,9 @@ class TTSModel:
         """PCM for text(s) in voice(s), which broadcast against each other:
         a single item repeats to match a list, two lists pair up.  A voice is
         an embedding array [1, T, D] or a path to a voice .safetensors file
-        (voice names, resolved by get_voice_path, and audio-prefix voices
-        are not ported).  Returns one
+        (voice names, resolved by get_voice_path, and the wav files of
+        audio-prefix voices are not ported: pass get_prefix's codes to
+        generate).  Returns one
         1-D float32 array per (text, voice) pair."""
         many_texts, many_voices = isinstance(text, list), isinstance(voice, list)
         if many_texts and many_voices:
@@ -449,8 +464,9 @@ class TTSModel:
             # a model without CFG distillation takes the coefficient directly
             self.cfg_coef = cfg_coef
         if not self.multi_speaker:
-            raise NotImplementedError("voices of an audio-prefix model need the offline Mimi "
-                                      "encoder, which is not ported (ROADMAP A.5)")
+            raise NotImplementedError("the voice of an audio-prefix model is a wav file, and "
+                                      "the port has no audio reader: pass get_prefix's "
+                                      "codes to generate")
         embeddings = []
         for v in voices:
             if isinstance(v, str) or hasattr(v, "__fspath__"):

@@ -8,6 +8,11 @@ PyTorch's layout: [Cout, Cin/groups, K] for a convolution and
 `convtr_from_jax` convert the JAX package's [K, Cin/groups, Cout]).  State
 tails are preallocated and updated in place.
 
+`apply` is the offline forward, equal to streaming from a fresh state: a
+convolution is left-padded by its state length (edge values for
+`replicate`, zeros otherwise), a transposed convolution's output is
+trimmed to T * stride on the right (moshi_tpu conv.py:118-124, 184-189).
+
 `exec_mask` [B] bool is the per-slot freeze of batched serving: a slot whose
 entry is False computes an output but keeps its state (moshi_tpu
 conv.py:126-148, 191-207).  The masked updates go through `torch.where`
@@ -79,10 +84,24 @@ class StreamingConv1d:
         return state
 
     def _conv(self, params, x):
-        y = F.conv1d(x.transpose(1, 2), params["weight"].to(x.dtype),
-                     params["bias"].to(x.dtype) if "bias" in params else None,
-                     stride=self.stride, dilation=self.dilation, groups=self.groups)
-        return y.transpose(1, 2)
+        """x [B, T, C] -> [B, T', Cout], no padding."""
+        return self._conv_ct(params, x.transpose(1, 2)).transpose(1, 2)
+
+    def _conv_ct(self, params, xt):
+        return F.conv1d(xt, params["weight"].to(xt.dtype),
+                        params["bias"].to(xt.dtype) if "bias" in params else None,
+                        stride=self.stride, dilation=self.dilation, groups=self.groups)
+
+    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Offline forward of x [B, T, C]: the causal left pad of state_len
+        steps, then the convolution."""
+        xt = x.transpose(1, 2)
+        n = self.state_len
+        if n > 0:
+            pad = (xt[..., :1].expand(-1, -1, n) if self.pad_mode == "replicate"
+                   else xt.new_zeros(xt.shape[0], xt.shape[1], n))
+            xt = torch.cat([pad, xt], dim=-1)
+        return self._conv_ct(params, xt).transpose(1, 2)
 
     def step(self, params: dict, state: dict, x: torch.Tensor,
              exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
@@ -138,6 +157,14 @@ class StreamingConvTranspose1d:
             return {}
         return {"partial": torch.zeros(batch_size, self.state_len, self.out_channels,
                                        dtype=dtype, device=device)}
+
+    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Offline forward of x [B, T, C]: the first T * stride steps of the
+        full transposed convolution."""
+        bias = params["bias"].to(x.dtype) if "bias" in params else None
+        y = F.conv_transpose1d(x.transpose(1, 2), params["weight"].to(x.dtype), bias,
+                               stride=self.stride, groups=self.groups)
+        return y[..., :x.shape[1] * self.stride].transpose(1, 2)
 
     def step(self, params: dict, state: dict, x: torch.Tensor,
              exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:

@@ -54,6 +54,12 @@ class ConvDownsample1d:
         B = batch_size if self.learnt else batch_size * self.dimension
         return self.conv.init_state(B, dtype, device)
 
+    def apply(self, params, x):
+        """Offline forward of x [B, T, C]."""
+        if self.learnt:
+            return self.conv.apply(params, x)
+        return _from_rows(self.conv.apply(params, _to_rows(x)), x.shape[0])
+
     def step(self, params, state, x, exec_mask=None):
         if self.learnt:
             return self.conv.step(params, state, x, exec_mask)
@@ -88,6 +94,15 @@ class ConvTrUpsample1d:
         B = batch_size * self.dimension
         return {"conv": self.convtr.init_state(B, dtype, device),
                 "norm": self.convtr.init_state(B, dtype, device)}
+
+    def apply(self, params, x):
+        """Offline forward of x [B, T, C]; when not learnt, normalized by
+        the offline response to ones."""
+        if self.learnt:
+            return self.convtr.apply(params, x)
+        xr = _to_rows(x)
+        norm = self.convtr.apply(params, torch.ones_like(xr[:1]))
+        return _from_rows(self.convtr.apply(params, xr) / norm, x.shape[0])
 
     def step(self, params, state, x, exec_mask=None):
         if self.learnt:

@@ -44,6 +44,12 @@ class _ResBlock:
     def init_state(self, B, dtype, device):
         return {"block": [c.init_state(B, dtype, device) for c in self.convs]}
 
+    def apply(self, params, x):
+        y = x
+        for c, p in zip(self.convs, params["block"]):
+            y = c.apply(p, F.elu(y))
+        return x + y
+
     def step(self, params, state, x, exec_mask=None):
         y = x
         for c, p, s in zip(self.convs, params["block"], state["block"]):
@@ -73,6 +79,12 @@ class _SEANetBase:
     def init_state(self, batch_size: int, dtype=torch.float32, device=None) -> dict:
         return {"model": [mod.init_state(batch_size, dtype, device)
                           for _, mod, _ in self.items]}
+
+    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Offline forward, equal to streaming from a fresh state."""
+        for (_, mod, pre_act), p in zip(self.items, params["model"]):
+            x = mod.apply(p, F.elu(x) if pre_act else x)
+        return x
 
     def step(self, params: dict, state: dict, x: torch.Tensor,
              exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:

@@ -35,10 +35,18 @@ out_proj, the gate (`_apply_xa_gate`, the six gatings of the reference
 zoo) and layer_scale_cross.  It is plain torch in the JAX package's dtypes
 (XLA there, no Pallas kernel); q_proj and out_proj go through `wdot`.
 
+`apply` is the offline forward over a whole sequence (moshi_tpu
+transformer.py:563-627): position embeddings from offset 0, the causal
+mask with `context` as a sliding window, no cache, and `cross_src`
+projected by `precompute_cross`.  Per-step weights over T > 1 positions
+(the depformer's training pass) gather the T members, cast them to x's
+dtype and contract them with one einsum, as the JAX package does (no
+Pallas kernel there, plain torch here); a single position's member goes
+through `wdot` and so to the GEMV kernels.
+
 Not ported yet: T > 1 steps over the quantized caches (the prefill path,
-which LMGen, the ASR and the TTS engines never take), `attention_int8_qk`
-(an XLA-only option), sinusoidal position embeddings and the offline
-`apply`.
+which LMGen, the ASR and the TTS engines never take) and
+`attention_int8_qk` (an XLA-only option).
 """
 
 import math
@@ -65,15 +73,30 @@ def gating_hidden_dim(dim: int, dim_feedforward: int) -> int:
     return 2 * dim_feedforward // 3
 
 
+def create_sin_embedding(positions: torch.Tensor, dim: int,
+                         max_period: float = 10_000.0) -> torch.Tensor:
+    """Sinusoidal embedding [B, T, dim] in f32 of positions [B, T]."""
+    half = dim // 2
+    positions = positions.float()[..., None]
+    adim = torch.arange(half, dtype=torch.float32, device=positions.device).view(1, 1, -1)
+    phase = positions / (max_period ** (adim / (half - 1)))
+    return torch.cat([torch.cos(phase), torch.sin(phase)], dim=-1)
+
+
 def _per_step_linear(w, x: torch.Tensor, idx) -> torch.Tensor:
     """Apply stacked per-step weights w [W, din, dout] to x [B, T, din];
-    idx: the weight index of each of the T positions (unused when W == 1)."""
+    idx: the weight index of each of the T positions (unused when W == 1).
+    One position: its member through wdot.  Several: the T members
+    gathered and cast to x's dtype, then einsum("btd,tdo->bto")
+    (moshi_tpu transformer.py:57-69)."""
     if w.shape[0] == 1:
         return wdot(x, w[0])
-    if idx is None or len(idx) != 1:
-        raise NotImplementedError("per-step weights over several steps "
-                                  "(the offline path) are not ported")
-    return wdot(x, w[idx[0]])
+    if idx is None or len(idx) != x.shape[1]:
+        raise ValueError(f"per-step weights need one index per position, got {idx}")
+    if len(idx) == 1:
+        return wdot(x, w[idx[0]])
+    wt = dense(w[torch.tensor(idx, device=x.device)], x.dtype)
+    return torch.einsum("btd,tdo->bto", x, wt)
 
 
 def ring_positions(offset: torch.Tensor, T: int, cap: int,
@@ -128,13 +151,15 @@ class TransformerConfig:
     num_layers: int
     dim_feedforward: int = 2048
     context: int | None = None
-    positional_embedding: str = "rope"  # rope | rope_concat | none
+    positional_embedding: str = "rope"  # rope | rope_concat | sin | sin_rope | none
     max_period: float = 10_000.0
     gating: str = "none"  # none (GELU MLP) | silu (gated)
     norm: str = "layer_norm"
     layer_scale: float | None = None
     kv_repeat: int = 1
     weights_per_step: int = 0
+    # step k uses weight set schedule[k] (None: set k)
+    weights_per_step_schedule: tuple[int, ...] | None = None
     kv_cache_dtype: str = "model"  # model | int8 | int4
     attention_int8_qk: bool = False  # int8 x int8 scores on XLA; not ported
     cross_attention: bool = False
@@ -155,7 +180,20 @@ class TransformerConfig:
 
     @property
     def num_weights(self) -> int:
-        return self.weights_per_step or 1
+        if not self.weights_per_step:
+            return 1
+        if self.weights_per_step_schedule is not None:
+            return max(self.weights_per_step_schedule) + 1
+        return self.weights_per_step
+
+    def steps_to_weight_indices(self, steps) -> list[int] | None:
+        """The weight set of each absolute step index, through the
+        schedule; None without per-step weights."""
+        if self.num_weights == 1:
+            return None
+        if self.weights_per_step_schedule is not None:
+            return [self.weights_per_step_schedule[k] for k in steps]
+        return list(steps)
 
     @property
     def kv_capacity(self) -> int:
@@ -190,7 +228,7 @@ class StreamingTransformer:
 
     def __init__(self, config: TransformerConfig):
         c = config
-        if c.positional_embedding not in ("rope", "rope_concat", "none"):
+        if c.positional_embedding not in ("rope", "rope_concat", "sin", "sin_rope", "none"):
             raise NotImplementedError(
                 f"positional embedding {c.positional_embedding!r} is not ported")
         if c.gating not in ("none", "silu"):
@@ -204,8 +242,12 @@ class StreamingTransformer:
             raise ValueError(f"kv_cache_dtype {c.kv_cache_dtype!r}")
         if c.cross_attention_gating not in XA_GATINGS:
             raise ValueError(f"cross_attention_gating {c.cross_attention_gating!r}")
+        sched = c.weights_per_step_schedule
+        if sched is not None and len(sched) != c.weights_per_step:
+            raise ValueError(f"a schedule of {len(sched)} steps for weights_per_step "
+                             f"{c.weights_per_step}")
         self.config = c
-        self.rope = c.positional_embedding != "none"
+        self.rope = c.positional_embedding in ("rope", "rope_concat", "sin_rope")
         self.rope_interleave = c.positional_embedding != "rope_concat"
         self._norm1 = make_norm(c.norm, c.d_model)
         self._norm2 = make_norm(c.norm, c.d_model)
@@ -497,6 +539,45 @@ class StreamingTransformer:
             u = pl["layer_scale_2"]["scale"].to(u.dtype) * u
         return x + u
 
+    # ------------------------------------------------------------------ modes
+    def _pos_embed(self, x: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+        """x plus the sinusoidal embedding of positions offset + t, for the
+        sin embeddings; x itself otherwise."""
+        c = self.config
+        if c.positional_embedding not in ("sin", "sin_rope"):
+            return x
+        positions = offset[:, None] + torch.arange(x.shape[1], device=x.device)[None]
+        return x + create_sin_embedding(positions, x.shape[-1], c.max_period).to(x.dtype)
+
+    def apply(self, params: dict, x: torch.Tensor, *, steps=None,
+              cross_src: torch.Tensor | None = None) -> torch.Tensor:
+        """Offline forward of a whole sequence x [B, T, d_model] -> [B, T,
+        d_model], with no cache: positions from 0, the causal mask with
+        `context` as a sliding window.  steps: the absolute step index of
+        each position, for per-step weights (default range(T)); cross_src
+        [B, Ts, kv_dim]: the cross-attention source, projected once."""
+        c = self.config
+        B, T, _ = x.shape
+        offset = torch.zeros(B, dtype=torch.long, device=x.device)
+        x = self._pos_embed(x, offset)
+        widx = c.steps_to_weight_indices(range(T) if steps is None else steps)
+        t = torch.arange(T, device=x.device)
+        delta = t[:, None] - t[None, :]
+        mask = delta >= 0
+        if c.context is not None:
+            mask &= delta < c.context
+        mask = mask[None, None]
+
+        def attend(q, kk, vv):
+            return self._attention(q.transpose(1, 2), kk, vv, mask)
+
+        cross = (self._cross(params, self.precompute_cross(params, cross_src))
+                 if cross_src is not None else self._cross(params, {}))
+        for layer in range(c.num_layers):
+            x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx,
+                            cross(layer))
+        return x
+
     # ------------------------------------------------------------------- step
     def step(self, params: dict, state: dict, x: torch.Tensor, *,
              exec_mask: torch.Tensor | None = None, steps=None
@@ -508,9 +589,7 @@ class StreamingTransformer:
         range(T))."""
         c = self.config
         B, T, _ = x.shape
-        widx = None
-        if c.num_weights > 1:
-            widx = list(range(T) if steps is None else steps)
+        widx = c.steps_to_weight_indices(range(T) if steps is None else steps)
         if c.kv_cache_dtype in ("int8", "int4") and T != 1:
             raise NotImplementedError(f"T > 1 steps over the {c.kv_cache_dtype} KV "
                                       f"cache (the prefill path) are not ported")
@@ -518,6 +597,7 @@ class StreamingTransformer:
             return self._step_int4_decode(params, state, x, exec_mask, widx)
         offset = state["offset"]
         cap = state["k"].shape[2]
+        x = self._pos_embed(x, offset)
 
         ar = torch.arange(T, device=x.device)
         write_idx = (offset[:, None] + ar) % cap                     # [B, T]
@@ -557,6 +637,7 @@ class StreamingTransformer:
         c = self.config
         B = x.shape[0]
         offset = state["offset"]
+        x = self._pos_embed(x, offset)
         cap = c.kv_capacity  # the cache's lane axis is padded past it
         wp = offset % cap
         pos_k, offset_next = ring_positions(offset, 1, cap, exec_mask)

@@ -1,11 +1,23 @@
-"""Group-wise 4-bit weight-only GEMV: the wrappers of the CUDA kernels
-`csrc/q4_gemv.cu` and `csrc/q4_mma.cu` and their plain PyTorch version.
+"""Group-wise 4-bit weight-only matrix product: the wrappers of the CUDA
+kernels `csrc/q4_gemv.cu` and `csrc/q4_mma.cu` and their plain PyTorch
+version.
 
-Counterpart of moshi_tpu/ops/q4matmul.py (`q4gemm`, `q4gemm_stacked`).  A
-member of a stacked weight is a view here, so one entry point covers both.
-`q4_gemv` is the entry point: on a CPU tensor it runs `q4_gemv_plain`; on a
-CUDA tensor it launches `q4_mma` (tensor cores) where `use_mma` says so and
-the `q4_gemv` kernel (CUDA cores) otherwise, or raises.
+Counterpart of moshi_tpu/ops/q4matmul.py (`q4gemm`, `q4gemm_stacked`),
+which take x of any row count M.  A member of a stacked weight is a view
+here, so one entry point covers both.  `q4_gemv` is the entry point: on a
+CPU tensor it runs `q4_gemv_plain`; on a CUDA tensor, by M and dtype:
+- bf16 x of M >= MMA_MIN_BATCH rows (any M above: the decoding batch, 2..16,
+  and the offline forward's B * T) -> `q4_mma` on the tensor cores, one
+  launch per call (its din-split reduce, where the plan splits, is a second
+  kernel of the same call).  A block takes one 16-row tile of x, so each
+  tile reads the packed weights again; from M > 16 the din split is planned
+  by M, within MMA_WORKSPACE_BYTES of f32 partial sums, and a large M runs
+  unsplit;
+- f32 x, bf16 x of one row, and shapes q4_mma does not take -> the
+  `q4_gemv` kernel on the CUDA cores, one launch per TILE_ROWS rows: the
+  wrapper loops over chunks of at most 16 rows, ceil(M / 16) launches a
+  call (f32 is the parity dtype; no main path runs it on the card).
+Either way a CUDA tensor launches a kernel or raises.
 """
 
 import functools
@@ -16,16 +28,20 @@ import torch
 from ..utils.quantize import dequantize4
 from . import build
 
-MAX_BATCH = 16        # gemv::kMaxBatch
+MAX_BATCH = 16        # gemv::kMaxBatch: rows of one q4_gemv (and int8) launch
+TILE_ROWS = MAX_BATCH  # q4_mma.cu kTileRows: the rows of x one block takes
 BLOCK_COLS = 4 * 128  # gemv::kCols * gemv::kThreads
 MAX_SPLIT_ROWS = 1024  # din rows a block stages in shared memory
 STAGE_FLOATS = 48 * 1024 // 4  # gemv::kStageFloats: f32 [batch, rows] staged x
-# q4_mma takes bf16 calls of MMA_MIN_BATCH..MAX_BATCH rows: from B = 2 it is
+# q4_mma takes bf16 calls of MMA_MIN_BATCH rows and more: from B = 2 it is
 # over twice as fast as the q4_gemv kernel on the H100; B = 1 stays on the
 # q4_gemv kernel, within 3% of q4_mma there (PERF.md, the crossover table).
 MMA_MIN_BATCH = 2
 MMA_WARP_COLS = 64    # q4_mma.cu kWarpCols: eight n8 tiles
 MMA_BLOCK_COLS = 4 * MMA_WARP_COLS  # q4_mma.cu kBlockCols: 4 warps
+# the most f32 partial sums [splits, M, dout] a q4_mma plan of M > 16 rows
+# asks for; M <= 16 plans stay under it too (the 7B's widest: 8.2 MB)
+MMA_WORKSPACE_BYTES = 32 * 2 ** 20
 
 
 def max_split_rows(batch: int) -> int:
@@ -64,21 +80,35 @@ def plan_splits(din: int, dout: int, group_size: int, num_sms: int,
     return _split(din, group_size, -(-4 * num_sms // col_blocks), max_split_rows(batch))
 
 
-def mma_plan_splits(din: int, dout: int, group_size: int, num_sms: int) -> tuple[int, int]:
-    """(groups_per_split, splits) of q4_mma: as many blocks of
-    MMA_BLOCK_COLS columns as fit four to an SM (one wave: q4_mma's
-    registers let four blocks share an SM, and a fifth block per SM would
-    wait for a second wave), at most MAX_SPLIT_ROWS rows per block (bf16
-    [16, rows + 8] of staged x stays within 48 KB)."""
+def mma_plan_splits(din: int, dout: int, group_size: int, num_sms: int,
+                    batch: int = TILE_ROWS) -> tuple[int, int]:
+    """(groups_per_split, splits) of q4_mma for x of `batch` rows.  Up to
+    TILE_ROWS rows (one row tile): as many blocks of MMA_BLOCK_COLS columns
+    as fit four to an SM (one wave: q4_mma's registers let four blocks
+    share an SM, and a fifth block per SM would wait for a second wave), at
+    most MAX_SPLIT_ROWS rows per block (bf16 [16, rows + 8] of staged x
+    stays within 48 KB).  Above: the column blocks times the row tiles are
+    the grid, split only as far as it takes to reach four blocks per SM and
+    the f32 partial sums stay within MMA_WORKSPACE_BYTES (a block then
+    stages its split's x MAX_SPLIT_ROWS rows at a time)."""
     col_blocks = -(-dout // MMA_BLOCK_COLS)
-    return _split(din, group_size, 4 * num_sms // col_blocks, MAX_SPLIT_ROWS)
+    if batch <= TILE_ROWS:
+        return _split(din, group_size, 4 * num_sms // col_blocks, MAX_SPLIT_ROWS)
+    groups = din // group_size
+    tiles = -(-batch // TILE_ROWS)
+    want = min(-(-4 * num_sms // (col_blocks * tiles)),
+               MMA_WORKSPACE_BYTES // (4 * batch * dout), groups)
+    if want <= 1:
+        return groups, 1
+    gps = -(-groups // want)
+    return gps, -(-groups // gps)
 
 
 def use_mma(batch: int, dtype: torch.dtype, group_size: int, dout: int) -> bool:
-    """Whether a CUDA call of q4_gemv goes to q4_mma: bf16 x of
-    MMA_MIN_BATCH..MAX_BATCH rows, a group size that is a multiple of 16 (at
-    most MAX_SPLIT_ROWS) and dout a multiple of MMA_WARP_COLS."""
-    return (dtype == torch.bfloat16 and MMA_MIN_BATCH <= batch <= MAX_BATCH
+    """Whether a CUDA call of q4_gemv goes to q4_mma: bf16 x of at least
+    MMA_MIN_BATCH rows (no upper limit), a group size that is a multiple
+    of 16 (at most MAX_SPLIT_ROWS) and dout a multiple of MMA_WARP_COLS."""
+    return (dtype == torch.bfloat16 and batch >= MMA_MIN_BATCH
             and group_size % 16 == 0 and group_size <= MAX_SPLIT_ROWS
             and dout % MMA_WARP_COLS == 0)
 
@@ -122,39 +152,44 @@ def q4_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tens
 
 def q4_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """q4_gemv's function through the `q4_gemv` kernel (CUDA cores), whatever
-    `use_mma` says; on a CPU tensor the plain version."""
+    `use_mma` says: one launch per chunk of at most MAX_BATCH rows of x,
+    ceil(M / MAX_BATCH) a call; on a CPU tensor the plain version."""
     _check(x, q, scale)
     if x.device.type == "cpu":
         return q4_gemv_plain(x, q, scale)
     _check_cuda("q4_gemv", x, q, scale, 4)
-    B, din = x.shape
+    M, din = x.shape
     dout = q.shape[1]
     gs = din // scale.shape[0]
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q4_gemv: x dtype {x.dtype}")
-    if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"q4_gemv: batch {B} outside 1..{MAX_BATCH}")
+    if M < 1:
+        raise ValueError(f"q4_gemv: {M} rows")
+    B = min(M, MAX_BATCH)
     if gs % 2 or dout % 4 or gs > max_split_rows(B):
         raise ValueError(f"q4_gemv: group size {gs} must be even and at most "
                          f"{max_split_rows(B)}, dout {dout} a multiple of 4")
     gps, splits = plan_splits(din, dout, gs, _num_sms(x.device.index or 0), B)
-    out = torch.empty((B, dout), dtype=x.dtype, device=x.device)
+    out = torch.empty((M, dout), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, B, dout), dtype=torch.float32, device=x.device)
-               if splits > 1 else out)
+               if splits > 1 else None)
     lib = build.load("q4_gemv")
-    err = lib.q4_gemv(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                      partial.data_ptr(), B, din, dout, gs, gps, splits,
-                      int(x.dtype == torch.bfloat16),
-                      torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, err, "q4_gemv")
-    q4_gemv.launches += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for r0 in range(0, M, MAX_BATCH):
+        rows = min(MAX_BATCH, M - r0)
+        xc, oc = x[r0:r0 + rows], out[r0:r0 + rows]
+        err = lib.q4_gemv(xc.data_ptr(), q.data_ptr(), scale.data_ptr(), oc.data_ptr(),
+                          (oc if partial is None else partial).data_ptr(), rows, din, dout,
+                          gs, gps, splits, int(x.dtype == torch.bfloat16), stream)
+        build.check(lib, err, "q4_gemv")
+        q4_gemv.launches += 1
     return out
 
 
 def q4_mma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """q4_gemv's function through the `q4_mma` kernel (tensor cores): x
-    bf16 of 1..MAX_BATCH rows, gs a multiple of 16, dout a multiple of
-    MMA_WARP_COLS; on a CPU tensor the plain version."""
+    """q4_gemv's function through the `q4_mma` kernel (tensor cores), one
+    launch per call: x bf16 of any row count, gs a multiple of 16, dout a
+    multiple of MMA_WARP_COLS; on a CPU tensor the plain version."""
     _check(x, q, scale)
     if x.device.type == "cpu":
         return q4_gemv_plain(x, q, scale)
@@ -164,12 +199,12 @@ def q4_mma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tenso
     gs = din // scale.shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"q4_mma: x dtype {x.dtype}, not bfloat16")
-    if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"q4_mma: batch {B} outside 1..{MAX_BATCH}")
+    if B < 1:
+        raise ValueError(f"q4_mma: {B} rows")
     if gs % 16 or gs > MAX_SPLIT_ROWS or dout % MMA_WARP_COLS:
         raise ValueError(f"q4_mma: group size {gs} must be a multiple of 16 and at most "
                          f"{MAX_SPLIT_ROWS}, dout {dout} a multiple of {MMA_WARP_COLS}")
-    gps, splits = mma_plan_splits(din, dout, gs, _num_sms(x.device.index or 0))
+    gps, splits = mma_plan_splits(din, dout, gs, _num_sms(x.device.index or 0), B)
     out = torch.empty((B, dout), dtype=torch.bfloat16, device=x.device)
     partial = (torch.empty((splits, B, dout), dtype=torch.float32, device=x.device)
                if splits > 1 else out)

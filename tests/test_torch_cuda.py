@@ -102,8 +102,12 @@ def test_rejects_what_the_kernel_does_not_take(kernel, gen):
     fn, _, quant = KERNELS[kernel]
     qt = quant(torch.randn(256, 128, device="cuda", generator=gen))
     x = torch.randn(17, 256, device="cuda", generator=gen)
-    with pytest.raises(ValueError):
-        fn(x, qt.q, qt.scale)                      # batch above the kernel's 16
+    if kernel == "int8":
+        with pytest.raises(ValueError):
+            fn(x, qt.q, qt.scale)                  # batch above the kernel's 16
+    else:
+        with pytest.raises(ValueError):
+            fn(x[:0], qt.q, qt.scale)              # no rows (q4 takes any count above)
     with pytest.raises(ValueError):
         fn(x[:2], qt.q.cpu(), qt.scale)            # mixed devices
     with pytest.raises(TypeError):
@@ -203,7 +207,7 @@ def test_q4_mma_rejects_what_the_kernel_does_not_take(gen):
     with pytest.raises(TypeError):
         MMA(x.float(), qt.q, qt.scale)                   # f32 activations
     with pytest.raises(ValueError):
-        MMA(torch.cat([x] * 5), qt.q, qt.scale)          # batch above 16
+        MMA(x[:0], qt.q, qt.scale)                       # no rows
     x96, q96 = _mma_case(gen, 4, 256, 96)
     with pytest.raises(ValueError):
         MMA(x96, q96.q, q96.scale)                       # dout not a multiple of 64
@@ -214,6 +218,36 @@ def test_q4_mma_rejects_what_the_kernel_does_not_take(gen):
         MMA(x, qt.q.cpu(), qt.scale)                     # mixed devices
     with pytest.raises(ValueError):
         MMA(torch.randn(256, 4, device="cuda").to(torch.bfloat16).T, qt.q, qt.scale)
+
+
+@pytest.mark.parametrize("din,dout", [(1024, 1536), (11264, 4096), (4096, 32000)])
+@pytest.mark.parametrize("M", [17, 64, 256])
+def test_q4_mma_any_row_count(M, din, dout, gen):
+    """q4_mma above a decoding batch, as the offline forward calls it
+    through the entry point: one launch, against the plain version (11264
+    din: staged in 11 chunks of 1024 rows where the plan runs unsplit)."""
+    x, qt = _mma_case(gen, M, din, dout)
+    assert q4matmul.use_mma(M, torch.bfloat16, 32, dout)
+    n, m = q4matmul.q4_gemv.launches, MMA.launches
+    y = q4matmul.q4_gemv(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert (q4matmul.q4_gemv.launches, MMA.launches) == (n, m + 1)
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (M, dout)
+    assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+    assert torch.equal(y, MMA(x, qt.q, qt.scale))  # splits added in order
+
+
+def test_q4_f32_route_any_row_count(gen):
+    """f32 x of 40 rows goes to the q4_gemv kernel in chunks of 16 rows:
+    three launches, against the plain version."""
+    qt = tq.quantize_tensor4(torch.randn(4096, 4096, device="cuda", generator=gen) / 64)
+    x = torch.randn(40, 4096, device="cuda", generator=gen)
+    n, m = q4matmul.q4_gemv.launches, MMA.launches
+    y = q4matmul.q4_gemv(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert (q4matmul.q4_gemv.launches, MMA.launches) == (n + 3, m)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (40, 4096)
+    assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.float32]
 
 
 # int8_mma (tensor cores): bf16 x only; the Moshi-7B depformer's shapes

@@ -217,7 +217,7 @@ def test_route_sends_the_batched_frame_to_q4_mma(din, dout):
     assert not q4matmul.use_mma(1, bf16, gs, dout)
     assert not q4matmul.use_mma(16, torch.float32, gs, dout)
     assert not q4matmul.use_mma(16, torch.float16, gs, dout)
-    assert not q4matmul.use_mma(17, bf16, gs, dout)
+    assert q4matmul.use_mma(17, bf16, gs, dout)  # any row count above (the offline M)
     assert not q4matmul.use_mma(16, bf16, 24, dout)     # gs % 16 != 0
     assert not q4matmul.use_mma(16, bf16, gs, dout + 16)  # dout % 32 != 0
     assert not q4matmul.use_mma(16, bf16, gs, dout + 32)  # dout % 64 != 0
@@ -237,6 +237,66 @@ def test_mma_split_plans_cover_the_main_path_shapes(num_sms):
         blocks = -(-dout // q4matmul.MMA_BLOCK_COLS) * splits
         assert blocks >= 3 * num_sms or gps == 1
         assert blocks <= 4 * num_sms or splits <= -(-din // q4matmul.MAX_SPLIT_ROWS)
+
+
+# the offline forward's rows: B * T of chip_smoke.py's [offline] LM pass
+# (2 x 128), a long scoring pass, and the edges of a 16-row tile
+OFFLINE_ROWS = (17, 32, 40, 64, 256, 4096)
+
+
+@pytest.mark.parametrize("din,dout", Q4_MAIN_SHAPES)
+def test_route_sends_offline_rows_to_q4_mma(din, dout):
+    """bf16 x of any row count from MMA_MIN_BATCH on goes to q4_mma at
+    every q4 shape of Moshi-7B; f32 x of any row count to the q4_gemv
+    kernel."""
+    for M in (2, 16) + OFFLINE_ROWS:
+        assert q4matmul.use_mma(M, torch.bfloat16, 32, dout)
+        assert not q4matmul.use_mma(M, torch.float32, 32, dout)
+
+
+@pytest.mark.parametrize("num_sms", [132, 114, 8])
+def test_mma_split_plans_by_rows(num_sms):
+    """q4_mma's plan by row count M: up to 16 rows today's plan (the
+    default, one row tile); above, the din splits cover din exactly, their
+    f32 partial sums [splits, M, dout] stay within MMA_WORKSPACE_BYTES, a
+    block's staged bf16 x stays within 48 KB, and a large M runs unsplit."""
+    for din, dout in Q4_MAIN_SHAPES + ((256, 192), (4160, 8256)):
+        ref = q4matmul.mma_plan_splits(din, dout, 32, num_sms)
+        for M in range(1, 17):
+            assert q4matmul.mma_plan_splits(din, dout, 32, num_sms, M) == ref
+            assert ref[1] == 1 or 4 * ref[1] * M * dout <= q4matmul.MMA_WORKSPACE_BYTES
+        for M in OFFLINE_ROWS:
+            gps, splits = q4matmul.mma_plan_splits(din, dout, 32, num_sms, M)
+            assert (splits - 1) * gps < din // 32 <= splits * gps
+            assert splits == 1 or 4 * splits * M * dout <= q4matmul.MMA_WORKSPACE_BYTES
+            staged = min(gps, q4matmul.MAX_SPLIT_ROWS // 32) * 32
+            assert 2 * min(M, q4matmul.TILE_ROWS) * (staged + 8) <= 48 * 1024
+        if (din, dout) in Q4_MAIN_SHAPES:
+            assert q4matmul.mma_plan_splits(din, dout, 32, num_sms, 4096)[1] == 1
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("M", [17, 40, 256])
+def test_q4_wrapper_matches_pallas_at_any_row_count(M, dt, stacked):
+    """The q4 entry point at more rows than a decoding batch, as the
+    offline forward calls it, against q4gemm / q4gemm_stacked (member 1 of
+    3) in interpret mode."""
+    rs = np.random.RandomState(M)
+    jdt, tdt = DTYPES[dt]
+    lead = (3,) if stacked else ()
+    qt = jq.quantize_tensor4(jnp.asarray(rs.randn(*lead, 256, 384).astype(np.float32) * 0.1))
+    x = jnp.asarray(rs.randn(M, 256).astype(np.float32), jdt)
+    q, scale = _t(qt.q), _t(qt.scale)
+    if stacked:
+        y_ref = q4gemm_stacked(x, qt.q, qt.scale, jnp.int32(1), block_in=128,
+                               block_out=128, interpret=True)
+        q, scale = q[1], scale[1]
+    else:
+        y_ref = q4gemm(x, qt.q, qt.scale, block_in=128, block_out=128, interpret=True)
+    y = q4matmul.q4_gemv(_t(x), q, scale)
+    assert y.dtype == tdt and tuple(y.shape) == (M, 384)
+    assert rel_err(to_np(y), y_ref) <= BOUND[dt]
 
 
 def test_q4_mma_on_cpu_runs_the_plain_version():

@@ -174,8 +174,8 @@ def test_simple_generate_takes_embeddings_and_refuses_the_rest(tmp_path):
     assert len(pcm) == 2 and all(p.ndim == 1 and len(p) for p in pcm)
     with pytest.raises(NotImplementedError, match="A.11"):
         tt.simple_generate(tp, tm, "hi", "some_voice_name", condition_params=tcp)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tt.get_prefix(tm, np.zeros(100, np.float32))
+    prefix = tt.get_prefix(tm, np.zeros(5 * tt.mimi.frame_size, np.float32))
+    assert prefix.shape == (1 + 2, 3) and (prefix[0] == ttts.ZERO_TOKEN).all()
     with pytest.raises(ValueError):
         tt.simple_generate(tp, tm, ["a", "b"], [voice], condition_params=tcp)
 
