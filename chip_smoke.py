@@ -39,12 +39,13 @@ Phases, each printing its own line(s):
                heads of 32001 and 2049 columns), the fused
                decode_attention_int4 launch at L = 48, H = 32, D = 64, cap
                1000 with its plan, and decode_attention_int8 at H = 32,
-               cap 1000, D = 64, each checked and timed as above; q4_mma
+               cap 1000, D = 64, each checked and timed as above; q4_wgmma
                above a decoding batch, at M = 32, 64 and 256 rows at the
                five q4 shapes (checked, timed beside the plain version,
-               torch.matmul on the bf16 weight and the bound, summed over
-               one offline forward's 129 launches), and the f32 route (the
-               q4_gemv kernel in 16-row chunks) at M = 40;
+               torch.matmul on the bf16 weight and the bound, with TFLOP/s,
+               summed over one offline forward's 129 launches; M = 16 too,
+               beside q4_mma, for the crossover only), and the f32 route
+               (the q4_gemv kernel in 16-row chunks) at M = 40;
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
                seed on the card; the graphed ServerState: warm-up, then 3
@@ -85,12 +86,13 @@ Phases, each printing its own line(s):
                fresh state (the share of equal codes, the decoded PCM's
                relative error, each held to OFFLINE_BOUNDS; ms and seconds
                of audio per second); then Moshi-7B's LMModel.forward over
-               seeded codes [2, 17, 128]: exactly 129 q4_mma launches of
-               256 rows and no other GEMV, finite logits and masks equal
+               seeded codes [2, 17, 128]: exactly 129 q4_wgmma launches
+               of 256 rows and no other GEMV, finite logits and masks equal
                to the plain ones, forward_text's text logits against 128
                forward_text_step over the bf16 ring KV (relative error,
                greedy argmax agreement), p50 of 5 calls, scored frames per
-               second and a profiler pass (card busy ms, q4_mma's share);
+               second and a profiler pass (card busy ms, q4_wgmma's
+               share);
   7. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
@@ -198,11 +200,14 @@ Q4_SHAPES = {(4096, 12288): 32, (4096, 4096): 32, (4096, 22528): 32,
              (11264, 4096): 32, (4096, 32000): 1}
 INT8_SHAPES = {(1024, 3072): 48, (1024, 1024): 48, (1024, 5632): 48,
                (2816, 1024): 48, (1024, 2048): 8, (4096, 1024): 8}
-# q4_mma above a decoding batch (the offline forward's M = B * T rows):
+# q4_wgmma above a decoding batch (the offline forward's M = B * T rows):
 # checked and timed at these row counts at every Q4_SHAPES shape, whose
-# counts are also the launches of one offline forward; the f32 route (the
-# q4_gemv kernel, one launch per 16 rows) checked at F32_ROUTE_ROWS
+# counts are also the launches of one offline forward, and at
+# CROSSOVER_ROWS beside q4_mma (the route keeps q4_mma there); the f32
+# route (the q4_gemv kernel, one launch per 16 rows) checked at
+# F32_ROUTE_ROWS
 OFFLINE_ROWS = (32, 64, 256)
+CROSSOVER_ROWS = 16
 F32_ROUTE_ROWS = 40
 # the offline phase: Mimi v0.1 over B = 4 x 50 frames (4 s) of seeded PCM
 # plus one input 1000 samples longer (encode pads it to a whole frame), and
@@ -249,9 +254,11 @@ INT8_KV = {"asr": (ASR_SLOTS, 8, 750), "moshi_b16": (SLOTS, 32, 3000),
            "tts": (TTS_SLOTS, TTS_KV["heads"], TTS_CONTEXT)}
 TPU_KERNELS = {
     # q4gemm and q4gemm_stacked: q4_gemv on the CUDA cores (B = 1, f32),
-    # q4_mma on the tensor cores (bf16, M >= MMA_MIN_BATCH rows)
+    # q4_mma on the tensor cores (bf16, M = MMA_MIN_BATCH..16 rows),
+    # q4_wgmma with wgmma (bf16, M > 16 rows)
     "q4_gemv": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     "q4_mma": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
+    "q4_wgmma": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     # qgemv: int8_gemv on the CUDA cores (f32), int8_mma on the tensor cores
     # (bf16, B = 1..16)
     "int8_gemv": "moshi_tpu/ops/qmatmul.py:48",
@@ -499,20 +506,25 @@ def check_tts_gemvs(dev, g) -> dict:
 
 
 def check_offline_q4(dev, g) -> dict:
-    """q4_mma above a decoding batch, at OFFLINE_ROWS rows and every
+    """q4_wgmma above a decoding batch, at OFFLINE_ROWS rows and every
     Q4_SHAPES shape: against the plain version in bf16, then (operands cold
     in L2) its time beside the plain version's, torch.matmul's on the
-    dequantized bf16 weight and the bound, and the sums over one offline
-    forward's launches at each row count.  Then the f32 route (q4_gemv ->
-    the q4_gemv kernel, ceil(M / 16) launches) at F32_ROUTE_ROWS rows
-    against its plain version."""
+    dequantized bf16 weight and the bound, with TFLOP/s, and the sums over
+    one offline forward's launches at each row count.  At CROSSOVER_ROWS
+    (where the route keeps q4_mma) q4_wgmma and q4_mma are checked and timed
+    side by side, for the record.  Then the f32 route (q4_gemv -> the
+    q4_gemv kernel, ceil(M / 16) launches) at F32_ROUTE_ROWS rows against
+    its plain version."""
     from moshi_tpu_torch.ops import q4matmul
     from moshi_tpu_torch.utils.quantize import dequantize4, quantize_tensor4
 
     plain = q4matmul.q4_gemv_plain
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    per_forward = {M: dict.fromkeys(keys, 0.0) for M in OFFLINE_ROWS}
-    by_shape, max_abs, bound_by = {}, 0.0, {M: set() for M in OFFLINE_ROWS}
+    rows = OFFLINE_ROWS + (CROSSOVER_ROWS,)
+    per_forward = {M: dict.fromkeys(keys, 0.0) for M in rows}
+    crossover_mma_ms = 0.0
+    by_shape, max_abs, bound_by = {}, 0.0, {M: set() for M in rows}
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for (din, dout), n in Q4_SHAPES.items():
         w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
         qt = quantize_tensor4(w)
@@ -521,48 +533,65 @@ def check_offline_q4(dev, g) -> dict:
         del w
         dense = [dequantize4(qt.q, qt.scale, torch.bfloat16)
                  for _ in range(copies_for_cold_l2(2 * din * dout))]
-        for M in OFFLINE_ROWS:
-            if not q4matmul.use_mma(M, torch.bfloat16, 32, dout):
-                raise RuntimeError(f"q4 {din}x{dout} at M = {M} would not run q4_mma")
+        for M in rows:
+            expect = "q4_mma" if M == CROSSOVER_ROWS else "q4_wgmma"
+            if q4matmul.route(M, torch.bfloat16, 32, dout) != expect:
+                raise RuntimeError(f"q4 {din}x{dout} at M = {M} would not run {expect}")
             x = torch.randn(M, din, device=dev, generator=g).to(torch.bfloat16)
-            max_abs = max(max_abs, _check_against_plain("q4_mma", q4matmul.q4_mma, plain, qt, x))
+            max_abs = max(max_abs, _check_against_plain("q4_wgmma", q4matmul.q4_wgmma, plain,
+                                                        qt, x))
             ops = [(x, c.q, c.scale) for c in copies]
-            t = {"ms": time_ms(q4matmul.q4_mma, ops), "plain_ms": time_ms(plain, ops),
+            t = {"ms": time_ms(q4matmul.q4_wgmma, ops), "plain_ms": time_ms(plain, ops),
                  "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
             t["bound_ms"], by = bound(bytes_w + 2 * M * (din + dout), 2 * M * din * dout)
             t["bound_by"] = by
+            t["tflops"] = 2 * M * din * dout / t["ms"] / 1e9
             bound_by[M].add(by)
-            gps, splits = q4matmul.mma_plan_splits(din, dout, 32, torch.cuda.get_device_properties(
-                dev).multi_processor_count, M)
+            gps, splits = q4matmul.wgmma_plan_splits(din, dout, 32, num_sms, M)
             t["plan"] = {"groups_per_split": gps, "splits": splits}
+            extra = ""
+            if M == CROSSOVER_ROWS:
+                _check_against_plain("q4_mma", q4matmul.q4_mma, plain, qt, x)
+                t["q4_mma_ms"] = time_ms(q4matmul.q4_mma, ops)
+                crossover_mma_ms += n * t["q4_mma_ms"]
+                extra = f", q4_mma {t['q4_mma_ms']:.4f} ms (the route's)"
             by_shape[f"{din}x{dout} M={M}"] = t
             for k in keys:
                 per_forward[M][k] += n * t[k]
-            phase("kernels", f"q4_mma {din}x{dout} M={M} bf16 ({splits} splits): kernel "
-                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
+            phase("kernels", f"q4_wgmma {din}x{dout} M={M} bf16 ({splits} splits): kernel "
+                  f"{t['ms']:.4f} ms{extra}, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
                   f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}); "
-                  f"{2 * M * din * dout / t['ms'] / 1e9:.1f} TFLOP/s")
+                  f"{t['tflops']:.1f} TFLOP/s")
         del copies, dense
-    for M in OFFLINE_ROWS:
+    for M in rows:
         f = per_forward[M]
         f["bound_by"] = "operations" if bound_by[M] == {"operations"} else "bytes"
-        phase("kernels", f"q4 offline forward ({sum(Q4_SHAPES.values())} launches) M={M}: "
-              f"q4_mma {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, torch.matmul on bf16 "
-              f"{f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms ({f['bound_by']})")
+        f["tflops"] = 2 * M * sum(n * din * dout for (din, dout), n in Q4_SHAPES.items()) \
+            / f["ms"] / 1e9
+        what = "q4 offline forward" if M != CROSSOVER_ROWS else "q4 crossover, not a route:"
+        extra = f", q4_mma {crossover_mma_ms:.3f} ms" if M == CROSSOVER_ROWS else ""
+        phase("kernels", f"{what} ({sum(Q4_SHAPES.values())} launches) M={M}: "
+              f"q4_wgmma {f['ms']:.3f} ms ({f['tflops']:.1f} TFLOP/s){extra}, plain "
+              f"{f['plain_ms']:.3f} ms, torch.matmul on bf16 {f['library_ms']:.3f} ms, bound "
+              f"{f['bound_ms']:.3f} ms ({f['bound_by']})")
+    per_forward[CROSSOVER_ROWS]["q4_mma_ms"] = crossover_mma_ms
 
     M, (din, dout) = F32_ROUTE_ROWS, (4096, 4096)
     qt = quantize_tensor4(torch.randn(din, dout, device=dev, generator=g) / din ** 0.5)
     x = torch.randn(M, din, device=dev, generator=g)
-    before = (q4matmul.q4_gemv.launches, q4matmul.q4_mma.launches)
+    counted = (q4matmul.q4_gemv, q4matmul.q4_mma, q4matmul.q4_wgmma)
+    before = [fn.launches for fn in counted]
     err = _check_against_plain("q4_gemv", q4matmul.q4_gemv, plain, qt, x)
-    launched = (q4matmul.q4_gemv.launches - before[0], q4matmul.q4_mma.launches - before[1])
-    if launched != (-(-M // q4matmul.MAX_BATCH), 0):
-        raise RuntimeError(f"the f32 route at M = {M} launched (q4_gemv, q4_mma) {launched}")
+    launched = tuple(fn.launches - b for fn, b in zip(counted, before))
+    if launched != (-(-M // q4matmul.MAX_BATCH), 0, 0):
+        raise RuntimeError(f"the f32 route at M = {M} launched (q4_gemv, q4_mma, q4_wgmma) "
+                           f"{launched}")
     phase("kernels", f"q4 f32 route at M={M}: {launched[0]} q4_gemv kernel launches, "
           f"max |kernel - plain| {err:.3e}")
     free_memory()
-    return {"per_forward": per_forward, "by_shape": by_shape, "max_abs_err": max_abs,
-            "launches_per_forward": sum(Q4_SHAPES.values()),
+    return {"per_forward": {M: per_forward[M] for M in OFFLINE_ROWS},
+            "crossover": per_forward[CROSSOVER_ROWS], "by_shape": by_shape,
+            "max_abs_err": max_abs, "launches_per_forward": sum(Q4_SHAPES.values()),
             "f32_route": {"rows": M, "shape": f"{din}x{dout}", "q4_gemv_launches": launched[0],
                           "max_abs_err": err}}
 
@@ -965,7 +994,7 @@ def check_attention_int8(dev, g) -> dict:
 def per_step_launches(cfg, params, batch: int) -> dict:
     """Kernel launches one LMGen.step of `batch` slots implies: each q4
     temporal linear once per layer plus the text head, each on the kernel
-    that q4matmul.use_mma picks for bf16 x of `batch` rows; each int8
+    that q4matmul.route picks for bf16 x of `batch` rows; each int8
     depformer linear once per layer and codebook, plus depformer_in and the
     output head per codebook, each on the kernel that qmatmul.use_mma
     picks; with the int4 KV cache, one decode_attention_int4 per layer,
@@ -985,19 +1014,19 @@ def per_step_launches(cfg, params, batch: int) -> dict:
                                                        params["linears"]["weight"]]])
     if not all(kinds):
         raise RuntimeError("the quantized tree is not q4 temporal / int8 depformer")
-    per_step = dict.fromkeys(("q4_gemv", "q4_mma", "int8_gemv", "int8_mma"), 0)
+    per_step = dict.fromkeys(("q4_gemv", "q4_mma", "q4_wgmma", "int8_gemv", "int8_mma"), 0)
     for w, n in [(w, cfg.num_layers) for w in temporal] + [(params["text_linear"]["weight"], 1)]:
         dout = w.q.shape[-1]
         gs = 2 * w.q.shape[-2] // w.scale.shape[-3]
-        per_step["q4_mma" if q4matmul.use_mma(batch, torch.bfloat16, gs, dout)
-                 else "q4_gemv"] += n
+        per_step[q4matmul.route(batch, torch.bfloat16, gs, dout)] += n
     for w, n in ([(w, cfg.depformer_num_layers * cfg.dep_q) for w in dep]
                  + [(params["depformer_in"]["weight"], cfg.dep_q),
                     (params["linears"]["weight"], cfg.dep_q)]):
         din, dout = w.q.shape[-2:]
         per_step["int8_mma" if qmatmul.use_mma(batch, torch.bfloat16, din, dout)
                  else "int8_gemv"] += n
-    if (per_step["q4_gemv"] + per_step["q4_mma"] != sum(Q4_SHAPES.values())
+    if (per_step["q4_gemv"] + per_step["q4_mma"] + per_step["q4_wgmma"]
+            != sum(Q4_SHAPES.values())
             or per_step["int8_gemv"] + per_step["int8_mma"] != sum(INT8_SHAPES.values())):
         raise RuntimeError(f"launches per step {per_step} do not match the shape tables")
     int4 = cfg.kv_cache_dtype == "int4"
@@ -1013,9 +1042,9 @@ def counters() -> dict:
     from moshi_tpu_torch.ops.decode_attention import decode_attention_int8
     from moshi_tpu_torch.ops.int4_attention import (decode_attention_int4_stats,
                                                     decode_attention_int4_write)
-    from moshi_tpu_torch.ops.q4matmul import q4_gemv, q4_mma
+    from moshi_tpu_torch.ops.q4matmul import q4_gemv, q4_mma, q4_wgmma
     from moshi_tpu_torch.ops.qmatmul import int8_gemv, int8_mma
-    return {"q4_gemv": q4_gemv, "q4_mma": q4_mma, "int8_gemv": int8_gemv,
+    return {"q4_gemv": q4_gemv, "q4_mma": q4_mma, "q4_wgmma": q4_wgmma, "int8_gemv": int8_gemv,
             "int8_mma": int8_mma,
             "decode_attention_int4": decode_attention_int4_stats,
             "cache_write_int4": decode_attention_int4_write,
@@ -1508,31 +1537,32 @@ def offline_mimi(dev, card: str, mimi, params, dtype) -> dict:
 
 
 class RowsSeen:
-    """Records the rows of x of every q4_mma launch while it is entered (the
-    wrapper's counter counts launches only): the wrapper plans each launch
-    with one call of q4matmul.mma_plan_splits, whose last argument is M."""
+    """Records the rows of x of every q4_wgmma launch while it is entered
+    (the wrapper's counter counts launches only): the wrapper plans each
+    launch with one call of q4matmul.wgmma_plan_splits, whose last argument
+    is M."""
 
     def __enter__(self):
         from moshi_tpu_torch.ops import q4matmul
 
-        self.rows, self._orig = [], q4matmul.mma_plan_splits
+        self.rows, self._orig = [], q4matmul.wgmma_plan_splits
 
-        def spy(din, dout, group_size, num_sms, batch):
-            self.rows.append(batch)
-            return self._orig(din, dout, group_size, num_sms, batch)
-        q4matmul.mma_plan_splits = spy
+        def spy(din, dout, group_size, num_sms, rows):
+            self.rows.append(rows)
+            return self._orig(din, dout, group_size, num_sms, rows)
+        q4matmul.wgmma_plan_splits = spy
         return self
 
     def __exit__(self, *exc):
         from moshi_tpu_torch.ops import q4matmul
 
-        q4matmul.mma_plan_splits = self._orig
+        q4matmul.wgmma_plan_splits = self._orig
 
 
 def offline_lm(dev, card: str, lm, lm_params) -> dict:
     """Moshi-7B's teacher-forced forward (LMModel.forward, q4 temporal
     linears and text head, int8 depformer, bf16) over seeded codes
-    [OFFLINE_LM batch, 17, frames]: exact launches (one q4_mma of B * T rows
+    [OFFLINE_LM batch, 17, frames]: exact launches (one q4_wgmma of B * T rows
     per q4 linear, no other GEMV), finite logits where the masks say and
     masks equal to the plain ones on the CPU; forward_text's text logits
     against forward_text_step over the bf16 ring KV cache one frame at a
@@ -1546,15 +1576,15 @@ def offline_lm(dev, card: str, lm, lm_params) -> dict:
     codes[:, 0] = rs.randint(0, cfg.text_card, (B, T))
     codes = torch.from_numpy(codes).to(dev)
     expected = dict.fromkeys(counters(), 0)
-    expected["q4_mma"] = sum(Q4_SHAPES.values())
+    expected["q4_wgmma"] = sum(Q4_SHAPES.values())
 
     zero_counts()
     with RowsSeen() as seen:
         out = lm.forward(lm_params, codes)
     launches = read_counts()
-    if launches != expected or seen.rows != [B * T] * expected["q4_mma"]:
+    if launches != expected or seen.rows != [B * T] * expected["q4_wgmma"]:
         raise RuntimeError(f"offline forward: launches {launches} (expected {expected}), "
-                           f"q4_mma rows {sorted(set(seen.rows))}")
+                           f"q4_wgmma rows {sorted(set(seen.rows))}")
     audio = slice(cfg.audio_offset, cfg.audio_offset + cfg.dep_q)
     cpu = codes.cpu()
     _, mask = undelay_logits(cfg.delays[audio], torch.zeros(B, cfg.dep_q, T, 1))
@@ -1573,7 +1603,7 @@ def offline_lm(dev, card: str, lm, lm_params) -> dict:
     del out
     _, fwd_ms = timed(lambda: lm.forward(lm_params, codes), reps=5)
     prof = profile_frames(lambda i: (lm.forward(lm_params, codes), torch.cuda.synchronize()), 1)
-    q4_ms = prof["kernel_ms_per_frame"].get("q4_mma", 0.0)
+    q4_ms = prof["kernel_ms_per_frame"].get("q4_wgmma", 0.0)
 
     # streaming == offline: the text logits of forward_text against T single
     # steps of forward_text_step over the bf16 ring KV cache
@@ -1588,9 +1618,9 @@ def offline_lm(dev, card: str, lm, lm_params) -> dict:
     bound_ = OFFLINE_BOUNDS["lm_text_logits"]
     ok = err <= bound_ and bool(torch.isfinite(text_off).all())
     phase("offline", f"Moshi-7B q4 LMModel.forward over codes [{B}, {cfg.num_codebooks}, {T}]: "
-          f"launches {launches} (every q4_mma of {B * T} rows); masks equal the plain ones; "
+          f"launches {launches} (every q4_wgmma of {B * T} rows); masks equal the plain ones; "
           f"p50 {fwd_ms:.2f} ms of 5, {B * T / fwd_ms * 1e3:.0f} scored frames/s; profiler: "
-          f"card busy {prof['busy_ms_per_frame']:.2f} ms, q4_mma {q4_ms:.2f} ms of it "
+          f"card busy {prof['busy_ms_per_frame']:.2f} ms, q4_wgmma {q4_ms:.2f} ms of it "
           f"({q4_ms / prof['busy_ms_per_frame']:.3f}); top {json.dumps(prof['top_device_ms_per_frame'])} "
           f"({card})")
     phase("offline", f"forward_text against {T} forward_text_step over the bf16 ring KV: text "
@@ -1600,9 +1630,9 @@ def offline_lm(dev, card: str, lm, lm_params) -> dict:
         raise RuntimeError("offline text logits disagree with the streaming ones")
     del state
     free_memory()
-    return {"launches": launches, "q4_mma_rows": B * T, "p50_ms": fwd_ms,
+    return {"launches": launches, "q4_wgmma_rows": B * T, "p50_ms": fwd_ms,
             "scored_frames_per_s": B * T / fwd_ms * 1e3, "profile": prof,
-            "q4_mma_busy_share": q4_ms / prof["busy_ms_per_frame"],
+            "q4_wgmma_busy_share": q4_ms / prof["busy_ms_per_frame"],
             "text_logits_rel_err": err, "text_logits_max_rel_err": err_max,
             "text_argmax_agreement": argmax}
 
@@ -2429,7 +2459,7 @@ def run_tts(dev, card: str) -> dict:
     lm = models["lm"]
     per = tts_launches(lm.config, models["lm_params"], TTS_SLOTS)
     per_frame = {k: per["main"][k] + per["depth"][k] for k in per["main"]}
-    if any(per_frame[k] for k in ("q4_gemv", "q4_mma")):
+    if any(per_frame[k] for k in ("q4_gemv", "q4_mma", "q4_wgmma")):
         raise RuntimeError("the tts frame would run a q4 kernel")
     prefix = tts_get_prefix(dev, models, card)
     greedy_launches, greedy = tts_greedy(dev, models, lm, "greedy")
@@ -2515,7 +2545,7 @@ def main() -> None:
     for name, log in logs.items():
         regs, spills = ptxas_summary(log)
         phase("build", f"{name}: max {regs} registers, {spills} bytes of spill stores")
-        if name in ("q4_mma", "int8_mma", "decode_attention_int8",
+        if name in ("q4_mma", "q4_wgmma", "int8_mma", "decode_attention_int8",
                     "decode_attention_int4") and spills:
             raise RuntimeError(f"{name} spills registers")
 
@@ -2559,7 +2589,8 @@ def main() -> None:
     # for the q4_gemv kernel, a B = 16 batched frame for q4_mma, int8_mma,
     # decode_attention_int4 (the fused launch) and cache_write_int4 (the
     # fused launch's time over the attention alone), a B = 256 ASR frame for
-    # decode_attention_int8 (int8_gemv: Moshi's depformer linears at B = 16,
+    # decode_attention_int8, one offline forward (M = 256) for q4_wgmma
+    # (int8_gemv: Moshi's depformer linears at B = 16,
     # as int8_mma, though only the TTS heads launch it on a path);
     # "per_frame_by_batch" has the GEMVs' Moshi frames at each batch timed,
     # "tts" / "tts_per_frame" the TTS frame's launches
@@ -2569,11 +2600,12 @@ def main() -> None:
                **{key: v for key, v in k.items() if key != "per_frame"}}
         if k["name"] in tts_gemvs:
             row["tts"] = tts_gemvs[k["name"]]
-        if k["name"] == "q4_mma":
-            # the offline forward's launches (M = B * T rows) at each row
-            # count timed, beside the top-level B = 16 frame's
-            row["offline"] = offline_q4
         kernels.append(row)
+    # q4_wgmma: the offline forward's launches at M = 256 (OFFLINE_LM's
+    # B * T), the other row counts timed and the crossover beside them
+    kernels.append({"name": "q4_wgmma", **offline_q4["per_forward"][256],
+                    "per_forward_by_rows": offline_q4["per_forward"],
+                    **{key: v for key, v in offline_q4.items() if key != "per_forward"}})
     tts_per_launch = {"decode_attention_int4": write["tts_k4_per_launch"],
                       "cache_write_int4": write["tts_per_launch"],
                       "decode_attention_int8": attn8["per_launch_by_shape"]["tts"]}

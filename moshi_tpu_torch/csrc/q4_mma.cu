@@ -1,11 +1,12 @@
 // q4_mma: group-wise 4-bit weight-only matrix product on the tensor cores,
-// for bf16 activations of any row count M, on Hopper (sm_90a).
+// for bf16 activations of a decoding batch (M = 1..16 rows), on Hopper
+// (sm_90a).
 //
-// Replaces, beside q4_gemv.cu, the Pallas TPU kernels
+// Replaces, beside q4_gemv.cu and q4_wgmma.cu, the Pallas TPU kernels
 // moshi_tpu/ops/q4matmul.py `q4gemm` and `q4gemm_stacked` (a member of a
 // stacked weight is the pointer q[l]), which take any M as one block.
-// ops/q4matmul.py sends bf16 calls of M >= MMA_MIN_BATCH rows here and
-// every other call to q4_gemv.cu.
+// ops/q4matmul.py sends bf16 calls of MMA_MIN_BATCH..16 rows here, bf16
+// calls of more rows to q4_wgmma.cu and every other call to q4_gemv.cu.
 //
 // Computes y[M, dout] = sum_g (x[:, g*gs:(g+1)*gs] @ w_g) * scale[g, :] in
 // q4_gemv.cu's layout: q int8 [din/2, dout] of sequential-pair nibbles (byte
@@ -16,17 +17,13 @@
 // every product is exact and only the order of the f32 sums differs from the
 // plain version.
 //
-// Rows: a block takes one 16-row tile of x (an m16 tile: the decoding
-// batch, B <= 16, is one tile).  For M > 16 the blocks of one column block
-// and its ceil(M / 16) row tiles are neighbours in launch order, so they run
-// together and can share its packed weights through L2; each tile reads
-// and unpacks them again, which keeps the per-tile body unchanged (a
-// design that unpacks them once for many rows, with wgmma, is later work:
-// at M = 256 this one runs far above its bound, PERF.md).
+// Rows: a block takes the batch as one 16-row tile of x (an m16 tile).
+// Each weight is unpacked in registers for the tile's mma.sync; above 16
+// rows that unpack would be redone per tile and set the pace, so larger M
+// runs q4_wgmma.cu, which unpacks a weight once per 128 rows.
 //
 // What bounds it: 2*M flops per weight against 0.5 byte of packed weight and
-// 4/gs bytes of scale, so at M <= 16 device-memory bandwidth and from a
-// few hundred rows the tensor cores.  q4_gemv.cu does
+// 4/gs bytes of scale, so at M <= 16 device-memory bandwidth.  q4_gemv.cu does
 // those flops as f32 FMAs on the CUDA cores, which bounds it by arithmetic at
 // B = 16; here one mma.sync.m16n8k16 does 16 rows x 8 columns x 16 din of
 // them, and the CUDA cores only unpack nibbles.
@@ -50,19 +47,13 @@
 //    a group's scales are four float4 loads and a row's output two 16-byte
 //    stores.
 // Each lane loads the packed words of the next k16 step before it works on
-// this one's (kDepth steps ahead).  A decoding batch (M <= 16) runs
-// q4_mma_kernel, whose split's x is staged once; M > 16 runs
-// q4_mma_rows_kernel, the same loop (mma_rows) over row tiles, which stages
-// a split's x kStageRows din rows at a time.  Split
+// this one's (kDepth steps ahead).  A split's x is staged once.  Split
 // partial sums go to an f32 workspace [splits, M, dout] that
 // gemv::reduce_splits adds in split order: no atomics.
 //
 // Chosen by measurement on the H100 (PERF.md): eight tiles per warp with
 // the L2 prefetch beat four tiles with 32-bit loads, and loading one step
 // ahead beat two or four steps ahead.
-
-#include <algorithm>
-#include <climits>
 
 #include "gemv_common.cuh"
 
@@ -78,8 +69,8 @@ constexpr int kWarpCols = 8 * kTiles;            // ops/q4matmul.py MMA_WARP_COL
 constexpr int kBlockCols = kWarpCols * kWarps;   // ops/q4matmul.py MMA_BLOCK_COLS
 constexpr int kDepth = 1;                        // k16 steps of packed words loaded ahead
 constexpr int kPad = 8;                          // bf16 padding of a staged x row
-constexpr int kTileRows = 16;                    // rows of x a block takes: one m16 tile
-constexpr int kStageRows = 1024;                 // din rows staged at once: ops/q4matmul.py MAX_SPLIT_ROWS
+constexpr int kTileRows = 16;                    // rows of x a launch takes: one m16 tile
+constexpr int kStageRows = 1024;                 // din rows a split stages: ops/q4matmul.py MAX_SPLIT_ROWS
 constexpr uint32_t kBias = 0x88888888u;          // nibble v -> v ^ 8 = signed v + 8
 constexpr uint32_t kBf16Pair128 = 0x43004300u;   // bf16 (128, 128)
 constexpr uint32_t kBf16Pair136 = 0x43084308u;   // bf16 (136, 136)
@@ -243,20 +234,20 @@ __device__ __forceinline__ void mma_rows(float (&acc)[kTiles][4], float (&gacc)[
   }
 }
 
-// Rows row0 + gid and row0 + gid + 8 of the lane's columns: to y with one
-// split, else to this split's partial sums partial[s, row, col] (m rows).
-__device__ __forceinline__ void store_rows(const float (&acc)[kTiles][4], int row0, int m,
-                                           int dout, int c0, int gid, int tig, bool lo_row,
-                                           bool hi_row, __nv_bfloat16* out, float* partial) {
+// Rows gid and gid + 8 of the lane's columns: to y with one split, else to
+// this split's partial sums partial[s, row, col] (m rows).
+__device__ __forceinline__ void store_rows(const float (&acc)[kTiles][4], int m, int dout,
+                                           int c0, int gid, int tig, bool lo_row, bool hi_row,
+                                           __nv_bfloat16* out, float* partial) {
   const int col = c0 + 2 * kTiles * tig;
   const bool whole = gridDim.y == 1;
   float* part = partial + static_cast<size_t>(blockIdx.y) * m * dout;
   if (lo_row) {
-    const size_t at = static_cast<size_t>(row0 + gid) * dout + col;
+    const size_t at = static_cast<size_t>(gid) * dout + col;
     store_row(acc, 0, whole ? out + at : nullptr, part + at);
   }
   if (hi_row) {
-    const size_t at = static_cast<size_t>(row0 + gid + 8) * dout + col;
+    const size_t at = static_cast<size_t>(gid + 8) * dout + col;
     store_row(acc, 2, whole ? out + at : nullptr, part + at);
   }
 }
@@ -289,79 +280,30 @@ __global__ void __launch_bounds__(kThreads) q4_mma_kernel(
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[t][c] = gacc[t][c] = 0.f;
   mma_rows(acc, gacc, xs, stride, q, scale, g0, rows, gs, dout, c0, gid, tig, lo_row, hi_row);
-  store_rows(acc, 0, batch, dout, c0, gid, tig, lo_row, hi_row, out, partial);
-}
-
-// Any row count m > kTileRows: grid (ceil(dout / kBlockCols) * row_tiles,
-// splits), row_tiles = ceil(m / kTileRows).  Block x takes column block
-// x / row_tiles and rows [kTileRows * (x % row_tiles), ...) of x; split s
-// covers groups [s * groups_per_split, ...), staged kStageRows din rows at
-// a time.
-__global__ void __launch_bounds__(kThreads) q4_mma_rows_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ q,
-    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ partial, int m, int din, int dout, int gs,
-    int groups_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [batch, stage rows + kPad]
-  const int row_tiles = (m + kTileRows - 1) / kTileRows;
-  const int row0 = (blockIdx.x % row_tiles) * kTileRows;
-  const int batch = min(kTileRows, m - row0);  // rows of this tile
-  x += static_cast<size_t>(row0) * din;
-  const int g0 = blockIdx.y * groups_per_split;
-  const int ng = min(groups_per_split, din / gs - g0);
-  const int stage_groups = kStageRows / gs;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int c0 = (blockIdx.x / row_tiles) * kBlockCols + warp * kWarpCols;
-  // a whole warp past dout idles (mma.sync needs every lane) but stages x
-  const bool active = c0 < dout;
-  const bool lo_row = gid < batch, hi_row = gid + 8 < batch;
-
-  float acc[kTiles][4], gacc[kTiles][4];
-#pragma unroll
-  for (int t = 0; t < kTiles; ++t)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[t][c] = gacc[t][c] = 0.f;
-  for (int sg = 0; sg < ng; sg += stage_groups) {
-    const int rows = min(stage_groups, ng - sg) * gs;
-    if (sg > 0) __syncthreads();  // every warp is done with the last stage's x
-    stage_x(x, xs, batch, din, (g0 + sg) * gs, rows, rows + kPad);
-    if (active)
-      mma_rows(acc, gacc, xs, rows + kPad, q, scale, g0 + sg, rows, gs, dout, c0, gid, tig,
-               lo_row, hi_row);
-  }
-  if (active) store_rows(acc, row0, m, dout, c0, gid, tig, lo_row, hi_row, out, partial);
+  store_rows(acc, batch, dout, c0, gid, tig, lo_row, hi_row, out, partial);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes by moshi_tpu_torch/ops/q4matmul.py.  x
 // [m, din] and out [m, dout] are bf16; `partial` is an f32 workspace of
-// splits * m * dout elements (unused when splits == 1).  Takes any m >= 1,
-// group_size a multiple of 16 up to kStageRows, dout a multiple of 64, q
-// 8-byte and scale 16-byte aligned.  Returns cudaGetLastError() after the
-// launches.
+// splits * m * dout elements (unused when splits == 1).  Takes m = 1..16,
+// group_size a multiple of 16 up to kStageRows, a split of at most
+// kStageRows din rows, dout a multiple of 64, q 8-byte and scale 16-byte
+// aligned.  Returns cudaGetLastError() after the launches.
 extern "C" int q4_mma(const void* x, const void* q, const void* scale, void* out,
                       void* partial, int m, int din, int dout, int group_size,
                       int groups_per_split, int splits, void* stream) {
-  if (m < 1 || group_size % 16 != 0 || group_size > kStageRows || dout % kWarpCols != 0 ||
-      splits < 1 || splits > 65535 || static_cast<long long>(m) * dout > INT_MAX ||
+  if (m < 1 || m > kTileRows || group_size % 16 != 0 || group_size > kStageRows ||
+      dout % kWarpCols != 0 || splits < 1 || splits > 65535 || groups_per_split < 1 ||
+      groups_per_split * group_size > kStageRows ||
       reinterpret_cast<uintptr_t>(q) % 8 != 0 || reinterpret_cast<uintptr_t>(scale) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = static_cast<long long>((dout + kBlockCols - 1) / kBlockCols) *
-                           ((m + kTileRows - 1) / kTileRows);
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int stage_rows = std::min(groups_per_split, kStageRows / group_size) * group_size;
-  const size_t smem = sizeof(__nv_bfloat16) * std::min(m, kTileRows) * (stage_rows + kPad);
+  const size_t smem = sizeof(__nv_bfloat16) * m * (groups_per_split * group_size + kPad);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (m <= kTileRows && groups_per_split * group_size > kStageRows)
-    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks), splits);
-  auto kernel = m <= kTileRows ? q4_mma_kernel : q4_mma_rows_kernel;
-  kernel<<<grid, kThreads, smem, s>>>(
+  const dim3 grid((dout + kBlockCols - 1) / kBlockCols, splits);
+  q4_mma_kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(q),
       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(partial), m, din, dout, group_size, groups_per_split);

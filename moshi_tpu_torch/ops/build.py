@@ -39,6 +39,8 @@ SIGNATURES = {
     # x, q, scale, out, partial, batch, din, dout, group_size,
     # groups_per_split, splits, stream
     "q4_mma": [_P] * 5 + [_I] * 6 + [_P],
+    # the same as q4_mma
+    "q4_wgmma": [_P] * 5 + [_I] * 6 + [_P],
     # x, q, scale, out, partial, batch, din, dout, rows_per_split, splits,
     # x_is_bf16, stream
     "int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -1,22 +1,24 @@
 """Group-wise 4-bit weight-only matrix product: the wrappers of the CUDA
-kernels `csrc/q4_gemv.cu` and `csrc/q4_mma.cu` and their plain PyTorch
-version.
+kernels `csrc/q4_gemv.cu`, `csrc/q4_mma.cu` and `csrc/q4_wgmma.cu` and
+their plain PyTorch version.
 
 Counterpart of moshi_tpu/ops/q4matmul.py (`q4gemm`, `q4gemm_stacked`),
 which take x of any row count M.  A member of a stacked weight is a view
 here, so one entry point covers both.  `q4_gemv` is the entry point: on a
-CPU tensor it runs `q4_gemv_plain`; on a CUDA tensor, by M and dtype:
-- bf16 x of M >= MMA_MIN_BATCH rows (any M above: the decoding batch, 2..16,
-  and the offline forward's B * T) -> `q4_mma` on the tensor cores, one
-  launch per call (its din-split reduce, where the plan splits, is a second
-  kernel of the same call).  A block takes one 16-row tile of x, so each
-  tile reads the packed weights again; from M > 16 the din split is planned
-  by M, within MMA_WORKSPACE_BYTES of f32 partial sums, and a large M runs
-  unsplit;
-- f32 x, bf16 x of one row, and shapes q4_mma does not take -> the
-  `q4_gemv` kernel on the CUDA cores, one launch per TILE_ROWS rows: the
-  wrapper loops over chunks of at most 16 rows, ceil(M / 16) launches a
-  call (f32 is the parity dtype; no main path runs it on the card).
+CPU tensor it runs `q4_gemv_plain`; on a CUDA tensor, by M and dtype
+(`route`):
+- bf16 x of more than TILE_ROWS rows (the offline forward's B * T) ->
+  `q4_wgmma`: wgmma over 128-row tiles, each weight unpacked once per tile
+  into shared memory, one launch per call (its din-split reduce, where
+  `wgmma_plan_splits` splits, is a second kernel of the same call);
+- bf16 x of MMA_MIN_BATCH..TILE_ROWS rows (the decoding batch) -> `q4_mma`
+  on the tensor cores (mma.sync), one launch per call, split as
+  `mma_plan_splits` says;
+- f32 x, bf16 x of one row, and shapes the tensor-core kernels do not take
+  (`use_mma`) -> the `q4_gemv` kernel on the CUDA cores, one launch per
+  MAX_BATCH rows: the wrapper loops over chunks of at most 16 rows,
+  ceil(M / 16) launches a call (f32 is the parity dtype; no main path runs
+  it on the card).
 Either way a CUDA tensor launches a kernel or raises.
 """
 
@@ -29,7 +31,7 @@ from ..utils.quantize import dequantize4
 from . import build
 
 MAX_BATCH = 16        # gemv::kMaxBatch: rows of one q4_gemv (and int8) launch
-TILE_ROWS = MAX_BATCH  # q4_mma.cu kTileRows: the rows of x one block takes
+TILE_ROWS = MAX_BATCH  # q4_mma.cu kTileRows: the most rows of x q4_mma takes
 BLOCK_COLS = 4 * 128  # gemv::kCols * gemv::kThreads
 MAX_SPLIT_ROWS = 1024  # din rows a block stages in shared memory
 STAGE_FLOATS = 48 * 1024 // 4  # gemv::kStageFloats: f32 [batch, rows] staged x
@@ -39,8 +41,17 @@ STAGE_FLOATS = 48 * 1024 // 4  # gemv::kStageFloats: f32 [batch, rows] staged x
 MMA_MIN_BATCH = 2
 MMA_WARP_COLS = 64    # q4_mma.cu kWarpCols: eight n8 tiles
 MMA_BLOCK_COLS = 4 * MMA_WARP_COLS  # q4_mma.cu kBlockCols: 4 warps
-# the most f32 partial sums [splits, M, dout] a q4_mma plan of M > 16 rows
-# asks for; M <= 16 plans stay under it too (the 7B's widest: 8.2 MB)
+WGMMA_ROWS = 128      # q4_wgmma.cu kRows: the rows of x a block takes
+WGMMA_COLS = 128      # q4_wgmma.cu kCols: the columns of y a block takes
+WGMMA_MIN_SPLIT_ROWS = 256  # din rows of a q4_wgmma split, at least: four stages
+# the split planner's model of q4_wgmma on the card: the flop/s its blocks
+# reach together (on an H100 at M = 256, ~27% of the dense bf16 peak,
+# PERF.md), the device memory bytes/s of an H100 SXM (NVIDIA's data sheet),
+# and a launch's seconds
+WGMMA_MODEL = (270e12, 3.35e12, 2e-6)
+WGMMA_WAVE_FILL = 0.9  # the share of the SMs a plan's first wave must fill
+# the most f32 partial sums [splits, M, dout] a q4_wgmma plan asks for;
+# q4_mma's plans stay under it too (the 7B's widest at 16 rows: 8.2 MB)
 MMA_WORKSPACE_BYTES = 32 * 2 ** 20
 
 
@@ -80,37 +91,70 @@ def plan_splits(din: int, dout: int, group_size: int, num_sms: int,
     return _split(din, group_size, -(-4 * num_sms // col_blocks), max_split_rows(batch))
 
 
-def mma_plan_splits(din: int, dout: int, group_size: int, num_sms: int,
-                    batch: int = TILE_ROWS) -> tuple[int, int]:
-    """(groups_per_split, splits) of q4_mma for x of `batch` rows.  Up to
-    TILE_ROWS rows (one row tile): as many blocks of MMA_BLOCK_COLS columns
-    as fit four to an SM (one wave: q4_mma's registers let four blocks
-    share an SM, and a fifth block per SM would wait for a second wave), at
-    most MAX_SPLIT_ROWS rows per block (bf16 [16, rows + 8] of staged x
-    stays within 48 KB).  Above: the column blocks times the row tiles are
-    the grid, split only as far as it takes to reach four blocks per SM and
-    the f32 partial sums stay within MMA_WORKSPACE_BYTES (a block then
-    stages its split's x MAX_SPLIT_ROWS rows at a time)."""
+def mma_plan_splits(din: int, dout: int, group_size: int, num_sms: int) -> tuple[int, int]:
+    """(groups_per_split, splits) of q4_mma (x of at most TILE_ROWS rows,
+    one row tile): as many blocks of MMA_BLOCK_COLS columns as fit four to
+    an SM (one wave: q4_mma's registers let four blocks share an SM, and a
+    fifth block per SM would wait for a second wave), at most
+    MAX_SPLIT_ROWS rows per block (bf16 [16, rows + 8] of staged x stays
+    within 48 KB)."""
     col_blocks = -(-dout // MMA_BLOCK_COLS)
-    if batch <= TILE_ROWS:
-        return _split(din, group_size, 4 * num_sms // col_blocks, MAX_SPLIT_ROWS)
+    return _split(din, group_size, 4 * num_sms // col_blocks, MAX_SPLIT_ROWS)
+
+
+def wgmma_plan_splits(din: int, dout: int, group_size: int, num_sms: int,
+                      rows: int) -> tuple[int, int]:
+    """(groups_per_split, splits) of q4_wgmma for x of `rows` rows.  A block
+    takes WGMMA_ROWS x WGMMA_COLS of y and has an SM to itself, so the
+    blocks run in waves of num_sms.  Where the tiles are under one wave, din
+    is split into whole groups until the grid fills one (at least
+    WGMMA_WAVE_FILL of the SMs, as far as the limits below allow); of the
+    plans that do, the plan takes the fewest splits of the least modelled
+    time (WGMMA_MODEL): a block's time is the larger of its flops (the rows
+    of its live warpgroups) at an SM's share of the kernel's rate and its
+    packed weights and scales at its share of the device memory rate, times
+    the waves; a split adds the reduce's pass over the f32 partial sums
+    (written and read) and a launch.  Each split has at least WGMMA_MIN_SPLIT_ROWS din rows, and the
+    partials [splits, rows, dout] stay within MMA_WORKSPACE_BYTES."""
+    flops_per_s, bytes_per_s, launch_s = WGMMA_MODEL
+    tiles = -(-rows // WGMMA_ROWS) * -(-dout // WGMMA_COLS)
+    live = min(WGMMA_ROWS, -(-rows // 64) * 64)
     groups = din // group_size
-    tiles = -(-batch // TILE_ROWS)
-    want = min(-(-4 * num_sms // (col_blocks * tiles)),
-               MMA_WORKSPACE_BYTES // (4 * batch * dout), groups)
-    if want <= 1:
-        return groups, 1
-    gps = -(-groups // want)
-    return gps, -(-groups // gps)
+    most = min(groups, max(1, din // WGMMA_MIN_SPLIT_ROWS),
+               max(1, MMA_WORKSPACE_BYTES // (4 * rows * dout)))
+    plans = []
+    for want in range(1, most + 1):
+        gps = -(-groups // want)
+        splits = -(-groups // gps)
+        k, blocks = gps * group_size, tiles * splits
+        block_s = max(2 * live * WGMMA_COLS * k / (flops_per_s / num_sms),
+                      k * WGMMA_COLS * (0.5 + 4 / group_size)
+                      / (bytes_per_s / min(blocks, num_sms)))
+        t = -(-blocks // num_sms) * block_s
+        if splits > 1:
+            t += (8 * splits + 2) * rows * dout / bytes_per_s + launch_s
+        plans.append((blocks < WGMMA_WAVE_FILL * num_sms, t, splits, gps))
+    _, _, splits, gps = min(plans)
+    return gps, splits
 
 
 def use_mma(batch: int, dtype: torch.dtype, group_size: int, dout: int) -> bool:
-    """Whether a CUDA call of q4_gemv goes to q4_mma: bf16 x of at least
-    MMA_MIN_BATCH rows (no upper limit), a group size that is a multiple
-    of 16 (at most MAX_SPLIT_ROWS) and dout a multiple of MMA_WARP_COLS."""
+    """Whether a CUDA call of q4_gemv goes to a tensor-core kernel (q4_mma
+    or q4_wgmma): bf16 x of at least MMA_MIN_BATCH rows (no upper limit), a
+    group size that is a multiple of 16 (at most MAX_SPLIT_ROWS) and dout a
+    multiple of MMA_WARP_COLS."""
     return (dtype == torch.bfloat16 and batch >= MMA_MIN_BATCH
             and group_size % 16 == 0 and group_size <= MAX_SPLIT_ROWS
             and dout % MMA_WARP_COLS == 0)
+
+
+def route(batch: int, dtype: torch.dtype, group_size: int, dout: int) -> str:
+    """The kernel a CUDA call of q4_gemv launches: "q4_wgmma" for what
+    use_mma admits above TILE_ROWS rows, "q4_mma" for what it admits up to
+    TILE_ROWS, else "q4_gemv"."""
+    if not use_mma(batch, dtype, group_size, dout):
+        return "q4_gemv"
+    return "q4_wgmma" if batch > TILE_ROWS else "q4_mma"
 
 
 def _check(x, q, scale):
@@ -141,13 +185,14 @@ def _check_cuda(name, x, q, scale, q_align):
 def q4_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [B, din] bf16/f32; q [din/2, dout] int8; scale [din/gs, 1, dout]
     f32 -> [B, dout] in x.dtype.  The `q4_gemv` kernel's launches are
-    counted in `q4_gemv.launches`, q4_mma's in `q4_mma.launches`."""
+    counted in `q4_gemv.launches`, q4_mma's in `q4_mma.launches`,
+    q4_wgmma's in `q4_wgmma.launches`."""
     _check(x, q, scale)
     if x.device.type == "cpu":
         return q4_gemv_plain(x, q, scale)
-    if use_mma(x.shape[0], x.dtype, x.shape[1] // scale.shape[0], q.shape[1]):
-        return q4_mma(x, q, scale)
-    return q4_gemv_kernel(x, q, scale)
+    kernel = route(x.shape[0], x.dtype, x.shape[1] // scale.shape[0], q.shape[1])
+    return {"q4_wgmma": q4_wgmma, "q4_mma": q4_mma, "q4_gemv": q4_gemv_kernel}[kernel](
+        x, q, scale)
 
 
 def q4_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -188,8 +233,8 @@ def q4_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
 
 def q4_mma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """q4_gemv's function through the `q4_mma` kernel (tensor cores), one
-    launch per call: x bf16 of any row count, gs a multiple of 16, dout a
-    multiple of MMA_WARP_COLS; on a CPU tensor the plain version."""
+    launch per call: x bf16 of 1..TILE_ROWS rows, gs a multiple of 16, dout
+    a multiple of MMA_WARP_COLS; on a CPU tensor the plain version."""
     _check(x, q, scale)
     if x.device.type == "cpu":
         return q4_gemv_plain(x, q, scale)
@@ -199,12 +244,12 @@ def q4_mma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tenso
     gs = din // scale.shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"q4_mma: x dtype {x.dtype}, not bfloat16")
-    if B < 1:
-        raise ValueError(f"q4_mma: {B} rows")
+    if not 1 <= B <= TILE_ROWS:
+        raise ValueError(f"q4_mma: {B} rows, not 1..{TILE_ROWS} (q4_wgmma takes more)")
     if gs % 16 or gs > MAX_SPLIT_ROWS or dout % MMA_WARP_COLS:
         raise ValueError(f"q4_mma: group size {gs} must be a multiple of 16 and at most "
                          f"{MAX_SPLIT_ROWS}, dout {dout} a multiple of {MMA_WARP_COLS}")
-    gps, splits = mma_plan_splits(din, dout, gs, _num_sms(x.device.index or 0), B)
+    gps, splits = mma_plan_splits(din, dout, gs, _num_sms(x.device.index or 0))
     out = torch.empty((B, dout), dtype=torch.bfloat16, device=x.device)
     partial = (torch.empty((splits, B, dout), dtype=torch.float32, device=x.device)
                if splits > 1 else out)
@@ -217,8 +262,43 @@ def q4_mma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tenso
     return out
 
 
+def q4_wgmma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """q4_gemv's function through the `q4_wgmma` kernel (wgmma over 128-row
+    tiles), one launch per call: x bf16 of any row count, gs a multiple of
+    16, dout a multiple of MMA_WARP_COLS, q and scale 16-byte aligned (x is
+    copied where its rows are not); on a CPU tensor the plain version."""
+    _check(x, q, scale)
+    if x.device.type == "cpu":
+        return q4_gemv_plain(x, q, scale)
+    _check_cuda("q4_wgmma", x, q, scale, 16)
+    M, din = x.shape
+    dout = q.shape[1]
+    gs = din // scale.shape[0]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"q4_wgmma: x dtype {x.dtype}, not bfloat16")
+    if M < 1:
+        raise ValueError(f"q4_wgmma: {M} rows")
+    if gs % 16 or gs > MAX_SPLIT_ROWS or dout % MMA_WARP_COLS:
+        raise ValueError(f"q4_wgmma: group size {gs} must be a multiple of 16 and at most "
+                         f"{MAX_SPLIT_ROWS}, dout {dout} a multiple of {MMA_WARP_COLS}")
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel copies x 16 bytes at a time; a new tensor is aligned
+    gps, splits = wgmma_plan_splits(din, dout, gs, _num_sms(x.device.index or 0), M)
+    out = torch.empty((M, dout), dtype=torch.bfloat16, device=x.device)
+    partial = (torch.empty((splits, M, dout), dtype=torch.float32, device=x.device)
+               if splits > 1 else out)
+    lib = build.load("q4_wgmma")
+    err = lib.q4_wgmma(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                       partial.data_ptr(), M, din, dout, gs, gps, splits,
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "q4_wgmma")
+    q4_wgmma.launches += 1
+    return out
+
+
 q4_gemv.launches = 0
 q4_mma.launches = 0
+q4_wgmma.launches = 0
 
 
 def q4_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

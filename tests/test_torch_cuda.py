@@ -218,23 +218,133 @@ def test_q4_mma_rejects_what_the_kernel_does_not_take(gen):
         MMA(x, qt.q.cpu(), qt.scale)                     # mixed devices
     with pytest.raises(ValueError):
         MMA(torch.randn(256, 4, device="cuda").to(torch.bfloat16).T, qt.q, qt.scale)
+    x17, _ = _mma_case(gen, 17, 256, 128)
+    with pytest.raises(ValueError):
+        MMA(x17, qt.q, qt.scale)                         # above a decoding batch: q4_wgmma's
 
 
 @pytest.mark.parametrize("din,dout", [(1024, 1536), (11264, 4096), (4096, 32000)])
 @pytest.mark.parametrize("M", [17, 64, 256])
 def test_q4_mma_any_row_count(M, din, dout, gen):
-    """q4_mma above a decoding batch, as the offline forward calls it
-    through the entry point: one launch, against the plain version (11264
-    din: staged in 11 chunks of 1024 rows where the plan runs unsplit)."""
+    """Above a decoding batch, as the offline forward calls it through the
+    entry point: one q4_wgmma launch and none of q4_mma or the q4_gemv
+    kernel, against the plain version and equal to q4_wgmma called
+    directly (splits added in order)."""
     x, qt = _mma_case(gen, M, din, dout)
-    assert q4matmul.use_mma(M, torch.bfloat16, 32, dout)
-    n, m = q4matmul.q4_gemv.launches, MMA.launches
+    assert q4matmul.route(M, torch.bfloat16, 32, dout) == "q4_wgmma"
+    counted = (q4matmul.q4_gemv, MMA, WG)
+    n = [fn.launches for fn in counted]
     y = q4matmul.q4_gemv(x, qt.q, qt.scale)
     torch.cuda.synchronize()
-    assert (q4matmul.q4_gemv.launches, MMA.launches) == (n, m + 1)
+    assert [fn.launches - k for fn, k in zip(counted, n)] == [0, 0, 1]
     assert y.dtype == torch.bfloat16 and tuple(y.shape) == (M, dout)
     assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
-    assert torch.equal(y, MMA(x, qt.q, qt.scale))  # splits added in order
+    assert torch.equal(y, WG(x, qt.q, qt.scale))
+
+
+# q4_wgmma (wgmma over 128-row tiles): bf16 x only, held to the bf16 bound
+WG = q4matmul.q4_wgmma
+
+
+def _wg_check(x, qt):
+    """One q4_wgmma call against the plain version: exactly one q4_wgmma
+    launch counted and none of q4_mma or the q4_gemv kernel."""
+    counted = (q4matmul.q4_gemv, MMA, WG)
+    n = [fn.launches for fn in counted]
+    y = WG(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert [fn.launches - k for fn, k in zip(counted, n)] == [0, 0, 1]
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (x.shape[0], qt.q.shape[-1])
+    assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+    return y
+
+
+@pytest.mark.parametrize("M", [17, 63, 64, 65, 128, 129, 256, 300])
+def test_q4_wgmma_every_row_edge(M, gen):
+    """The row edges of the 64-row warpgroups and 128-row blocks: a dead
+    warpgroup (M <= 64), a part-full one, a second row tile."""
+    _wg_check(*_mma_case(gen, M, 1024, 1536))
+
+
+@pytest.mark.parametrize("M", [64, 256])
+@pytest.mark.parametrize("din,dout", Q4_MAIN_SHAPES)
+def test_q4_wgmma_main_path_shapes(din, dout, M, gen):
+    """The Moshi-7B q4 shapes at the offline forward's M = 256 and at 64,
+    split and unsplit as the planner says."""
+    _wg_check(*_mma_case(gen, M, din, dout))
+
+
+# din by group size: a last stage of 32 din (480, 4160 = 65 stages of 64),
+# groups of 48 straddling stages, groups of 64 one to a stage
+GROUP_DIN = {16: 480, 32: 4160, 48: 480, 64: 1152}
+
+
+@pytest.mark.parametrize("M", [40, 200])
+@pytest.mark.parametrize("group_size", sorted(GROUP_DIN))
+def test_q4_wgmma_group_sizes(group_size, M, gen):
+    _wg_check(*_mma_case(gen, M, GROUP_DIN[group_size], 640, group_size))
+
+
+@pytest.mark.parametrize("dout", [64, 192])
+def test_q4_wgmma_narrow_dout(dout, gen):
+    """Fewer columns than a block's 128 (64) and a last block half full."""
+    _wg_check(*_mma_case(gen, 130, 512, dout))
+
+
+def test_q4_wgmma_stacked_member_view(gen):
+    """q4_wgmma on the view q[l] of a stacked weight reads member l."""
+    qt = tq.quantize_tensor4(torch.randn(3, 1, 512, 768, device="cuda", generator=gen))
+    x = torch.randn(100, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    for layer in range(3):
+        y = WG(x, qt.q[layer][0], qt.scale[layer][0])
+        ref = q4matmul.q4_gemv_plain(x, qt.q[layer][0], qt.scale[layer][0])
+        assert _rel(y, ref) <= BOUND[torch.bfloat16]
+
+
+@pytest.mark.parametrize("M", [17, 256])
+def test_q4_wgmma_deterministic_and_counted(M, gen):
+    """Two calls give the same bytes (split partials added in order, no
+    atomics); each counts one q4_wgmma launch."""
+    x, qt = _mma_case(gen, M, 4096, 4096)
+    a, b = _wg_check(x, qt), _wg_check(x, qt)
+    assert torch.equal(a, b)
+
+
+def test_q4_wgmma_takes_unaligned_rows(gen):
+    """x whose address is off 16 bytes (a view two bytes in) is copied by
+    the wrapper, as q4_mma staged it with scalar loads: same result."""
+    x, qt = _mma_case(gen, 40, 1024, 256)
+    buf = torch.empty(40 * 1024 + 1, dtype=torch.bfloat16, device="cuda")
+    xu = buf[1:].view(40, 1024)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16
+    assert torch.equal(_wg_check(xu, qt), WG(x, qt.q, qt.scale))
+
+
+def test_q4_wgmma_rejects_what_the_kernel_does_not_take(gen):
+    x, qt = _mma_case(gen, 40, 256, 128)
+    with pytest.raises(TypeError):
+        WG(x.float(), qt.q, qt.scale)                    # f32 activations
+    with pytest.raises(TypeError):
+        WG(x.half(), qt.q, qt.scale)                     # fp16 activations
+    with pytest.raises(ValueError):
+        WG(x[:0], qt.q, qt.scale)                        # no rows
+    q_buf = torch.empty(qt.q.numel() + 8, dtype=torch.int8, device="cuda")
+    q_off = q_buf[8:].view(qt.q.shape)
+    q_off.copy_(qt.q)
+    with pytest.raises(ValueError):
+        WG(x, q_off, qt.scale)                           # q 8 bytes off 16
+    s_buf = torch.empty(qt.scale.numel() + 1, device="cuda")
+    s_off = s_buf[1:].view(qt.scale.shape)
+    s_off.copy_(qt.scale)
+    with pytest.raises(ValueError):
+        WG(x, qt.q, s_off)                               # scale 4 bytes off 16
+    x96, q96 = _mma_case(gen, 40, 256, 96)
+    with pytest.raises(ValueError):
+        WG(x96, q96.q, q96.scale)                        # dout not a multiple of 64
+    x8, q8 = _mma_case(gen, 40, 256, 128, group_size=8)
+    with pytest.raises(ValueError):
+        WG(x8, q8.q, q8.scale)                           # group size not a multiple of 16
 
 
 def test_q4_f32_route_any_row_count(gen):
@@ -242,10 +352,10 @@ def test_q4_f32_route_any_row_count(gen):
     three launches, against the plain version."""
     qt = tq.quantize_tensor4(torch.randn(4096, 4096, device="cuda", generator=gen) / 64)
     x = torch.randn(40, 4096, device="cuda", generator=gen)
-    n, m = q4matmul.q4_gemv.launches, MMA.launches
+    n, m, w = q4matmul.q4_gemv.launches, MMA.launches, WG.launches
     y = q4matmul.q4_gemv(x, qt.q, qt.scale)
     torch.cuda.synchronize()
-    assert (q4matmul.q4_gemv.launches, MMA.launches) == (n + 3, m)
+    assert (q4matmul.q4_gemv.launches, MMA.launches, WG.launches) == (n + 3, m, w)
     assert y.dtype == torch.float32 and tuple(y.shape) == (40, 4096)
     assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.float32]
 

@@ -233,6 +233,7 @@ def test_mma_split_plans_cover_the_main_path_shapes(num_sms):
     for din, dout in Q4_MAIN_SHAPES + ((256, 192), (4160, 8256)):
         gps, splits = q4matmul.mma_plan_splits(din, dout, 32, num_sms)
         assert (splits - 1) * gps < din // 32 <= splits * gps
+        assert splits == 1 or 4 * splits * 16 * dout <= q4matmul.MMA_WORKSPACE_BYTES
         assert 2 * 16 * (gps * 32 + 8) <= 48 * 1024
         blocks = -(-dout // q4matmul.MMA_BLOCK_COLS) * splits
         assert blocks >= 3 * num_sms or gps == 1
@@ -246,33 +247,54 @@ OFFLINE_ROWS = (17, 32, 40, 64, 256, 4096)
 
 @pytest.mark.parametrize("din,dout", Q4_MAIN_SHAPES)
 def test_route_sends_offline_rows_to_q4_mma(din, dout):
-    """bf16 x of any row count from MMA_MIN_BATCH on goes to q4_mma at
-    every q4 shape of Moshi-7B; f32 x of any row count to the q4_gemv
-    kernel."""
+    """bf16 x of any row count from MMA_MIN_BATCH on goes to a tensor-core
+    kernel at every q4 shape of Moshi-7B (q4_mma up to 16 rows, q4_wgmma
+    above); f32 x of any row count to the q4_gemv kernel."""
     for M in (2, 16) + OFFLINE_ROWS:
         assert q4matmul.use_mma(M, torch.bfloat16, 32, dout)
         assert not q4matmul.use_mma(M, torch.float32, 32, dout)
+        assert q4matmul.route(M, torch.bfloat16, 32, dout) == ("q4_mma" if M <= 16
+                                                               else "q4_wgmma")
+
+
+@pytest.mark.parametrize("M,dtype,kernel", [
+    (1, torch.bfloat16, "q4_gemv"), (2, torch.bfloat16, "q4_mma"),
+    (16, torch.bfloat16, "q4_mma"), (17, torch.bfloat16, "q4_wgmma"),
+    (256, torch.bfloat16, "q4_wgmma"), (1, torch.float32, "q4_gemv"),
+    (16, torch.float32, "q4_gemv"), (17, torch.float32, "q4_gemv"),
+    (256, torch.float32, "q4_gemv")])
+def test_route_by_rows_and_dtype(M, dtype, kernel):
+    """The kernel of a CUDA call by its rows and dtype at every Moshi-7B q4
+    shape: bf16 M = 16 to q4_mma, 17 and 256 to q4_wgmma; one bf16 row and
+    f32 of any M to the q4_gemv kernel; a group size or dout the
+    tensor-core kernels do not take to the q4_gemv kernel whatever M."""
+    for _, dout in Q4_MAIN_SHAPES:
+        assert q4matmul.route(M, dtype, 32, dout) == kernel
+        assert q4matmul.route(M, dtype, 24, dout) == "q4_gemv"
+        assert q4matmul.route(M, dtype, 32, dout + 32) == "q4_gemv"
 
 
 @pytest.mark.parametrize("num_sms", [132, 114, 8])
 def test_mma_split_plans_by_rows(num_sms):
-    """q4_mma's plan by row count M: up to 16 rows today's plan (the
-    default, one row tile); above, the din splits cover din exactly, their
-    f32 partial sums [splits, M, dout] stay within MMA_WORKSPACE_BYTES, a
-    block's staged bf16 x stays within 48 KB, and a large M runs unsplit."""
+    """q4_wgmma's plan by row count M (OFFLINE_ROWS, and the rows of a
+    decoding batch it also takes): the din splits cover din exactly in
+    whole groups of at least WGMMA_MIN_SPLIT_ROWS rows, their f32 partial
+    sums [splits, M, dout] stay within MMA_WORKSPACE_BYTES, and the grid
+    fills one wave (WGMMA_WAVE_FILL of the SMs) unless the limits on the
+    splits keep it from it; a large M runs unsplit."""
     for din, dout in Q4_MAIN_SHAPES + ((256, 192), (4160, 8256)):
-        ref = q4matmul.mma_plan_splits(din, dout, 32, num_sms)
-        for M in range(1, 17):
-            assert q4matmul.mma_plan_splits(din, dout, 32, num_sms, M) == ref
-            assert ref[1] == 1 or 4 * ref[1] * M * dout <= q4matmul.MMA_WORKSPACE_BYTES
-        for M in OFFLINE_ROWS:
-            gps, splits = q4matmul.mma_plan_splits(din, dout, 32, num_sms, M)
+        for M in (1, 16) + OFFLINE_ROWS:
+            gps, splits = q4matmul.wgmma_plan_splits(din, dout, 32, num_sms, M)
             assert (splits - 1) * gps < din // 32 <= splits * gps
+            assert splits == 1 or gps * 32 >= q4matmul.WGMMA_MIN_SPLIT_ROWS
             assert splits == 1 or 4 * splits * M * dout <= q4matmul.MMA_WORKSPACE_BYTES
-            staged = min(gps, q4matmul.MAX_SPLIT_ROWS // 32) * 32
-            assert 2 * min(M, q4matmul.TILE_ROWS) * (staged + 8) <= 48 * 1024
+            tiles = -(-M // q4matmul.WGMMA_ROWS) * -(-dout // q4matmul.WGMMA_COLS)
+            most = min(din // 32, max(1, din // q4matmul.WGMMA_MIN_SPLIT_ROWS),
+                       max(1, q4matmul.MMA_WORKSPACE_BYTES // (4 * M * dout)))
+            fill = q4matmul.WGMMA_WAVE_FILL * num_sms
+            assert tiles * splits >= fill or tiles * most < fill
         if (din, dout) in Q4_MAIN_SHAPES:
-            assert q4matmul.mma_plan_splits(din, dout, 32, num_sms, 4096)[1] == 1
+            assert q4matmul.wgmma_plan_splits(din, dout, 32, num_sms, 4096)[1] == 1
 
 
 @pytest.mark.parametrize("stacked", [False, True])
@@ -300,18 +322,23 @@ def test_q4_wrapper_matches_pallas_at_any_row_count(M, dt, stacked):
 
 
 def test_q4_mma_on_cpu_runs_the_plain_version():
-    """On CPU tensors q4_mma and the q4_gemv entry point compute the plain
-    version and count no launch, whatever the route says."""
+    """On CPU tensors q4_mma, q4_wgmma and the q4_gemv entry point compute
+    the plain version and count no launch, whatever the route says: at 16
+    rows (q4_mma's route) and at 40 (q4_wgmma's)."""
     rs = np.random.RandomState(4)
-    x = torch.from_numpy(rs.randn(16, 256).astype(np.float32)).to(torch.bfloat16)
     q4 = tq.quantize_tensor4(torch.from_numpy(rs.randn(256, 64).astype(np.float32)))
-    counts = (q4matmul.q4_gemv.launches, q4matmul.q4_mma.launches)
-    ref = q4matmul.q4_gemv_plain(x, q4.q, q4.scale)
-    for fn in (q4matmul.q4_mma, q4matmul.q4_gemv, q4matmul.q4_gemv_kernel):
-        assert torch.equal(fn(x, q4.q, q4.scale), ref)
-    assert (q4matmul.q4_gemv.launches, q4matmul.q4_mma.launches) == counts
-    with pytest.raises(ValueError):
-        q4matmul.q4_mma(x[:, :128], q4.q, q4.scale)
+    counted = (q4matmul.q4_gemv, q4matmul.q4_mma, q4matmul.q4_wgmma)
+    counts = [fn.launches for fn in counted]
+    for M in (16, 40):
+        x = torch.from_numpy(rs.randn(M, 256).astype(np.float32)).to(torch.bfloat16)
+        ref = q4matmul.q4_gemv_plain(x, q4.q, q4.scale)
+        for fn in (q4matmul.q4_mma, q4matmul.q4_wgmma, q4matmul.q4_gemv,
+                   q4matmul.q4_gemv_kernel):
+            assert torch.equal(fn(x, q4.q, q4.scale), ref)
+        for fn in (q4matmul.q4_mma, q4matmul.q4_wgmma):
+            with pytest.raises(ValueError):
+                fn(x[:, :128], q4.q, q4.scale)
+    assert [fn.launches for fn in counted] == counts
 
 
 def test_q4_mma_is_built_by_name():
@@ -322,6 +349,15 @@ def test_q4_mma_is_built_by_name():
     assert build.SIGNATURES["q4_mma"] == (build.SIGNATURES["q4_gemv"][:11]
                                           + build.SIGNATURES["q4_gemv"][12:])
     assert build.library_path("q4_mma").name.startswith("q4_mma-")
+
+
+def test_q4_wgmma_is_built_by_name():
+    """q4_wgmma is a kernel of the build: its source, q4_mma's C signature,
+    and a library named for it."""
+    from moshi_tpu_torch.ops import build
+    assert (build.CSRC / "q4_wgmma.cu").is_file()
+    assert build.SIGNATURES["q4_wgmma"] == build.SIGNATURES["q4_mma"]
+    assert build.library_path("q4_wgmma").name.startswith("q4_wgmma-")
 
 
 @pytest.mark.parametrize("batch", [1, 8, 9, 13, 16])
