@@ -33,17 +33,17 @@ _I = ctypes.c_int
 # argtypes of each C entry point (pointers and the stream as c_void_p:
 # ctypes would otherwise pass a Python int as a 32-bit int)
 SIGNATURES = {
-    # x, q, scale, out, partial, batch, din, dout, group_size,
-    # groups_per_split, splits, x_is_bf16, stream
-    "q4_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, scale, out, batch, din, dout, group_size, then the plan (cols,
+    # warps, cluster, rows_per_block, seg_rows), x_is_bf16, stream
+    "q4_gemv": [_P] * 4 + [_I] * 10 + [_P],
     # x, q, scale, out, partial, batch, din, dout, group_size,
     # groups_per_split, splits, stream
     "q4_mma": [_P] * 5 + [_I] * 6 + [_P],
     # the same as q4_mma
     "q4_wgmma": [_P] * 5 + [_I] * 6 + [_P],
-    # x, q, scale, out, partial, batch, din, dout, rows_per_split, splits,
-    # x_is_bf16, stream
-    "int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, scale, out, batch, din, dout, then the plan (cols, warps,
+    # cluster, rows_per_block, seg_rows), x_is_bf16, stream
+    "int8_gemv": [_P] * 4 + [_I] * 9 + [_P],
     # x, q, scale, out, batch, din, dout, rows_per_block, cluster, stream
     "int8_mma": [_P] * 4 + [_I] * 5 + [_P],
     # q, k_all, v_all, k_scale, v_scale, mask, kk, vv, pos, acc, m, l, layer,
@@ -52,6 +52,14 @@ SIGNATURES = {
     # q, k_all, v_all, k_scale, v_scale, mask, out, layer, B, H, Hkv, D, cap,
     # per_split, splits, warps, stream
     "decode_attention_int8": [_P] * 7 + [_I] * 9 + [_P],
+}
+
+# more C entry points of a kernel's library: name -> (function, argtypes);
+# each returns an int
+EXTRA_ENTRIES = {
+    # batch, cols, warps, cluster, seg_rows, x_is_bf16
+    "q4_gemv": [("q4_gemv_resident", [_I] * 6)],
+    "int8_gemv": [("int8_gemv_resident", [_I] * 6)],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -122,9 +130,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        for fname, argtypes in [(name, SIGNATURES[name]), *EXTRA_ENTRIES.get(name, [])]:
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib

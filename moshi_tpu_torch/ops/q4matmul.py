@@ -18,12 +18,14 @@ CPU tensor it runs `q4_gemv_plain`; on a CUDA tensor, by M and dtype
   (`use_mma`) -> the `q4_gemv` kernel on the CUDA cores, one launch per
   MAX_BATCH rows: the wrapper loops over chunks of at most 16 rows,
   ceil(M / 16) launches a call (f32 is the parity dtype; no main path runs
-  it on the card).
+  it on the card), each launch planned by `gemv_plan` (shared with the
+  int8_gemv kernel of ops/qmatmul.py).
 Either way a CUDA tensor launches a kernel or raises.
 """
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -32,12 +34,9 @@ from . import build
 
 MAX_BATCH = 16        # gemv::kMaxBatch: rows of one q4_gemv (and int8) launch
 TILE_ROWS = MAX_BATCH  # q4_mma.cu kTileRows: the most rows of x q4_mma takes
-BLOCK_COLS = 4 * 128  # gemv::kCols * gemv::kThreads
-MAX_SPLIT_ROWS = 1024  # din rows a block stages in shared memory
-STAGE_FLOATS = 48 * 1024 // 4  # gemv::kStageFloats: f32 [batch, rows] staged x
-# q4_mma takes bf16 calls of MMA_MIN_BATCH rows and more: from B = 2 it is
-# over twice as fast as the q4_gemv kernel on the H100; B = 1 stays on the
-# q4_gemv kernel, within 3% of q4_mma there (PERF.md, the crossover table).
+MAX_SPLIT_ROWS = 1024  # din rows a q4_mma block stages in shared memory
+# q4_mma takes bf16 calls of MMA_MIN_BATCH rows and more; B = 1 stays on the
+# q4_gemv kernel (PERF.md, the crossover table).
 MMA_MIN_BATCH = 2
 MMA_WARP_COLS = 64    # q4_mma.cu kWarpCols: eight n8 tiles
 MMA_BLOCK_COLS = 4 * MMA_WARP_COLS  # q4_mma.cu kBlockCols: 4 warps
@@ -55,10 +54,153 @@ WGMMA_WAVE_FILL = 0.9  # the share of the SMs a plan's first wave must fill
 MMA_WORKSPACE_BYTES = 32 * 2 ** 20
 
 
-def max_split_rows(batch: int) -> int:
-    """din rows per block: MAX_SPLIT_ROWS, or fewer where the staged x of
-    `batch` rows would pass the 48 KB a launch gets without opting in."""
-    return min(MAX_SPLIT_ROWS, STAGE_FLOATS // batch)
+# the CUDA-core GEMV kernels (csrc/gemv_common.cuh): a lane's columns, warps
+# over din slices, a cluster of blocks over din added in distributed shared
+# memory
+GEMV_MAX_ACC = 64       # gemv::kMaxAcc: batch rows x columns a lane sums
+Q4_MAX_ACC = GEMV_MAX_ACC // 4  # q4_gemv.cu kMaxAcc: a group's sums beside the total
+GEMV_MAX_WARPS = 8      # gemv::kMaxWarps
+GEMV_MAX_CLUSTER = 8    # gemv::kMaxCluster
+GEMV_BATCH_ROWS = 8     # gemv::kBatchRows: weight rows a warp loads at a time
+GEMV_RING_BYTES = 8 * 1024  # gemv::kRingBytes: a warp's ring of them in shared memory
+GEMV_X_PAD = 8          # gemv::kXPad
+GEMV_SMEM_LIMIT = 227 * 1024  # gemv::kSmemLimit
+GEMV_X_BYTES = 64 * 1024  # the most staged x (f32 [batch, rows]) a plan gives a block
+GEMV_WARPS = 8          # warps a block (with their rings ~70 KB of shared memory at B = 1)
+GEMV_SM_SMEM = 228 * 1024  # an H100 SM's shared memory, which its blocks share
+# the least warps a plan's wave puts on an SM on average, where a lane's
+# columns can be cut to reach it
+GEMV_MIN_WARPS_PER_SM = 3.5
+
+
+# the fastest plans (cols, warps, cluster) of the B = 1 frame's q4 shapes,
+# measured on an H100 (132 SMs, 700 W) by scripts/time_gemv_plans.py, where
+# gemv_plan's rule comes within 7-25% (PERF.md): taken on a card of as many
+# SMs, where the operands allow the columns and the plan fits one wave
+GEMV_TUNED_SMS = 132
+GEMV_TUNED = {("q4", 4096, 12288, 1): (16, 8, 8), ("q4", 4096, 4096, 1): (16, 8, 8),
+              ("q4", 4096, 22528, 1): (16, 4, 8), ("q4", 11264, 4096, 1): (8, 8, 6),
+              ("q4", 4096, 32000, 1): (16, 8, 2)}
+
+
+class GemvPlan(NamedTuple):
+    """A launch of a CUDA-core GEMV kernel: `cols` columns a lane, `warps`
+    warps a block, `cluster` blocks a column tile, rank r taking din rows
+    [r * rows_per_block, ...), x staged `seg_rows` din rows at a time."""
+    cols: int
+    warps: int
+    cluster: int
+    rows_per_block: int
+    seg_rows: int
+
+
+def gemv_max_cols(batch: int, max_acc: int = GEMV_MAX_ACC) -> int:
+    """gemv::max_cols: the columns a lane may own at `batch` rows, at most
+    max_acc sums a lane (GEMV_MAX_ACC for the int8_gemv kernel,
+    Q4_MAX_ACC for the q4_gemv kernel)."""
+    return 16 if batch <= max_acc // 16 else 8 if batch <= max_acc // 8 else 4
+
+
+def gemv_ring_bytes(kind: str, batch: int, cols: int) -> int:
+    """A warp's ring of weight rows in shared memory (q4_gemv.cu /
+    int8_gemv.cu `ring_bytes`): stages of GEMV_BATCH_ROWS rows (q4 above 8
+    rows of x: 2) of the warp's 32 * cols bytes (int8 at 4 columns: 144, the
+    word past them and padding), as many as GEMV_RING_BYTES hold, 2..8."""
+    if kind == "q4":
+        stage = (2 if batch > 8 else GEMV_BATCH_ROWS) * 32 * cols
+    else:
+        stage = GEMV_BATCH_ROWS * (144 if cols == 4 else 32 * cols)
+    return max(2, min(8, GEMV_RING_BYTES // stage)) * stage
+
+
+def gemv_smem_bytes(batch: int, cols: int, warps: int, ranks: int, seg_rows: int,
+                    ring: int) -> int:
+    """gemv::smem_bytes: each warp's sums, the slots of the sums the other
+    ranks send (a rank owns ceil(batch * 8 * cols / ranks) quads of four
+    outputs), x f32 [batch, seg_rows rounded up to GEMV_X_PAD], then each
+    warp's ring of `ring` bytes."""
+    quads = -(-batch * 8 * cols // ranks)
+    return (4 * (warps * batch * 32 * cols + ranks * quads * 4
+                 + batch * -(-seg_rows // GEMV_X_PAD) * GEMV_X_PAD) + warps * ring)
+
+
+def gemv_resident_model(kind: str, batch: int, num_sms: int):
+    """gemv_plan's `resident` without the card: each SM holds as many blocks
+    as its shared memory does, at most 8 (the card's count, which also sees
+    registers and how clusters pack into its GPCs, comes from the kernel's
+    `*_resident` entry)."""
+    def resident(cols, warps, cluster, seg):
+        smem = gemv_smem_bytes(batch, cols, warps, cluster, seg,
+                               gemv_ring_bytes(kind, batch, cols))
+        return 0 if smem > GEMV_SMEM_LIMIT else min(8, GEMV_SM_SMEM // (smem + 1024)) * num_sms
+    return resident
+
+
+def gemv_plan(kind: str, din: int, dout: int, batch: int, num_sms: int, grain: int,
+              cols_options: tuple[int, ...], resident=None) -> GemvPlan:
+    """The plan of a CUDA-core GEMV launch ("q4": grain = the group size;
+    "int8": 1) of `batch` rows; cols_options are the columns a lane may own
+    for these operands, largest first; resident(cols, warps, cluster,
+    seg_rows) is how many blocks of such a launch the card holds at once
+    (gemv_resident_model by default).  GEMV_WARPS warps a block.  For each
+    cols, the cluster is the largest (at most GEMV_MAX_CLUSTER, and few
+    enough that every warp has a grain of din and GEMV_BATCH_ROWS rows)
+    whose blocks all fit at once: one wave, since a second wave of a few
+    blocks costs a whole block's time.  The plan takes the largest cols
+    whose wave has GEMV_MIN_WARPS_PER_SM warps an SM (more columns a lane,
+    fewer instructions a byte), else the smallest.  rows_per_block is a
+    multiple of grain, ranks past din dropped; seg_rows is rows_per_block,
+    or the most whole grains whose x fits GEMV_X_BYTES.  A shape of
+    GEMV_TUNED takes its measured plan instead on a card of GEMV_TUNED_SMS
+    SMs, where that plan fits one wave."""
+    resident = resident or gemv_resident_model(kind, batch, num_sms)
+    grains = -(-din // grain)
+
+    def cut(cols, warps, cluster):
+        rows = -(-grains // cluster) * grain
+        seg = min(rows, max(grain, GEMV_X_BYTES // (4 * batch) // grain * grain))
+        return GemvPlan(cols, warps, -(-din // rows), rows, seg)
+
+    tuned = GEMV_TUNED.get((kind, din, dout, batch))
+    if num_sms == GEMV_TUNED_SMS and tuned and tuned[0] in cols_options:
+        plan = cut(*tuned)
+        if -(-dout // (32 * plan.cols)) * plan.cluster <= resident(*plan[:3], plan.seg_rows):
+            return plan
+    warps = GEMV_WARPS
+    per_warp = max(1, GEMV_BATCH_ROWS // grain)  # grains a warp takes at least
+    most = max(1, min(GEMV_MAX_CLUSTER, grains // (warps * per_warp)))
+    best = None
+    for cols in cols_options:
+        tiles = -(-dout // (32 * cols))
+        for cluster in range(most, 0, -1):
+            best = cut(cols, warps, cluster)
+            if tiles * cluster <= resident(cols, warps, cluster, best.seg_rows) or cluster == 1:
+                break
+        if tiles * cluster * warps >= GEMV_MIN_WARPS_PER_SM * num_sms:
+            break
+    return best
+
+
+_resident_cache: dict = {}
+
+
+def gemv_resident(kind: str, batch: int, bf16: bool, device: torch.device):
+    """gemv_plan's `resident` on the card: the kernel's `*_resident` C entry
+    (cudaOccupancyMaxActiveClusters), cached by plan."""
+    lib = build.load(f"{kind}_gemv")
+    fn = getattr(lib, f"{kind}_gemv_resident")
+
+    def resident(cols, warps, cluster, seg):
+        key = (kind, batch, bf16, device.index or 0, cols, warps, cluster, seg)
+        if key not in _resident_cache:
+            with torch.cuda.device(device):
+                n = fn(batch, cols, warps, cluster, seg, int(bf16))
+            if n < 0:
+                msg = lib.cuda_error_string(-n).decode()
+                raise RuntimeError(f"{kind}_gemv_resident: CUDA error {-n} ({msg})")
+            _resident_cache[key] = n
+        return _resident_cache[key]
+    return resident
 
 
 def q4_gemv_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -80,15 +222,6 @@ def _split(din: int, group_size: int, want: int, max_rows: int) -> tuple[int, in
     gps = max(1, -(-groups // min(want, groups)))
     gps = min(gps, max(1, max_rows // group_size))
     return gps, -(-groups // gps)
-
-
-def plan_splits(din: int, dout: int, group_size: int, num_sms: int,
-                batch: int = 1) -> tuple[int, int]:
-    """(groups_per_split, splits) of the q4_gemv kernel: split din so the
-    grid has about four blocks per SM, with at most max_split_rows(batch)
-    rows per block."""
-    col_blocks = -(-dout // BLOCK_COLS)
-    return _split(din, group_size, -(-4 * num_sms // col_blocks), max_split_rows(batch))
 
 
 def mma_plan_splits(din: int, dout: int, group_size: int, num_sms: int) -> tuple[int, int]:
@@ -195,6 +328,18 @@ def q4_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tens
         x, q, scale)
 
 
+def q4_gemv_plan(rows: int, din: int, q: torch.Tensor, group_size: int, bf16: bool,
+                 device: torch.device) -> GemvPlan:
+    """The plan of a q4_gemv kernel launch of `rows` rows (at most
+    MAX_BATCH) on q: a lane's 16, 8 or 4 bytes, as dout and q are aligned;
+    the blocks the card holds at once from the kernel itself."""
+    dout = q.shape[-1]
+    cols = tuple(c for c in (16, 8, 4) if c <= gemv_max_cols(rows, Q4_MAX_ACC)
+                 and dout % c == 0 and q.data_ptr() % c == 0)
+    return gemv_plan("q4", din, dout, rows, _num_sms(device.index or 0), group_size, cols,
+                     gemv_resident("q4", rows, bf16, device))
+
+
 def q4_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """q4_gemv's function through the `q4_gemv` kernel (CUDA cores), whatever
     `use_mma` says: one launch per chunk of at most MAX_BATCH rows of x,
@@ -211,21 +356,18 @@ def q4_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
     if M < 1:
         raise ValueError(f"q4_gemv: {M} rows")
     B = min(M, MAX_BATCH)
-    if gs % 2 or dout % 4 or gs > max_split_rows(B):
+    if gs % 2 or dout % 4 or 4 * B * gs > GEMV_X_BYTES:
         raise ValueError(f"q4_gemv: group size {gs} must be even and at most "
-                         f"{max_split_rows(B)}, dout {dout} a multiple of 4")
-    gps, splits = plan_splits(din, dout, gs, _num_sms(x.device.index or 0), B)
-    out = torch.empty((M, dout), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, B, dout), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
+                         f"{GEMV_X_BYTES // (4 * B)}, dout {dout} a multiple of 4")
     lib = build.load("q4_gemv")
+    out = torch.empty((M, dout), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     for r0 in range(0, M, MAX_BATCH):
         rows = min(MAX_BATCH, M - r0)
+        plan = q4_gemv_plan(rows, din, q, gs, x.dtype == torch.bfloat16, x.device)
         xc, oc = x[r0:r0 + rows], out[r0:r0 + rows]
-        err = lib.q4_gemv(xc.data_ptr(), q.data_ptr(), scale.data_ptr(), oc.data_ptr(),
-                          (oc if partial is None else partial).data_ptr(), rows, din, dout,
-                          gs, gps, splits, int(x.dtype == torch.bfloat16), stream)
+        err = lib.q4_gemv(xc.data_ptr(), q.data_ptr(), scale.data_ptr(), oc.data_ptr(), rows,
+                          din, dout, gs, *plan, int(x.dtype == torch.bfloat16), stream)
         build.check(lib, err, "q4_gemv")
         q4_gemv.launches += 1
     return out

@@ -5,7 +5,10 @@ Counterpart of moshi_tpu/ops/qmatmul.py (`qgemv`) and of what `wdot` does
 for a `QTensor` (moshi_tpu/utils/matmul.py:83).  `int8_gemv` is the entry
 point: on a CPU tensor it runs `int8_gemv_plain`; on a CUDA tensor it
 launches `int8_mma` (tensor cores) where `use_mma` says so and the
-`int8_gemv` kernel (CUDA cores) otherwise, or raises.
+`int8_gemv` kernel (CUDA cores) otherwise, or raises.  The `int8_gemv`
+kernel takes any dout and a view at any byte offset, one launch a call
+planned by `int8_gemv_plan` (q4matmul.gemv_plan, shared with the q4_gemv
+kernel).
 """
 
 import math
@@ -14,9 +17,9 @@ import torch
 
 from ..utils.quantize import dequantize
 from . import build
-from .q4matmul import BLOCK_COLS, MAX_BATCH, MMA_WARP_COLS, _check_cuda, _num_sms, max_split_rows
+from .q4matmul import (MAX_BATCH, MMA_WARP_COLS, GemvPlan, _check_cuda, _num_sms,
+                       gemv_max_cols, gemv_plan, gemv_resident)
 
-ROW_GRAIN = 32  # din rows per split of the int8_gemv kernel are a multiple of this
 # int8_mma takes bf16 calls of MMA_MIN_BATCH..MAX_BATCH rows
 MMA_MIN_BATCH = 1
 MMA_BLOCK_COLS = MMA_WARP_COLS  # int8_mma.cu kBlockCols: one warp's 64 columns
@@ -30,15 +33,17 @@ def int8_gemv_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     return torch.matmul(x, dequantize(q, scale, x.dtype))
 
 
-def plan_splits(din: int, dout: int, num_sms: int, batch: int = 1) -> tuple[int, int]:
-    """(rows_per_split, splits): split din so the grid has about four blocks
-    per SM, with ROW_GRAIN..max_split_rows(batch) rows per block."""
-    col_blocks = -(-dout // BLOCK_COLS)
-    want = max(1, -(-4 * num_sms // col_blocks))
-    rows = -(-din // want)
-    rows = -(-rows // ROW_GRAIN) * ROW_GRAIN
-    rows = min(max(rows, ROW_GRAIN), max_split_rows(batch) // ROW_GRAIN * ROW_GRAIN)
-    return rows, -(-din // rows)
+def int8_gemv_plan(batch: int, din: int, q: torch.Tensor, bf16: bool,
+                   device: torch.device) -> GemvPlan:
+    """The plan of an int8_gemv kernel launch of `batch` rows on q: a lane's
+    16 or 8 bytes where dout and q are aligned to them (and gemv_max_cols
+    allows), else 4 (the kernel realigns rows at any byte offset); the
+    blocks the card holds at once from the kernel itself."""
+    dout = q.shape[-1]
+    cols = tuple(c for c in (16, 8) if c <= gemv_max_cols(batch) and dout % c == 0
+                 and q.data_ptr() % c == 0) + (4,)
+    return gemv_plan("int8", din, dout, batch, _num_sms(device.index or 0), 1, cols,
+                     gemv_resident("int8", batch, bf16, device))
 
 
 def int8_mma_plan(din: int, dout: int, num_sms: int) -> tuple[int, int]:
@@ -101,16 +106,11 @@ def int8_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
         raise ValueError(f"int8_gemv: batch {B} outside 1..{MAX_BATCH}")
     if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("int8_gemv: operands must be contiguous")
-    # any dout: the kernel reads 32-bit words where dout % 4 == 0 and q is
-    # 4-byte aligned, bytes otherwise
-    rows, splits = plan_splits(din, dout, _num_sms(x.device.index or 0), B)
+    plan = int8_gemv_plan(B, din, q, x.dtype == torch.bfloat16, x.device)
     out = torch.empty((B, dout), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, B, dout), dtype=torch.float32, device=x.device)
-               if splits > 1 else out)
     lib = build.load("int8_gemv")
-    err = lib.int8_gemv(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                        partial.data_ptr(), B, din, dout, rows, splits,
-                        int(x.dtype == torch.bfloat16),
+    err = lib.int8_gemv(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), B, din,
+                        dout, *plan, int(x.dtype == torch.bfloat16),
                         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "int8_gemv")
     int8_gemv.launches += 1

@@ -1,7 +1,7 @@
 """Time the weight-only GEMV kernels of two checkouts on one NVIDIA GPU, in
 turns: the other tree, this one, this one, the other.
 
-    python3 scripts/compare_gemv_trees.py DIR [q4|int8|offline]
+    python3 scripts/compare_gemv_trees.py DIR [q4|int8|tts|offline|frames]
 
 DIR is a checkout of another commit (e.g. unpacked from `git archive` into
 build/, which .gitignore lists).  Each turn runs a check of chip_smoke.py
@@ -10,9 +10,14 @@ kernels, and prints its lines under the tree's name, with the card's name
 and power limit:
 - q4 (the default) and int8: chip_smoke.check_gemvs for the family, the
   per-shape lines at B = 16 and the per-frame lines at B = 1, 2, 4, 8, 16;
+- tts: chip_smoke.check_tts_gemvs, the int8 GEMVs at the TTS frame's
+  shapes (B = 16), the per-shape lines of the heads and the per-frame lines;
 - offline: chip_smoke.check_offline_q4, the q4 kernel above a decoding
   batch, its per-shape lines and the per-forward lines (129 launches) at
-  M = 32, 64 and 256.
+  M = 32, 64 and 256;
+- frames: the B = 1 frame (chip_smoke.run_slice: graphed p50, the profiler's
+  busy ms and device ops a frame) and the TTS frame (chip_smoke.run_tts),
+  each on the seeded full-width models.
 """
 
 import subprocess
@@ -26,10 +31,16 @@ CODE = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as cs; "
         "g = torch.Generator(device=dev).manual_seed(cs.SEED); "
         "print(cs.card_line()); {call}")
 CALLS = {"q4": "cs.check_gemvs(dev, g, ('q4',))", "int8": "cs.check_gemvs(dev, g, ('int8',))",
-         "offline": "cs.check_offline_q4(dev, g)"}
+         "tts": "cs.check_tts_gemvs(dev, g)", "offline": "cs.check_offline_q4(dev, g)",
+         "frames": ("m = cs.build_models(dev); cs.run_slice(dev, cs.card_line(), *m); "
+                    "del m; cs.free_memory(); cs.run_tts(dev, cs.card_line())")}
 # the lines kept of each family's output (besides the card's)
-KEEP = {"q4": ("per frame", "B=16 bf16: kernel"), "int8": ("per frame", "B=16 bf16: kernel"),
-        "offline": ("offline forward", "bf16 (", "crossover")}
+KEEP = {"q4": ("per frame", "B=16 bf16: kernel", "B=1 bf16: kernel"),
+        "int8": ("per frame", "B=16 bf16: kernel"),
+        "tts": ("tts per frame", "tts int8_gemv"),
+        "offline": ("offline forward", "bf16 (", "crossover"),
+        "frames": ("[slice] graphed", "[slice] profiler", "[tts] profiler", "[tts] sampled",
+                   "[tts] graphed")}
 
 
 def main() -> None:

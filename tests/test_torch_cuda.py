@@ -509,6 +509,182 @@ def test_int8_mma_c_entry_rejects_what_it_does_not_take(gen):
     assert _rel(out, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
 
 
+# the CUDA-core GEMVs (csrc/int8_gemv.cu, csrc/q4_gemv.cu), one launch a
+# call planned by q4matmul.gemv_plan: a lane's columns, warps over din, a
+# cluster of blocks over din added in distributed shared memory
+SIMT8, SIMT4 = qmatmul.int8_gemv_kernel, q4matmul.q4_gemv_kernel
+
+
+def _num_sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _counted(fn, *args):
+    """fn(*args) and the launches it added to (q4_gemv, q4_mma, q4_wgmma,
+    int8_gemv, int8_mma)."""
+    counters = (q4matmul.q4_gemv, MMA, WG, qmatmul.int8_gemv, MMA8)
+    before = [c.launches for c in counters]
+    y = fn(*args)
+    torch.cuda.synchronize()
+    return y, tuple(c.launches - b for c, b in zip(counters, before))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rem", range(16))
+def test_int8_gemv_every_row_offset(rem, dtype, gen):
+    """dout = 16 k + rem for rem = 0..15: the rows of q start at every byte
+    offset mod 16 (the kernel's 16-byte, 8-byte and realigned-word paths);
+    one int8_gemv launch, against the plain version."""
+    din, dout = 200, 16 * 9 + rem
+    qt = tq.quantize_tensor(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
+    x = torch.randn(3, din, device="cuda", generator=gen).to(dtype)
+    y, launched = _counted(SIMT8, x, qt.q, qt.scale)
+    assert launched == (0, 0, 0, 1, 0)
+    assert tuple(y.shape) == (3, dout) and y.dtype == dtype
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_int8_gemv_member_view_at_every_byte_offset(offset, gen):
+    """Views that start `offset` bytes past a 16-byte boundary: member 1 of a
+    stacked [3, 33, 96 + offset] weight (33 * (96 + offset) = offset mod
+    16, rows of odd length) and a [200, 256] weight at that offset of a flat
+    buffer (rows of 16-byte length off their alignment); each reads its own
+    bytes."""
+    qt = tq.quantize_tensor(torch.randn(3, 33, 96 + offset, device="cuda", generator=gen))
+    x = torch.randn(16, 33, device="cuda", generator=gen).to(torch.bfloat16)
+    assert qt.q[1].data_ptr() % 16 == offset
+    for layer in range(3):
+        y = SIMT8(x, qt.q[layer], qt.scale[layer])
+        ref = qmatmul.int8_gemv_plain(x, qt.q[layer], qt.scale[layer])
+        assert _rel(y, ref) <= BOUND[torch.bfloat16]
+    w = tq.quantize_tensor(torch.randn(200, 256, device="cuda", generator=gen) / 15)
+    flat = torch.empty(offset + w.q.numel(), dtype=torch.int8, device="cuda")
+    q = flat[offset:].view(200, 256)
+    q.copy_(w.q)
+    x = torch.randn(5, 200, device="cuda", generator=gen)
+    assert q.data_ptr() % 16 == offset
+    y = SIMT8(x, q, w.scale)
+    assert _rel(y, qmatmul.int8_gemv_plain(x, w.q, w.scale)) <= BOUND[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B", range(1, 17))
+@pytest.mark.parametrize("din,dout", [(2048, 32001), (1024, 2049)])
+def test_int8_gemv_tts_heads(din, dout, B, dtype, gen):
+    """The TTS heads (32001 text columns, 2049 audio ones) at every batch,
+    through the entry point int8_gemv (which routes them to the int8_gemv
+    kernel: not a multiple of 64 columns), one launch."""
+    qt = tq.quantize_tensor(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
+    x = torch.randn(B, din, device="cuda", generator=gen).to(dtype)
+    y, launched = _counted(qmatmul.int8_gemv, x, qt.q, qt.scale)
+    assert launched == (0, 0, 0, 1, 0)
+    assert tuple(y.shape) == (B, dout) and bool(torch.isfinite(y).all())
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("din,dout", Q4_MAIN_SHAPES)
+def test_q4_gemv_b1_main_path_shapes(din, dout, dtype, gen):
+    """One row at each q4 shape of Moshi-7B (the B = 1 frame's 129 linears),
+    through the entry point q4_gemv: one q4_gemv launch, none of the
+    tensor-core kernels."""
+    qt = tq.quantize_tensor4(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
+    x = torch.randn(1, din, device="cuda", generator=gen).to(dtype)
+    y, launched = _counted(q4matmul.q4_gemv, x, qt.q, qt.scale)
+    assert launched == (1, 0, 0, 0, 0)
+    assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("B", range(1, 17))
+def test_q4_gemv_f32_every_row_count(B, gen):
+    """f32 x of 1..16 rows at Moshi-7B's widest din (11264: above 8 rows a
+    block stages x in segments), one q4_gemv launch."""
+    qt = tq.quantize_tensor4(torch.randn(11264, 4096, device="cuda", generator=gen) / 106)
+    x = torch.randn(B, 11264, device="cuda", generator=gen)
+    y, launched = _counted(SIMT4, x, qt.q, qt.scale)
+    assert launched == (1, 0, 0, 0, 0)
+    assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.float32]
+
+
+# (kernel, din, dout, batch, whether the plan takes a cluster on an H100):
+# plans with one block a column tile (shallow, or wide and full) and with a
+# cluster of several, a segmented x at 32768 x 16 f32
+PLAN_CASES = [("q4", 64, 65536, 1, False), ("int8", 16, 65536, 4, False),
+              ("int8", 24, 1001, 16, False), ("int8", 2048, 32001, 16, False),
+              ("q4", 4096, 4096, 1, True), ("q4", 4096, 22528, 1, True),
+              ("int8", 1024, 2049, 16, True), ("q4", 32768, 512, 16, True)]
+
+
+@pytest.mark.parametrize("kind,din,dout,B,clustered", PLAN_CASES)
+def test_gemv_plans_with_and_without_a_cluster(kind, din, dout, B, clustered, gen):
+    """The kernels at shapes whose plans take one block a column tile and
+    shapes whose plans take a cluster, against the plain version."""
+    fn, plain, quant = KERNELS[kind]
+    grain, most = (32, q4matmul.Q4_MAX_ACC) if kind == "q4" else (1, q4matmul.GEMV_MAX_ACC)
+    cols = tuple(c for c in (16, 8, 4) if c <= q4matmul.gemv_max_cols(B, most)
+                 and (kind == "q4" or c == 4 or dout % c == 0))
+    plan = q4matmul.gemv_plan(kind, din, dout, B, _num_sms(), grain, cols,
+                              q4matmul.gemv_resident(kind, B, False, torch.device("cuda", 0)))
+    assert (plan.cluster > 1) == clustered
+    qt = quant(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
+    x = torch.randn(B, din, device="cuda", generator=gen)
+    y = (SIMT4 if kind == "q4" else SIMT8)(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert _rel(y, plain(x, qt.q, qt.scale)) <= BOUND[torch.float32]
+
+
+@pytest.mark.parametrize("kind,din,dout,B", [("q4", 4096, 12288, 1), ("q4", 11264, 4096, 1),
+                                             ("int8", 2048, 32001, 16),
+                                             ("int8", 1024, 2049, 16)])
+def test_cuda_core_gemvs_deterministic_and_counted(kind, din, dout, B, gen):
+    """At the main paths' shapes (bf16), two calls give the same bytes (the
+    cluster's sums added in a fixed order), and each is one launch of its
+    kernel and none of another."""
+    _, plain, quant = KERNELS[kind]
+    fn = SIMT4 if kind == "q4" else SIMT8
+    qt = quant(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
+    x = torch.randn(B, din, device="cuda", generator=gen).to(torch.bfloat16)
+    a, first = _counted(fn, x, qt.q, qt.scale)
+    b, second = _counted(fn, x, qt.q, qt.scale)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    one = (1, 0, 0, 0, 0) if kind == "q4" else (0, 0, 0, 1, 0)
+    assert first == second == one
+    assert _rel(a, plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+
+
+def test_cuda_core_gemv_c_entries_reject_what_they_do_not_take(gen):
+    """The C entries return cudaErrorInvalidValue (1) and launch nothing for
+    a plan or operands they do not take."""
+    from moshi_tpu_torch.ops import build
+    q8 = tq.quantize_tensor(torch.randn(256, 128, device="cuda", generator=gen) / 16)
+    q4 = tq.quantize_tensor4(torch.randn(256, 128, device="cuda", generator=gen) / 16)
+    x = torch.randn(4, 256, device="cuda", generator=gen)
+    out = torch.empty(4, 128, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    lib8, lib4 = build.load("int8_gemv"), build.load("q4_gemv")
+
+    def call8(batch=4, cols=16, warps=8, cluster=2, rows=128, seg=128, qp=0):
+        return lib8.int8_gemv(x.data_ptr(), q8.q.data_ptr() + qp, q8.scale.data_ptr(),
+                              out.data_ptr(), batch, 256, 128, cols, warps, cluster, rows, seg,
+                              0, stream)
+
+    def call4(batch=4, cols=4, warps=8, cluster=2, rows=128, seg=128, gs=32, sp=0):
+        return lib4.q4_gemv(x.data_ptr(), q4.q.data_ptr(), q4.scale.data_ptr() + sp,
+                            out.data_ptr(), batch, 256, 128, gs, cols, warps, cluster, rows,
+                            seg, 0, stream)
+    assert call8() == 0 and call4() == 0
+    for bad in ({"batch": 0}, {"batch": 17}, {"cols": 2}, {"batch": 5, "cols": 16},
+                {"warps": 9}, {"cluster": 9}, {"rows": 100}, {"seg": 0}, {"seg": 256},
+                {"cols": 8, "qp": 4}):
+        assert call8(**bad) == 1, bad
+    for bad in ({"batch": 0}, {"cols": 2}, {"cols": 8}, {"cluster": 9},
+                {"rows": 96, "cluster": 2}, {"rows": 112}, {"seg": 48}, {"gs": 3}, {"sp": 4}):
+        assert call4(**bad) == 1, bad
+    torch.cuda.synchronize()
+    assert _rel(out, q4matmul.q4_gemv_plain(x, q4.q, q4.scale)) <= BOUND[torch.float32]
+
+
 def _int4_cache(gen, L, B, Hkv, D, cap_pad):
     """Random packed caches (every nibble in [-7, 7]) and positive scales."""
     def packed():

@@ -7,6 +7,7 @@ fixture) and against the function the JAX main path calls (`wdot` on a
 QTensor).  The CUDA kernels themselves are checked on the card by the
 kernel phase of chip_smoke.py and by tests/test_torch_cuda.py."""
 
+import ctypes
 import functools
 import os
 import subprocess
@@ -174,19 +175,74 @@ def test_wrappers_reject_bad_operands():
         qmatmul.int8_gemv(x, q8.q, q8.scale[:, :16])
 
 
-def test_split_plans_cover_the_main_path_shapes():
-    """The din splits of the 7B's shapes cover din exactly and keep a block
-    within the shared-memory staging limit."""
-    for din, dout in ((4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096),
-                      (4096, 32000)):
-        gps, splits = q4matmul.plan_splits(din, dout, 32, 132)
-        assert gps * 32 <= q4matmul.MAX_SPLIT_ROWS
-        assert (splits - 1) * gps < din // 32 <= splits * gps
-    for din, dout in ((1024, 3072), (1024, 1024), (1024, 5632), (2816, 1024),
-                      (1024, 2048), (4096, 1024)):
-        rows, splits = qmatmul.plan_splits(din, dout, 132)
-        assert rows <= q4matmul.MAX_SPLIT_ROWS and rows % qmatmul.ROW_GRAIN == 0
-        assert (splits - 1) * rows < din <= splits * rows
+# the CUDA-core GEMVs' main-path launches: (kernel, din, dout, batch, the
+# columns a lane may own) -- Moshi-7B's 129 q4 linears at B = 1 (the B = 1
+# frame), the TTS heads (32001 and 2049 columns, rows off any alignment) at
+# B = 16, the f32 q4 route's 16-row chunks, the depformer's int8 shapes in f32
+GEMV_CASES = ([("q4", din, dout, 1, (16, 8, 4)) for din, dout in
+               ((4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096), (4096, 32000))]
+              + [("int8", 2048, 32001, 16, (4,)), ("int8", 1024, 2049, 16, (4,)),
+                 ("q4", 4096, 4096, 16, (4,)), ("q4", 4096, 4096, 2, (8, 4)),
+                 ("int8", 1024, 3072, 16, (4,)), ("int8", 2816, 1024, 1, (16, 8, 4))])
+
+
+def _warp_rows(plan, din, grain):
+    """The din rows each (rank, warp) of a launch sums, as the kernels walk
+    them (csrc/int8_gemv.cu, csrc/q4_gemv.cu): rank r's rows in segments of
+    seg_rows, each segment cut into the warps' consecutive slices (int8 a
+    multiple of GEMV_BATCH_ROWS rows, q4 whole groups)."""
+    rows = {}
+    for r in range(plan.cluster):
+        b0, b1 = r * plan.rows_per_block, min(din, (r + 1) * plan.rows_per_block)
+        for s0 in range(b0, b1, plan.seg_rows):
+            s1 = min(b1, s0 + plan.seg_rows)
+            if grain == 1:
+                per = -(-(-(-(s1 - s0) // plan.warps)) // q4matmul.GEMV_BATCH_ROWS) \
+                    * q4matmul.GEMV_BATCH_ROWS
+            else:
+                per = -(-((s1 - s0) // grain) // plan.warps) * grain
+            for w in range(plan.warps):
+                w0, w1 = min(s1, s0 + w * per), min(s1, s0 + (w + 1) * per)
+                rows.setdefault((r, w), []).extend(range(w0, w1))
+    return rows
+
+
+def _resident(kind, batch, plan, num_sms):
+    """A plan's shared memory and the blocks the card holds at once by
+    gemv_resident_model."""
+    smem = q4matmul.gemv_smem_bytes(batch, plan.cols, plan.warps, plan.cluster, plan.seg_rows,
+                                    q4matmul.gemv_ring_bytes(kind, batch, plan.cols))
+    model = q4matmul.gemv_resident_model(kind, batch, num_sms)
+    return smem, model(plan.cols, plan.warps, plan.cluster, plan.seg_rows)
+
+
+@pytest.mark.parametrize("num_sms", [132, 114])
+@pytest.mark.parametrize("kind,din,dout,batch,cols", GEMV_CASES)
+def test_split_plans_cover_the_main_path_shapes(kind, din, dout, batch, cols, num_sms):
+    """gemv_plan at every main-path shape of the CUDA-core GEMVs: a cluster
+    of at most 8, a lane's columns among those the operands allow and within
+    its registers (batch x cols <= GEMV_MAX_ACC, Q4_MAX_ACC for q4, above
+    4 columns), every din row summed by exactly one warp (q4 in whole
+    groups), shared memory within an H100 block's, and a first wave that
+    holds every block where the plan takes a cluster (by
+    gemv_resident_model) and puts GEMV_MIN_WARPS_PER_SM warps on each SM
+    unless the smallest columns a lane do not."""
+    grain = 32 if kind == "q4" else 1
+    plan = q4matmul.gemv_plan(kind, din, dout, batch, num_sms, grain, cols)
+    assert 1 <= plan.cluster <= q4matmul.GEMV_MAX_CLUSTER == 8
+    assert 1 <= plan.warps <= q4matmul.GEMV_MAX_WARPS
+    most = q4matmul.Q4_MAX_ACC if kind == "q4" else q4matmul.GEMV_MAX_ACC
+    assert plan.cols in cols and (plan.cols == 4 or batch * plan.cols <= most)
+    assert plan.rows_per_block % grain == 0 and plan.seg_rows % grain == 0
+    assert (plan.cluster - 1) * plan.rows_per_block < din <= plan.cluster * plan.rows_per_block
+    covered = sorted(r for rows in _warp_rows(plan, din, grain).values() for r in rows)
+    assert covered == list(range(din))
+    smem, resident = _resident(kind, batch, plan, num_sms)
+    assert smem <= q4matmul.GEMV_SMEM_LIMIT
+    blocks = -(-dout // (32 * plan.cols)) * plan.cluster
+    assert blocks <= resident or plan.cluster == 1
+    assert (blocks * plan.warps >= q4matmul.GEMV_MIN_WARPS_PER_SM * num_sms
+            or plan.cols == cols[-1])
 
 
 def test_kernel_modules_import_without_cuda_toolchain():
@@ -342,12 +398,13 @@ def test_q4_mma_on_cpu_runs_the_plain_version():
 
 
 def test_q4_mma_is_built_by_name():
-    """q4_mma is a kernel of the build: its source and its C signature (the
-    q4_gemv kernel's minus x_is_bf16)."""
+    """q4_mma is a kernel of the build: its source and its C signature (x, q,
+    scale, out, partial; batch, din, dout, group_size, groups_per_split,
+    splits; stream)."""
     from moshi_tpu_torch.ops import build
     assert (build.CSRC / "q4_mma.cu").is_file()
-    assert build.SIGNATURES["q4_mma"] == (build.SIGNATURES["q4_gemv"][:11]
-                                          + build.SIGNATURES["q4_gemv"][12:])
+    p, i = build.SIGNATURES["q4_gemv"][0], build.SIGNATURES["q4_gemv"][4]
+    assert build.SIGNATURES["q4_mma"] == [p] * 5 + [i] * 6 + [p]
     assert build.library_path("q4_mma").name.startswith("q4_mma-")
 
 
@@ -362,18 +419,32 @@ def test_q4_wgmma_is_built_by_name():
 
 @pytest.mark.parametrize("batch", [1, 8, 9, 13, 16])
 def test_split_plans_fit_the_staging_limit(batch):
-    """At every batch the GEMVs take, a block's staged x (f32 [batch, rows])
-    stays within the 48 KB a launch gets without opting in, and the splits
-    still cover din exactly."""
-    limit = 48 * 1024
-    for din, dout in ((4096, 12288), (11264, 4096), (4096, 32000), (192, 100)):
-        gps, splits = q4matmul.plan_splits(din, dout, 32, 132, batch)
-        assert 4 * batch * gps * 32 <= limit
-        assert (splits - 1) * gps < din // 32 <= splits * gps
-    for din, dout in ((1024, 3072), (2816, 1024), (4096, 1024), (1000, 260)):
-        rows, splits = qmatmul.plan_splits(din, dout, 132, batch)
-        assert 4 * batch * rows <= limit and rows % qmatmul.ROW_GRAIN == 0
-        assert (splits - 1) * rows < din <= splits * rows
+    """At every batch the CUDA-core GEMVs take, a plan's shared memory (the
+    warps' and the cluster's sums, x f32 [batch, seg_rows] and the warps'
+    rings of weight rows) stays within
+    what an H100 block may opt in to, its staged x within GEMV_X_BYTES (in
+    segments where a block's rows would not fit), and its rows still cover
+    din exactly; the launch asks for no workspace (the C entry points take
+    x, q, scale and out, and no partial sums)."""
+    from moshi_tpu_torch.ops import build
+    for kind, din, dout, grain in (("q4", 4096, 12288, 32), ("q4", 11264, 4096, 32),
+                                   ("q4", 4096, 32000, 32), ("q4", 192, 100, 32),
+                                   ("q4", 32768, 4096, 32), ("int8", 1024, 3072, 1),
+                                   ("int8", 2816, 1024, 1), ("int8", 2048, 32001, 1),
+                                   ("int8", 1000, 260, 1), ("int8", 65536, 64, 1)):
+        most = q4matmul.Q4_MAX_ACC if kind == "q4" else q4matmul.GEMV_MAX_ACC
+        cols = (4,) if dout % 8 else (16, 8, 4)
+        cols = tuple(c for c in cols if c <= q4matmul.gemv_max_cols(batch, most))
+        plan = q4matmul.gemv_plan(kind, din, dout, batch, 132, grain, cols)
+        smem, _ = _resident(kind, batch, plan, 132)
+        assert smem <= q4matmul.GEMV_SMEM_LIMIT
+        assert 4 * batch * plan.seg_rows <= max(q4matmul.GEMV_X_BYTES, 4 * batch * grain)
+        assert plan.seg_rows <= plan.rows_per_block
+        covered = sorted(r for rows in _warp_rows(plan, din, grain).values() for r in rows)
+        assert covered == list(range(din))
+    for name, ints in (("q4_gemv", 10), ("int8_gemv", 9)):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        assert build.SIGNATURES[name] == [p] * 4 + [i] * ints + [p]
 
 
 @pytest.fixture
