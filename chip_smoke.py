@@ -64,6 +64,23 @@ Phases, each printing its own line(s):
                (card busy ms, idle share, device ops per frame), then one
                session of the eager path (p50/p90, a launch count per
                frame, whether its sampled tokens equal the graphed ones);
+ 4b. serve   - the server's entry point over a checkpoint on disk: the same
+               weights written with the port's save_params (a native q4
+               checkpoint: config.json with a greedy lm_gen_config, Mimi,
+               a synthetic 32000-piece tokenizer) into build/, loaded back
+               by load_state as `main` loads it (bytes, seconds, GB/s), every
+               leaf torch.equal to the written one; the aiohttp app on
+               127.0.0.1, warmed up as `main` warms it, and raw-PCM clients
+               (MT 10) of 40 frames each: session 1 greedy, whose tokens must
+               equal those of a ServerState on the in-memory weights fed the
+               same PCM, sessions 2 and 3 sampled with one text_seed (equal
+               messages) and 4 with another (not equal), and a second client
+               that connects during session 1 and must get MT 4 queue
+               positions, then its session; the launches of the first
+               captured step exactly the slice's per step, and of the whole
+               phase that times 1 + 2 x 3 (two override sets, each warmed
+               twice and captured); p50/p90 ms from a frame sent to its PCM
+               reply, beside [slice]'s p50; the directory is deleted;
   5. batched - the same weights with the int4 KV cache, B = 16 slots of
                BatchedMoshiState, each frame one replay of the graph
                captured at its first frame: a greedy run of 40 frames whose
@@ -148,6 +165,7 @@ last line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
 """
 
+import asyncio
 import gc
 import json
 import re
@@ -1186,6 +1204,292 @@ def run_slice(dev, card: str, lm, lm_params, mimi, mimi_params) -> dict:
             "profile": prof, "eager": {"p50_ms": e50, "p90_ms": e90, "frames": len(ems),
                                        "launches": eager_launches,
                                        "sampled_tokens_equal_graphed": same}}
+
+
+# ------------------------------------------------------------------ serve
+SERVE_DIR = ROOT / "build" / "serve_checkpoint"
+SERVE_FRAMES = 40        # frames of seeded noise a session
+SERVE_QUEUED_FRAMES = 8  # the queued client's session
+SERVE_QUEUE_AT = 5       # the frame of session 1 at which the second client connects
+SERVE_TIMEOUT = 120      # seconds a client waits for a message
+# the checkpoint's lm_gen_config: greedy, so session 1 can be held against
+# the in-memory weights token for token
+SERVE_GREEDY = {"temp": 0.0, "temp_text": 0.0}
+SAMPLED = {"text_temperature": "0.7", "audio_temperature": "0.8"}
+# session queries: 1 greedy, 2 and 3 sampled with one seed, 4 with another
+SERVE_SESSIONS = ({}, {**SAMPLED, "text_seed": "5"}, {**SAMPLED, "text_seed": "5"},
+                  {**SAMPLED, "text_seed": "6"})
+SERVE_QUEUED = {"text_temperature": "0.7"}
+
+
+def same_tree(got, want, path: str = "") -> int:
+    """Raise unless `got` has `want`'s structure, leaf classes, dtypes,
+    devices and bytes; returns the number of tensors compared."""
+    from moshi_tpu_torch.utils.quantize import QTensor, QTensor4
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise RuntimeError(f"serve: the loaded tree's keys differ at {path or '/'}")
+        return sum(same_tree(got[k], want[k], f"{path}/{k}") for k in want)
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise RuntimeError(f"serve: the loaded tree's lists differ at {path}")
+        return sum(same_tree(g, w, f"{path}/{i}") for i, (g, w) in enumerate(zip(got, want)))
+    if isinstance(want, (QTensor, QTensor4)):
+        if type(got) is not type(want):
+            raise RuntimeError(f"serve: {path} loaded as {type(got).__name__}, "
+                               f"written as {type(want).__name__}")
+        return same_tree(got.q, want.q, path + "#q") + same_tree(got.scale, want.scale,
+                                                                  path + "#scale")
+    if not (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+            and got.device == want.device and torch.equal(got, want)):
+        raise RuntimeError(f"serve: the loaded leaf {path} differs from the written one")
+    return 1
+
+
+def write_checkpoint(lm, lm_params, mimi, mimi_params, out: Path) -> int:
+    """A native checkpoint directory of the weights, as the port writes it:
+    the q4 LM, Mimi, a config.json of the LM's fields with a greedy
+    lm_gen_config and a synthetic SentencePiece tokenizer of the text
+    vocabulary.  Returns the bytes of the weights."""
+    import dataclasses
+    from moshi_tpu_torch.models.native_ckpt import save_mimi_params, save_params
+    from moshi_tpu_torch.text.spm import spm_model_bytes
+
+    out.mkdir(parents=True)
+    nbytes = save_params(out / "model.q4.native.safetensors", lm_params)
+    nbytes += save_mimi_params(out / "mimi.native.safetensors", mimi, mimi_params)
+    (out / "tokenizer_spm_32k_3.model").write_bytes(spm_model_bytes(lm.config.text_card))
+    config = {k: list(v) if isinstance(v, tuple) else v
+              for k, v in dataclasses.asdict(lm.config).items()}
+    config.update(moshi_name="model.q4.native.safetensors", mimi_name="mimi.native.safetensors",
+                  tokenizer_name="tokenizer_spm_32k_3.model", model_type="moshi",
+                  native_format=True, lm_gen_config=SERVE_GREEDY)
+    (out / "config.json").write_text(json.dumps(config, indent=2))
+    return nbytes
+
+
+def serve_pcm(frame_size: int) -> np.ndarray:
+    """The PCM every [serve] session sends: SERVE_FRAMES frames of seeded
+    noise."""
+    return (0.3 * np.random.RandomState(SEED + 40).randn(SERVE_FRAMES, frame_size)
+            ).astype(np.float32)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def pcm_session(ws, pcm, on_frame=None) -> tuple[list, list]:
+    """Raw PCM over an open session: the {"raw_pcm": true} metadata, then
+    each frame followed by a ping, its replies read up to the ping
+    (`on_frame(i)` awaited before frame i).  Returns (the replies but the
+    pings, ms from a frame sent to its PCM reply)."""
+    from moshi_tpu_torch.serve import protocol as proto
+
+    await ws.send_bytes(proto.msg(proto.MT_METADATA, json.dumps({"raw_pcm": True}).encode()))
+    reply = json.loads((await ws.receive_bytes(timeout=SERVE_TIMEOUT))[1:])
+    if not reply.get("raw_pcm"):
+        raise RuntimeError(f"serve: raw PCM refused: {reply}")
+    msgs, ms = [], []
+    for i, frame in enumerate(pcm):
+        if on_frame is not None:
+            await on_frame(i)
+        t0 = time.perf_counter()
+        await ws.send_bytes(proto.msg(proto.MT_PCM, frame.tobytes()))
+        await ws.send_bytes(proto.msg(proto.MT_PING))
+        while (m := await ws.receive_bytes(timeout=SERVE_TIMEOUT))[0] != proto.MT_PING:
+            if m[0] == proto.MT_PCM:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            msgs.append(m)
+    return msgs, ms
+
+
+async def drive_server(state, expected: dict) -> dict:
+    """The server app on 127.0.0.1 and its clients: SERVE_SESSIONS, each
+    sending serve_pcm, with a second client queueing during session 1
+    (SERVE_QUEUED).  Checks the launches at three points: the first
+    captured step (exactly `expected`), after the queued session (its
+    override set's two warm-up steps and its capture on top) and at the
+    end (the sampled override set likewise)."""
+    import aiohttp
+    from aiohttp import web
+    from moshi_tpu_torch.serve import protocol as proto
+    from moshi_tpu_torch.serve.server import make_app
+
+    runner = web.AppRunner(make_app(state))
+    await runner.setup()
+    port = free_port()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    url = f"http://127.0.0.1:{port}/api/chat"
+    pcm = serve_pcm(state.frame_size)
+    out = {"sessions": [], "ms": [], "checks": {}}
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def open_session(query):
+                ws = await http.ws_connect(url, params=query)
+                first = await ws.receive_bytes(timeout=SERVE_TIMEOUT)
+                waits = []
+                while first[0] == proto.MT_METADATA:  # queue positions
+                    waits.append(json.loads(first[1:]))
+                    first = await ws.receive_bytes(timeout=SERVE_TIMEOUT)
+                if first != proto.handshake():
+                    raise RuntimeError(f"serve: handshake {first!r}")
+                echo = (json.loads((await ws.receive_bytes(timeout=SERVE_TIMEOUT))[1:])
+                        if query else None)
+                return ws, waits, echo
+
+            async def queued_client():
+                ws, waits, echo = await open_session(SERVE_QUEUED)
+                msgs, _ = await pcm_session(ws, pcm[:SERVE_QUEUED_FRAMES])
+                await ws.close()
+                return waits, echo, msgs
+
+            queued = None
+
+            async def on_frame(i):
+                nonlocal queued
+                if i == 2:  # the frame after the first captured step
+                    out["checks"]["first_capture"] = read_counts()
+                if i == SERVE_QUEUE_AT:
+                    queued = asyncio.ensure_future(queued_client())
+                    while not state._session_order[1:]:  # until it waits in the queue
+                        if queued.done():
+                            queued.result()
+                            raise RuntimeError("serve: the second client never queued")
+                        await asyncio.sleep(0.01)
+
+            for n, query in enumerate(SERVE_SESSIONS):
+                ws, waits, echo = await open_session(query)
+                if waits:
+                    raise RuntimeError(f"serve: session {n + 1} waited: {waits}")
+                msgs, ms = await pcm_session(ws, pcm, on_frame if n == 0 else None)
+                if n == 0:
+                    out["greedy_tokens"] = np.array(state.session_tokens)
+                await ws.close()
+                if n == 0:
+                    waits, qecho, qmsgs = await queued
+                    if (not waits or waits[0] != {"status": "wait", "queue_position": 1}
+                            or qecho["text_temperature"] != 0.7):
+                        raise RuntimeError(f"serve: queued client got {waits}, {qecho}")
+                    generated = SERVE_QUEUED_FRAMES - 1 - state.lm.config.max_delay
+                    if sum(m[0] == proto.MT_PCM for m in qmsgs) != generated:
+                        raise RuntimeError("serve: the queued client's session is short")
+                    out["queued"] = {"queue_messages": len(waits), "frames": SERVE_QUEUED_FRAMES}
+                    out["checks"]["after_queued"] = read_counts()
+                out["sessions"].append({"query": query, "echo": echo, "msgs": msgs})
+                out["ms"] += ms
+            out["checks"]["end"] = read_counts()
+    finally:
+        await runner.cleanup()
+    return out
+
+
+def run_serve(dev, card: str, lm, lm_params, mimi, mimi_params, slice_p50: float) -> dict:
+    """The server's entry point over a checkpoint the port wrote: the
+    weights of build_models saved with save_params, loaded back through
+    load_state (CheckpointInfo, as `main` does) and held leaf for leaf
+    against the written ones, warmed up, served over aiohttp on 127.0.0.1
+    to raw-PCM clients (SERVE_SESSIONS and a queued one); session 1's greedy
+    tokens against a ServerState on the in-memory weights fed the same
+    PCM; p50/p90 ms from a frame sent to its PCM reply."""
+    import shutil
+    import aiohttp
+    from moshi_tpu_torch.serve import protocol as proto
+    from moshi_tpu_torch.serve.server import ServerState, load_state
+
+    expected = per_step_launches(lm.config, lm_params, 1)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(lm, lm_params, mimi, mimi_params, SERVE_DIR)
+        write_s = time.perf_counter() - t0
+        phase("serve", f"wrote a native checkpoint: {nbytes / 1e9:.3f} GB of weights in "
+              f"{write_s:.2f} s -> {SERVE_DIR}")
+        t0 = time.perf_counter()
+        state = load_state(SERVE_DIR, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        leaves = same_tree(state.lm_params, lm_params) + same_tree(state.mimi_params,
+                                                                   mimi_params)
+        if state.lm.config != lm.config or state.mimi.config != mimi.config:
+            raise RuntimeError("serve: the loaded configs differ from the written ones")
+        phase("serve", f"load_state (CheckpointInfo.from_dir, get_mimi, get_moshi onto the "
+              f"card, the tokenizer, the engine) {load_s:.2f} s, {nbytes / 1e9 / load_s:.2f} "
+              f"GB/s; {leaves} tensors torch.equal to the written ones, classes and dtypes "
+              f"included ({card})")
+        if per_step_launches(state.lm.config, state.lm_params, 1) != expected:
+            raise RuntimeError("serve: the loaded tree routes otherwise than the written one")
+        state.warmup()
+        zero_counts()
+        out = asyncio.run(drive_server(state, expected))
+        checks = out["checks"]
+        for name, key, times in (("the first captured step", "first_capture", 1),
+                                 ("after the queued session", "after_queued", 4),
+                                 ("the end", "end", 7)):
+            check_counts(checks[key], expected, times, f"serve, {name}")
+        launches = checks["end"]
+        s = out["sessions"]
+        if s[1]["msgs"] != s[2]["msgs"]:
+            raise RuntimeError("serve: sessions 2 and 3 share a seed but not their messages")
+        if s[1]["msgs"] == s[3]["msgs"]:
+            raise RuntimeError("serve: sessions 2 and 4 have different seeds but equal messages")
+        generated = SERVE_FRAMES - 1 - lm.config.max_delay
+        for i, sess in enumerate(s):
+            pcm_msgs = [m for m in sess["msgs"] if m[0] == proto.MT_PCM]
+            if len(pcm_msgs) != generated:
+                raise RuntimeError(f"serve: session {i + 1} sent {len(pcm_msgs)} PCM frames")
+            check_pcm([np.frombuffer(m[1:], np.float32) for m in pcm_msgs], mimi.frame_size,
+                      f"serve session {i + 1}")
+        tokens = out["greedy_tokens"]
+        check_tokens(tokens, lm.config, "serve session 1")
+        tokenizer = state.text_tokenizer
+        pieces = [m[1:].decode() for m in s[0]["msgs"] if m[0] == proto.MT_TEXT]
+        del state
+        free_memory()
+
+        ref = ServerState(mimi, mimi_params, lm, lm_params, device=dev, **SERVE_GREEDY)
+        ref.warmup()
+        pcm = serve_pcm(mimi.frame_size)
+        ref.skip_frame(pcm[0])
+        for chunk in pcm[1:]:
+            ref.step_frame(chunk)
+        ref_tokens = np.array(ref.session_tokens)
+        del ref
+        free_memory()
+        if not np.array_equal(tokens, ref_tokens):
+            raise RuntimeError("serve: session 1's tokens differ from the in-memory weights'")
+        ref_pieces = [tokenizer.id_to_piece(int(t)).replace("▁", " ")
+                      for t in ref_tokens[:, 0] if t not in (0, 3)]
+        if pieces != ref_pieces:
+            raise RuntimeError("serve: session 1's text pieces differ from its tokens'")
+        p50, p90 = (float(np.percentile(out["ms"], p)) for p in (50, 90))
+        phase("serve", f"aiohttp {aiohttp.__version__} on 127.0.0.1, raw PCM: "
+              f"{len(SERVE_SESSIONS)} sessions x {SERVE_FRAMES} frames; session 1 greedy, "
+              f"its {len(tokens)} token frames equal a ServerState's on the in-memory "
+              f"weights ({len(pieces)} text pieces); sessions 2 and 3 (text_seed 5) "
+              f"identical, 2 and 4 not; a client queued during session 1 got "
+              f"{out['queued']['queue_messages']} MT 4 queue positions, then its session")
+        def used(d):
+            return {k: v for k, v in d.items() if v}
+
+        phase("serve", f"launches {used(launches)} = per captured step {used(expected)} x (1 "
+              f"greedy capture + 2 override sets x (2 warm-up steps + 1 capture)); the first "
+              f"capture alone {used(checks['first_capture'])}")
+        phase("serve", f"frame sent -> PCM reply over the socket: p50 {p50:.2f} ms, p90 "
+              f"{p90:.2f} ms ({len(out['ms'])} frames, captures included); [slice] p50 "
+              f"{slice_p50:.2f} ms/frame in this run ({card})")
+        return {"launches": launches, "per_capture": expected, "bytes": nbytes,
+                "write_s": write_s, "load_s": load_s, "load_gb_s": nbytes / 1e9 / load_s,
+                "p50_ms": p50, "p90_ms": p90, "slice_p50_ms": slice_p50,
+                "frames": len(out["ms"]), "transport": f"aiohttp {aiohttp.__version__}",
+                "queued": out["queued"]}
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- batched
@@ -2583,6 +2887,8 @@ def main() -> None:
     lm, lm_params, mimi, mimi_params = build_models(dev)
     slice_ = run_slice(dev, card, lm, lm_params, mimi, mimi_params)
     free_memory()
+    serve = run_serve(dev, card, lm, lm_params, mimi, mimi_params, slice_["p50_ms"])
+    free_memory()
     batched = run_batched(dev, card, lm_params, mimi, mimi_params)
     free_memory()
     offline = run_offline(dev, card, lm, lm_params, mimi, mimi_params)
@@ -2594,7 +2900,7 @@ def main() -> None:
 
     # the main paths' runs, all graphed: their launches counted at capture
     # (the offline forward is not graphed: its launches are one eager call's)
-    by_path = {"slice_b1": slice_["launches"],
+    by_path = {"slice_b1": slice_["launches"], "serve": serve["launches"],
                **{f"batched_{p}": v for p, v in batched["launches"].items()},
                "offline_forward": offline["launches"],
                "asr": asr["launches"], **tts["launches"]}
@@ -2646,6 +2952,7 @@ def main() -> None:
                   "launches_by_path": {p: v[name] for p, v in by_path.items()},
                   "launches_per_frame": {p: v[name] for p, v in per_frame_by_path.items()}})
     print(json.dumps({"kernels": kernels, "slice": slice_,
+                      "serve": {key: v for key, v in serve.items() if key != "launches"},
                       "batched": {key: batched[key] for key in ("sampled", "sampled_eager",
                                                                 "greedy", "int8_greedy")},
                       "offline": {key: v for key, v in offline.items() if key != "launches"},

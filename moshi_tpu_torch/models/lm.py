@@ -38,6 +38,18 @@ from ..utils.sampling import sample_token
 ZERO_TOKEN = -1         # embeds to exactly 0
 UNGENERATED_TOKEN = -2  # "to be predicted" marker
 
+# config.json keys that CheckpointInfo reads, and deprecated ones
+_CHECKPOINT_KEYS = ("moshi_name", "mimi_name", "mimi_config_name", "tokenizer_name",
+                    "lora_name", "model_type", "lm_gen_config", "tts_config",
+                    "stt_config", "model_id", "depformer_causal", "lora", "lora_rank",
+                    "lora_scaling", "quantize", "conditioners", "fuser",
+                    "depformer_context")
+# the JAX package's LmConfig fields the port lacks -> the value it runs
+_NOT_PORTED_FIELDS = {"causal": True, "remat": False, "demux_second_text_stream": False,
+                      "depformer_multi_linear": True, "depformer_weights_per_step": True,
+                      "depformer_weights_per_step_schedule": None,
+                      "depformer_low_rank_embeddings": None}
+
 
 @dataclass(frozen=True)
 class LmConfig:
@@ -79,6 +91,30 @@ class LmConfig:
     attention_int8_qk: bool = False  # XLA-only in the JAX package; refused here
     extra_heads_num_heads: int = 0
     extra_heads_dim: int = 6
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LmConfig":
+        """Build from the reference `config.json` schema (moshi_tpu lm.py
+        `LmConfig.from_dict`).  The JAX package's fields that the port does
+        not have are accepted at the one value the port runs and refused at
+        any other."""
+        d = dict(d)
+        for k in _CHECKPOINT_KEYS:
+            d.pop(k, None)
+        if "demux_second_stream" in d:
+            d["demux_second_text_stream"] = d.pop("demux_second_stream")
+        for k, supported in _NOT_PORTED_FIELDS.items():
+            if k in d:
+                v = d.pop(k)
+                if (tuple(v) if isinstance(v, list) else v) != supported:
+                    raise NotImplementedError(f"LM config {k}={v!r} is not ported (the "
+                                              f"port runs {supported!r}; ROADMAP A.10)")
+        unknown = sorted(set(d) - set(cls.__dataclass_fields__))
+        if unknown:
+            raise ValueError(f"unknown LM config keys: {unknown}")
+        if "delays" in d:
+            d["delays"] = tuple(d["delays"])
+        return cls(**d)
 
     @property
     def num_codebooks(self) -> int:
@@ -212,6 +248,25 @@ def lm_config_tts_202501() -> LmConfig:
         cross_attention=True, cross_attention_gating="normal",
         cross_attention_norm="layer_norm",
         delays=_acoustic_delays(32, 32, 2), **_depformer_kwargs(32))
+
+
+def lm_config_s2s_v0_1(num_slices: int = 16) -> LmConfig:
+    """Speech-to-speech 1B (moshi_tpu/models/loaders.py)."""
+    return LmConfig(
+        dim=2048, num_heads=16, num_layers=16, hidden_scale=4.125,
+        context=3000, max_period=10_000.0, gating="silu", norm="rms_norm_f32",
+        positional_embedding="rope", layer_scale=None, card=2048, text_card=48000,
+        n_q=16, delays=_acoustic_delays(16, num_slices, 2), **_depformer_kwargs(num_slices))
+
+
+def lm_config_s2s_2b_16rvq_202501() -> LmConfig:
+    """Speech-to-speech 2.6B, 16 generated and 16 input codebooks
+    (moshi_tpu/models/loaders.py)."""
+    return LmConfig(
+        dim=2560, num_heads=20, num_layers=24, hidden_scale=4.125,
+        context=3000, max_period=100_000.0, gating="silu", norm="rms_norm_f32",
+        positional_embedding="rope", layer_scale=None, card=2048, text_card=48000,
+        n_q=32, delays=_acoustic_delays(32, 16, 2), **_depformer_kwargs(16))
 
 
 def lm_config_v0_1_vision(num_slices: int = 8, streaming: bool = False) -> LmConfig:

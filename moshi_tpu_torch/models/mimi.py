@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from ..modules.conv import conv_from_jax, convtr_from_jax
+from ..modules.conv import conv_from_jax, conv_to_jax, convtr_from_jax, convtr_to_jax
 from ..modules.resample import ConvDownsample1d, ConvTrUpsample1d
 from ..modules.seanet import SEANetConfig, SEANetDecoder, SEANetEncoder
 from ..modules.transformer import StreamingTransformer, TransformerConfig
@@ -92,24 +92,25 @@ class MimiModel:
             "quantizer": self.quantizer.init_params(generator, dtype, device),
         }
 
-    def relayout_jax_convs(self, params: dict) -> None:
+    def relayout_jax_convs(self, params: dict, to_jax: bool = False) -> None:
         """Convert, in the tree, every conv weight from the JAX package's
-        [K, Cin/g, Cout] to PyTorch's layout (utils/params.from_jax)."""
-        def conv(p):
-            p["weight"] = conv_from_jax(p["weight"])
+        [K, Cin/g, Cout] to PyTorch's layout (utils/params.from_jax), or
+        back with `to_jax` (native checkpoints hold the JAX layout)."""
+        conv = conv_to_jax if to_jax else conv_from_jax
+        convtr = convtr_to_jax if to_jax else convtr_from_jax
+
+        def put(p, groups=None):
+            p["weight"] = conv(p["weight"]) if groups is None else convtr(p["weight"], groups)
 
         for seanet, key in ((self.encoder, "encoder"), (self.decoder, "decoder")):
             for (kind, mod, _), p in zip(seanet.items, params[key]["model"]):
                 if kind == "block":
                     for cp in p["block"]:
-                        conv(cp)
-                elif kind == "convtr":
-                    p["weight"] = convtr_from_jax(p["weight"], mod.groups)
+                        put(cp)
                 else:
-                    conv(p)
-        conv(params["downsample"])
-        params["upsample"]["weight"] = convtr_from_jax(params["upsample"]["weight"],
-                                                       self.upsample.convtr.groups)
+                    put(p, mod.groups if kind == "convtr" else None)
+        put(params["downsample"])
+        put(params["upsample"], self.upsample.convtr.groups)
 
     def init_encode_state(self, batch_size: int, dtype=torch.float32, device=None) -> dict:
         return {

@@ -42,6 +42,19 @@ def convtr_from_jax(w: torch.Tensor, groups: int) -> torch.Tensor:
     return w.permute(2, 1, 3, 0).reshape(groups * cin_g, cout // groups, K).contiguous()
 
 
+def conv_to_jax(w: torch.Tensor) -> torch.Tensor:
+    """[Cout, Cin/g, K] -> the JAX package's [K, Cin/g, Cout]."""
+    return w.permute(2, 1, 0).contiguous()
+
+
+def convtr_to_jax(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """PyTorch's [Cin, Cout/g, K] -> the JAX package's [K, Cin/g, Cout]
+    (the inverse of convtr_from_jax)."""
+    cin, cout_g, K = w.shape
+    w = w.reshape(groups, cin // groups, cout_g, K)
+    return w.permute(3, 1, 0, 2).reshape(K, cin // groups, groups * cout_g).contiguous()
+
+
 def _init(generator, shape, fan_in, bias_dim, dtype, device) -> dict:
     bound = 1.0 / math.sqrt(fan_in)
     p = {"weight": uniform(generator, shape, bound, dtype, device)}

@@ -64,6 +64,18 @@ def _make_resblock(cfg: SEANetConfig, dim: int, dilation: int) -> _ResBlock:
                       StreamingConv1d(hidden, dim, 1)))
 
 
+def _torch_indices(items: list) -> list[int]:
+    """Each item's index in the reference's nn.Sequential, where every
+    activation before a conv takes a slot of its own (the module names of a
+    PyTorch checkpoint, models/loaders.py)."""
+    out, i = [], 0
+    for _, _, pre_act in items:
+        i += pre_act
+        out.append(i)
+        i += 1
+    return out
+
+
 class _SEANetBase:
     """`self.items` is a list of (kind, module, pre_act), kind in
     {conv, convtr, block}."""
@@ -116,6 +128,7 @@ class SEANetEncoder(_SEANetBase):
         items.append(("conv", StreamingConv1d(mult * cfg.n_filters, cfg.dimension,
                                               cfg.last_kernel_size), True))
         self.items = items
+        self.torch_indices = _torch_indices(items)
 
 
 class SEANetDecoder(_SEANetBase):
@@ -137,3 +150,4 @@ class SEANetDecoder(_SEANetBase):
         items.append(("conv", StreamingConv1d(cfg.n_filters, cfg.channels,
                                               cfg.last_kernel_size), True))
         self.items = items
+        self.torch_indices = _torch_indices(items)

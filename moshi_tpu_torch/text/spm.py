@@ -167,3 +167,20 @@ class SentencePieceTokenizer:
         flush()
         text = "".join(out).replace(WS, " ")
         return text[1:] if text.startswith(" ") else text
+
+
+def spm_model_bytes(vocab: int) -> bytes:
+    """A minimal unigram SentencePiece model of `vocab` pieces (the JAX
+    package's scripts/make_tiny_checkpoint.py `spm_model_bytes`): <unk>,
+    <s> and </s>, then one whole-word piece `▁w{i}` for every other id, so
+    that any text token of a model made from a seed decodes to a word."""
+    def piece(p: str, score: float, ptype: int = 1) -> bytes:
+        pb = p.encode("utf-8")
+        body = b"\x0a" + bytes([len(pb)]) + pb + b"\x15" + struct.pack("<f", score)
+        if ptype != 1:
+            body += b"\x18" + bytes([ptype])
+        return b"\x0a" + bytes([len(body)]) + body
+
+    pieces = [piece("<unk>", 0.0, 2), piece("<s>", 0.0, 3), piece("</s>", 0.0, 3)]
+    pieces += [piece(f"{WS}w{i}", -float(i)) for i in range(3, vocab)]
+    return b"".join(pieces)

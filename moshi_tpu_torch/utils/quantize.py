@@ -55,6 +55,21 @@ def dequantize4(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return w.reshape(*lead, p2 * 2, dout)
 
 
+def repack_legacy_q4(q: torch.Tensor, scale: torch.Tensor) -> "QTensor4":
+    """A q4 leaf of the older two-plane packing (q [..., din/(2*gs), gs,
+    dout], byte i holding din position i in the low nibble and i + din/2 in
+    the high one; its q has as many axes as its scale) -> the
+    sequential-pair QTensor4 (moshi_tpu/utils/quantize.py
+    `repack_legacy_q4`)."""
+    low, high = unpack_nibbles(q)
+    *lead, p, gs, dout = q.shape
+    w = torch.cat([low.reshape(*lead, p * gs, dout), high.reshape(*lead, p * gs, dout)],
+                  dim=-2)
+    pairs = w.reshape(*lead, p * gs, 2, dout)
+    packed = (pairs[..., 0, :] & 0x0F) | ((pairs[..., 1, :] & 0x0F) << 4)
+    return QTensor4(packed.to(torch.int8), scale)
+
+
 @dataclass
 class QTensor:
     """Symmetric int8 weight with per-output-column scales."""

@@ -1346,6 +1346,54 @@ def test_graphed_server_sampling_follows_the_session_seed(gen):
     np.testing.assert_array_equal(graphed[2][0], eager[1][0])
 
 
+def _session_messages(state, query, payloads):
+    """One session through ServerState.run_session, no socket: the
+    messages it sends."""
+    import asyncio
+    out = []
+
+    async def messages():
+        for p in payloads:
+            yield p
+
+    async def send(b):
+        out.append(b)
+
+    asyncio.run(state.run_session(query, messages(), send))
+    return out
+
+
+def test_graphed_server_sessions_with_overrides_equal_eager(gen, tmp_path):
+    """Raw-PCM sessions through the session loop: greedy by default, then
+    sampling overrides with one text_seed twice and another once, and an
+    override set with the repetition penalty.  Each override set gets its
+    own captured step, warmed before its capture; the graphed server sends
+    the eager server's messages byte for byte, one seed repeats and two
+    differ."""
+    import json
+    from moshi_tpu_torch.text.spm import SentencePieceTokenizer, spm_model_bytes
+    (tmp_path / "t.model").write_bytes(spm_model_bytes(128))
+    tok = SentencePieceTokenizer(tmp_path / "t.model")
+    servers = [_server(g, text_tokenizer=tok, temp=0.0, temp_text=0.0) for g in (True, False)]
+    sampled = {"text_temperature": "0.7", "audio_temperature": "0.8"}
+    queries = [{}, {**sampled, "text_seed": "5"}, {**sampled, "text_seed": "5"},
+               {**sampled, "text_seed": "6"},
+               {"text_temperature": "0.7", "repetition_penalty": "1.3",
+                "repetition_penalty_context": "8"}]
+    fs = servers[0].frame_size
+    pcm = (0.3 * np.random.RandomState(0).randn(16, fs)).astype(np.float32)
+    payloads = ([b"\x04" + json.dumps({"raw_pcm": True}).encode()]
+                + [b"\x0a" + f.tobytes() for f in pcm] + [b"\x06"])
+    got = [[_session_messages(s, q, payloads) for q in queries] for s in servers]
+    assert got[0] == got[1]
+    graphed = got[0]
+    assert graphed[1] == graphed[2] and graphed[1] != graphed[3]
+    assert sum(m[0] == 10 for m in graphed[0]) == 16 - 1 - servers[0].lm.config.max_delay
+    assert any(m[0] == 2 for m in graphed[0])
+    steps = [g.step for g in servers[0]._gens.values()]
+    assert len(steps) == 3 and all(s.graph is not None for s in steps)
+
+
 def _graph_schedule():
     """tick -> {slot: action} at B = 4: the schedule of
     tests/test_torch_batched_server.py (slot 2 joins late, slot 1 freezes
