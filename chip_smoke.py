@@ -80,7 +80,8 @@ Phases, each printing its own line(s):
                captured step exactly the slice's per step, and of the whole
                phase that times 1 + 2 x 3 (two override sets, each warmed
                twice and captured); p50/p90 ms from a frame sent to its PCM
-               reply, beside [slice]'s p50; the directory is deleted;
+               reply, beside [slice]'s p50; the directory stays for
+               [worker];
   5. batched - the same weights with the int4 KV cache, B = 16 slots of
                BatchedMoshiState, each frame one replay of the graph
                captured at its first frame: a greedy run of 40 frames whose
@@ -135,6 +136,32 @@ Phases, each printing its own line(s):
                slot 0 must say words too; then graphed engines at B = 256,
                512 and 1024, 20 frames of every slot each (p50 / p90, peak
                memory), naming the largest B whose p90 stays under 80 ms;
+               the weights are written as a native speech-to-text
+               checkpoint (the `delay` conditioner's tensors in the LM's
+               file, stt_config, a synthetic tokenizer) into build/;
+ 7b. worker  - serve/worker.py's build_app on one TOML of three modules:
+               the Moshi server over [serve]'s checkpoint, batched Moshi
+               over it at B = 16 with the int4 KV cache and a bf16 Mimi,
+               batched ASR over [asr]'s at B = 64 with the int8 KV cache,
+               each loaded, warmed up and its graphs captured, served by
+               aiohttp on 127.0.0.1 with an API key: 401 without it,
+               /api/modules_info, /metrics; 16 MessagePack ASR clients and
+               one of the legacy framing (twin pairs on one PCM stream, 40
+               frames each as fast as the socket takes them, markers
+               before frames 10, 20 and 30; one client leaves after frame
+               15 and resumes under its resume id), whose twins must say
+               the same words and whose markers must come back after the
+               words of the audio before them; the batched Moshi module
+               driven through its own acquire_slot / feed_pcm /
+               slot_queues under the worker's run_loop (7 twin pairs of 40
+               greedy frames, and a twin that leaves after frame 15 and
+               resumes on another slot), token for token; one raw-PCM
+               session on /api/chat whose greedy tokens must equal
+               [serve]'s session 1; the launches of the phase exactly each
+               module's warm-up frames and one capture, none while
+               serving; load and warm-up s of each module, p50/p90 ms per
+               batched frame of both loops, peak memory; both
+               checkpoints are deleted;
   8. tts     - batched text-to-speech at the full width of tts_v0_1 (48
                layers of dim 2048, 32 heads x 64, a 16-step depformer;
                int8 weights, int4 KV at context 1000, bf16 Mimi with 16
@@ -1395,7 +1422,9 @@ def run_serve(dev, card: str, lm, lm_params, mimi, mimi_params, slice_p50: float
     against the written ones, warmed up, served over aiohttp on 127.0.0.1
     to raw-PCM clients (SERVE_SESSIONS and a queued one); session 1's greedy
     tokens against a ServerState on the in-memory weights fed the same
-    PCM; p50/p90 ms from a frame sent to its PCM reply."""
+    PCM; p50/p90 ms from a frame sent to its PCM reply.  The checkpoint
+    stays in SERVE_DIR for [worker], which deletes it (so does a failure
+    here)."""
     import shutil
     import aiohttp
     from moshi_tpu_torch.serve import protocol as proto
@@ -1487,9 +1516,10 @@ def run_serve(dev, card: str, lm, lm_params, mimi, mimi_params, slice_p50: float
                 "write_s": write_s, "load_s": load_s, "load_gb_s": nbytes / 1e9 / load_s,
                 "p50_ms": p50, "p90_ms": p90, "slice_p50_ms": slice_p50,
                 "frames": len(out["ms"]), "transport": f"aiohttp {aiohttp.__version__}",
-                "queued": out["queued"]}
-    finally:
+                "queued": out["queued"], "greedy_tokens": tokens}
+    except BaseException:
         shutil.rmtree(SERVE_DIR, ignore_errors=True)
+        raise
 
 
 # ---------------------------------------------------------------- batched
@@ -1999,7 +2029,8 @@ def build_asr(dev):
     provider = ConditionProvider({"delay": ContinuousAttributeConditioner(
         output_dim=cfg.dim, dim=ASR_COND["dim"], scale_factor=ASR_COND["scale_factor"],
         max_period=ASR_COND["max_period"])})
-    cond = asr_sum_condition(provider, provider.init_params(g, torch.float32, dev), cfg.dim,
+    cond_params = provider.init_params(g, torch.float32, dev)
+    cond = asr_sum_condition(provider, cond_params, cfg.dim,
                              conditioning_delay=ASR_COND["delay"])
     torch.cuda.synchronize()
     phase("asr", f"asr_300m_202501 bf16 (dim {cfg.dim}, {cfg.num_layers} layers, "
@@ -2007,7 +2038,7 @@ def build_asr(dev):
           f"{cfg.context}) + Mimi bf16 with {mimi.num_codebooks} codebooks built from seed "
           f"{SEED + 3} in {time.perf_counter() - t0:.1f} s")
     return {"mimi": mimi, "lm": lm, "mimi_params": mimi_params, "lm_params": lm_params,
-            "cond": cond}
+            "cond": cond, "cond_params": cond_params}
 
 
 def asr_engine(dev, models, batch: int, graphed: bool):
@@ -2215,7 +2246,7 @@ def asr_sweep(dev, models, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         state = asr_engine(dev, models, B, True)
         for slot in range(B):
-            state.acquire_slot(slot)
+            state.open_slot(slot)
         every_slot_asr(state, SEED + 9, 1, False)
         r = every_slot_asr(state, SEED + 10, 20, False)
         r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -2325,6 +2356,10 @@ def run_asr(dev, card: str) -> dict:
               f"{profile_line(every['profile'])} ({card})")
     witness = asr_plain_witness(dev, models, sessions[0][0][0], words(sessions[0][0][1]))
     sweep = asr_sweep(dev, models, card)
+    t0 = time.perf_counter()
+    nbytes = write_asr_checkpoint(models, ASR_DIR)
+    phase("asr", f"wrote the weights as a native checkpoint for [worker]: {nbytes / 1e9:.3f} GB "
+          f"in {time.perf_counter() - t0:.2f} s -> {ASR_DIR}")
     del models
     free_memory()
     summary = {key: v for key, v in g.items() if key != "sessions"}
@@ -2335,6 +2370,411 @@ def run_asr(dev, card: str) -> dict:
     summary["eager"].update({"p50_ms": e50, "p90_ms": e90})
     del summary["ms"]
     return summary
+
+
+# ----------------------------------------------------------------- worker
+ASR_DIR = ROOT / "build" / "asr_checkpoint"
+WORKER_ASR_SLOTS = 64     # B of the worker's batched_asr module
+WORKER_ASR_CLIENTS = 16   # msgpack clients; one more speaks the legacy framing
+WORKER_MARKERS = (10, 20, 30)  # a client sends a Marker before these frames
+WORKER_LEAVE = 15         # the resuming ASR client and batched slot leave after this frame
+WORKER_TIMEOUT = 120      # seconds a client waits for the loop
+
+
+def write_asr_checkpoint(models, out: Path) -> int:
+    """[asr]'s seeded weights as a native speech-to-text checkpoint: the LM
+    (bf16, the head's pad columns scaled) with the `delay` conditioner's
+    tensors under their PyTorch names in the same file, the bf16 Mimi
+    (v0.1, 32 codebooks), a synthetic tokenizer of the text vocabulary and
+    a config.json with stt_config and the conditioners block.  Returns the
+    bytes of the weights."""
+    import dataclasses
+    import shutil
+    from moshi_tpu_torch.models.native_ckpt import flatten_tree, save_mimi_params
+    from moshi_tpu_torch.text.spm import spm_model_bytes
+    from moshi_tpu_torch.utils.safetensors import save_file
+
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    lm, cfg = models["lm"], models["lm"].config
+    flat = flatten_tree(models["lm_params"])
+    prefix = "condition_provider.conditioners.delay"
+    flat[f"{prefix}.output_proj.weight"] = models["cond_params"]["delay"]["output_proj"].t()
+    flat[f"{prefix}.learnt_padding"] = models["cond_params"]["delay"]["learnt_padding"]
+    nbytes = save_file(flat, out / "model.native.safetensors")
+    nbytes += save_mimi_params(out / "mimi.native.safetensors", models["mimi"],
+                               models["mimi_params"])
+    (out / "tokenizer.model").write_bytes(spm_model_bytes(cfg.text_card))
+    config = {k: list(v) if isinstance(v, tuple) else v
+              for k, v in dataclasses.asdict(cfg).items()}
+    cond = {k: ASR_COND[k] for k in ("dim", "scale_factor", "max_period")}
+    config.update(moshi_name="model.native.safetensors", mimi_name="mimi.native.safetensors",
+                  tokenizer_name="tokenizer.model", model_type="stt", native_format=True,
+                  stt_config={"audio_delay_seconds": ASR_DELAY / 12.5,
+                              "conditioning_delay": ASR_COND["delay"]},
+                  conditioners={"delay": {"type": "continuous_attribute",
+                                          "continuous_attribute": cond}})
+    (out / "config.json").write_text(json.dumps(config, indent=2))
+    del lm
+    return nbytes
+
+
+def worker_toml() -> str:
+    return f"""
+authorized_ids = ["smoke"]
+
+[modules.chat]
+type = "moshi"
+route = "/api/chat"
+checkpoint_dir = "{SERVE_DIR}"
+
+[modules.batched]
+type = "batched_moshi"
+route = "/api/batched"
+checkpoint_dir = "{SERVE_DIR}"
+batch_size = {SLOTS}
+kv_cache = "int4"
+mimi_dtype = "bf16"
+
+[modules.asr]
+type = "batched_asr"
+route = "/api/asr-streaming"
+checkpoint_dir = "{ASR_DIR}"
+batch_size = {WORKER_ASR_SLOTS}
+asr_delay_in_tokens = {ASR_DELAY}
+conditioning_delay = {ASR_COND["delay"]}
+kv_cache = "int8"
+mimi_dtype = "bf16"
+"""
+
+
+def worker_asr_pcm(frame_size: int) -> np.ndarray:
+    """[WORKER_ASR_CLIENTS // 2, FRAMES, frame_size]: one stream per twin
+    pair, unit-RMS noise (a quiet random Mimi maps noise to one code)."""
+    rs = np.random.RandomState(SEED + 50)
+    return rs.randn(WORKER_ASR_CLIENTS // 2, FRAMES, frame_size).astype(np.float32)
+
+
+async def asr_client(http, url: str, frames, legacy: bool, asr, leave: bool) -> list:
+    """One ASR client: Init, then its frames as fast as the socket takes them
+    with a Marker (id = the frame's index) before WORKER_MARKERS; with
+    `leave`, after WORKER_LEAVE frames it waits for the loop to have run
+    them, reads what came, leaves, and resumes under its resume id for the
+    rest.  Returns the messages received, in order."""
+    from moshi_tpu_torch.serve.msgpack_codec import packb, unpackb
+
+    async def connect(params):
+        ws = await http.ws_connect(url, params=params, headers={"kyutai-api-key": "smoke"})
+        ready = unpackb(await ws.receive_bytes(timeout=WORKER_TIMEOUT))
+        if ready.get("type") != "Ready":
+            raise RuntimeError(f"worker asr: {ready}")
+        return ws, ready
+
+    async def read(ws, out, quiet: float):
+        while True:
+            try:
+                m = await ws.receive_bytes(timeout=quiet)
+            except asyncio.TimeoutError:
+                return
+            out.append(unpackb(m))
+
+    async def stop(task):
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+
+    ws, ready = await connect({"resume_support": "1"} if leave else {})
+    out = []
+    await ws.send_bytes(packb({"type": "Init"}))
+    reader = asyncio.ensure_future(read(ws, out, WORKER_TIMEOUT))
+    for k, frame in enumerate(frames):
+        if leave and k == WORKER_LEAVE:
+            slot = next(s for s, q in asr.slot_queues.items() if q is not None
+                        and asr.slot_resume_id.get(s) == ready["resume_id"])
+            while asr.slot_pcm[slot].shape[-1] >= asr.frame_size:
+                await asyncio.sleep(0.01)
+            await asyncio.sleep(0.5)   # the frame in flight and its messages
+            await stop(reader)
+            await read(ws, out, 0.5)
+            await ws.close()
+            ws, back = await connect({"resume": ready["resume_id"]})
+            if back.get("resumed") is not True:
+                raise RuntimeError(f"worker asr: the session did not resume: {back}")
+            reader = asyncio.ensure_future(read(ws, out, WORKER_TIMEOUT))
+        if k in WORKER_MARKERS:
+            await ws.send_bytes(packb({"type": "Marker", "id": k}))
+        await ws.send_bytes(b"\x08" + frame.tobytes() if legacy
+                            else packb({"type": "Audio", "pcm": frame.tolist()}))
+    expected = len(WORKER_MARKERS)
+    t0 = time.perf_counter()
+    while sum(m["type"] == "Marker" for m in out) < expected:
+        if reader.done():
+            reader.result()
+        if time.perf_counter() - t0 > WORKER_TIMEOUT:
+            raise RuntimeError("worker asr: markers did not come back")
+        await asyncio.sleep(0.01)
+    await asyncio.sleep(0.5)
+    await stop(reader)
+    await read(ws, out, 0.5)
+    await ws.close()
+    return out
+
+
+def asr_words(msgs) -> list:
+    return [(m["type"], m.get("text"), m.get("start_time"), m.get("stop_time"))
+            for m in msgs if m["type"] in ("Word", "EndWord")]
+
+
+def markers_after_their_words(msgs) -> bool:
+    """Every Marker (sent before frame `id`) comes after each EndWord whose
+    stop_time is before id / 12.5 s: those words were said in the audio
+    before it.  Markers come in order."""
+    ids = [m["id"] for m in msgs if m["type"] == "Marker"]
+    if ids != sorted(ids) or ids != list(WORKER_MARKERS):
+        return False
+    for i, m in enumerate(msgs):
+        if m["type"] != "Marker":
+            continue
+        if any(e["type"] == "EndWord" and e["stop_time"] < m["id"] / 12.5
+               for e in msgs[i + 1:]):
+            return False
+    return True
+
+
+async def batched_sessions(state, frame_size: int) -> dict:
+    """The batched Moshi module driven through its own acquire_slot /
+    feed_pcm / slot_queues / release_slot, under the run_loop the worker
+    started: 14 sessions in twin pairs of 40 frames of seeded PCM, and a
+    fifteenth, the twin of the first, that leaves after WORKER_LEAVE
+    frames with a resume id; a tenant then takes its slot for 5 frames, and
+    the session resumes on the other free slot.  Returns each session's
+    token rows [frames, 1 + dep_q] and the resume's slots."""
+    rs = np.random.RandomState(SEED + 60)
+    pcm = (0.1 * rs.randn(7, FRAMES, frame_size)).astype(np.float32)
+    skip = 1 + state.lm.config.max_delay   # frames a fresh session yields nothing for
+    sessions = [await state.acquire_slot() for _ in range(15)]
+    tokens = {i: [] for i in range(15)}
+
+    def take(i, slot):
+        q = state.slot_queues[slot]
+        while not q.empty():
+            tokens[i].append(np.asarray(q.get_nowait()[1]))
+
+    async def until(cond, what):
+        t0 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t0 > WORKER_TIMEOUT:
+                raise RuntimeError(f"worker batched: timed out waiting for {what}")
+            await asyncio.sleep(0.005)
+
+    for i, slot in enumerate(sessions[:14]):
+        state.feed_pcm(slot, pcm[i // 2].reshape(-1))
+    left = sessions[14]
+    rid = state.issue_resume_id(left)
+    state.feed_pcm(left, pcm[0, :WORKER_LEAVE].reshape(-1))
+
+    def count(i, slot):
+        take(i, slot)
+        return len(tokens[i])
+
+    await until(lambda: count(14, left) == WORKER_LEAVE - skip, "the leaving session's frames")
+    await state.release_slot(left)
+    tenant = await state.acquire_slot()
+    state.feed_pcm(tenant, pcm[3, :5].reshape(-1))
+    back = await state.acquire_slot(rid)
+    if not state.slot_resumed.get(back) or back == left:
+        raise RuntimeError(f"worker batched: resume on slot {back} (left {left})")
+    state.feed_pcm(back, pcm[0, WORKER_LEAVE:].reshape(-1))
+    n = FRAMES - skip
+    await until(lambda: all(count(i, s) == n for i, s in enumerate(sessions[:14]))
+                and count(14, back) == n, "every session's frames")
+    for slot in sessions[:14] + [back, tenant]:
+        await state.release_slot(slot)
+    return {"tokens": {i: np.stack(t) for i, t in tokens.items()},
+            "left": left, "tenant": tenant, "back": back}
+
+
+async def drive_worker(app, asr, batched, chat) -> dict:
+    import aiohttp
+    from aiohttp import web
+
+    runner = web.AppRunner(app)
+    await runner.setup()
+    port = free_port()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    base = f"http://127.0.0.1:{port}"
+    key = {"kyutai-api-key": "smoke"}
+    out = {}
+    try:
+        async with aiohttp.ClientSession() as http:
+            r = await http.get(f"{base}/api/modules_info")
+            out["unauthorized"] = r.status
+            out["modules_info"] = await (await http.get(f"{base}/api/modules_info",
+                                                        headers=key)).json()
+            out["metrics"] = (await http.get(f"{base}/metrics")).status
+
+            # ASR: the clients all at once; client 15 leaves and resumes,
+            # client 16 (legacy framing) is client 0's twin
+            pcm = worker_asr_pcm(asr.frame_size)
+            url = f"{base}/api/asr-streaming"
+            asr.frame_times.clear()
+            t0 = time.perf_counter()
+            clients = [asr_client(http, url, pcm[i // 2], False, asr, i == 15)
+                       for i in range(WORKER_ASR_CLIENTS)]
+            clients.append(asr_client(http, url, pcm[0], True, asr, False))
+            out["asr"] = await asyncio.gather(*clients)
+            out["asr_s"] = time.perf_counter() - t0
+            out["asr_frame_ms"] = list(asr.frame_times)
+
+            batched.frame_times.clear()
+            out["batched"] = await batched_sessions(batched, batched.frame_size)
+            out["batched_frame_ms"] = list(batched.frame_times)
+
+            # Moshi: one raw-PCM session on /api/chat
+            ws = await http.ws_connect(f"{base}/api/chat", headers=key)
+            first = await ws.receive_bytes(timeout=SERVE_TIMEOUT)
+            from moshi_tpu_torch.serve import protocol as proto
+            if first != proto.handshake():
+                raise RuntimeError(f"worker chat: handshake {first!r}")
+            msgs, ms = await pcm_session(ws, serve_pcm(chat.frame_size))
+            out["chat_tokens"] = np.array(chat.session_tokens)
+            out["chat_ms"] = ms
+            await ws.close()
+    finally:
+        await runner.cleanup()
+    return out
+
+
+def run_worker(dev, card: str, serve: dict, batched_p50: float) -> dict:
+    """The worker's entry point on one TOML of three modules (the Moshi
+    server over [serve]'s checkpoint, batched Moshi over the same one at
+    B = SLOTS with the int4 KV cache, batched ASR over [asr]'s checkpoint at
+    B = WORKER_ASR_SLOTS with the int8 KV cache), built by build_app as
+    `main` builds it and served by aiohttp on 127.0.0.1: auth, modules_info
+    and metrics; ASR clients over the socket (twins, a resume, markers, the
+    legacy framing); the batched module's sessions (twins, a resume on
+    another slot); one Moshi socket session against [serve]'s tokens.  The
+    launches of the whole phase: every module's warm-up frames and its one
+    capture, none while serving."""
+    import shutil
+    import tomllib
+    import aiohttp
+    from moshi_tpu_torch.serve.worker import build_app
+
+    try:
+        free_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        app = build_app(tomllib.loads(worker_toml()), device=dev)
+        build_s = time.perf_counter() - t0
+        built = read_counts()
+        modules = app["modules"]
+        chat, batched, asr = (modules[k]["state"] for k in ("chat", "batched", "asr"))
+        for name, m in modules.items():
+            phase("worker", f"module {name} ({m['type']}): loaded in {m['load_s']:.2f} s, "
+                  f"warm-up and captures {m['warmup_s']:.2f} s")
+
+        # the launches of the build: each module's eager warm-up frames, then
+        # one captured frame (its graphs), each the module's per-frame count
+        moshi_step = per_step_launches(chat.lm.config, chat.lm_params, 1)
+        batched_frame = per_step_launches(batched.lm.config, batched.lm_params, SLOTS)
+        asr_step = dict.fromkeys(TPU_KERNELS, 0)
+        asr_step["decode_attention_int8"] = asr.asr.lm.config.num_layers
+        chat_frames = max(4, chat.lm.config.max_delay + 2) + 1
+        expected = {k: moshi_step[k] * chat_frames + batched_frame[k] * 4 + asr_step[k] * 4
+                    for k in TPU_KERNELS}
+        if built != expected:
+            raise RuntimeError(f"worker: build launched {built}, expected {expected}")
+
+        out = asyncio.run(drive_worker(app, asr, batched, chat))
+        launches = read_counts()
+        if launches != built:
+            raise RuntimeError(f"worker: serving launched kernels outside the graphs: "
+                               f"{launches} after the build's {built}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+        info = out["modules_info"]
+        want_info = {"chat": {"type": "moshi", "route": "/api/chat"},
+                     "batched": {"type": "batched_moshi", "batch_size": SLOTS,
+                                 "route": "/api/batched"},
+                     "asr": {"type": "batched_asr", "batch_size": WORKER_ASR_SLOTS,
+                             "route": "/api/asr-streaming"}}
+        if out["unauthorized"] != 401 or info != want_info or out["metrics"] != 200:
+            raise RuntimeError(f"worker: auth {out['unauthorized']}, modules {info}, "
+                               f"metrics {out['metrics']}")
+
+        # ASR: twins, the resume, the legacy twin, markers after their words
+        msgs = out["asr"]
+        for i in range(0, WORKER_ASR_CLIENTS, 2):
+            for a, b in ((i, i + 1),) + (((0, WORKER_ASR_CLIENTS),) if i == 0 else ()):
+                if asr_words(msgs[a]) != asr_words(msgs[b]):
+                    raise RuntimeError(f"worker asr: clients {a} and {b} heard the same PCM "
+                                       f"but said different words")
+        said = sum(len(asr_words(m)) for m in msgs)
+        if not asr_words(msgs[0]) or said == 0:
+            raise RuntimeError("worker asr: no words")
+        ordered = [markers_after_their_words(m) for m in msgs]
+        if not all(ordered):
+            raise RuntimeError(f"worker asr: markers out of order for clients "
+                               f"{[i for i, ok in enumerate(ordered) if not ok]}")
+        if any(m["type"] == "Error" for c in msgs for m in c):
+            raise RuntimeError("worker asr: an Error message")
+        frames = sum(FRAMES for _ in msgs)
+        a50, a90 = (float(np.percentile(out["asr_frame_ms"], p)) for p in (50, 90))
+        phase("worker", f"asr over the socket: {len(msgs)} clients x {FRAMES} frames "
+              f"({WORKER_ASR_CLIENTS} msgpack, 1 legacy \\x08), twins said equal words (the "
+              f"legacy client too), client 15 left after frame {WORKER_LEAVE} and resumed "
+              f"with its twin's words; {said} Word / EndWord messages; every marker came "
+              f"back after its words; {len(out['asr_frame_ms'])} batched frames at B = "
+              f"{WORKER_ASR_SLOTS}: p50 {a50:.2f} ms, p90 {a90:.2f} ms; "
+              f"{frames / out['asr_s']:.0f} client frames/s through the socket ({card})")
+
+        # batched Moshi: twins and the resumed session
+        b = out["batched"]
+        tokens = b["tokens"]
+        for i in range(0, 14, 2):
+            if not np.array_equal(tokens[i], tokens[i + 1]):
+                raise RuntimeError(f"worker batched: twin sessions {i} and {i + 1} differ")
+        if not np.array_equal(tokens[14], tokens[0]):
+            raise RuntimeError("worker batched: the resumed session differs from its twin")
+        for t in tokens.values():
+            check_tokens(t, batched.lm.config, "worker batched")
+        m50, m90 = (float(np.percentile(out["batched_frame_ms"], p)) for p in (50, 90))
+        phase("worker", f"batched_moshi B = {SLOTS} int4 KV through run_loop: 7 twin pairs "
+              f"x {FRAMES} frames equal token for token; the session that left slot "
+              f"{b['left']} after frame {WORKER_LEAVE} resumed on slot {b['back']} (a tenant "
+              f"took slot {b['tenant']}) and repeats its twin; "
+              f"{len(out['batched_frame_ms'])} frames p50 {m50:.2f} ms, p90 {m90:.2f} ms per "
+              f"batched frame ([batched] graphed greedy p50 {batched_p50:.2f} ms in this run; "
+              f"{card})")
+
+        # Moshi over the socket against [serve]'s session 1
+        if not np.array_equal(out["chat_tokens"], serve["greedy_tokens"]):
+            raise RuntimeError("worker chat: the socket session's tokens differ from "
+                               "[serve]'s")
+        c50 = float(np.percentile(out["chat_ms"], 50))
+        used = {k: v for k, v in built.items() if v}
+        phase("worker", f"moshi over /api/chat: {len(out['chat_tokens'])} greedy token "
+              f"frames equal [serve]'s session 1; p50 {c50:.2f} ms frame to PCM reply")
+        phase("worker", f"build_app {build_s:.2f} s (aiohttp {aiohttp.__version__}); launches "
+              f"{used} = warm-up + 1 captured frame of each module (chat "
+              f"{chat_frames} steps, batched 4 frames, asr 4 steps), none while serving; "
+              f"peak {peak:.2f} GiB allocated ({card})")
+        seconds = {k: {"load_s": m["load_s"], "warmup_s": m["warmup_s"]}
+                   for k, m in modules.items()}
+        del app, modules, chat, batched, asr
+        return {"launches": launches, "build_s": build_s, "modules": seconds,
+                "asr_p50_ms": a50, "asr_p90_ms": a90,
+                "asr_client_frames_per_s": frames / out["asr_s"],
+                "batched_p50_ms": m50, "batched_p90_ms": m90, "chat_p50_ms": c50,
+                "peak_gib": peak,
+                "per_frame": {"chat": moshi_step, "batched": batched_frame, "asr": asr_step}}
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+        shutil.rmtree(ASR_DIR, ignore_errors=True)
 
 
 # -------------------------------------------------------------------- tts
@@ -2896,6 +3336,8 @@ def main() -> None:
     free_memory()
     asr = run_asr(dev, card)
     free_memory()
+    worker = run_worker(dev, card, serve, batched["greedy"]["p50_ms"])
+    free_memory()
     tts = run_tts(dev, card)
 
     # the main paths' runs, all graphed: their launches counted at capture
@@ -2903,10 +3345,11 @@ def main() -> None:
     by_path = {"slice_b1": slice_["launches"], "serve": serve["launches"],
                **{f"batched_{p}": v for p, v in batched["launches"].items()},
                "offline_forward": offline["launches"],
-               "asr": asr["launches"], **tts["launches"]}
+               "asr": asr["launches"], "worker": worker["launches"], **tts["launches"]}
     per_frame_by_path = {"batched": batched["per_frame"]["int4"],
                          "batched_int8": batched["per_frame"]["int8"],
                          "offline_forward": offline["launches"], "asr": asr["per_frame"],
+                         **{f"worker_{m}": v for m, v in worker["per_frame"].items()},
                          **tts["per_frame"]}
     kernels = []
     # ms / plain_ms / library_ms / bound_ms: card time of one frame's
@@ -2952,7 +3395,10 @@ def main() -> None:
                   "launches_by_path": {p: v[name] for p, v in by_path.items()},
                   "launches_per_frame": {p: v[name] for p, v in per_frame_by_path.items()}})
     print(json.dumps({"kernels": kernels, "slice": slice_,
-                      "serve": {key: v for key, v in serve.items() if key != "launches"},
+                      "serve": {key: v for key, v in serve.items()
+                                if key not in ("launches", "greedy_tokens")},
+                      "worker": {key: v for key, v in worker.items()
+                                 if key not in ("launches", "per_frame")},
                       "batched": {key: batched[key] for key in ("sampled", "sampled_eager",
                                                                 "greedy", "int8_greedy")},
                       "offline": {key: v for key, v in offline.items() if key != "launches"},

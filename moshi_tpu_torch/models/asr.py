@@ -93,14 +93,21 @@ class _ItemState:
         return prev
 
 
-def asr_sum_condition(provider, params, dim: int, conditioning_delay: float | None = None,
-                      learnt_padding: bool = False):
+def asr_sum_condition(provider, params=None, dim: int | None = None,
+                      conditioning_delay: float | None = None, learnt_padding: bool = False,
+                      device="cuda"):
     """The per-step AddToInput condition of an ASR model, as the reference
     server builds it.  provider: a ConditionProvider (or None) and params
-    its parameter tree.  A model with a `delay` conditioner needs exactly
-    one of `conditioning_delay` (fed as the value -conditioning_delay) and
-    `learnt_padding` (the conditioner's learnt padding vector); a model
-    without one takes neither.  Returns [1, 1, dim] f32, or None."""
+    its parameter tree; or, as in the JAX package, a CheckpointInfo and the
+    model's dim (`asr_sum_condition(info, dim, ...)`), whose conditioners
+    are read onto `device`.  A model with a `delay` conditioner needs
+    exactly one of `conditioning_delay` (fed as the value
+    -conditioning_delay) and `learnt_padding` (the conditioner's learnt
+    padding vector); a model without one takes neither.  Returns [1, 1,
+    dim] f32, or None."""
+    if hasattr(provider, "get_conditioners"):
+        dim = params
+        provider, _, params = provider.get_conditioners(dim, device)
     has_delay = provider is not None and "delay" in provider.conditioners
     if not has_delay:
         if conditioning_delay is not None or learnt_padding:

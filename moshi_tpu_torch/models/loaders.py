@@ -18,9 +18,8 @@ F.conv1d / F.conv_transpose1d (utils/params.py):
 
 Trees are built on the host from the mapped file (utils/safetensors.py),
 then every leaf is made contiguous on the device asked for.  Files come
-from a local directory only: fetching from the Hugging Face hub, LoRA
-weights and the conditioners of the TTS and hibiki checkpoints are not
-ported (ROADMAP A.11).
+from a local directory only: fetching from the Hugging Face hub and LoRA
+weights are not ported (ROADMAP A.11).
 """
 
 import json
@@ -517,6 +516,16 @@ class CheckpointInfo:
     def tokenizer_path(self) -> Path:
         return self._path("tokenizer", self.tokenizer_name)
 
+    def get_text_tokenizer(self):
+        """The SentencePiece tokenizer (text/spm.py), or None when the
+        checkpoint names no file that is there."""
+        from ..text.spm import SentencePieceTokenizer
+        try:
+            path = self.tokenizer_path
+        except ValueError:
+            return None
+        return SentencePieceTokenizer(path) if path.exists() else None
+
     @classmethod
     def from_dir(cls, path: str | Path, **paths) -> "CheckpointInfo":
         """The checkpoint in directory `path`; keyword paths (moshi, mimi,
@@ -567,3 +576,34 @@ class CheckpointInfo:
             w[2] = w[3]
             params["text_emb"]["weight"] = w
         return model, params
+
+    def get_conditioners(self, output_dim: int, device="cuda"):
+        """The checkpoint's conditioners with their weights: (provider,
+        fuser, params).  provider and params are None without a
+        `conditioners` block in config.json, fuser None without a `fuser`
+        block.  The weights are the moshi file's
+        `condition_provider.conditioners.<name>.*` tensors (PyTorch layout),
+        read from the mapped file: only they are copied."""
+        from ..conditioners import ConditionFuser, conditioners_from_config
+
+        raw = self.raw_config
+        provider, params = None, None
+        if raw.get("conditioners"):
+            provider = conditioners_from_config(output_dim, raw["conditioners"])
+            state = load_weights(self._path("moshi", self.moshi_name))
+            params = {}
+            for name in provider.conditioners:
+                prefix = f"condition_provider.conditioners.{name}"
+                p = {}
+                if f"{prefix}.embed.weight" in state:
+                    p["embed"] = state[f"{prefix}.embed.weight"]
+                if f"{prefix}.output_proj.weight" in state:
+                    p["output_proj"] = state[f"{prefix}.output_proj.weight"].t()
+                if f"{prefix}.learnt_padding" in state:
+                    p["learnt_padding"] = state[f"{prefix}.learnt_padding"]
+                params[name] = _to_device(p, device)
+        fuser = None
+        if raw.get("fuser"):
+            fuser = ConditionFuser({k: v for k, v in raw["fuser"].items()
+                                    if k in ("sum", "cross", "prepend")})
+        return provider, fuser, params

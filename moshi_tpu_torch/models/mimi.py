@@ -85,8 +85,12 @@ class MimiModel:
         return {
             "encoder": self.encoder.init_params(generator, dtype, device),
             "decoder": self.decoder.init_params(generator, dtype, device),
-            "encoder_transformer": self.encoder_transformer.init_params(generator, dtype, device),
-            "decoder_transformer": self.decoder_transformer.init_params(generator, dtype, device),
+            # each with the JAX tree's identity output projection (one empty
+            # entry), so the JAX package loads what the port saves
+            "encoder_transformer": {**self.encoder_transformer.init_params(
+                generator, dtype, device), "output_projs": [{}]},
+            "decoder_transformer": {**self.decoder_transformer.init_params(
+                generator, dtype, device), "output_projs": [{}]},
             "downsample": self.downsample.init_params(generator, dtype, device),
             "upsample": self.upsample.init_params(generator, dtype, device),
             "quantizer": self.quantizer.init_params(generator, dtype, device),

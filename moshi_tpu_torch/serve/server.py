@@ -25,8 +25,9 @@ through a `send` coroutine, so the same code runs under aiohttp
 (`handle_chat`) and under an in-process transport; only `handle_chat`,
 `make_app` and `main` import aiohttp, when called.
 
-Not ported yet (ROADMAP A.12): session resume and snapshots, the migration
-vault, the HTTP queue API, `--tp`, `--ssl` and `--log-dir`.
+Not ported yet (ROADMAP A.12): session resume of this server (the batched
+servers have it), the migration vault, the HTTP queue API, `--tp`,
+`--ssl` (the worker has it) and `--log-dir`.
 """
 
 import argparse
@@ -289,6 +290,16 @@ class ServerState:
             self._frame(np.zeros(self.frame_size, np.float32), warm=True)
         self.reset()
 
+    def capture(self):
+        """Capture the three graphs now (zero frames until one is decoded),
+        then reset: a server whose card other engines' threads use captures
+        nothing while serving its default config.  Eager engines do
+        nothing."""
+        if self.graphed:
+            for _ in range(self.lm.config.max_delay + 2):
+                self.step_frame(np.zeros(self.frame_size, np.float32))
+            self.reset()
+
     def skip_frame(self, chunk: np.ndarray):
         """The session's first frame: encoded, then the encoder reset, so
         the next frame sees the encoder's left padding again (the
@@ -536,7 +547,6 @@ def load_state(checkpoint_dir, device="cuda", cfg_coef: float = 1.0,
     lm_gen_config; `kv_cache` overrides the KV cache dtype."""
     from ..models.lm import LMModel
     from ..models.loaders import CheckpointInfo
-    from ..text.spm import SentencePieceTokenizer
 
     info = CheckpointInfo.from_dir(checkpoint_dir)
     log("info", "loading mimi")
@@ -545,8 +555,7 @@ def load_state(checkpoint_dir, device="cuda", cfg_coef: float = 1.0,
     lm, lm_params = info.get_moshi(device=device)
     if kv_cache:
         lm = LMModel(replace(lm.config, kv_cache_dtype=kv_cache))
-    tok_path = info.tokenizer_path
-    tokenizer = SentencePieceTokenizer(tok_path) if tok_path.exists() else None
+    tokenizer = info.get_text_tokenizer()
     gen_cfg = dict(info.lm_gen_config)
     ckpt_cfg_coef = gen_cfg.pop("cfg_coef", 1.0)
     return ServerState(mimi, mimi_params, lm, lm_params, info=info, text_tokenizer=tokenizer,
@@ -556,6 +565,8 @@ def load_state(checkpoint_dir, device="cuda", cfg_coef: float = 1.0,
 
 def main(argv=None):
     from aiohttp import web
+
+    from ..utils.serving import serving_device
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--host", default="localhost")
@@ -570,9 +581,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch sees no CUDA device")
+    device = serving_device(args.device)
     state = load_state(args.checkpoint_dir, device, args.cfg_coef, args.kv_cache,
                        args.session_timeout)
     log("info", "warming up")

@@ -20,6 +20,13 @@ ones.  The hand-written kernels launch on `torch.cuda.current_stream`,
 which capture sets; their Python launch counters tick when the capture
 records a launch, not on a replay.
 
+A server replays its engine's graphs on a worker thread, so that the
+read-back does not block its event loop: `run_on_device` runs a function
+there with the engine's device current and on its default stream, the
+stream the event loop's thread uses for the slot ops between frames.  A
+capture checks only its own thread for calls a capture forbids, so one
+engine may capture while another's thread replays.
+
 A step holds a bound method of its engine weakly: the engine holds its
 steps, so a strong reference back would make a cycle, and a dropped engine
 (its state, its graphs' memory) would stay on the card until Python's cycle
@@ -51,9 +58,19 @@ def capture(fn, *args, stream: torch.cuda.Stream, generators=()):
     graph = torch.cuda.CUDAGraph()
     for generator in generators:
         graph.register_generator_state(generator)
-    with torch.cuda.graph(graph, stream=stream):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
         outputs = fn(*args)
     return graph, outputs
+
+
+def run_on_device(device, fn, *args):
+    """fn(*args) with `device` current and its default stream the current
+    stream (on any thread; a CPU device changes nothing)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return fn(*args)
+    with torch.cuda.device(device), torch.cuda.stream(torch.cuda.default_stream(device)):
+        return fn(*args)
 
 
 class GraphedStep:

@@ -348,7 +348,7 @@ def test_markers_and_backlog_cap():
     teng, tlp, tmp = _port_engine()
     fs = teng.mimi.frame_size
     state = BatchedAsrState(teng, tmp, tlp)
-    assert state.acquire_slot(1) == 1 and state.acquire_slot() == 2
+    assert state.open_slot(1) == 1 and state.open_slot() == 2
     rs = np.random.RandomState(5)
     assert state.feed_pcm(1, (0.3 * rs.randn(3 * fs)).astype(np.float32))
     state.add_marker(1, 42)
@@ -366,7 +366,7 @@ def test_markers_and_backlog_cap():
     assert state.feed_pcm(2, np.zeros(cap - fs, np.float32))
     assert not state.feed_pcm(2, np.zeros(3 * fs, np.float32))
     assert state.slot_pcm[2].shape == (cap,)
-    state.release_slot(2)
+    state.close_slot(2)
     assert 2 in state.slots_free and 2 not in state.slot_outbox
 
 
@@ -503,21 +503,21 @@ def test_queued_ops_apply_before_the_frame():
     state = BatchedAsrState(teng, tmp, tlp)
     pcm = _pcm(fs)
     for s in range(B):
-        state.acquire_slot(s)
+        state.open_slot(s)
     for t in range(4):                      # slot 2 sends 2 frames, slots 0 and 1 all 4
         for s in range(B if t < 2 else 2):
             state.feed_pcm(s, pcm[t, s, 0])
         state.tick()
     rid2 = state.issue_resume_id(2)
-    state.release_slot(2)
+    state.close_slot(2)
     state.tick()                            # no frame: the snapshot of slot 2 is taken
     assert rid2 in state.snapshots and not state.pending_ops
 
     left = teng.extract_slot_arrays(state.state, 1)
     rid1 = state.issue_resume_id(1)
-    state.release_slot(1)
-    state.acquire_slot(1)                   # a new tenant on slot 1
-    state.acquire_slot(2, resume=rid2)      # slot 2's session back on slot 2
+    state.close_slot(1)
+    state.open_slot(1)                   # a new tenant on slot 1
+    state.open_slot(2, resume=rid2)      # slot 2's session back on slot 2
     assert [op[0] for op in state.pending_ops] == ["snapshot", "reset", "restore"]
     for s in range(B):
         state.feed_pcm(s, pcm[4, s, 0])
@@ -531,8 +531,8 @@ def test_queued_ops_apply_before_the_frame():
         assert a.device.type == "cpu" and torch.equal(a, b), key
 
     rid0 = state.issue_resume_id(0)
-    state.release_slot(0)
-    assert state.acquire_slot(0, resume=rid0) == 0 and state.slot_resumed[0]
+    state.close_slot(0)
+    assert state.open_slot(0, resume=rid0) == 0 and state.slot_resumed[0]
     assert [op[0] for op in state.pending_ops] == ["restore"]
 
 

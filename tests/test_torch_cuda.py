@@ -1724,7 +1724,7 @@ def test_dropped_engine_frees_its_memory_without_the_cycle_collector(engine, gen
         if engine == "asr":
             state = _asr_engine(_tiny_asr_models(), 16, True)
             for s in range(16):
-                state.acquire_slot(s)
+                state.open_slot(s)
                 state.feed_pcm(s, np.zeros(2 * state.frame_size, np.float32))
             for _ in range(2):
                 state.tick()

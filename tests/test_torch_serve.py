@@ -4,7 +4,8 @@ same files: the handshake, the metadata echo, greedy raw-PCM sessions
 (text pieces), ping, pause and restart, the FIFO queue with its position
 messages, an opus session through the port's own codec build, and
 run_inference; the port's modules import neither aiohttp nor safetensors
-nor jax; a server asked for CUDA on a machine without it exits non-zero.
+nor msgpack nor jax; a server asked for CUDA on a machine without it
+exits non-zero.
 Sessions run on aiohttp's TestServer / TestClient, and the scripted one
 also through the session coroutine alone (the in-process transport)."""
 
@@ -294,13 +295,14 @@ def test_run_inference_matches_jax(ckpt, tmp_path):
 
 
 def test_port_modules_import_no_optional_packages():
-    """Importing every module of the port leaves aiohttp, safetensors and
-    jax out of sys.modules (and builds nothing)."""
+    """Importing every module of the port leaves aiohttp, safetensors,
+    msgpack and jax out of sys.modules (and builds nothing)."""
     code = ("import importlib, pkgutil, sys, moshi_tpu_torch\n"
             "for m in pkgutil.walk_packages(moshi_tpu_torch.__path__, 'moshi_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = sorted(k for k in sys.modules\n"
-            "             if k.split('.')[0] in ('aiohttp', 'safetensors', 'jax', 'moshi_tpu'))\n"
+            "             if k.split('.')[0] in ('aiohttp', 'safetensors', 'msgpack', 'jax',\n"
+            "                                    'moshi_tpu'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
