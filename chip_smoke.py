@@ -186,7 +186,33 @@ Phases, each printing its own line(s):
                the machines' host ms, peak memory, a profiler pass); then
                the greedy run with the int8 KV cache (48
                decode_attention_int8 per frame) and 5 frames of every
-               slot.
+               slot; the weights are then written as a native TTS
+               checkpoint (the conditioners' tensors in the LM's file,
+               tts_config, model_id, a synthetic tokenizer and a voice
+               directory of 4 seeded speaker_wavs files) into build/,
+               loaded back, every leaf held equal;
+  9. tts_serve - the TTS and codec entry points over that checkpoint:
+               run_tts's main in-process (two texts in two voices named in
+               the voice directory, greedy: two wavs, seconds of audio per
+               second, launches K3 and K4 + K5 only); then serve/worker.py's
+               build_app on one TOML of three modules, batched_tts (B = 16,
+               int4 KV, bf16 Mimi, the distilled model's `cfg` condition),
+               tts (one captured streamer, int8 KV) and mimi (one room),
+               whose build launches exactly each TTS engine's warm-up and
+               captures and whose serving launches none: 15 greedy
+               batched sessions through the module's slot API and queues
+               under its run_loop (twins equal in tokens, words and PCM, a
+               session that leaves with a resume id and resumes on another
+               slot while a tenant dirties its old one equal to its twin, a
+               voice change; p50/p90 ms per batched frame beside [tts]'s
+               greedy p50, time to first audio), three tts sessions in turn
+               (the third, with the first's voice and words, equal to it),
+               and the Mimi socket over aiohttp on 127.0.0.1 (two clients
+               of 40 frames in ragged chunks, codes equal to encode_step's
+               and PCM to decode_step's from fresh states, frames per
+               second; a room whose two listeners hear the same bytes, raw
+               f32le, as the card's machine has no libopus); the
+               checkpoint is deleted.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
@@ -196,6 +222,7 @@ import asyncio
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3154,8 +3181,8 @@ def tts_every_slot(state, frames: int, seed: int) -> dict:
     rs = np.random.RandomState(seed)
     for s in range(TTS_SLOTS):
         if state.slots[s] is not None:
-            state.release_slot(s)
-        state.acquire_slot(s)
+            state.close_slot(s)
+        state.open_slot(s)
         state.set_slot_voice(s, rs.randn(*TTS_VOICE).astype(np.float32))
     # the joins and voices (one recompute of every slot's conditions and
     # cross K/V), timed on their own and finished before the timed ticks
@@ -3277,9 +3304,11 @@ def run_tts(dev, card: str) -> dict:
 
     lm8 = LMModel(replace(lm.config, kv_cache_dtype="int8"))
     int8_launches, int8 = tts_greedy(dev, models, lm8, "int8 greedy", profile=True)
+    checkpoint = write_tts_checkpoint(dev, card, models, TTS_DIR)
     del models
     free_memory()
-    return {"launches": {"tts_greedy": greedy_launches, "tts_sampled": g["launches"],
+    return {"checkpoint": checkpoint,
+            "launches": {"tts_greedy": greedy_launches, "tts_sampled": g["launches"],
                          "tts_int8_greedy": int8_launches},
             "per_frame": {"tts": per_frame,
                           "tts_int8": {**per_frame, "decode_attention_int4": 0,
@@ -3287,6 +3316,574 @@ def run_tts(dev, card: str) -> dict:
                                        "decode_attention_int8": lm8.config.num_layers}},
             "sampled": g, "sampled_eager": e, "greedy": greedy, "int8_greedy": int8,
             "get_prefix": prefix}
+
+
+# -------------------------------------------------------------- tts_serve
+TTS_DIR = ROOT / "build" / "tts_checkpoint"
+TTS_MODEL_ID = {"sig": "smoke", "epoch": 1}   # voice files end ".smoke@1.safetensors"
+TTS_VOICES = 4             # seeded speaker_wavs files in the voice directory
+# the Mimi's block of config.json, written beside the checkpoint when set
+# (None: the v0.1 Mimi the loaders build by default)
+TTS_MIMI_CONFIG = None
+TTS_SERVE_CFG = 2.0        # batched_tts's cfg_coef: the distilled model's `cfg` condition
+TTS_SERVE_LEAVE = 15       # frames the resuming batched session runs before it leaves
+TTS_SERVE_CHANGE = 10      # the frame at which a batched session changes its voice
+TTS_SERVE_TEMP = 0.6       # the tts module's temperature (each session seeded alike)
+MIMI_FRAMES = 40           # frames each Mimi socket client sends
+TTS_SERVE_TIMEOUT = 120    # seconds a session waits for a loop
+
+
+def piece_words(n: int, salt: int) -> str:
+    """n words of the synthetic tokenizer (one piece each), seeded by salt."""
+    rs = np.random.RandomState(SEED + 200 + salt)
+    return " ".join(f"w{i}" for i in rs.randint(10, 30_000, n))
+
+
+def voice_name(i: int) -> str:
+    return f"voice{i}.{TTS_MODEL_ID['sig']}@{TTS_MODEL_ID['epoch']}.safetensors"
+
+
+def write_tts_checkpoint(dev, card: str, models, out: Path) -> dict:
+    """[tts]'s seeded weights as a native TTS checkpoint: the int8 LM (its
+    config's int4 KV at context TTS_CONTEXT) with the conditioners' tensors
+    under their PyTorch names in the same file, the bf16 Mimi, a synthetic
+    32000-piece tokenizer, config.json (tts_config, conditioners, fuser,
+    model_id) and a voice directory of TTS_VOICES seeded speaker_wavs files
+    [1, D, T]; then loaded back, every leaf held equal to the written one.
+    Returns the bytes and the seconds of the write and the load."""
+    import dataclasses
+    import shutil
+    from moshi_tpu_torch.models.loaders import CheckpointInfo
+    from moshi_tpu_torch.models.native_ckpt import flatten_tree, save_mimi_params
+    from moshi_tpu_torch.text.spm import spm_model_bytes
+    from moshi_tpu_torch.utils.safetensors import save_file
+
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cfg = models["lm"].config
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = flatten_tree(models["lm_params"])
+    for name, p in models["cp_params"].items():
+        prefix = f"condition_provider.conditioners.{name}"
+        if "embed" in p:
+            flat[f"{prefix}.embed.weight"] = p["embed"]
+        flat[f"{prefix}.output_proj.weight"] = p["output_proj"].t().contiguous()
+        flat[f"{prefix}.learnt_padding"] = p["learnt_padding"]
+    nbytes = save_file(flat, out / "model.int8.native.safetensors")
+    nbytes += save_mimi_params(out / "mimi.native.safetensors", models["mimi"],
+                               models["mimi_params"])
+    (out / "tokenizer_spm_32k_3.model").write_bytes(spm_model_bytes(cfg.text_card))
+    config = {k: list(v) if isinstance(v, tuple) else v
+              for k, v in dataclasses.asdict(cfg).items()}
+    config.update(moshi_name="model.int8.native.safetensors",
+                  mimi_name="mimi.native.safetensors",
+                  tokenizer_name="tokenizer_spm_32k_3.model", model_type="tts",
+                  native_format=True, model_id=TTS_MODEL_ID,
+                  tts_config={"audio_delay": TTS_DELAY_STEPS / 12.5,
+                              "max_speakers": TTS_MAX_SPEAKERS},
+                  conditioners={"speaker_wavs": {"type": "tensor",
+                                                 "tensor": {"dim": TTS_VOICE[1]}},
+                                "cfg": {"type": "lut", "lut": {**TTS_CFG, "tokenizer": "noop"}}},
+                  fuser={"cross": ["speaker_wavs"], "sum": ["cfg"]})
+    if TTS_MIMI_CONFIG is not None:
+        (out / "mimi_config.json").write_text(json.dumps(TTS_MIMI_CONFIG))
+        config["mimi_config_name"] = "mimi_config.json"
+    (out / "config.json").write_text(json.dumps(config, indent=2))
+    (out / "voices").mkdir()
+    rs = np.random.RandomState(SEED + 210)
+    for i in range(TTS_VOICES):
+        emb = rs.randn(1, TTS_VOICE[1], TTS_VOICE[0]).astype(np.float32)   # [1, D, T]
+        save_file({"speaker_wavs": torch.from_numpy(emb)}, out / "voices" / voice_name(i))
+    write_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    info = CheckpointInfo.from_dir(out)
+    _, lm_params = info.get_moshi(device=dev)
+    _, mimi_params = info.get_mimi(device=dev)
+    _, _, cp_params = info.get_conditioners(cfg.dim, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    leaves = (same_tree(lm_params, models["lm_params"])
+              + same_tree(mimi_params, models["mimi_params"])
+              + same_tree(cp_params, models["cp_params"]))
+    del lm_params, mimi_params, cp_params
+    free_memory()
+    phase("tts_serve", f"checkpoint written to build/{out.name}: {nbytes / 1e9:.3f} GB "
+          f"(the int8 LM with the conditioners' tensors, the bf16 Mimi) in {write_s:.2f} s, "
+          f"{TTS_VOICES} voices of {TTS_VOICE[0]} x {TTS_VOICE[1]}; loaded back in "
+          f"{load_s:.2f} s, {leaves} leaves each torch.equal to the written one ({card})")
+    return {"bytes": nbytes, "write_s": write_s, "load_s": load_s, "leaves": leaves}
+
+
+def tts_build_launches(per: dict) -> dict:
+    """The launches of one TTS engine's warm-up (two frames in each mode of
+    graph 1, each with graph 2) and of its capture (graph 1 in each mode,
+    graph 2 once), from tts_launches' counts per graph."""
+    return {k: 3 * (per["main"][k] + per["main_plain"][k]) + 5 * per["depth"][k]
+            for k in TPU_KERNELS}
+
+
+def run_tts_cli(dev, card: str) -> dict:
+    """moshi_tpu_torch.run_tts's main in-process on the checkpoint: two texts
+    in two voices named in its voice directory, greedy.  Its two wavs, the
+    seconds of audio per second, and its launches: K3 and K4 + K5 only, a
+    whole number of frames of the eager B = 2 generate."""
+    import shutil
+    from moshi_tpu_torch import audio
+    from moshi_tpu_torch.models.loaders import CheckpointInfo
+    from moshi_tpu_torch.run_tts import main as run_tts_main
+
+    outdir = TTS_DIR / "wavs"
+    argv = ["--device", str(dev), "--checkpoint-dir", str(TTS_DIR), "--temp", "0", "--voice-repo",
+            str(TTS_DIR / "voices"), "--text", piece_words(2, 0), "--text", piece_words(2, 1),
+            "--voice", "voice0", "--voice", "voice1", str(outdir)]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = run_tts_main(argv)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    wavs = [audio.read_wav(p)[0][0] for p in paths]
+    rate = 24_000 if TTS_MIMI_CONFIG is None else TTS_MIMI_CONFIG["sample_rate"]
+    audio_s = sum(len(w) for w in wavs) / rate
+    if len(paths) != 2 or not all(len(w) and np.isfinite(w).all() for w in wavs):
+        raise RuntimeError(f"run_tts: wavs of {[len(w) for w in wavs]} samples")
+    lm, lm_params = CheckpointInfo.from_dir(TTS_DIR).get_moshi(device=dev)
+    per = tts_launches(lm.config, lm_params, 2)
+    del lm_params
+    free_memory()
+    # generate runs graph 1's work every frame, and the depformer's only
+    # once the text-audio delay has passed (before, the audio is replaced)
+    frames = launches["decode_attention_int4"] // max(per["main"]["decode_attention_int4"], 1)
+    depth = frames - TTS_DELAY_STEPS
+    want = {k: frames * per["main"][k] + depth * per["depth"][k] for k in TPU_KERNELS}
+    if depth <= 0 or launches != want:
+        raise RuntimeError(f"run_tts: launches {launches}, not {want} of {frames} frames")
+    shutil.rmtree(outdir)
+    phase("tts_serve", f"run_tts main (--text x 2, --voice voice0 and voice1 named in the voice "
+          f"directory, greedy): 2 wavs, {audio_s:.2f} s of audio in {seconds:.2f} s "
+          f"({audio_s / seconds:.2f} s of audio per s, the load included); launches "
+          f"{ {k: v for k, v in launches.items() if v} } = {frames} eager frames at B = 2, the "
+          f"depformer in {depth} of them, K3 and K4 + K5 only ({card})")
+    return {"launches": launches, "seconds": seconds, "audio_s": audio_s, "frames": frames}
+
+
+def tts_serve_toml() -> str:
+    voices = TTS_DIR / "voices"
+    return f"""
+[modules.batched]
+type = "batched_tts"
+route = "/api/tts_batched"
+checkpoint_dir = "{TTS_DIR}"
+batch_size = {TTS_SLOTS}
+kv_cache = "int4"
+context = {TTS_CONTEXT}
+mimi_dtype = "bf16"
+temp = 0.0
+cfg_coef = {TTS_SERVE_CFG}
+voice_dir = "{voices}"
+
+[modules.tts]
+type = "tts"
+route = "/api/tts_streaming"
+checkpoint_dir = "{TTS_DIR}"
+kv_cache = "int8"
+context = {TTS_CONTEXT}
+temp = {TTS_SERVE_TEMP}
+voice_dir = "{voices}"
+
+[modules.mimi]
+type = "mimi"
+route = "/api/mimi"
+checkpoint_dir = "{TTS_DIR}"
+rooms = ["room"]
+"""
+
+
+def voice_file(i: int) -> np.ndarray:
+    """The speaker embedding [T, D] of the checkpoint's voice file i."""
+    from moshi_tpu_torch.models.tts import TTSModel
+    return TTSModel.load_voice_embedding(TTS_DIR / "voices" / voice_name(i))[0]
+
+
+async def until(cond, what: str):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > TTS_SERVE_TIMEOUT:
+            raise RuntimeError(f"tts_serve: timed out waiting for {what}")
+        await asyncio.sleep(0.002)
+
+
+async def batched_tts_sessions(state) -> dict:
+    """The batched_tts module driven through its own acquire_slot /
+    set_slot_voice / feed_words / feed_eos and the slot queues its socket
+    handler reads, under its run_loop: 15 greedy sessions with voices.  0
+    and 1 are twins; 2, their twin too, leaves after TTS_SERVE_LEAVE frames
+    with a resume id, a tenant takes and dirties its slot, and it resumes on
+    another; 3 changes its voice at frame TTS_SERVE_CHANGE; 4.. have scripts
+    and voices of their own.  Returns each session's token rows, Text
+    events and PCM frames, its time from its words to its first PCM frame,
+    and the slots of the resume."""
+    rows: dict[int, list] = {}
+    step = state.step_batch
+
+    def recording(active, sessions=None):
+        out, pcm = step(active, sessions)
+        for b, s in zip(active, sessions or [state.slots[b] for b in active]):
+            rows.setdefault(id(s), []).append(out[b, :, 0])
+        return out, pcm
+    state.step_batch = recording
+    plans = [(piece_words(3, 10), 0)] * 3 + [(piece_words(3, 11), 1)] + [
+        (piece_words(3, 12 + i), i % TTS_VOICES) for i in range(11)]
+    out = {"events": {}, "pcm": {}, "ttfa_ms": {}, "eos": {}}
+    sessions = {}
+
+    async def collect(i, q, t_fed, stop=None):
+        """Read the queue into session i's results up to its Eos (True), or
+        until `stop()` holds with the queue empty (False)."""
+        while not (stop is not None and stop() and q.empty()):
+            try:
+                kind, payload = await asyncio.wait_for(
+                    q.get(), 0.01 if stop is not None else TTS_SERVE_TIMEOUT)
+            except asyncio.TimeoutError:
+                if stop is None:
+                    raise
+                continue
+            if kind == "eos":
+                return True
+            if kind == "event":
+                out["events"][i].append(payload)
+                continue
+            if not out["pcm"][i]:
+                out["ttfa_ms"][i] = (time.perf_counter() - t_fed) * 1e3
+            out["pcm"][i].append(payload)
+        return False
+
+    async def session(i, words, voice):
+        slot = await state.acquire_slot()
+        if slot is None:
+            raise RuntimeError(f"tts_serve batched: no slot for session {i}")
+        out["events"][i], out["pcm"][i] = [], []
+        rid = state.issue_resume_id(slot) if i == 2 else None
+        sessions[i] = s = state.slots[slot]
+        state.set_slot_voice(slot, voice_file(voice))
+        state.feed_words(slot, [words])
+        state.feed_eos(slot)
+        t_fed = time.perf_counter()
+        q = state.slot_queues[slot]
+        if i == 3:
+            await collect(i, q, t_fed, stop=lambda: s.offset >= TTS_SERVE_CHANGE)
+            state.set_slot_voice(slot, voice_file(2))
+        if i == 2:
+            await collect(i, q, t_fed, stop=lambda: s.offset >= TTS_SERVE_LEAVE)
+            await state.release_slot(slot)
+            tenant = await state.acquire_slot()
+            state.set_slot_voice(tenant, voice_file(3))
+            state.feed_words(tenant, [piece_words(6, 40)])
+            back = await state.acquire_slot(rid)
+            if back is None or not state.slot_resumed.get(back) or back in (slot, tenant):
+                raise RuntimeError(f"tts_serve batched: resumed on slot {back} (left {slot}, "
+                                   f"tenant {tenant})")
+            out["resume"] = {"left": slot, "tenant": tenant, "back": back}
+            await until(lambda: state.slots[tenant].offset >= 5, "the tenant's frames")
+            await state.release_slot(tenant)
+            slot, q = back, state.slot_queues[back]
+        out["eos"][i] = await collect(i, q, t_fed)
+        await state.release_slot(slot)
+
+    try:
+        await asyncio.gather(*(session(i, w, v) for i, (w, v) in enumerate(plans)))
+    finally:
+        state.step_batch = step
+    out["tokens"] = {i: np.stack(rows[id(s)]) for i, s in sessions.items()}
+    return out
+
+
+async def tts_module_sessions(streamer) -> list:
+    """The tts module's streamer driven as its socket handler drives it (its
+    lock, a reset, run_session) with a voice, words and Eos, three sessions
+    in turn: 1 and 3 in the same voice with the same words, 2 with others.
+    Returns each session's token rows, JSON messages, PCM frames and time
+    from its words to its first PCM frame."""
+    from moshi_tpu_torch.serve.tts_ws import run_session
+
+    rows = []
+    step = streamer.engine.step_batch
+
+    def recording(active, sessions=None):
+        res = step(active, sessions)
+        rows.append(res[0][0, :, 0])
+        return res
+    streamer.engine.step_batch = recording
+    out = []
+    try:
+        for v, words in ((0, piece_words(3, 20)), (1, piece_words(4, 21)),
+                         (0, piece_words(3, 20))):
+            voice = voice_file(v)
+            msgs = [json.dumps({"type": "Voice", "embeddings": voice.ravel().tolist(),
+                                "shape": list(voice.shape)}),
+                    json.dumps({"type": "Text", "text": words}), json.dumps({"type": "Eos"})]
+            got = {"json": [], "pcm": [], "t_fed": 0.0, "ttfa_ms": None}
+
+            async def messages():
+                for m in msgs:
+                    if json.loads(m)["type"] == "Text":
+                        got["t_fed"] = time.perf_counter()
+                    yield m
+
+            async def send(item):
+                if isinstance(item, dict):
+                    got["json"].append(item)
+                    return
+                if not got["pcm"]:
+                    got["ttfa_ms"] = (time.perf_counter() - got["t_fed"]) * 1e3
+                got["pcm"].append(np.array(item))
+
+            rows.clear()
+            async with streamer.lock:
+                streamer.reset()
+                await run_session(streamer, messages(), send)
+            got["tokens"] = np.stack(rows)
+            out.append(got)
+    finally:
+        streamer.engine.step_batch = step
+    return out
+
+
+class RawWriter:
+    """The room's audio as raw f32le (the card's machine has no libopus)."""
+
+    def append_pcm(self, pcm):
+        return np.ascontiguousarray(pcm, np.float32).tobytes()
+
+
+async def mimi_clients(base: str, state, rooms) -> dict:
+    """The mimi module over aiohttp on 127.0.0.1: two tokenizer clients at
+    once, MIMI_FRAMES frames of seeded PCM each in chunks of ragged sample
+    counts, then their codes back for PCM; then a room with one producer
+    and two listeners (its audio raw f32le)."""
+    import aiohttp
+    from moshi_tpu_torch.serve.mimi_ws import MimiRoom
+
+    fs, K = state.mimi.frame_size, state.mimi.num_codebooks
+    rs = np.random.RandomState(SEED + 230)
+    pcms = [(0.3 * rs.randn(MIMI_FRAMES * fs)).astype(np.float32) for _ in range(2)]
+
+    async def client(http, i):
+        ws = await http.ws_connect(f"{base}/api/mimi")
+        cuts = np.cumsum(np.random.RandomState(i).randint(fs // 3, 3 * fs, 4 * MIMI_FRAMES))
+        for chunk in np.split(pcms[i], cuts[cuts < len(pcms[i])]):
+            await ws.send_bytes(b"\x01" + chunk.tobytes())
+        codes = []
+        while sum(c.shape[-1] for c in codes) < MIMI_FRAMES:
+            m = await ws.receive_bytes(timeout=TTS_SERVE_TIMEOUT)
+            codes.append(np.frombuffer(m[1:], np.int32).reshape(K, -1))
+        codes = np.concatenate(codes, axis=-1)
+        await ws.send_bytes(b"\x09" + codes.tobytes())
+        back = await ws.receive_bytes(timeout=TTS_SERVE_TIMEOUT)
+        await ws.close()
+        return codes, np.frombuffer(back[1:], np.float32)
+
+    out = {"pcm": pcms}
+    async with aiohttp.ClientSession() as http:
+        t0 = time.perf_counter()
+        out["clients"] = await asyncio.gather(*(client(http, i) for i in range(2)))
+        out["seconds"] = time.perf_counter() - t0
+        rooms.rooms["room"] = MimiRoom(state, writer=RawWriter())
+        listeners = [await http.ws_connect(f"{base}/api/mimi/room/recv") for _ in range(2)]
+        heard = [[await ws.receive_bytes(timeout=TTS_SERVE_TIMEOUT)] for ws in listeners]
+        producer = await http.ws_connect(f"{base}/api/mimi/room/send")
+        out["room_codes"] = out["clients"][0][0][:, :5]
+        await producer.send_bytes(b"\x09" + out["room_codes"].T.astype(np.uint32).tobytes())
+        for ws, got in zip(listeners, heard):
+            for _ in range(5):
+                got.append(await ws.receive_bytes(timeout=TTS_SERVE_TIMEOUT))
+        for ws in listeners + [producer]:
+            await ws.close()
+        out["heard"] = heard
+    return out
+
+
+async def drive_tts_serve(app, batched, streamer, mimi_state, rooms) -> dict:
+    from aiohttp import web
+
+    runner = web.AppRunner(app)
+    await runner.setup()
+    port = free_port()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    out = {}
+    try:
+        batched.frame_times.clear()
+        batched.ops_times.clear()
+        out["batched"] = await batched_tts_sessions(batched)
+        out["batched_ms"] = list(batched.frame_times)
+        out["batched_ops_ms"] = list(batched.ops_times)
+        streamer.frame_times.clear()
+        out["tts"] = await tts_module_sessions(streamer)
+        out["tts_ms"] = list(streamer.frame_times)
+        out["mimi"] = await mimi_clients(f"http://127.0.0.1:{port}", mimi_state, rooms)
+    finally:
+        await runner.cleanup()
+    return out
+
+
+def same_tts_session(a: dict, b: dict) -> bool:
+    return (np.array_equal(a["tokens"], b["tokens"]) and a["events"] == b["events"]
+            and len(a["pcm"]) == len(b["pcm"])
+            and all(np.array_equal(x, y) for x, y in zip(a["pcm"], b["pcm"])))
+
+
+def run_tts_serve(dev, card: str, tts: dict) -> dict:
+    """The TTS and codec entry points over [tts]'s checkpoint: run_tts's
+    main; then the worker on one TOML of three modules (batched_tts at B =
+    TTS_SLOTS with the int4 KV cache and the `cfg` condition, tts with the
+    int8 KV cache, mimi with one room), built by build_app as `main` builds
+    it: the batched module's sessions through its slot API under its
+    run_loop, the tts module's three sessions in turn, the Mimi sockets over
+    aiohttp on 127.0.0.1.  The launches of the build: each TTS module's
+    warm-up and one capture; none while serving."""
+    import tomllib
+    from moshi_tpu_torch.serve.worker import build_app
+
+    t_phase = time.perf_counter()
+    cli = run_tts_cli(dev, card)
+    free_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    app = build_app(tomllib.loads(tts_serve_toml()), device=dev)
+    build_s = time.perf_counter() - t0
+    built = read_counts()
+    modules = app["modules"]
+    batched, streamer, mimi_state = (modules[k]["state"] for k in ("batched", "tts", "mimi"))
+    for name, m in modules.items():
+        phase("tts_serve", f"module {name} ({m['type']}): loaded in {m['load_s']:.2f} s, "
+              f"warm-up and captures {m['warmup_s']:.2f} s")
+    engine = streamer.engine
+    per_b = tts_launches(batched.tts.lm.config, batched.lm_params, TTS_SLOTS)
+    per_t = tts_launches(engine.tts.lm.config, engine.lm_params, 1)
+    b_build, t_build = tts_build_launches(per_b), tts_build_launches(per_t)
+    expected = {k: b_build[k] + t_build[k] for k in TPU_KERNELS}
+    if built != expected:
+        raise RuntimeError(f"tts_serve: build launched {built}, expected {expected}")
+    if (batched.mult, batched.cfg_condition, batched.voice_frames) != (1, TTS_SERVE_CFG,
+                                                                       TTS_VOICE[0]):
+        raise RuntimeError(f"tts_serve: the batched module runs mult {batched.mult}, cfg "
+                           f"{batched.cfg_condition}, voices of {batched.voice_frames} frames")
+
+    out = asyncio.run(drive_tts_serve(app, batched, streamer, mimi_state,
+                                      modules["mimi"]["rooms"]))
+    launches = read_counts()
+    if launches != built:
+        raise RuntimeError(f"tts_serve: serving launched kernels outside the graphs: "
+                           f"{launches} after the build's {built}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    cfg = batched.tts.lm.config
+    fs = batched.tts.mimi.frame_size
+
+    # batched: twins, the resumed twin, every session whole
+    b = out["batched"]
+    sess = {i: {"tokens": b["tokens"][i], "events": b["events"][i], "pcm": b["pcm"][i]}
+            for i in b["tokens"]}
+    for i, s in sess.items():
+        check_tts_frames(s["tokens"], cfg, f"tts_serve batched session {i}")
+        check_pcm(s["pcm"], fs, f"tts_serve batched session {i}")
+        if not (b["eos"][i] and s["events"] and s["pcm"]):
+            raise RuntimeError(f"tts_serve batched: session {i} ended {b['eos'][i]} with "
+                               f"{len(s['events'])} words and {len(s['pcm'])} PCM frames")
+    for i in (1, 2):
+        if not same_tts_session(sess[i], sess[0]):
+            raise RuntimeError(f"tts_serve batched: session {i} differs from its twin 0")
+    distinct = sum(not np.array_equal(sess[i]["tokens"], sess[0]["tokens"])
+                   for i in range(4, len(sess)))
+    if distinct == 0:
+        raise RuntimeError("tts_serve batched: no session of its own differs from session 0")
+    b50, b90 = (float(np.percentile(out["batched_ms"], p)) for p in (50, 90))
+    slow = slowest_ticks(out["batched_ms"], 4)
+    ttfa = list(b["ttfa_ms"].values())
+    r = b["resume"]
+    phase("tts_serve", f"batched_tts B = {TTS_SLOTS} int4 KV, cfg condition {TTS_SERVE_CFG}, "
+          f"through run_loop: {len(sess)} greedy sessions with voices, of "
+          f"{min(len(s['tokens']) for s in sess.values())}-"
+          f"{max(len(s['tokens']) for s in sess.values())} frames each; "
+          f"twins 0 and 1 equal in tokens, words and PCM; session 2 left slot {r['left']} "
+          f"after frame {TTS_SERVE_LEAVE}, a tenant took and dirtied it, and it resumed on "
+          f"slot {r['back']} and equals its twin; session 3 changed its voice at frame "
+          f"{TTS_SERVE_CHANGE}; {distinct} of {len(sess) - 4} sessions of their own differ; "
+          f"{len(out['batched_ms'])} frames p50 {b50:.2f} ms, p90 {b90:.2f} ms per batched "
+          f"frame, the slowest {slow} (frame: ms; a voice change, restore or join with a voice "
+          f"recomputes every slot's conditions and cross K/V before the next frame) ([tts] "
+          f"greedy graphed p50 {tts['greedy']['p50_ms']:.2f} ms in this run), "
+          f"and {len(out['batched_ops_ms'])} turns of slot ops between them, "
+          f"{sum(out['batched_ops_ms']):.1f} ms of host time in all; first audio "
+          f"{float(np.percentile(ttfa, 50)):.1f} ms p50, {max(ttfa):.1f} ms max after the "
+          f"words ({card})")
+
+    # tts: session 3 repeats session 1 on the reset, seeded streamer
+    t = out["tts"]
+    for i, s in enumerate(t):
+        check_tts_frames(s["tokens"], engine.tts.lm.config, f"tts_serve tts session {i + 1}")
+        check_pcm(s["pcm"], fs, f"tts_serve tts session {i + 1}")
+        if s["json"][-1] != {"type": "Eos"} or not s["pcm"]:
+            raise RuntimeError(f"tts_serve tts: session {i + 1} ended with {s['json'][-1:]}")
+    t[0]["events"], t[2]["events"] = t[0]["json"], t[2]["json"]
+    if not same_tts_session(t[2], t[0]) or np.array_equal(t[1]["tokens"], t[0]["tokens"]):
+        raise RuntimeError("tts_serve tts: session 3 differs from session 1, or 2 equals it")
+    t50, t90 = (float(np.percentile(out["tts_ms"], p)) for p in (50, 90))
+    t_ttfa = [s["ttfa_ms"] for s in t]
+    phase("tts_serve", f"tts (one captured streamer at B = 1, int8 KV, temp "
+          f"{TTS_SERVE_TEMP}): 3 sessions in turn of {[len(s['tokens']) for s in t]} frames; "
+          f"session 3 equals session 1 in tokens, words and PCM, session 2 differs; "
+          f"{len(out['tts_ms'])} frames p50 {t50:.2f} ms, p90 {t90:.2f} ms; first audio "
+          f"{[round(x, 1) for x in t_ttfa]} ms after the words ({card})")
+
+    # mimi: codes of encode_step from a fresh state, PCM of decode_step
+    m = out["mimi"]
+    mimi, params = mimi_state.mimi, mimi_state.params
+    for i, (codes, back) in enumerate(m["clients"]):
+        enc = mimi.init_encode_state(1, mimi_state.dtype, dev)
+        dec = mimi.init_decode_state(1, mimi_state.dtype, dev)
+        x = torch.from_numpy(m["pcm"][i]).to(dev, mimi_state.dtype)
+        ref = torch.cat([mimi.encode_step(params, enc, x[k * fs:(k + 1) * fs][None, None])[0]
+                         for k in range(MIMI_FRAMES)], -1)[0].cpu().numpy()
+        c = torch.from_numpy(codes.astype(np.int64)).to(dev)
+        pcm = torch.cat([mimi.decode_step(params, dec, c[None, :, k:k + 1])[0]
+                         for k in range(MIMI_FRAMES)], -1)[0, 0].float().cpu().numpy()
+        if not (np.array_equal(codes, ref) and np.array_equal(back, pcm)):
+            raise RuntimeError(f"tts_serve mimi: client {i}'s codes or PCM differ from "
+                               f"encode_step / decode_step from a fresh state")
+    heard = m["heard"]
+    dec = mimi.init_decode_state(1, mimi_state.dtype, dev)
+    c = torch.from_numpy(m["room_codes"].astype(np.int64)).to(dev)
+    room_pcm = torch.cat([mimi.decode_step(params, dec, c[None, :, k:k + 1])[0]
+                          for k in range(c.shape[-1])], -1)[0, 0].float().cpu().numpy()
+    got = np.concatenate([np.frombuffer(x[1:], np.float32) for x in heard[0][1:]])
+    if heard[0] != heard[1] or heard[0][0] != b"\x00" * 9 or not np.array_equal(got, room_pcm):
+        raise RuntimeError("tts_serve mimi: the room's listeners heard different bytes, or "
+                           "not the producer's codes decoded")
+    fps = 2 * 2 * MIMI_FRAMES / m["seconds"]
+    phase("tts_serve", f"mimi over the socket: 2 clients x {MIMI_FRAMES} frames in ragged "
+          f"chunks, codes equal to encode_step's from a fresh state, their PCM to "
+          f"decode_step's; {fps:.1f} frames per second encoded and decoded (eager, batch 1); "
+          f"a room's two listeners heard the same {sum(len(x) for x in heard[0])} bytes, the "
+          f"producer's 5 frames decoded ({card})")
+    used = {k: v for k, v in built.items() if v}
+    phase("tts_serve", f"build_app {build_s:.2f} s; launches {used} = warm-up + captures of "
+          f"batched_tts and tts, none while serving; peak {peak:.2f} GiB allocated; the "
+          f"phase took {time.perf_counter() - t_phase:.1f} s ({card})")
+    seconds = {k: {"load_s": mm["load_s"], "warmup_s": mm["warmup_s"]}
+               for k, mm in modules.items()}
+    del app, modules, batched, streamer, engine, mimi_state
+    return {"launches": {k: cli["launches"][k] + built[k] for k in TPU_KERNELS},
+            "run_tts": {k: v for k, v in cli.items() if k != "launches"},
+            "build_s": build_s, "modules": seconds,
+            "batched_p50_ms": b50, "batched_p90_ms": b90,
+            "batched_ops_ms": out["batched_ops_ms"], "batched_ms": out["batched_ms"],
+            "batched_ttfa_p50_ms": float(np.percentile(ttfa, 50)),
+            "batched_ttfa_max_ms": max(ttfa), "tts_p50_ms": t50, "tts_p90_ms": t90,
+            "tts_ttfa_ms": t_ttfa, "mimi_frames_per_s": fps, "peak_gib": peak,
+            "checkpoint": tts["checkpoint"]}
 
 
 def main() -> None:
@@ -3338,14 +3935,20 @@ def main() -> None:
     free_memory()
     worker = run_worker(dev, card, serve, batched["greedy"]["p50_ms"])
     free_memory()
-    tts = run_tts(dev, card)
+    try:
+        tts = run_tts(dev, card)   # writes TTS_DIR at its end
+        free_memory()
+        tts_serve = run_tts_serve(dev, card, tts)
+    finally:
+        shutil.rmtree(TTS_DIR, ignore_errors=True)
 
     # the main paths' runs, all graphed: their launches counted at capture
     # (the offline forward is not graphed: its launches are one eager call's)
     by_path = {"slice_b1": slice_["launches"], "serve": serve["launches"],
                **{f"batched_{p}": v for p, v in batched["launches"].items()},
                "offline_forward": offline["launches"],
-               "asr": asr["launches"], "worker": worker["launches"], **tts["launches"]}
+               "asr": asr["launches"], "worker": worker["launches"], **tts["launches"],
+               "tts_serve": tts_serve["launches"]}
     per_frame_by_path = {"batched": batched["per_frame"]["int4"],
                          "batched_int8": batched["per_frame"]["int8"],
                          "offline_forward": offline["launches"], "asr": asr["per_frame"],
@@ -3405,7 +4008,9 @@ def main() -> None:
                       "asr": {key: v for key, v in asr.items()
                               if key not in ("launches", "per_frame")},
                       "tts": {key: v for key, v in tts.items()
-                              if key not in ("launches", "per_frame")}}), flush=True)
+                              if key not in ("launches", "per_frame", "checkpoint")},
+                      "tts_serve": {key: v for key, v in tts_serve.items()
+                                    if key != "launches"}}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -566,7 +566,9 @@ class CheckpointInfo:
         moshi_path = self._path("moshi", self.moshi_name)
         if self.native_format:
             model = LMModel(_lm_config(self.lm_config))
-            params = load_params(moshi_path, device)
+            # the conditioners' tensors in the same file are get_conditioners'
+            params = {k: v for k, v in load_params(moshi_path, device).items()
+                      if not k.startswith("condition_provider.")}
         else:
             model, params = get_moshi_lm(moshi_path, self.lm_config, dtype, device)
         if self.model_type == "hibiki":

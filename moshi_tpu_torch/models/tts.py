@@ -13,15 +13,17 @@ embeddings (`make_condition_attributes`), or through an audio prefix
 that `generate`'s `prefixes` take); CFG's null condition drops every
 condition.
 
-Not ported: `get_voice_path`, which resolves a voice name through the
-checkpoint loaders (A.11), and reading a prefix voice's wav file in
-`simple_generate` (the port has no audio reader); both raise.
+Voice names resolve in a local voice directory (`voice_repo`): an alias
+first, then `name + voice_suffix`.  Fetching from the hub (a `voice_repo`
+that is not a directory, an `hf://` name) is not ported and raises
+(ROADMAP A.11).
 """
 
 import re
 import typing as tp
 from collections import deque
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -201,7 +203,9 @@ class TTSModel:
                  condition_provider=None, fuser=None,
                  max_speakers: int = DEFAULT_MAX_SPEAKERS, temp: float = 0.6,
                  cfg_coef: float = 1.0, final_padding: int = 4, n_q: int = 32,
-                 max_gen_length: int = 30_000, padding_bonus: float = 0.0):
+                 max_gen_length: int = 30_000, padding_bonus: float = 0.0,
+                 voice_suffix: str = "", voice_repo: str | None = None,
+                 voice_aliases: dict | None = None):
         self.lm, self.mimi = lm, mimi
         self.tokenizer = tokenizer
         self.machine = machine
@@ -214,6 +218,9 @@ class TTSModel:
         self.n_q = min(n_q, lm.config.dep_q)
         self.max_gen_length = max_gen_length
         self.padding_bonus = padding_bonus
+        self.voice_suffix, self.voice_repo = voice_suffix, voice_repo
+        # logical name -> file (the reference worker's `voices` table)
+        self.voice_aliases = dict(voice_aliases or {})
 
     @property
     def frame_rate(self) -> float:
@@ -268,17 +275,22 @@ class TTSModel:
         return ConditionAttributes(text=text, tensor=tensors)
 
     def get_voice_path(self, voice_name: str):
-        raise NotImplementedError("voice names resolve through the checkpoint loaders, which "
-                                  "are not ported (ROADMAP A.11): pass the embedding or a "
-                                  ".safetensors path")
+        """The local file of a voice name: an alias's file, else
+        `voice_name + voice_suffix`, each a path that exists as it is or a
+        name inside the voice directory `voice_repo`."""
+        from .loaders import local_path
+
+        name = self.voice_aliases.get(voice_name, voice_name + self.voice_suffix)
+        if not name.startswith(("hf://", "file://")) and Path(name).exists():
+            return Path(name)
+        return local_path(name, self.voice_repo)
 
     @staticmethod
     def load_voice_embedding(path) -> np.ndarray:
         """One speaker embedding [1, T, D] from a voice .safetensors file
         (its `speaker_wavs`, stored [1, D, T])."""
-        from safetensors import safe_open
-        with safe_open(str(path), framework="numpy") as f:
-            emb = f.get_tensor("speaker_wavs")
+        from ..utils.safetensors import load_file
+        emb = load_file(path)["speaker_wavs"].float().numpy()
         return np.transpose(emb, (0, 2, 1))
 
     def get_prefix(self, mimi_params, wav: np.ndarray) -> np.ndarray:
@@ -438,11 +450,11 @@ class TTSModel:
                         generator: torch.Generator | None = None,
                         on_frame: tp.Callable | None = None) -> list[np.ndarray]:
         """PCM for text(s) in voice(s), which broadcast against each other:
-        a single item repeats to match a list, two lists pair up.  A voice is
-        an embedding array [1, T, D] or a path to a voice .safetensors file
-        (voice names, resolved by get_voice_path, and the wav files of
-        audio-prefix voices are not ported: pass get_prefix's codes to
-        generate).  Returns one
+        a single item repeats to match a list, two lists pair up.  A voice of
+        a speaker-conditioned model is an embedding array [1, T, D], a path
+        to a voice .safetensors file, or a voice name (get_voice_path); an
+        audio-prefix model's is `file://path.wav`, read at the Mimi's rate,
+        encoded by get_prefix and forced as the first frames.  Returns one
         1-D float32 array per (text, voice) pair."""
         many_texts, many_voices = isinstance(text, list), isinstance(voice, list)
         if many_texts and many_voices:
@@ -463,20 +475,30 @@ class TTSModel:
         if not distilled:
             # a model without CFG distillation takes the coefficient directly
             self.cfg_coef = cfg_coef
-        if not self.multi_speaker:
-            raise NotImplementedError("the voice of an audio-prefix model is a wav file, and "
-                                      "the port has no audio reader: pass get_prefix's "
-                                      "codes to generate")
-        embeddings = []
-        for v in voices:
-            if isinstance(v, str) or hasattr(v, "__fspath__"):
-                path = v if str(v).endswith(".safetensors") else self.get_voice_path(str(v))
-                embeddings.append(self.load_voice_embedding(path))
-            else:
-                embeddings.append(np.asarray(v))
-        attributes = [self.make_condition_attributes([e], cfg_coef if distilled else None)
-                      for e in embeddings]
+        attributes, prefixes = None, None
+        if self.multi_speaker:
+            embeddings = []
+            for v in voices:
+                if isinstance(v, str) or hasattr(v, "__fspath__"):
+                    path = (v if str(v).endswith(".safetensors")
+                            else self.get_voice_path(str(v)))
+                    embeddings.append(self.load_voice_embedding(path))
+                else:
+                    embeddings.append(np.asarray(v))
+            attributes = [self.make_condition_attributes([e], cfg_coef if distilled else None)
+                          for e in embeddings]
+            starts = [0] * len(texts)
+        else:
+            from ..audio import read_wav
+            prefixes = []
+            for v in voices:
+                if not str(v).startswith("file://"):
+                    raise ValueError("this model is conditioned by an audio prefix: pass "
+                                     f"voices as file://path.wav, got {v!r}")
+                wav, _ = read_wav(str(v).removeprefix("file://"), self.mimi.config.sample_rate)
+                prefixes.append(self.get_prefix(mimi_params, wav[0]))
+            starts = [p.shape[-1] for p in prefixes]
         result = self.generate(params, entries_batch, attributes=attributes,
-                               condition_params=condition_params, generator=generator,
-                               on_frame=on_frame)
-        return self.synthesize_pcm(params, mimi_params, result, [0] * len(texts))
+                               condition_params=condition_params, prefixes=prefixes,
+                               generator=generator, on_frame=on_frame)
+        return self.synthesize_pcm(params, mimi_params, result, starts)

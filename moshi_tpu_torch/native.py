@@ -50,7 +50,8 @@ def build() -> Path:
            "-o", tmp]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
+        if os.path.exists(tmp):  # a failed link removes its output itself
+            os.unlink(tmp)
         raise RuntimeError(f"building the opus codec failed:\n{proc.stderr}")
     # compiled to a private name, then renamed: a concurrent loader never
     # sees a half-written library

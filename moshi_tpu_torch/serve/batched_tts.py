@@ -1,12 +1,12 @@
-"""The batched text-to-speech engine (counterpart of the engine half of
+"""The batched text-to-speech server (counterpart of
 moshi_tpu/serve/batched_tts.py): B slots, one client each, stepped together
 one 80 ms frame at a time, each slot with its own DSM state machine, word
 queue and frame offset.
 
 A slot whose words have run out (and whose client has not said it is done)
 is starved: it pauses, frozen by the exec mask, instead of padding.  Slot
-resets and voice changes are queued (`pending_ops`) and applied in place
-at the start of a tick, between frames.  A slot's voice conditions the LM
+ops (reset, voice change, snapshot, restore) are queued (`pending_ops`)
+and applied in place between frames.  A slot's voice conditions the LM
 through cross-attention: the engine keeps one cross K/V pair [L, B_model,
 Ts, H, D] and rewrites it in place on every voice change; voiceless slots
 among voiced ones take the null condition.  While no slot has a voice the
@@ -18,16 +18,41 @@ state machines on the host, then graph 2 (depformer, commit, Mimi
 decode): the JAX package's two jitted programs.  On a CUDA device both run
 as CUDA-graph replays (graph 1 once for each mode, with and without the
 cross block) over static token, mask, zero-mask and decode-mask buffers;
-`warmup()` comes first, and an engine whose slots take voices needs
-`voice_frames` (the frames of one speaker embedding) to size the cross
-K/V before it.  `graphed=False` runs the same functions eagerly (the
-CPU's only path).
+`warmup()` comes first (and `capture()` when other engines' threads share
+the card), and an engine whose slots take voices needs `voice_frames`
+(the frames of one speaker embedding) to size the cross K/V before it.
+`graphed=False` runs the same functions eagerly (the CPU's only path).
 
-Not ported: the websocket handler and asyncio loop (ROADMAP A.12) and
-session resume.  `serve_tts` plays the loop's role over a script.
+The transport: each websocket session (`handle_batched_tts_socket`, the
+JAX package's protocol: JSON "Text" / "Voice" / "Eos" in; b"\\x01" +
+ogg-opus audio, JSON "Text" word events with `start_s`, "Error" and "Eos"
+out) holds a slot through the async `acquire_slot` / `release_slot`; the
+frames' events and PCM go from the slot's outbox to the session's
+asyncio queue.  `run_loop`, the shared loop, applies the queued ops on
+the event loop's thread and runs each frame on a worker thread.  Session
+resume (`?resume_support=1`, then `?resume=<id>`): a session that leaves
+with a resume id leaves its DSM state, its undelivered items and its
+slot's rows of the LM's and the decoder's streaming state (moved to host
+memory, serve/snapshots.py); a later session goes on from them on any
+slot, written back in place.  The cross K/V are not in a snapshot: a
+restore rebuilds them from the slot's voice.
+
+`serve_tts` plays the loop's role over a script, with no socket, through
+the synchronous `open_slot` / `close_slot` / `tick`.
+
+One deliberate difference from the JAX package: on a CFG-distilled model
+`load_tts` gives `cfg_coef` to the voices as their `cfg` condition and
+leaves the model batch undoubled (what `TTSModel.simple_generate` does in
+both packages), where the JAX package's engine runs true CFG on a doubled
+batch and leaves the voices' `cfg` to its padding.  A batch doubled past
+the GEMV kernels' 16 rows is refused when the engine is built.
 """
 
+import asyncio
+import collections
+import json
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -36,8 +61,12 @@ from ..conditioners import dropout_all_conditions
 from ..models.lm import UNGENERATED_TOKEN, ZERO_TOKEN
 from ..models.lm_gen import LMGen, LMGenConfig
 from ..models.tts import Entry
-from ..utils.graphs import GraphedStep
-from ..utils.trees import masked_reset, state_batch_axes
+from ..ops.q4matmul import MAX_BATCH
+from ..utils.graphs import GraphedStep, run_on_device
+from ..utils.trees import masked_reset, put_slots, state_batch_axes, take_slots
+from .metrics import CONNECT_COUNT, MODEL_STEP_DURATION, OPEN_CHANNELS, TOTAL_STEPS
+from .snapshots import (RidRegistry, SnapshotStore, await_pending_release, new_resume_id,
+                        wants_resume)
 
 _GEN_KEYS = ("cache", "offsets", "text_history", "hist_pos")  # LMGen's per-slot rows
 
@@ -55,12 +84,16 @@ class BatchedTTSState:
     """B TTS slots of `tts` (a models/tts.py TTSModel) on `device`.  The
     codec runs in the dtype of its parameters; the LM's KV cache follows its
     config, in bf16 for a model-dtype cache.  With temp > 0 the draws come
-    from the engine's generator, seeded with `rng_seed`."""
+    from the engine's generator, seeded with `rng_seed`.  `cfg_condition`,
+    for a CFG-distilled model, is the coefficient its voices' `cfg`
+    condition carries (None: the condition's padding)."""
 
     def __init__(self, tts, lm_params, mimi_params, batch_size: int, *,
                  condition_params: dict | None = None, voice_frames: int | None = None,
-                 device="cuda", graphed: bool | None = None, rng_seed: int = 0):
+                 device="cuda", graphed: bool | None = None, rng_seed: int = 0,
+                 cfg_condition: float | None = None):
         self.tts = tts
+        self.cfg_condition = cfg_condition
         self.lm_params, self.mimi_params = lm_params, mimi_params
         self.cp_params = condition_params
         self.batch_size = B = batch_size
@@ -76,6 +109,10 @@ class BatchedTTSState:
             use_sampling=tts.temp > 0.0, temp=tts.temp, temp_text=tts.temp,
             cfg_coef=tts.cfg_coef, padding_bonus=tts.padding_bonus))
         self.mult = self.gen.model_batch_mult
+        if B * self.mult > MAX_BATCH:   # on every device: a CPU rehearsal refuses it too
+            raise NotImplementedError(
+                f"BatchedTTSState: {B} slots x {self.mult} (CFG) = {B * self.mult} model rows; "
+                f"the GEMV kernels take at most {MAX_BATCH} (ROADMAP B.2a)")
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(rng_seed)
         self.gen_state = self.gen.init_state(B, self.generator, torch.bfloat16, dev)
@@ -105,15 +142,27 @@ class BatchedTTSState:
         self._gen_delays = np.asarray(c.delays[c.audio_offset:c.audio_offset + c.dep_q])
         self._valid_after = max(self.gen.max_delay, tts.delay_steps)
         self.slots: list[_TtsSlot | None] = [None] * B
-        # ("reset", slot) and ("voice", slot, embedding [1, T, D]), applied in
-        # order at the start of the next tick; a slot stays out of the
-        # frames until its reset has applied
+        # ("reset", slot), ("voice", slot, embedding [1, T, D]), ("snapshot",
+        # slot, resume id, session, its attributes) and ("restore", slot,
+        # rows, attributes), applied in order between frames; a slot stays
+        # out of the frames until its reset or restore has applied
         self.pending_ops: list[tuple] = []
         self.unready: set[int] = set()
+        # the transport: each session's queue, filled from its outbox; resume
+        self.slot_queues: dict[int, asyncio.Queue] = {}
+        self.slot_resume_id = RidRegistry()
+        self.slot_resumed: dict[int, bool] = {}
+        self.snapshots = SnapshotStore(ttl=60.0, cap=max(8, B))
+        self.lock = asyncio.Lock()
+        # run_loop's frames, host ms each (what MODEL_STEP_DURATION observes),
+        # and the host ms of each turn that applied queued slot ops
+        self.frame_times = collections.deque(maxlen=10_000)
+        self.ops_times = collections.deque(maxlen=10_000)
         # host ms of the last tick's parts: the queued ops ("ops"), graph 1
         # and graph 2 each up to its outputs read back ("main", "depth"), the
         # state machines between them ("machines")
         self.frame_ms = dict.fromkeys(("ops", "main", "machines", "depth"), 0.0)
+        self.warm_modes = None  # the modes of graph 1 warmup() warmed
         # exact per-leaf batch axes: a shape rule mistakes the layer axis of
         # a [L, B, ...] cache for the batch axis when B == L
         self._ax_gen = state_batch_axes(
@@ -173,31 +222,103 @@ class BatchedTTSState:
             for _ in range(2):
                 self.main[conditioned].warm_up(*main)
                 self.depth.warm_up(*depth)
+        self.warm_modes = modes
+        self._reset(np.ones(self.batch_size, bool))
+
+    def capture(self):
+        """Capture the graphs now (graph 1 in each mode warmup() warmed, then
+        graph 2), with one frame in which every slot is frozen, then reset
+        every slot: a server whose card other engines' threads use captures
+        nothing while serving.  Eager engines do nothing."""
+        if not self.graphed:
+            return
+        for t in (self.mask_in, self.dec_in, self.zero_in):
+            t.fill_(False)
+        self.text_in.zero_()
+        for conditioned in self.warm_modes:
+            main, depth = self._frame_args(conditioned)
+            self.main[conditioned](*main)
+        self.depth(*depth)
         self._reset(np.ones(self.batch_size, bool))
 
     # --------------------------------------------------------------- slot ops
-    def acquire_slot(self, slot: int | None = None) -> int | None:
+    def open_slot(self, slot: int | None = None, resume: str | None = None,
+                  snapshot=None) -> int | None:
         """Open a session: on `slot`, or on the first free slot (None when
-        the batch is full).  Its reset applies at the start of the next
-        tick."""
+        the batch is full).  With the id of a snapshot (or the snapshot
+        itself) the session goes on from it (its rows restored before the
+        next frame, its undelivered items back in its outbox, an "eos" added
+        when it had ended), else it starts fresh (reset then);
+        `slot_resumed` says which."""
         if slot is None:
             slot = next((b for b, s in enumerate(self.slots) if s is None), None)
             if slot is None:
                 return None
         elif self.slots[slot] is not None:
             raise ValueError(f"slot {slot} is taken")
+        if snapshot is None and resume is not None:
+            if any(op[0] == "snapshot" and op[2] == resume for op in self.pending_ops):
+                self.apply_pending_ops()  # the session left since the last frame
+            snapshot = self.snapshots.pop(resume)
         self.unready.add(slot)
-        self.pending_ops.append(("reset", slot))
-        self.slots[slot] = _TtsSlot(self.machine)
+        if snapshot is None:
+            self.pending_ops.append(("reset", slot))
+            self.slots[slot] = _TtsSlot(self.machine)
+        else:
+            rows, meta = snapshot
+            s = meta["slot"]
+            if s.done and not any(kind == "eos" for kind, _ in s.outbox):
+                s.outbox.append(("eos", None))
+            self.pending_ops.append(("restore", slot, rows, meta["attrs"]))
+            self.slots[slot] = s
+        self.slot_resumed[slot] = snapshot is not None
         return slot
 
-    def release_slot(self, slot: int):
+    def close_slot(self, slot: int):
         """Close the session on `slot`; its queued voice changes are dropped,
-        so they cannot reach the slot's next session."""
-        if self.slots[slot] is not None:
-            self.pending_ops = [op for op in self.pending_ops
-                                if not (op[0] == "voice" and op[1] == slot)]
-            self.slots[slot] = None
+        so they cannot reach the slot's next session.  With a resume id its
+        snapshot is taken before the next frame."""
+        s = self.slots[slot]
+        if s is None:
+            return
+        self.pending_ops = [op for op in self.pending_ops
+                            if not (op[0] == "voice" and op[1] == slot)]
+        rid = self.slot_resume_id.pop(slot, None)
+        if rid is not None:
+            self.pending_ops.append(("snapshot", slot, rid, s, self.slot_attrs[slot]))
+        self.slots[slot] = None
+        self.slot_resumed.pop(slot, None)
+
+    def issue_resume_id(self, slot: int) -> str:
+        """Let the session on `slot` leave a snapshot when it is closed; the
+        id opens it again."""
+        rid = new_resume_id()
+        self.slot_resume_id[slot] = rid
+        return rid
+
+    def snapshot_slot(self, slot: int):
+        """Slot `slot`'s rows of LMGen's per-slot state (CFG's null rows
+        too) and of the decoder's, each at batch size 1 (copies); the cross
+        K/V are left out."""
+        idx, idx_m = [slot], [slot + i * self.batch_size for i in range(self.mult)]
+        gen = {key: take_slots(self.gen_state[key], idx, self._ax_gen[key])
+               for key in _GEN_KEYS if key in self.gen_state}
+        tr = self.gen_state["transformer"]
+        gen["transformer"] = take_slots({k: tr[k] for k in self._ax_tr}, idx_m, self._ax_tr)
+        return gen, take_slots(self.dec_state, idx, self._ax_dec)
+
+    def restore_slot(self, slot: int, rows):
+        """Write rows from snapshot_slot (on any device) into slot `slot`, in
+        place."""
+        gen, dec = rows
+        idx, idx_m = [slot], [slot + i * self.batch_size for i in range(self.mult)]
+        for key, v in gen.items():
+            if key == "transformer":
+                tr = self.gen_state["transformer"]
+                put_slots({k: tr[k] for k in v}, v, idx_m, self._ax_tr)
+            else:
+                put_slots(self.gen_state[key], v, idx, self._ax_gen[key])
+        put_slots(self.dec_state, dec, idx, self._ax_dec)
 
     def set_slot_voice(self, slot: int, voice_embedding: np.ndarray):
         """The voice of `slot`: a speaker embedding [voice_frames, D], queued
@@ -207,6 +328,9 @@ class BatchedTTSState:
         if not self._takes_voices():
             return
         emb = np.asarray(voice_embedding, np.float32)
+        if self.graphed and self.warm_modes is not None and True not in self.warm_modes:
+            raise ValueError("this graphed engine was warmed up without voice_frames: it "
+                             "takes no voice")
         if self.voice_frames is None and emb.ndim == 2:
             self.voice_frames = emb.shape[0]
         want = (self.voice_frames, self._voice_dim())
@@ -216,20 +340,31 @@ class BatchedTTSState:
         self.pending_ops.append(("voice", slot, emb[None]))
 
     def apply_pending_ops(self):
-        """Apply the queued resets and voice changes in order, in place (no
-        frame is in flight between ticks).  The conditions are a function of
-        the slots' attributes alone, so they are recomputed once, after the
-        last op, however many voices changed."""
+        """Apply the queued slot ops in order, in place (no frame is in
+        flight between ticks).  The conditions are a function of the slots'
+        attributes alone, so they are recomputed once, after the last op,
+        however many voices changed."""
         changed = False
         while self.pending_ops:
             op = self.pending_ops.pop(0)
             if op[0] == "reset":
                 changed |= self._reset_slot(op[1])
                 self.unready.discard(op[1])
-            else:
+            elif op[0] == "voice":
                 _, slot, emb = op
-                self.slot_attrs[slot] = self.tts.make_condition_attributes([emb], None)
+                self.slot_attrs[slot] = self.tts.make_condition_attributes(
+                    [emb], self.cfg_condition)
                 changed = True
+            elif op[0] == "snapshot":
+                _, slot, rid, session, attrs = op
+                self.snapshots.put(rid, self.snapshot_slot(slot),
+                                   {"slot": session, "attrs": attrs})
+            else:
+                _, slot, rows, attrs = op
+                self.restore_slot(slot, rows)
+                changed |= attrs is not None or self.slot_attrs[slot] is not None
+                self.slot_attrs[slot] = attrs
+                self.unready.discard(slot)
         if changed:
             self._recompute_conditioning()
 
@@ -341,12 +476,16 @@ class BatchedTTSState:
                 out.append(b)
         return out
 
-    def step_batch(self, active: list[int]):
+    def step_batch(self, active: list[int], sessions: list | None = None):
         """One batched frame over the slots `active`: graph 1, the state
-        machines, graph 2; each slot's Text events and PCM go to its
-        outbox.  Returns (out [B, 1 + dep_q, 1] int64, pcm [B, 1,
-        frame_size] f32) on the host."""
+        machines, graph 2; each slot's Text events and PCM go to the outbox
+        of its session (`sessions`, the slots' sessions when the frame was
+        started; by default those open now).  Returns (out [B, 1 + dep_q,
+        1] int64, pcm [B, 1, frame_size] f32) on the host."""
         tts, B = self.tts, self.batch_size
+        if sessions is None:
+            sessions = [self.slots[b] for b in active]
+        session = dict(zip(active, sessions))
         exec_np = np.zeros(B, bool)
         exec_np[active] = True
         self.mask_in.copy_(torch.from_numpy(exec_np))
@@ -359,7 +498,7 @@ class BatchedTTSState:
         valid = np.zeros(B, bool)
         events: dict[int, list] = {}
         for b in active:
-            s = self.slots[b]
+            s = session[b]
             before = len(s.state.transcript)
             out_tokens[b], _ = self.machine.process(s.offset, s.state, int(toks[b]))
             events[b] = [{"type": "Text", "text": w, "start_s": step / tts.frame_rate}
@@ -380,7 +519,7 @@ class BatchedTTSState:
         self.frame_ms.update(main=(t1 - t0) * 1e3, machines=(t2 - t1) * 1e3,
                              depth=(t3 - t2) * 1e3)
         for b in active:
-            s = self.slots[b]
+            s = session[b]
             s.offset += 1
             s.outbox += [("event", e) for e in events[b]]
             if valid[b] and not (out_np[b] == UNGENERATED_TOKEN).any():
@@ -400,6 +539,90 @@ class BatchedTTSState:
         mask = np.zeros(self.batch_size, bool)
         mask[active] = True
         return mask, out, pcm
+
+    # -------------------------------------------------------------- transport
+    async def acquire_slot(self, resume: str | None = None) -> int | None:
+        """The transport's open_slot: waits for a resumed session's release
+        and for its snapshot (host copies), then opens a slot with a queue
+        of its own.  None when the batch is full."""
+        await await_pending_release(self.slot_resume_id, resume)
+        async with self.lock:
+            if all(s is not None for s in self.slots):
+                return None
+            snapshot = await self.snapshots.take(resume)
+            slot = self.open_slot(snapshot=snapshot)
+            self.slot_queues[slot] = asyncio.Queue()
+            self._deliver(slot)
+            OPEN_CHANNELS.inc()
+            CONNECT_COUNT.inc()
+            return slot
+
+    async def release_slot(self, slot: int):
+        """The transport's close_slot: the queue's undelivered items go back
+        into the session's outbox, so into its snapshot, which is reserved
+        at once: a reconnect faster than one frame waits for it instead of
+        starting fresh."""
+        async with self.lock:
+            q, s = self.slot_queues.pop(slot, None), self.slots[slot]
+            items = []
+            while q is not None and not q.empty():
+                items.append(q.get_nowait())
+            if s is not None:
+                s.outbox[:0] = items
+            rid = self.slot_resume_id.get(slot)
+            if rid is not None:
+                self.snapshots.reserve(rid)
+            self.close_slot(slot)
+            OPEN_CHANNELS.dec()
+
+    def _deliver(self, slot: int):
+        """Move the outbox of the session on `slot` into its queue."""
+        q, s = self.slot_queues.get(slot), self.slots[slot]
+        if q is None or s is None or not s.outbox:
+            return
+        for item in s.outbox:
+            q.put_nowait(item)
+        s.outbox.clear()
+
+    async def run_loop(self):
+        """The shared loop, as a background task: an exception is printed,
+        then raised."""
+        try:
+            await self._run_loop()
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            traceback.print_exc()
+            raise
+
+    async def _run_loop(self):
+        next_sweep = 0.0
+        while True:
+            if len(self.snapshots) and time.time() > next_sweep:
+                self.snapshots.sweep()  # expired snapshots free their memory
+                next_sweep = time.time() + 5.0
+            t0, had_ops = time.perf_counter(), bool(self.pending_ops)
+            active = self.steppable()  # the queued ops first: no frame is in flight
+            if had_ops:
+                self.ops_times.append((time.perf_counter() - t0) * 1e3)
+            for slot in list(self.slot_queues):
+                self._deliver(slot)    # a finished session's "eos"
+            if not active:
+                await asyncio.sleep(0.005)
+                continue
+            # the sessions the frame is for: one that leaves while the frame
+            # runs gets its outputs in its snapshot, a new one on its slot none
+            sessions = [self.slots[b] for b in active]
+            t0 = time.perf_counter()
+            await asyncio.to_thread(run_on_device, self.device, self.step_batch, active,
+                                    sessions)
+            ms = (time.perf_counter() - t0) * 1e3
+            self.frame_times.append(ms)
+            MODEL_STEP_DURATION.observe(ms / 1e3)
+            TOTAL_STEPS.inc()
+            for slot in list(self.slot_queues):
+                self._deliver(slot)
+            await asyncio.sleep(0)
 
 
 def serve_tts(state: BatchedTTSState, schedule):
@@ -430,8 +653,8 @@ def serve_tts(state: BatchedTTSState, schedule):
                 kind = action if isinstance(action, str) else action[0]
                 if kind == "join":
                     if state.slots[s] is not None:
-                        state.release_slot(s)
-                    state.acquire_slot(s)
+                        state.close_slot(s)
+                    state.open_slot(s)
                     refills.pop(s, None)
                     if action[1] is not None:
                         state.set_slot_voice(s, action[1])
@@ -445,7 +668,7 @@ def serve_tts(state: BatchedTTSState, schedule):
                 elif kind == "refill":
                     refills[s] = [action[1], action[2], action[3], 0]
                 elif kind == "leave":
-                    state.release_slot(s)
+                    state.close_slot(s)
                     refills.pop(s, None)
                 else:
                     raise ValueError(f"tick action {action!r}")
@@ -480,3 +703,133 @@ def serve_tts(state: BatchedTTSState, schedule):
         for sess in sess_list:
             sess["tokens"] = np.array(sess["tokens"], np.int64).reshape(-1, width)
     return sessions, ticks
+
+
+async def handle_batched_tts_socket(request, state: BatchedTTSState):
+    """aiohttp handler of the batched TTS route: a slot per session ("full"
+    as an Error when there is none), words and voices in, audio and word
+    events out from the slot's queue.  A client that leaves while its slot
+    is starved frees the slot."""
+    from aiohttp import WSMsgType, web
+
+    from .tts_ws import make_audio_encoder
+
+    ws = web.WebSocketResponse()
+    await ws.prepare(request)
+    query = dict(request.rel_url.query)
+    want_resume = wants_resume(query)
+    slot = await state.acquire_slot(query.get("resume"))
+    if slot is None:
+        await ws.send_str(json.dumps({"type": "Error", "message": "full"}))
+        await ws.close()
+        return ws
+    try:
+        writer = make_audio_encoder(state.tts.mimi.config.sample_rate)
+        ready = {"type": "Ready"}
+        if want_resume:
+            ready["resume_id"] = state.issue_resume_id(slot)
+            ready["resumed"] = state.slot_resumed.get(slot, False)
+        await ws.send_str(json.dumps(ready))
+    except BaseException:
+        await state.release_slot(slot)
+        raise
+
+    async def receiver():
+        async for message in ws:
+            if message.type != WSMsgType.TEXT:
+                continue
+            try:
+                msg = json.loads(message.data)
+                kind = msg.get("type")
+                if kind == "Text":
+                    state.feed_words(slot, [str(msg["text"])])
+                elif kind == "Voice":
+                    emb = np.asarray(msg["embeddings"], np.float32).reshape(msg["shape"])
+                    state.set_slot_voice(slot, emb)
+                elif kind == "Eos":
+                    state.feed_eos(slot)
+            except Exception as e:
+                # one bad message must not end the session, nor reach the loop
+                await ws.send_str(json.dumps({"type": "Error", "message": f"bad message: {e}"}))
+
+    recv_task = asyncio.create_task(receiver())
+    try:
+        q = state.slot_queues[slot]
+        while True:
+            # the queue raced against the receiver: a client gone while its
+            # slot is starved would leave q.get() waiting for ever
+            q_task = asyncio.ensure_future(q.get())
+            done, _ = await asyncio.wait({q_task, recv_task},
+                                         return_when=asyncio.FIRST_COMPLETED)
+            if q_task not in done:
+                q_task.cancel()
+                break
+            kind, payload = q_task.result()
+            if kind == "eos":
+                await ws.send_str(json.dumps({"type": "Eos"}))
+                break
+            if kind == "event":
+                await ws.send_str(json.dumps(payload))
+            else:
+                data = writer.append_pcm(np.ascontiguousarray(payload, np.float32))
+                if data:
+                    await ws.send_bytes(b"\x01" + data)
+    finally:
+        recv_task.cancel()
+        await state.release_slot(slot)
+        await ws.close()
+    return ws
+
+
+def load_tts(info, *, device="cuda", kv_cache=None, context=None, weights=None,
+             mimi_dtype=None, temp: float = 0.6, cfg_coef: float = 1.0, n_q: int = 32,
+             max_padding: int | None = None, voice_dir=None, voice_aliases: dict | None = None,
+             voice_frames: int | None = None):
+    """The checkpoint of `info` (a CheckpointInfo) ready for an engine: (tts,
+    LM params, Mimi params, the engine's keywords), its weights on `device`
+    with the serving knobs applied (utils/serving.py).  On a CFG-distilled
+    model `cfg_coef` is its voices' `cfg` condition, and the batch is not
+    doubled; on another model a coefficient other than 1 doubles the model
+    batch.  `voice_frames` sizes the cross K/V (by default the frames of
+    the first voice file in `voice_dir`, when that is a local directory)."""
+    from ..run_tts import DEFAULT_DSM_TTS_VOICE_REPO, build_tts_from_info
+    from ..utils.serving import apply_serving_overrides
+
+    kw = {} if max_padding is None else {"max_padding": int(max_padding)}
+    tts, lm_params, mimi_params, cp_params = build_tts_from_info(
+        info, temp=temp, cfg_coef=cfg_coef, n_q=n_q,
+        voice_repo=voice_dir or DEFAULT_DSM_TTS_VOICE_REPO, voice_aliases=voice_aliases,
+        device=device, **kw)
+    tts.lm, lm_params, mimi_params, _ = apply_serving_overrides(
+        tts.lm, lm_params, mimi_params, kv_cache=kv_cache, context=context, weights=weights,
+        mimi_dtype=mimi_dtype)
+    cfg_condition = None
+    if tts.valid_cfg_conditionings and cfg_coef != 1.0:
+        if cfg_coef not in tts.valid_cfg_conditionings:
+            raise ValueError(f"cfg_coef {cfg_coef} not in "
+                             f"{sorted(tts.valid_cfg_conditionings)}")
+        tts.cfg_coef, cfg_condition = 1.0, cfg_coef
+    if voice_frames is None:
+        voice_frames = first_voice_frames(voice_dir)
+    return tts, lm_params, mimi_params, {
+        "condition_params": cp_params, "voice_frames": voice_frames, "device": device,
+        "cfg_condition": cfg_condition}
+
+
+def build_state(info, *, batch_size: int, rng_seed: int = 0, **knobs) -> BatchedTTSState:
+    """A BatchedTTSState of `batch_size` slots over the checkpoint of `info`,
+    with load_tts's knobs; not warmed up."""
+    tts, lm_params, mimi_params, kw = load_tts(info, **knobs)
+    return BatchedTTSState(tts, lm_params, mimi_params, batch_size, rng_seed=rng_seed, **kw)
+
+
+def first_voice_frames(voice_dir) -> int | None:
+    """The frames of the first (by name) voice .safetensors file in the local
+    directory `voice_dir`; None without one."""
+    from pathlib import Path
+
+    from ..models.tts import TTSModel
+    if voice_dir is None or not Path(voice_dir).is_dir():
+        return None
+    files = sorted(Path(voice_dir).rglob("*.safetensors"))
+    return TTSModel.load_voice_embedding(files[0]).shape[1] if files else None

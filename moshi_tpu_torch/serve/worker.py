@@ -22,13 +22,29 @@ schema, `type = "BatchedAsr"` and its kin, verbatim):
   `asr_delay_in_tokens`, `temperature`, `conditioning_delay` or
   `conditioning_learnt_padding`, `kv_cache`, `context`, `weights`,
   `mimi_dtype`;
+- `batched_tts`: serve/batched_tts.py, `batch_size`, `kv_cache`,
+  `context`, `weights`, `mimi_dtype`, `temp`, `cfg_coef` (on a
+  CFG-distilled model the voices' `cfg` condition, where the JAX
+  package's module runs true CFG; on another it doubles the model batch,
+  which the engine refuses above 16 rows: ROADMAP B.2a), `n_q`,
+  `max_padding`, `voice_dir`, `voices` (name -> file), `voice_frames`
+  (by default the first voice file's);
+- `tts`: serve/tts_ws.py, the same keys but the batch's.  The JAX package
+  builds a streamer with its own compiled programs for every connection;
+  here the module holds one captured streamer and its sessions take it in
+  turn (the next one resets it in place; a connection waits while another
+  session runs);
+- `mimi`: serve/mimi_ws.py, the tokenizer socket on the route and the
+  broadcast rooms on `route/{room}/send|recv`, or the reference's
+  `send_path` / `recv_path` (a room by its `room_id` header), `rooms`,
+  `default_room`;
 - `py` / `py_post`: a user script whose `init(batch_size, config)` returns
   an app with `async handle(request)` (GET) or `async handle_post(request)`
   (POST), optionally `warmup()` and `async run_loop()` (moshi-server's
   py_module, py_module.rs:399-441).
-Not ported yet, and refused with NotImplementedError: the types `tts`,
-`batched_tts`, `mimi` and `py_batched_asr`, and the keys `tp`, `hf_repo`,
-`vault_url`, `fleet_auth` and `log_dir`.
+Not ported yet, and refused with NotImplementedError: the type
+`py_batched_asr`, and the keys `tp`, `hf_repo`, `vault_url`, `fleet_auth`
+and `log_dir`.
 
 Every model module loads onto `--device` (`cuda` by default, which must be
 there).  After all modules have warmed up, `main` calls `gc.freeze()`: the
@@ -50,9 +66,7 @@ from pathlib import Path
 from .metrics import OPEN_CHANNELS, REGISTRY
 
 # what the worker does not build yet -> the ROADMAP item it waits for
-NOT_PORTED_TYPES = {"tts": "A.12 (tts_ws.py, run_tts.py)",
-                    "batched_tts": "A.12 (batched_tts's transport, run_tts.py)",
-                    "mimi": "A.12 (mimi_ws.py)", "py_batched_asr": "A.12 (py_basr.py)"}
+NOT_PORTED_TYPES = {"py_batched_asr": "A.12 (py_basr.py)"}
 NOT_PORTED_KEYS = {"tp": "A.13 (the multi-card mesh)", "hf_repo": "A.11 (the hub fetch)",
                    "vault_url": "A.12 (the vault and migration)",
                    "fleet_auth": "A.12 (the vault and migration)",
@@ -102,7 +116,7 @@ def _build_py_module(name: str, mcfg: dict):
 
 
 # info keys of a module that /api/modules_info leaves out
-_PRIVATE_INFO = ("state", "load_s", "warmup_s")
+_PRIVATE_INFO = ("state", "rooms", "load_s", "warmup_s")
 
 
 def build_module(name: str, mcfg: dict, seed: int, device="cuda"):
@@ -120,7 +134,8 @@ def build_module(name: str, mcfg: dict, seed: int, device="cuda"):
     mtype, route = mcfg["type"], mcfg["route"]
     if mtype in ("py", "py_post"):
         return _build_py_module(name, mcfg)
-    if mtype not in ("moshi", "batched_moshi", "batched_asr", "asr"):
+    if mtype not in ("moshi", "batched_moshi", "batched_asr", "asr", "tts", "batched_tts",
+                     "mimi"):
         raise ValueError(f"unknown module type {mtype}")
     t0 = time.perf_counter()
     ckpt = mcfg.get("checkpoint_dir")
@@ -130,6 +145,10 @@ def build_module(name: str, mcfg: dict, seed: int, device="cuda"):
         info = CheckpointInfo.from_dir(ckpt)
     else:
         raise ValueError(f"module {name}: set checkpoint_dir")
+    if mtype == "mimi":
+        return _build_mimi(mcfg, info, t0, device)
+    if mtype in ("tts", "batched_tts"):
+        return _build_tts(mcfg, info, t0, seed, device)
     tokenizer = info.get_text_tokenizer()
 
     if mtype == "moshi":
@@ -177,6 +196,52 @@ def build_module(name: str, mcfg: dict, seed: int, device="cuda"):
 
     return route, (lambda req: handle_asr_socket(req, state)), startup, \
         _warm(state, t0, {"type": mtype, "batch_size": state.batch_size})
+
+
+def _build_tts(mcfg: dict, info, t0: float, seed: int, device):
+    """The `tts` module (one captured streamer, its sessions in turn) or the
+    `batched_tts` one."""
+    from .batched_tts import build_state, handle_batched_tts_socket
+    from .tts_ws import build_streamer, handle_tts_socket
+
+    batched = mcfg["type"] == "batched_tts"
+    batch_size = mcfg.get("batch_size", 8) if batched else 1
+    knobs = dict(device=device, kv_cache=mcfg.get("kv_cache"), context=mcfg.get("context"),
+                 weights=mcfg.get("weights"), mimi_dtype=mcfg.get("mimi_dtype"),
+                 temp=mcfg.get("temp", 0.6), cfg_coef=mcfg.get("cfg_coef", 1.0),
+                 n_q=mcfg.get("n_q", 32), max_padding=mcfg.get("max_padding"),
+                 voice_dir=mcfg.get("voice_dir"), voice_aliases=mcfg.get("voices"),
+                 voice_frames=mcfg.get("voice_frames"), rng_seed=seed)
+    if not batched:
+        streamer = build_streamer(info, **knobs)
+        return mcfg["route"], (lambda req: handle_tts_socket(req, streamer)), None, \
+            _warm(streamer, t0, {"type": "tts"})
+    state = build_state(info, batch_size=batch_size, **knobs)
+
+    async def startup():
+        return asyncio.create_task(state.run_loop())
+
+    return mcfg["route"], (lambda req: handle_batched_tts_socket(req, state)), startup, \
+        _warm(state, t0, {"type": "batched_tts", "batch_size": batch_size})
+
+
+def _build_mimi(mcfg: dict, info, t0: float, device):
+    """The `mimi` module: the tokenizer socket on the route and the rooms on
+    `route/{room}/send|recv`, or the reference's send and recv routes."""
+    from .mimi_ws import (MimiRooms, MimiWsState, handle_mimi_socket, handle_room_recv,
+                          handle_room_send)
+
+    state = MimiWsState(*info.get_mimi(device=device))
+    rooms = MimiRooms(state, allowed=mcfg.get("rooms"), default_room=mcfg.get("default_room"))
+    route = mcfg["route"]
+    info = {"type": "mimi", "state": state, "rooms": rooms, "load_s": time.perf_counter() - t0,
+            "warmup_s": 0.0}
+    if mcfg.get("recv_route"):
+        info["_extra_routes"] = [(mcfg["recv_route"], lambda req: handle_room_recv(req, rooms))]
+        return route, (lambda req: handle_room_send(req, rooms)), None, info
+    info["_extra_routes"] = [(route + "/{room}/send", lambda req: handle_room_send(req, rooms)),
+                             (route + "/{room}/recv", lambda req: handle_room_recv(req, rooms))]
+    return route, (lambda req: handle_mimi_socket(req, state)), None, info
 
 
 def _warm(state, t0: float, info: dict) -> dict:
@@ -270,6 +335,8 @@ def build_app(cfg: dict, drain_timeout: float = 360.0, device="cuda"):
             app.router.add_post(route, handler)
         else:
             app.router.add_get(route, handler)
+        for extra_route, extra_handler in minfo.pop("_extra_routes", []):
+            app.router.add_get(extra_route, extra_handler)
         modules[name] = minfo
         modules_info[name] = {k: v for k, v in minfo.items() if k not in _PRIVATE_INFO}
         modules_info[name]["route"] = route

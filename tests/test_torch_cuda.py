@@ -1737,7 +1737,7 @@ def test_dropped_engine_frees_its_memory_without_the_cycle_collector(engine, gen
         elif engine == "tts":
             state = _tts_engine(_tiny_tts("int4"), 16, True)
             for s in range(16):
-                state.acquire_slot(s)
+                state.open_slot(s)
                 state.set_slot_voice(s, np.ones((5, 16), np.float32))
                 state.feed_words(s, ["some words"])
             for _ in range(2):

@@ -25,6 +25,7 @@ from moshi_tpu_torch.models.lm import LMModel as TLM
 from moshi_tpu_torch.models.mimi import MimiModel as TMimi
 from moshi_tpu_torch.serve.batched_tts import BatchedTTSState, serve_tts
 from moshi_tpu_torch.utils.params import from_jax
+from moshi_tpu_torch.utils.safetensors import save_file
 from test_lm import tiny_lm_config
 from test_mimi import tiny_mimi_config
 from test_torch_port import max_abs, port_lm_config, port_mimi_config
@@ -172,6 +173,18 @@ def test_simple_generate_takes_embeddings_and_refuses_the_rest(tmp_path):
     pcm = tt.simple_generate(tp, tm, ["hi there", "yes"], voice, cfg_coef=2.0,
                              condition_params=tcp)
     assert len(pcm) == 2 and all(p.ndim == 1 and len(p) for p in pcm)
+    # a voice name resolves in the local voice directory; the hub does not
+    save_file({"speaker_wavs": torch.from_numpy(np.ascontiguousarray(voice.transpose(0, 2, 1)))},
+              tmp_path / "some_voice_name.sig@1.safetensors")
+    tt.voice_repo, tt.voice_suffix = str(tmp_path), ".sig@1.safetensors"
+    by_name = tt.simple_generate(tp, tm, "hi", "some_voice_name", cfg_coef=2.0,
+                                 condition_params=tcp)
+    by_array = tt.simple_generate(tp, tm, "hi", voice, cfg_coef=2.0, condition_params=tcp)
+    assert len(by_name) == 1 and np.array_equal(by_name[0], by_array[0])
+    with pytest.raises(NotImplementedError, match="A.11"):
+        tt.simple_generate(tp, tm, "hi", "hf://kyutai/tts-voices/x",
+                           condition_params=tcp)
+    tt.voice_repo = "kyutai/tts-voices"
     with pytest.raises(NotImplementedError, match="A.11"):
         tt.simple_generate(tp, tm, "hi", "some_voice_name", condition_params=tcp)
     prefix = tt.get_prefix(tm, np.zeros(5 * tt.mimi.frame_size, np.float32))
@@ -313,14 +326,14 @@ def test_queued_ops_apply_in_order():
                          device="cpu")
     st.warmup()
     a, b = _voices(2)
-    assert st.acquire_slot() == 0
+    assert st.open_slot() == 0
     st.set_slot_voice(0, a)
-    assert st.acquire_slot() == 1 and st.acquire_slot(2) == 2 and st.acquire_slot() is None
+    assert st.open_slot() == 1 and st.open_slot(2) == 2 and st.open_slot() is None
     st.set_slot_voice(1, b)
     assert [op[:2] for op in st.pending_ops] == [("reset", 0), ("voice", 0), ("reset", 1),
                                                  ("reset", 2), ("voice", 1)]
     assert st.unready == {0, 1, 2} and not st.conditioned
-    st.release_slot(1)  # its voice must not reach slot 1's next session
+    st.close_slot(1)  # its voice must not reach slot 1's next session
     assert ("voice", 1) not in [op[:2] for op in st.pending_ops]
     assert st.steppable() == [0, 2]  # the initial padding runs before any word
     assert st.unready == set() and st.pending_ops == []
@@ -331,14 +344,14 @@ def test_queued_ops_apply_in_order():
     st.steppable()
     assert k.data_ptr() == ptr and not torch.equal(k[:, 2], before[:, 2])
     assert torch.equal(k[:, 0], before[:, 0])  # slot 0's voice rows unchanged
-    st.release_slot(0)
-    st.acquire_slot(0)
-    st.release_slot(2)
-    st.acquire_slot(2)
+    st.close_slot(0)
+    st.open_slot(0)
+    st.close_slot(2)
+    st.open_slot(2)
     st.steppable()
     assert st.slot_attrs == [None] * 3 and not st.conditioned
     with pytest.raises(ValueError):
-        st.acquire_slot(0)
+        st.open_slot(0)
 
 
 def test_a_voice_of_another_shape_is_refused_and_the_others_run_on():
@@ -352,7 +365,7 @@ def test_a_voice_of_another_shape_is_refused_and_the_others_run_on():
     st.warmup()
     a, b = _voices(2)
     for s in range(3):
-        st.acquire_slot(s)
+        st.open_slot(s)
         st.feed_words(s, ["one two three four five six seven eight"])
     st.set_slot_voice(0, a)
     assert st.tick()[0].all()

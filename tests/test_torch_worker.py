@@ -9,7 +9,7 @@ app, built by each package's `build_app`, gives the same ASR messages, and
 (`models/rust_config.py`) and the serving overrides' quantized bytes.
 Also: auth (401 without the key),
 `/api/modules_info`, `/metrics`, `/api/build_info`, a drain (503 for a new
-session while an open one finishes), a `py` / `py_post` module, the types
+session while an open one finishes), a `py` / `py_post` module, the type
 and keys not ported yet, and the CLI's refusal of `cuda` without a card."""
 
 import asyncio
@@ -391,9 +391,7 @@ script = "{script}"
 
 
 @pytest.mark.parametrize("module", [
-    {"type": "tts"}, {"type": "batched_tts"}, {"type": "mimi"}, {"type": "py_batched_asr"},
-    {"type": "Tts", "path": "/t", "lm_model_file": "x", "text_tokenizer_file": "y"},
-    {"type": "Mimi", "send_path": "/s", "audio_tokenizer_file": "z"},
+    {"type": "py_batched_asr"},
     {"type": "PyBatchedAsr", "path": "/p", "batch_size": 2, "text_tokenizer_file": "y",
      "asr_delay_in_tokens": 2},
     {"type": "moshi", "tp": 2}, {"type": "batched_asr", "hf_repo": "kyutai/stt"},
