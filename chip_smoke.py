@@ -48,7 +48,12 @@ Phases, each printing its own line(s):
                torch.matmul on the bf16 weight and the bound, with TFLOP/s,
                summed over one offline forward's 129 launches; M = 16 too,
                beside q4_mma, for the crossover only), and the f32 route
-               (the q4_gemv kernel in 16-row chunks) at M = 40;
+               (the q4_gemv kernel in 16-row chunks) at M = 40; at
+               Hibiki-2B's shapes (the five q4 ones of a 2560-wide model
+               with a 7040 hidden size and a 48000-column head, and
+               depformer_in 2560 -> 1024) at 1 and 4 rows, each on the
+               kernel its route takes, checked and timed as above, summed
+               over one LMGen.step's launches;
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
                seed on the card; the graphed ServerState: warm-up, then 3
@@ -114,6 +119,23 @@ Phases, each printing its own line(s):
                greedy argmax agreement), p50 of 5 calls, scored frames per
                second and a profiler pass (card busy ms, q4_wgmma's
                share);
+ 6b. hibiki  - speech translation at the full width of s2s_2b_16rvq_202501
+               with a Hibiki checkpoint's depformer fields (16 steps on 9
+               weight sets, rank-128 depformer embeddings) and a
+               `description` LUT, q4 temporal linears and head, an int8
+               depformer, bf16 ring KV at ctx 3000, a bf16 Mimi with 16
+               codebooks, from a seed, written as a native checkpoint and
+               run through run_inference.main (the CLI): run (a) B = 1
+               twice (equal tokens), run (b) B = 2 at cfg_coef 3.0 (4 model
+               rows), each over 3 s of seeded PCM, the end-of-stream frame
+               and silence, greedy, to 60 steps; launches exactly 97 q4 and
+               416 int8 per LMGen.step (q4_gemv at B = 1, q4_mma at 4 rows;
+               int8_mma), the end-of-stream frame fed once, PCM of as many
+               frames as text tokens, finite, EOS's embedding PAD's;
+               ms/step p50/p90, peak memory; then the plain witness: run
+               (a)'s first 8 temporal steps with the kernels against the
+               same inputs through the plain GEMVs, the text logits held
+               to HIBIKI_WITNESS_BOUND; the checkpoint is deleted;
   7. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
@@ -139,6 +161,11 @@ Phases, each printing its own line(s):
                the weights are written as a native speech-to-text
                checkpoint (the `delay` conditioner's tensors in the LM's
                file, stt_config, a synthetic tokenizer) into build/;
+ 7a. stt     - run_inference.main over that checkpoint (model_type stt,
+               stt_config's silence before and after), B = 1, over 4 s of
+               seeded PCM: one step a padded frame, 16
+               decode_attention_int8 launches a step and no GEMV, text
+               tokens in range, ms/step p50/p90;
  7b. worker  - serve/worker.py's build_app on one TOML of three modules:
                the Moshi server over [serve]'s checkpoint, batched Moshi
                over it at B = 16 with the int4 KV cache and a bf16 Mimi,
@@ -321,6 +348,19 @@ TTS_INT8_SHAPES = {(2048, 6144): 48, (2048, 2048): 3 * 48, (2048, 8192): 48,
                    (8192, 2048): 48, (2048, 32001): 1,
                    (1024, 3072): 96, (1024, 1024): 96, (1024, 5632): 96, (2816, 1024): 96,
                    (2048, 1024): 16, (1024, 2049): 16}
+# Hibiki-2B (s2s_2b_16rvq_202501 with a Hibiki checkpoint's depformer
+# fields) shapes (din, dout) -> launches per LMGen.step.  q4: temporal
+# in_proj, out_proj, linear_in, linear_out (24 layers) and the 48000-column
+# text head.  int8: the depformer's 4 linears (6 layers x 16 steps), its
+# output heads and depformer_in (9 members for 16 steps) per step
+HIBIKI_Q4_SHAPES = {(2560, 7680): 24, (2560, 2560): 24, (2560, 14080): 24,
+                    (7040, 2560): 24, (2560, 48000): 1}
+HIBIKI_INT8_SHAPES = {(1024, 3072): 96, (1024, 1024): 96, (1024, 5632): 96,
+                      (2816, 1024): 96, (1024, 2048): 16, (2560, 1024): 16}
+# the shapes [kernels] times for Hibiki (the other int8 ones are Moshi's),
+# at the model rows of its runs: B = 1, and B = 2 under CFG
+HIBIKI_TIMED = (*HIBIKI_Q4_SHAPES, (2560, 1024))
+HIBIKI_ROWS = (1, 4)
 # K4 (fused with the write) and K6 at the TTS shapes: L, B, H, D, cap
 TTS_KV = {"layers": 48, "batch": TTS_SLOTS, "heads": 32, "head_dim": 64, "cap": TTS_CONTEXT}
 # decode_attention_int8's main-path shapes, (B, heads, cap) at head dim 128:
@@ -594,6 +634,71 @@ def check_tts_gemvs(dev, g) -> dict:
         phase("kernels", f"tts per frame: {name} x {row['launches_per_frame']} at B={B}: "
               f"kernel {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, torch.matmul on bf16 "
               f"{f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms")
+    free_memory()
+    return out
+
+
+def check_hibiki_gemvs(dev, g) -> dict:
+    """The GEMVs at Hibiki-2B's new shapes (HIBIKI_TIMED: the five q4 ones
+    and depformer_in 2560 -> 1024) at HIBIKI_ROWS rows, each on the kernel
+    its route takes, against the plain version in bf16; then, weights cold
+    in L2, its time beside the plain version's, torch.matmul's on the bf16
+    weight and the bound, summed by kernel over one LMGen.step's launches
+    of these shapes (HIBIKI_Q4_SHAPES / HIBIKI_INT8_SHAPES counts).
+    Returns {kernel: its summary}."""
+    from moshi_tpu_torch.ops import q4matmul, qmatmul
+    from moshi_tpu_torch.utils.quantize import (dequantize, dequantize4, quantize_tensor,
+                                                quantize_tensor4)
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    out = {}
+    for din, dout in HIBIKI_TIMED:
+        q4 = (din, dout) in HIBIKI_Q4_SHAPES
+        n = (HIBIKI_Q4_SHAPES if q4 else HIBIKI_INT8_SHAPES)[(din, dout)]
+        quant, deq = (quantize_tensor4, dequantize4) if q4 else (quantize_tensor, dequantize)
+        plain = q4matmul.q4_gemv_plain if q4 else qmatmul.int8_gemv_plain
+        w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
+        qt = quant(w)
+        bytes_w = qt.q.numel() + 4 * qt.scale.numel()
+        copies = [quant(w) for _ in range(copies_for_cold_l2(bytes_w))]
+        dense = [deq(qt.q, qt.scale, torch.bfloat16)
+                 for _ in range(copies_for_cold_l2(2 * din * dout))]
+        for B in HIBIKI_ROWS:
+            if q4:
+                name = q4matmul.route(B, torch.bfloat16, 32, dout)
+                fn = {"q4_gemv": q4matmul.q4_gemv_kernel, "q4_mma": q4matmul.q4_mma}[name]
+            else:
+                name, fn = "int8_mma", qmatmul.int8_mma
+                if not qmatmul.use_mma(B, torch.bfloat16, din, dout):
+                    raise RuntimeError(f"hibiki: int8 {din}x{dout} B={B} leaves int8_mma")
+            row = out.setdefault(name, {"per_step": {}, "by_shape": {}, "max_abs_err": 0.0,
+                                        "launches_per_step": {}, "bound_by": set()})
+            x = torch.randn(B, din, device=dev, generator=g).to(torch.bfloat16)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     _check_against_plain(name, fn, plain, qt, x))
+            ops = [(x, c.q, c.scale) for c in copies]
+            t = {"ms": time_ms(fn, ops), "plain_ms": time_ms(plain, ops),
+                 "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
+            t["bound_ms"], by = bound(bytes_w + 2 * B * (din + dout), 2 * B * din * dout)
+            row["bound_by"].add(by)
+            step = row["per_step"].setdefault(B, dict.fromkeys(keys, 0.0))
+            for k, v in t.items():
+                step[k] += n * v
+            row["launches_per_step"][B] = row["launches_per_step"].get(B, 0) + n
+            row["by_shape"][f"{din}x{dout} B={B}"] = {**t, "launches_per_step": n}
+            phase("kernels", f"hibiki {name} {din}x{dout} B={B} bf16 ({n} per step): kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; "
+                  f"{bytes_w / t['ms'] / 1e6:.1f} GB/s of packed weight"
+                  + plan_phrase(name, B, din, qt.q))
+        del copies, dense
+    for name, row in out.items():
+        row["bound_by"] = "operations" if row["bound_by"] == {"operations"} else "bytes"
+        for B, f in row["per_step"].items():
+            phase("kernels", f"hibiki per step: {name} x {row['launches_per_step'][B]} at "
+                  f"B={B}: kernel {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, "
+                  f"torch.matmul on bf16 {f['library_ms']:.3f} ms, bound "
+                  f"{f['bound_ms']:.3f} ms")
     free_memory()
     return out
 
@@ -1084,7 +1189,8 @@ def check_attention_int8(dev, g) -> dict:
 
 
 # ------------------------------------------------------------------ slice
-def per_step_launches(cfg, params, batch: int) -> dict:
+def per_step_launches(cfg, params, batch: int, q4_shapes=Q4_SHAPES,
+                      int8_shapes=INT8_SHAPES) -> dict:
     """Kernel launches one LMGen.step of `batch` slots implies: each q4
     temporal linear once per layer plus the text head, each on the kernel
     that q4matmul.route picks for bf16 x of `batch` rows; each int8
@@ -1119,8 +1225,8 @@ def per_step_launches(cfg, params, batch: int) -> dict:
         per_step["int8_mma" if qmatmul.use_mma(batch, torch.bfloat16, din, dout)
                  else "int8_gemv"] += n
     if (per_step["q4_gemv"] + per_step["q4_mma"] + per_step["q4_wgmma"]
-            != sum(Q4_SHAPES.values())
-            or per_step["int8_gemv"] + per_step["int8_mma"] != sum(INT8_SHAPES.values())):
+            != sum(q4_shapes.values())
+            or per_step["int8_gemv"] + per_step["int8_mma"] != sum(int8_shapes.values())):
         raise RuntimeError(f"launches per step {per_step} do not match the shape tables")
     int4 = cfg.kv_cache_dtype == "int4"
     per_step["decode_attention_int4"] = cfg.num_layers if int4 else 0
@@ -2032,6 +2138,229 @@ def run_offline(dev, card: str, lm, lm_params, mimi, mimi_params) -> dict:
 
 
 # -------------------------------------------------------------------- asr
+# ----------------------------------------------------------------- hibiki
+HIBIKI_DIR = ROOT / "build" / "hibiki_checkpoint"
+# a Hibiki checkpoint's depformer fields on s2s_2b_16rvq_202501: 9 weight
+# sets for 16 steps, rank-128 depformer embeddings
+HIBIKI_SCHEDULE = (0, 1, 2, 3, 4, 5, 6, 7, 8, 8, 8, 8, 8, 8, 8, 8)
+HIBIKI_LOW_RANK = 128
+# the `description` LUT of Hibiki checkpoints (its width is the script's
+# choice: no checkpoint on the card's machine)
+HIBIKI_LUT = {"n_bins": 2, "dim": 16, "tokenizer": "noop",
+              "possible_values": ["very_bad", "very_good"]}
+HIBIKI_SECONDS = 3       # seeded PCM fed before the end-of-stream frame
+HIBIKI_MAX_STEPS = 60
+HIBIKI_CFG = 3.0         # run (b): B = 2 under CFG, 4 model rows
+HIBIKI_WITNESS_STEPS = 8
+# ||logits(kernels) - logits(plain)|| / ||logits(plain)|| of the text logits
+# over the witness steps, at most (PERF.md §6, stated before the first run)
+HIBIKI_WITNESS_BOUND = 5e-2
+
+
+def write_hibiki_checkpoint(dev, out: Path) -> dict:
+    """Seeded s2s_2b_16rvq_202501 at full width with HIBIKI_SCHEDULE and
+    HIBIKI_LOW_RANK (q4 temporal linears and head, int8 depformer, bf16
+    ring KV at ctx 3000), a bf16 Mimi with 16 codebooks and the
+    `description` LUT, written as a native checkpoint: the LUT's tensors
+    under their PyTorch names in the LM's file, a greedy lm_gen_config, a
+    synthetic tokenizer of the text vocabulary."""
+    import dataclasses
+    from moshi_tpu_torch.conditioners import LUTConditioner
+    from moshi_tpu_torch.models.lm import LMModel, lm_config_s2s_2b_16rvq_202501
+    from moshi_tpu_torch.models.mimi import MimiModel, mimi_v0_1_config
+    from moshi_tpu_torch.models.native_ckpt import flatten_tree, save_mimi_params
+    from moshi_tpu_torch.text.spm import spm_model_bytes
+    from moshi_tpu_torch.utils.quantize import quantize_lm_params
+    from moshi_tpu_torch.utils.safetensors import save_file
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(lm_config_s2s_2b_16rvq_202501(),
+                              depformer_weights_per_step_schedule=HIBIKI_SCHEDULE,
+                              depformer_low_rank_embeddings=HIBIKI_LOW_RANK)
+    lm = LMModel(cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    params = quantize_lm_params(lm.init_params(g, torch.bfloat16, dev), mode="int4")
+    mimi = MimiModel(mimi_v0_1_config(max(cfg.dep_q, cfg.n_q - cfg.dep_q)))
+    mimi_params = mimi.init_params(g, torch.bfloat16, dev)
+    lut = LUTConditioner(output_dim=cfg.dim, **HIBIKI_LUT).init_params(g, torch.float32, dev)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    flat = flatten_tree(params)
+    prefix = "condition_provider.conditioners.description"
+    flat[f"{prefix}.embed.weight"] = lut["embed"]
+    flat[f"{prefix}.output_proj.weight"] = lut["output_proj"].t()
+    flat[f"{prefix}.learnt_padding"] = lut["learnt_padding"]
+    nbytes = save_file(flat, out / "model.native.safetensors")
+    nbytes += save_mimi_params(out / "mimi.native.safetensors", mimi, mimi_params)
+    (out / "tokenizer.model").write_bytes(spm_model_bytes(cfg.text_card))
+    config = {k: list(v) if isinstance(v, tuple) else v
+              for k, v in dataclasses.asdict(cfg).items()}
+    config.update(moshi_name="model.native.safetensors", mimi_name="mimi.native.safetensors",
+                  tokenizer_name="tokenizer.model", model_type="hibiki", native_format=True,
+                  lm_gen_config={"use_sampling": False},
+                  conditioners={"description": {"type": "lut", "lut": HIBIKI_LUT}},
+                  fuser={"sum": ["description"], "cross": []})
+    (out / "config.json").write_text(json.dumps(config, indent=2))
+    phase("hibiki", f"s2s_2b_16rvq_202501 q4 (dim {cfg.dim}, {cfg.num_layers} layers, "
+          f"{cfg.num_heads} heads x {cfg.transformer_config.head_dim}, hidden "
+          f"{cfg.transformer_config.hidden}, text_card {cfg.text_card}; depformer "
+          f"{cfg.dep_q} steps on {cfg.num_depformer_in} weight sets, low rank "
+          f"{HIBIKI_LOW_RANK}) + Mimi bf16 with {mimi.num_codebooks} codebooks built from "
+          f"seed {SEED + 5} in {built:.1f} s; written as a native checkpoint of "
+          f"{nbytes / 1e9:.3f} GB in {time.perf_counter() - t0 - built:.1f} s")
+    expected = {B: per_step_launches(cfg, params, B, HIBIKI_Q4_SHAPES, HIBIKI_INT8_SHAPES)
+                for B in HIBIKI_ROWS}
+    del params, mimi_params, lut
+    free_memory()
+    return {"bytes": nbytes, "expected": expected}
+
+
+def hibiki_cli(dev, args: list) -> tuple:
+    """run_inference.main over HIBIKI_DIR on `dev` with its launches:
+    (state, outputs, launches, peak GiB)."""
+    from moshi_tpu_torch import run_inference
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, outs = run_inference.main(["--checkpoint-dir", str(HIBIKI_DIR), "--device", str(dev),
+                                      "--max-steps", str(HIBIKI_MAX_STEPS), *args])
+    return state, outs, read_counts(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_hibiki_run(state, outs, launches, expected, what: str) -> dict:
+    """Launches equal the reckoning per LMGen.step, the end-of-stream frame
+    fed once, PCM of as many frames as text tokens and finite, tokens in
+    range."""
+    st, fs, text_card = state.stats, state.mimi.frame_size, state.lm.config.text_card
+    check_counts(launches, expected, st["lm_steps"], what)
+    if st["eos_frames"] != 1:
+        raise RuntimeError(f"{what}: the end-of-stream frame was fed {st['eos_frames']} times")
+    for text, pcm in outs:
+        if pcm.shape != (1, len(text) * fs) or not np.isfinite(pcm).all():
+            raise RuntimeError(f"{what}: PCM of shape {pcm.shape} for {len(text)} tokens")
+        if not ((text >= 0) & (text < text_card)).all():
+            raise RuntimeError(f"{what}: text token out of range")
+    ms = np.asarray(st["step_ms"])
+    return {"steps": st["steps"], "lm_steps": st["lm_steps"], "tokens": st["tokens"],
+            "p50_ms": float(np.percentile(ms, 50)), "p90_ms": float(np.percentile(ms, 90)),
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def hibiki_witness(state, pcm) -> dict:
+    """The first HIBIKI_WITNESS_STEPS temporal steps of run (a) with the
+    kernels, their inputs recorded, then the same inputs through the plain
+    GEMVs in the kernels' place: the text logits' relative error (norm and
+    max) and how many steps agree on the greedy text token."""
+    from moshi_tpu_torch.ops.q4matmul import q4_gemv_plain
+    from moshi_tpu_torch.ops.qmatmul import int8_gemv_plain
+    from moshi_tpu_torch.utils import matmul
+
+    lm, calls = state.lm, []
+    kernel_step = lm.forward_text_step
+
+    def recorded(params, tr_state, seq, sum_condition=None, exec_mask=None):
+        h, logits, tr_state = kernel_step(params, tr_state, seq, sum_condition=sum_condition,
+                                          exec_mask=exec_mask)
+        calls.append((seq.clone(), exec_mask.clone(), logits.float().clone()))
+        return h, logits, tr_state
+
+    def plain(fn):
+        return lambda x, q, scale: fn(x.reshape(-1, x.shape[-1]), q, scale).reshape(
+            *x.shape[:-1], q.shape[-1])
+
+    lm.forward_text_step = recorded
+    try:
+        state.run(pcm, max_steps=HIBIKI_WITNESS_STEPS)
+    finally:
+        del lm.forward_text_step
+    q4_linear, int8_linear = matmul.q4_linear, matmul.int8_linear
+    matmul.q4_linear, matmul.int8_linear = plain(q4_gemv_plain), plain(int8_gemv_plain)
+    zero_counts()
+    try:
+        tr = lm.transformer.init_state(calls[0][0].shape[0], torch.bfloat16, state.device)
+        got, want = [], []
+        for seq, mask, logits in calls[:HIBIKI_WITNESS_STEPS]:
+            _, ref, tr = lm.forward_text_step(state.lm_params, tr, seq,
+                                              sum_condition=state.condition_sum,
+                                              exec_mask=mask)
+            got.append(logits)
+            want.append(ref.float())
+    finally:
+        matmul.q4_linear, matmul.int8_linear = q4_linear, int8_linear
+    if any(read_counts().values()):
+        raise RuntimeError("hibiki: the plain witness launched kernels")
+    got, want = torch.stack(got), torch.stack(want)
+    norm_err = ((got - want).norm() / want.norm()).item()
+    same = (got.argmax(-1) == want.argmax(-1)).all(-1).flatten()
+    return {"steps": len(got), "norm_rel_err": norm_err, "max_rel_err": rel_err(got, want),
+            "same_argmax_steps": int(same.sum())}
+
+
+def run_hibiki(dev, card: str) -> dict:
+    """Hibiki-2B through run_inference's CLI (the `main` a user calls), over
+    a checkpoint written first: run (a) B = 1 twice (equal tokens), run (b)
+    B = 2 under CFG, each HIBIKI_SECONDS of seeded PCM, the end-of-stream
+    frame, then silence, greedy, to HIBIKI_MAX_STEPS; after the first run,
+    the plain witness of its first steps.  The checkpoint is deleted."""
+    from moshi_tpu_torch import audio
+
+    try:
+        written = write_hibiki_checkpoint(dev, HIBIKI_DIR)
+        expected = written["expected"]
+        wav = HIBIKI_DIR / "in.wav"
+        pcm = (0.3 * np.random.RandomState(SEED + 6).randn(HIBIKI_SECONDS * 24000)
+               ).astype(np.float32)
+        audio.write_wav(wav, pcm, 24000)
+        runs, texts, peak = {}, [], 0.0
+        for name, B, cfg_coef in (("b1", 1, 1.0), ("b1_again", 1, 1.0),
+                                  ("cfg_b2", 2, HIBIKI_CFG)):
+            t0 = time.perf_counter()
+            state, outs, launches, gib = hibiki_cli(
+                dev, ["--batch-size", str(B), "--cfg-coef", str(cfg_coef), str(wav),
+                 str(HIBIKI_DIR / f"out_{name}.wav")])
+            wall = time.perf_counter() - t0
+            rows = B * (2 if cfg_coef != 1.0 else 1)
+            runs[name] = check_hibiki_run(state, outs, launches, expected[rows],
+                                          f"hibiki {name}")
+            runs[name].update(wall_s=wall, peak_gib=gib, batch=B, cfg_coef=cfg_coef)
+            peak = max(peak, gib)
+            texts.append(outs[0][0])
+            w = state.lm_params["text_emb"]["weight"]
+            if not torch.equal(w[2], w[3]):
+                raise RuntimeError("hibiki: text_emb row 2 (EOS) is not row 3 (PAD)")
+            r = runs[name]
+            phase("hibiki", f"run_inference.main --batch-size {B} --cfg-coef {cfg_coef}: "
+                  f"{r['steps']} steps ({r['lm_steps']} LMGen.step, the end-of-stream frame "
+                  f"once), {r['tokens']} frames of text and PCM; ms/step p50 "
+                  f"{r['p50_ms']:.2f}, p90 {r['p90_ms']:.2f}; launches {r['launches']} "
+                  f"= {expected[rows]} x {r['lm_steps']}; peak {gib:.2f} GiB; {wall:.1f} s "
+                  f"with the load ({card})")
+            if name == "b1":
+                witness = hibiki_witness(state, pcm[None, None])
+                phase("hibiki", f"plain witness: the text logits of the first "
+                      f"{witness['steps']} temporal steps with the kernels against the same "
+                      f"inputs through the plain GEMVs: ||d|| / ||plain|| "
+                      f"{witness['norm_rel_err']:.3e} (bound {HIBIKI_WITNESS_BOUND:.0e}), "
+                      f"max rel {witness['max_rel_err']:.3e}; greedy text token equal in "
+                      f"{witness['same_argmax_steps']} of {witness['steps']}")
+                if witness["norm_rel_err"] > HIBIKI_WITNESS_BOUND:
+                    raise RuntimeError("hibiki: the kernels' text logits leave the plain "
+                                       "witness's bound")
+            del state, outs
+            free_memory()
+        if not np.array_equal(texts[0], texts[1]):
+            raise RuntimeError("hibiki: run (a) twice gave different tokens")
+    finally:
+        shutil.rmtree(HIBIKI_DIR, ignore_errors=True)
+    free_memory()
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values()) for k in counters()}
+    return {"runs": runs, "witness": witness, "checkpoint_gb": written["bytes"] / 1e9,
+            "peak_gib": peak, "launches": launches,
+            "per_step": {f"hibiki_b{rows}": expected[rows] for rows in HIBIKI_ROWS}}
+
+
 def build_asr(dev):
     """asr_300m_202501 at full width with the int8 KV cache and bf16
     weights (the text head's pad columns scaled by ASR_PAD_LOGIT_SCALE), the
@@ -2416,7 +2745,6 @@ def write_asr_checkpoint(models, out: Path) -> int:
     a config.json with stt_config and the conditioners block.  Returns the
     bytes of the weights."""
     import dataclasses
-    import shutil
     from moshi_tpu_torch.models.native_ckpt import flatten_tree, save_mimi_params
     from moshi_tpu_torch.text.spm import spm_model_bytes
     from moshi_tpu_torch.utils.safetensors import save_file
@@ -2438,12 +2766,64 @@ def write_asr_checkpoint(models, out: Path) -> int:
     config.update(moshi_name="model.native.safetensors", mimi_name="mimi.native.safetensors",
                   tokenizer_name="tokenizer.model", model_type="stt", native_format=True,
                   stt_config={"audio_delay_seconds": ASR_DELAY / 12.5,
+                              "audio_silence_prefix_seconds": STT_SILENCE_PREFIX,
                               "conditioning_delay": ASR_COND["delay"]},
                   conditioners={"delay": {"type": "continuous_attribute",
                                           "continuous_attribute": cond}})
     (out / "config.json").write_text(json.dumps(config, indent=2))
     del lm
     return nbytes
+
+
+STT_SECONDS = 4            # seeded PCM of the [stt] run
+STT_SILENCE_PREFIX = 0.5   # stt_config's audio_silence_prefix_seconds
+
+
+def run_stt(dev, card: str) -> dict:
+    """Speech-to-text through run_inference's CLI over [asr]'s checkpoint
+    (bf16 asr_300m_202501, int8 KV, stt_config's pads), B = 1, greedy:
+    one LMGen.step a padded frame (the first frame twice), 16
+    decode_attention_int8 launches a step and no GEMV, text tokens in
+    range."""
+    from moshi_tpu_torch import audio, run_inference
+
+    wav = ASR_DIR / "stt_in.wav"
+    pcm = (0.3 * np.random.RandomState(SEED + 7).randn(STT_SECONDS * 24000)).astype(np.float32)
+    audio.write_wav(wav, pcm, 24000)
+    info = json.loads((ASR_DIR / "config.json").read_text())
+    stt = info["stt_config"]
+    padded = (pcm.size + int(stt["audio_silence_prefix_seconds"] * 24000)
+              + int((stt["audio_delay_seconds"] + 1.0) * 24000))
+    zero_counts()
+    t0 = time.perf_counter()
+    state, outs = run_inference.main(["--checkpoint-dir", str(ASR_DIR), "--device", str(dev),
+                                      str(wav)])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = state.stats
+    expected = dict.fromkeys(launches, 0)
+    expected["decode_attention_int8"] = state.lm.config.num_layers
+    check_counts(launches, expected, st["lm_steps"], "stt")
+    text = outs[0][0]
+    frames = padded // state.mimi.frame_size
+    if st["steps"] != frames or len(text) != frames or st["lm_steps"] != frames + 1:
+        raise RuntimeError(f"stt: {st['steps']} steps and {len(text)} tokens for "
+                           f"{frames} padded frames")
+    if not ((text >= 0) & (text < state.lm.config.text_card)).all():
+        raise RuntimeError("stt: text token out of range")
+    ms = np.asarray(st["step_ms"])
+    p50, p90 = float(np.percentile(ms, 50)), float(np.percentile(ms, 90))
+    phase("stt", f"run_inference.main over the asr checkpoint (model_type stt, pads "
+          f"{stt['audio_silence_prefix_seconds']} s + {STT_SECONDS} s + "
+          f"{stt['audio_delay_seconds'] + 1.0:.2f} s): {st['steps']} steps = padded frames, "
+          f"{len(text)} text tokens in range; ms/step p50 {p50:.2f}, p90 {p90:.2f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } = "
+          f"{expected['decode_attention_int8']} x {st['lm_steps']}; "
+          f"{wall:.1f} s with the load ({card})")
+    del state
+    free_memory()
+    return {"steps": st["steps"], "lm_steps": st["lm_steps"], "p50_ms": p50, "p90_ms": p90,
+            "wall_s": wall, "launches": launches, "per_step": expected}
 
 
 def worker_toml() -> str:
@@ -3919,6 +4299,7 @@ def main() -> None:
     attn8 = check_attention_int8(dev, g)
     tts_gemvs = check_tts_gemvs(dev, g)
     offline_q4 = check_offline_q4(dev, g)
+    hibiki_gemvs = check_hibiki_gemvs(dev, g)
     free_memory()
 
     lm, lm_params, mimi, mimi_params = build_models(dev)
@@ -3931,8 +4312,10 @@ def main() -> None:
     offline = run_offline(dev, card, lm, lm_params, mimi, mimi_params)
     del lm, lm_params, mimi, mimi_params
     free_memory()
+    hibiki = run_hibiki(dev, card)
     asr = run_asr(dev, card)
     free_memory()
+    stt = run_stt(dev, card)
     worker = run_worker(dev, card, serve, batched["greedy"]["p50_ms"])
     free_memory()
     try:
@@ -3947,13 +4330,14 @@ def main() -> None:
     by_path = {"slice_b1": slice_["launches"], "serve": serve["launches"],
                **{f"batched_{p}": v for p, v in batched["launches"].items()},
                "offline_forward": offline["launches"],
-               "asr": asr["launches"], "worker": worker["launches"], **tts["launches"],
+               "hibiki": hibiki["launches"], "asr": asr["launches"], "stt": stt["launches"],
+               "worker": worker["launches"], **tts["launches"],
                "tts_serve": tts_serve["launches"]}
     per_frame_by_path = {"batched": batched["per_frame"]["int4"],
                          "batched_int8": batched["per_frame"]["int8"],
                          "offline_forward": offline["launches"], "asr": asr["per_frame"],
                          **{f"worker_{m}": v for m, v in worker["per_frame"].items()},
-                         **tts["per_frame"]}
+                         **tts["per_frame"], **hibiki["per_step"], "stt": stt["per_step"]}
     kernels = []
     # ms / plain_ms / library_ms / bound_ms: card time of one frame's
     # launches of the kernel (bf16, operands cold in L2) on the path it
@@ -3972,6 +4356,8 @@ def main() -> None:
                **{key: v for key, v in k.items() if key != "per_frame"}}
         if k["name"] in tts_gemvs:
             row["tts"] = tts_gemvs[k["name"]]
+        if k["name"] in hibiki_gemvs:
+            row["hibiki"] = hibiki_gemvs[k["name"]]
         kernels.append(row)
     # q4_wgmma: the offline forward's launches at M = 256 (OFFLINE_LM's
     # B * T), the other row counts timed and the crossover beside them
@@ -4005,8 +4391,12 @@ def main() -> None:
                       "batched": {key: batched[key] for key in ("sampled", "sampled_eager",
                                                                 "greedy", "int8_greedy")},
                       "offline": {key: v for key, v in offline.items() if key != "launches"},
+                      "hibiki": {key: v for key, v in hibiki.items()
+                                 if key not in ("launches", "per_step")},
                       "asr": {key: v for key, v in asr.items()
                               if key not in ("launches", "per_frame")},
+                      "stt": {key: v for key, v in stt.items()
+                              if key not in ("launches", "per_step")},
                       "tts": {key: v for key, v in tts.items()
                               if key not in ("launches", "per_frame", "checkpoint")},
                       "tts_serve": {key: v for key, v in tts_serve.items()

@@ -21,8 +21,16 @@ cross-attention to the temporal transformer (modules/transformer.py), and
 the TTS ones a text head of `text_card_out` columns; CFG runs through the
 depformer on a doubled batch (`depformer_step`'s `cfg_coef`).
 
-Not ported yet: low-rank and demuxed embeddings (`embed` raises on them,
-and `forward` with it), the backward pass and training.
+The speech-to-speech (Hibiki) checkpoints add, as in the JAX package: a
+schedule of the depformer's per-step weights
+(`depformer_weights_per_step_schedule`: step k runs weight set
+schedule[k] and reads depformer_in member `depformer_in_index(k)`), one
+depformer_in for all steps (`depformer_multi_linear` false), low-rank
+depformer embeddings (a table of rank `depformer_low_rank_embeddings`
+times a [rank, depformer_dim] expansion) and a demuxed second text stream
+(`out1` / `out2`).
+
+Not ported yet: the backward pass and training.
 """
 
 from dataclasses import dataclass
@@ -45,10 +53,8 @@ _CHECKPOINT_KEYS = ("moshi_name", "mimi_name", "mimi_config_name", "tokenizer_na
                     "lora_scaling", "quantize", "conditioners", "fuser",
                     "depformer_context")
 # the JAX package's LmConfig fields the port lacks -> the value it runs
-_NOT_PORTED_FIELDS = {"causal": True, "remat": False, "demux_second_text_stream": False,
-                      "depformer_multi_linear": True, "depformer_weights_per_step": True,
-                      "depformer_weights_per_step_schedule": None,
-                      "depformer_low_rank_embeddings": None}
+# (remat belongs to training; no preset runs an acausal LM)
+_NOT_PORTED_FIELDS = {"causal": True, "remat": False}
 
 
 @dataclass(frozen=True)
@@ -91,6 +97,12 @@ class LmConfig:
     attention_int8_qk: bool = False  # XLA-only in the JAX package; refused here
     extra_heads_num_heads: int = 0
     extra_heads_dim: int = 6
+    demux_second_text_stream: bool = False
+    depformer_multi_linear: bool = True  # False: one depformer_in for every step
+    depformer_weights_per_step: bool = True
+    # step k runs weight set schedule[k] (None: set k)
+    depformer_weights_per_step_schedule: tuple[int, ...] | None = None
+    depformer_low_rank_embeddings: int | None = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "LmConfig":
@@ -114,6 +126,9 @@ class LmConfig:
             raise ValueError(f"unknown LM config keys: {unknown}")
         if "delays" in d:
             d["delays"] = tuple(d["delays"])
+        if d.get("depformer_weights_per_step_schedule") is not None:
+            d["depformer_weights_per_step_schedule"] = tuple(
+                d["depformer_weights_per_step_schedule"])
         return cls(**d)
 
     @property
@@ -166,7 +181,26 @@ class LmConfig:
             max_period=self.depformer_max_period, gating=self.depformer_gating,
             norm=self.depformer_norm or self.norm,
             kv_repeat=self.depformer_kv_repeat,
-            layer_scale=self.depformer_layer_scale, weights_per_step=self.dep_q)
+            layer_scale=self.depformer_layer_scale,
+            weights_per_step=self.dep_q if self.depformer_weights_per_step else 0,
+            weights_per_step_schedule=self.depformer_weights_per_step_schedule)
+
+    @property
+    def num_depformer_in(self) -> int:
+        """Members of the depformer_in stack."""
+        if not self.depformer_multi_linear:
+            return 1
+        if self.depformer_weights_per_step_schedule is not None:
+            return max(self.depformer_weights_per_step_schedule) + 1
+        return self.dep_q
+
+    def depformer_in_index(self, k: int) -> int:
+        """The depformer_in member that codebook step k reads."""
+        if not self.depformer_multi_linear:
+            return 0
+        if self.depformer_weights_per_step_schedule is not None:
+            return self.depformer_weights_per_step_schedule[k]
+        return k
 
 
 def lm_config_v0_1() -> LmConfig:
@@ -288,12 +322,24 @@ def embed(table_params: dict, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
     """ScaledEmbedding lookup: ZERO_TOKEN embeds to exactly zero, and every
     other id is clamped into the table.  Clients can send any id; an
     unclamped index on CUDA fires a device-side assert that poisons the
-    context."""
-    if set(table_params) != {"weight"}:
-        raise NotImplementedError(f"embedding parts {sorted(table_params)}")
+    context.  A `low_rank` [rank, dim] part expands the looked-up rows; an
+    `out1` / `out2` pair demuxes a muxed id (tok2 + 1) * card + tok1 into
+    table[tok1] @ out1 + table[tok2] @ out2, the second term zero where
+    tok2 < 0."""
     w = table_params["weight"]
-    y = w[tokens.clamp(0, w.shape[0] - 1)]
-    y = y.masked_fill((tokens == ZERO_TOKEN)[..., None], 0)
+    card = w.shape[0]
+    is_zero = (tokens == ZERO_TOKEN)[..., None]
+    tokens = tokens.clamp(min=0)
+    if "out1" in table_params:
+        right = tokens // card - 1
+        y = torch.matmul(w[tokens % card], table_params["out1"].to(w.dtype))
+        second = torch.matmul(w[right.clamp(0, card - 1)], table_params["out2"].to(w.dtype))
+        y = y + second.masked_fill((right < 0)[..., None], 0)
+    else:
+        y = w[tokens.clamp(max=card - 1)]
+        if "low_rank" in table_params:
+            y = torch.matmul(y, table_params["low_rank"])
+    y = y.masked_fill(is_zero, 0)
     return y if dtype is None else y.to(dtype)
 
 
@@ -356,14 +402,18 @@ class LMModel:
             p["extra_heads"] = {"weight": trunc(
                 (c.extra_heads_num_heads, c.dim, c.extra_heads_dim), c.dim)}
         if self.depformer is not None:
-            dd = c.depformer_dim
+            dd, lr = c.depformer_dim, c.depformer_low_rank_embeddings
             p.update({
-                "depformer_in": {"weight": trunc((c.dep_q, c.dim, dd), c.dim)},
-                "depformer_text_emb": {"weight": trunc((c.text_card + 1, dd), dd)},
-                "depformer_emb": {"weight": trunc((c.dep_q - 1, c.card + 1, dd), dd)},
+                "depformer_in": {"weight": trunc((c.num_depformer_in, c.dim, dd), c.dim)},
+                "depformer_text_emb": {"weight": trunc((c.text_card + 1, lr or dd), lr or dd)},
+                "depformer_emb": {"weight": trunc((c.dep_q - 1, c.card + 1, lr or dd),
+                                                  lr or dd)},
                 "depformer": self.depformer.init_params(generator, dtype, device),
                 "linears": {"weight": trunc((c.dep_q, dd, c.card), dd)},
             })
+            if lr is not None:
+                p["depformer_text_emb"]["low_rank"] = trunc((lr, dd), lr)
+                p["depformer_emb"]["low_rank"] = trunc((c.dep_q - 1, lr, dd), lr)
         return p
 
     def embed_inputs(self, params: dict, sequence: torch.Tensor) -> torch.Tensor:
@@ -428,7 +478,8 @@ class LMModel:
         c = self.config
         B, _, T = delayed.shape
         dd = c.depformer_dim
-        win = dense(params["depformer_in"]["weight"], h.dtype)       # [dep_q, dim, dd]
+        win = dense(params["depformer_in"]["weight"], h.dtype)       # [num_in, dim, dd]
+        win = win[[c.depformer_in_index(k) for k in range(c.dep_q)]]  # [dep_q, dim, dd]
         tr_in = torch.einsum("btd,kde->bkte", h, win)                 # [B, dep_q, T, dd]
         demb = params["depformer_emb"]
         tok_in = [embed(params["depformer_text_emb"], delayed[:, 0], tr_in.dtype)]
@@ -473,26 +524,27 @@ class LMModel:
                        top_k: int = 250, cfg_coef: float = 1.0) -> torch.Tensor:
         """Sample the dep_q audio codebooks of one frame: text_token [B], h
         [B_model, 1, dim] -> [B, dep_q].  A fresh depformer state each
-        frame, the per-step weights of step k, and depformer_in[k] applied
-        to h per codebook (an int8 GEMV each, instead of dequantizing the
-        whole stack as the JAX package does).  With cfg_coef != 1, h holds
-        the conditioned rows then the unconditioned ones (B_model = 2B):
-        both run, each step's previous-token embedding is shared by the
-        pair, and the logits combine as uncond + (cond - uncond) *
-        cfg_coef."""
+        frame, the per-step weights of step k (through the schedule), and
+        depformer_in[depformer_in_index(k)] applied to h per codebook (an
+        int8 GEMV each, instead of dequantizing the whole stack as the JAX
+        package does; steps that share a member read the same weight).
+        With cfg_coef != 1, h holds the conditioned rows then the
+        unconditioned ones (B_model = 2B): both run, each step's
+        previous-token embedding is shared by the pair, and the logits
+        combine as uncond + (cond - uncond) * cfg_coef."""
         c = self.config
         B, B_model = text_token.shape[0], h.shape[0]
         if B_model != (2 * B if cfg_coef != 1.0 else B):
             raise ValueError(f"h has {B_model} rows for {B} tokens at cfg_coef {cfg_coef}")
         win = params["depformer_in"]["weight"]
-        demb = params["depformer_emb"]["weight"]
+        demb = params["depformer_emb"]
         dep_state = self.depformer.init_state(B_model, dtype=h.dtype, device=h.device)
         prev = embed(params["depformer_text_emb"], text_token, h.dtype)
         tokens = []
         for k in range(c.dep_q):
             if cfg_coef != 1.0:
                 prev = prev.repeat(2, 1)
-            x = (wdot(h[:, 0], win[k]) + prev)[:, None]
+            x = (wdot(h[:, 0], win[c.depformer_in_index(k)]) + prev)[:, None]
             y, dep_state = self.depformer.step(params["depformer"], dep_state, x,
                                                steps=(k,))
             logits = wdot(y[:, 0], params["linears"]["weight"][k])
@@ -503,7 +555,7 @@ class LMModel:
                                  temp=temp, top_k=top_k)
             tokens.append(token)
             if k < c.dep_q - 1:
-                prev = embed({"weight": demb[k]}, token, h.dtype)
+                prev = embed({name: w[k] for name, w in demb.items()}, token, h.dtype)
         return torch.stack(tokens, dim=1)
 
     def _initial_token(self, B: int, device=None) -> torch.Tensor:

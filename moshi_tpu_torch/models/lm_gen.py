@@ -17,7 +17,9 @@ logits.  The text repetition penalty keeps a ring of each slot's last
 non-pad tokens.  Host control planes (the TTS state machine) use the split
 `main_step` (through text sampling) and `depth_step` (depformer, audio
 forcing, commit), with the forcing passed as tensors so each half stays one
-CUDA graph.
+CUDA graph.  A model without a depformer (dep_q = 0, speech-to-text)
+steps the temporal transformer and the text sampling only; its output
+frame is [B, 1, 1].
 """
 
 from dataclasses import dataclass
@@ -166,8 +168,9 @@ class LMGen:
         pos = (offsets % CT)[:, None]
         run = exec_mask[:, None]
         cache[b, 0, pos] = torch.where(run, text_token[:, None], cache[b, 0, pos])
-        kgen = torch.arange(1, c.dep_q + 1, device=dev)[None]
-        cache[b, kgen, pos] = torch.where(run, audio_tokens, cache[b, kgen, pos])
+        if audio_tokens is not None:
+            kgen = torch.arange(1, c.dep_q + 1, device=dev)[None]
+            cache[b, kgen, pos] = torch.where(run, audio_tokens, cache[b, kgen, pos])
         gen_delays = self._delays(dev)[None, :c.dep_q + 1]
         gpos = (offsets[:, None] - self.max_delay + gen_delays) % CT
         out = cache[b, torch.arange(c.dep_q + 1, device=dev)[None], gpos]
@@ -238,9 +241,9 @@ class LMGen:
                    audio_zero_mask: torch.Tensor | None = None,
                    forced_audio: torch.Tensor | None = None) -> torch.Tensor:
         """Second half of a frame: the depformer (skipped, drawing nothing,
-        when depformer_replace_tokens [B, dep_q, 1] is given), audio
-        forcing, the commit.  text_token [B] may have been rewritten by the
-        host.  audio_zero_mask [dep_q] or [B, dep_q] bool: codebooks forced
+        when depformer_replace_tokens [B, dep_q, 1] is given or the model
+        has none), audio forcing, the commit.  text_token [B] may have been
+        rewritten by the host.  audio_zero_mask [dep_q] or [B, dep_q] bool: codebooks forced
         to ZERO_TOKEN; forced_audio [B, dep_q]: entries other than
         UNGENERATED_TOKEN replace the sampled tokens.  Returns out [B, 1 +
         dep_q, 1]; the state is updated in place."""
@@ -250,6 +253,8 @@ class LMGen:
             exec_mask = torch.ones(cache.shape[0], dtype=torch.bool, device=cache.device)
         if depformer_replace_tokens is not None:
             audio_tokens = depformer_replace_tokens[:, :, 0].long()
+        elif self.model.depformer is None:
+            return self._commit(cache, state["offsets"], text_token, None, exec_mask)
         else:
             audio_tokens = self.model.depformer_step(
                 params, state["generator"], text_token, h, use_sampling=gc.use_sampling,
@@ -262,24 +267,29 @@ class LMGen:
                                        audio_tokens)
         return self._commit(cache, state["offsets"], text_token, audio_tokens, exec_mask)
 
-    def _step(self, params, state, input_tokens, exec_mask):
-        text_token, text_logits, h = self.main_step(params, state, input_tokens, exec_mask)
+    def _step(self, params, state, input_tokens, exec_mask, condition_sum):
+        text_token, text_logits, h = self.main_step(params, state, input_tokens, exec_mask,
+                                                    condition_sum)
         out = self.depth_step(params, state, text_token, h, exec_mask)
         return out, text_logits, text_token
 
     def step(self, params: dict, state: dict, input_tokens: torch.Tensor,
-             exec_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+             exec_mask: torch.Tensor | None = None,
+             condition_sum: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
         """One 80 ms frame.  input_tokens [B, Ki, 1] -> (out [B, 1 + dep_q, 1]
         int64, state); out holds UNGENERATED_TOKEN for the first max_delay
-        frames and for slots whose exec_mask entry is False."""
-        out, _, _ = self._step(params, state, input_tokens, exec_mask)
+        frames and for slots whose exec_mask entry is False.  condition_sum
+        [B_model, 1, dim] is added to the temporal input (the fuser's
+        sum)."""
+        out, _, _ = self._step(params, state, input_tokens, exec_mask, condition_sum)
         return out, state
 
     def step_with_text_prob(self, params: dict, state: dict, input_tokens: torch.Tensor,
                             exec_mask: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """Also return the sampled text token's softmax probability [B]."""
-        out, text_logits, text_token = self._step(params, state, input_tokens, exec_mask)
+        out, text_logits, text_token = self._step(params, state, input_tokens, exec_mask,
+                                                  None)
         lp = torch.log_softmax(text_logits[:, 0, 0].float(), dim=-1)
         prob = torch.exp(torch.gather(lp, -1, text_token[:, None]))[:, 0]
         return out, prob, state

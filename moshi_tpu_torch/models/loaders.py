@@ -387,7 +387,8 @@ def lm_params_from_torch_state(model: LMModel, state: dict, dtype=torch.bfloat16
     one), floating tensors cast to `dtype` first, the output norm in f32."""
     c = model.config
     if any(k.startswith("depformer.0.") for k in state):
-        state = rust_state_to_torch(state)
+        sched = c.depformer_weights_per_step_schedule
+        state = rust_state_to_torch(state, list(sched) if sched else None)
     state = {k: v.to(dtype) if v.is_floating_point() else v for k, v in state.items()}
     p = {
         "text_emb": _emb_params(state, "text_emb"),
@@ -407,7 +408,7 @@ def lm_params_from_torch_state(model: LMModel, state: dict, dtype=torch.bfloat16
             [_lin(state, f"extra_heads.{i}.weight") for i in range(c.extra_heads_num_heads)])}
     if model.depformer is not None:
         p["depformer_in"] = {"weight": torch.stack(
-            [_lin(state, f"depformer_in.{i}.weight") for i in range(c.dep_q)])}
+            [_lin(state, f"depformer_in.{i}.weight") for i in range(c.num_depformer_in)])}
         p["depformer_text_emb"] = _emb_params(state, "depformer_text_emb")
         p["depformer_emb"] = _stack([_emb_params(state, f"depformer_emb.{k}")
                                      for k in range(c.dep_q - 1)])

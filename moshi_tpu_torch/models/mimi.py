@@ -80,6 +80,11 @@ class MimiModel:
     def num_codebooks(self) -> int:
         return self.quantizer.n_q
 
+    @property
+    def cardinality(self) -> int:
+        """Entries of each codebook."""
+        return self.config.quantizer.bins
+
     def init_params(self, generator: torch.Generator, dtype=torch.float32,
                     device=None) -> dict:
         return {

@@ -10,11 +10,10 @@ optional `[depformer]` table (`lm.rs:23-27`), optional
 Enum names are serde defaults: CamelCase for NormType, PositionalEmbedding
 and CrossAttentionGating, lowercase for the activations.
 
-`rust_lm_kwargs` gives the JAX package's LmConfig fields, the ones the
-port does not have included (`causal`, the depformer's per-step weights),
-so `lm_config_dict_from_rust` is the config.json dict the JAX package
-writes; `LmConfig.from_dict` refuses those fields at any value the port
-does not run.
+`rust_lm_kwargs` gives the JAX package's LmConfig fields, `causal`
+(which the port does not have) included, so `lm_config_dict_from_rust` is
+the config.json dict the JAX package writes; `LmConfig.from_dict` refuses
+`causal` at any value but True.
 """
 
 from __future__ import annotations

@@ -415,8 +415,10 @@ def test_config_parsers_match(ckpt):
     mcfg = json.loads((Path(ckpt) / "mimi_config.json").read_text())
     for d in (mcfg, None):
         _same_fields(tl.mimi_config_from_dict(d, 3), jl.mimi_config_from_dict(d, 3))
+    sched = {**cfg, "depformer_weights_per_step_schedule": [0, 0]}
+    _same_fields(TLM(tl._lm_config(sched)).config, jl.LmConfig.from_dict(sched))
     with pytest.raises(NotImplementedError):
-        tl.LmConfig.from_dict({**cfg, "depformer_weights_per_step_schedule": [0, 0]})
+        tl.LmConfig.from_dict({**cfg, "remat": True})
     with pytest.raises(NotImplementedError):
         tl.mimi_config_from_dict({"seanet": {"pad_mode": "replicate"}})
     with pytest.raises(NotImplementedError, match="hub"):

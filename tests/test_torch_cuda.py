@@ -1502,6 +1502,31 @@ def _tiny_asr_models():
     return mimi, mimi_params, lm, lm.init_params(g, torch.bfloat16, "cuda"), cond
 
 
+def test_graphed_lm_gen_without_depformer_equals_eager(gen):
+    """LMGen.step of a dep_q = 0 LM (the speech-to-text path of
+    run_inference) captured by GraphedStep gives the eager step's greedy
+    text frames [B, 1, 1] over 12 frames."""
+    from moshi_tpu_torch.models.lm_gen import LMGen, LMGenConfig
+    from moshi_tpu_torch.utils.graphs import GraphedStep
+    _, _, lm, lm_params, _ = _tiny_asr_models()
+    B = 2
+    tokens = torch.randint(0, 128, (12, B, 4, 1), generator=gen, device="cuda")
+    outs = {}
+    for graphed in (False, True):
+        lm_gen = LMGen(lm, LMGenConfig(use_sampling=False))
+        state = lm_gen.init_state(B, None, torch.bfloat16, "cuda")
+        tokens_in = tokens[0].clone()
+        step = GraphedStep(lambda x: lm_gen.step(lm_params, state, x)[0], graphed=graphed)
+        frames = [step.warm_up(tokens_in).clone()]
+        for f in range(1, len(tokens)):
+            tokens_in.copy_(tokens[f])
+            frames.append(step(tokens_in).clone())
+        outs[graphed] = torch.stack(frames).cpu()
+        assert step.replays == (len(tokens) - 1 if graphed else 0)
+    assert outs[True].shape == (12, B, 1, 1)
+    assert torch.equal(outs[True], outs[False])
+
+
 def _asr_engine(models, batch, graphed, **kw):
     from moshi_tpu_torch.models.asr import StreamingASR
     from moshi_tpu_torch.serve.batched_asr import BatchedAsrState
