@@ -43,7 +43,7 @@ Phases, each printing its own line(s):
                decode_attention_int4 launch at L = 48, H = 32, D = 64, cap
                1000 with its plan, and decode_attention_int8 at H = 32,
                cap 1000, D = 64, each checked and timed as above; q4_wgmma
-               above a decoding batch, at M = 32, 64 and 256 rows at the
+               above a decoding batch, at M = 32, 64, 256 and 512 rows at the
                five q4 shapes (checked, timed beside the plain version,
                torch.matmul on the bf16 weight and the bound, with TFLOP/s,
                summed over one offline forward's 129 launches; M = 16 too,
@@ -53,7 +53,10 @@ Phases, each printing its own line(s):
                with a 7040 hidden size and a 48000-column head, and
                depformer_in 2560 -> 1024) at 1 and 4 rows, each on the
                kernel its route takes, checked and timed as above, summed
-               over one LMGen.step's launches;
+               over one LMGen.step's launches; int8 above 16 rows at the
+               depformer's shapes (16-row chunks: checked at M = 33 and 512,
+               timed at 32, 64 and 512) and int8_linear under autograd at
+               512 rows against the plain path (output and dX);
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
                seed on the card; the graphed ServerState: warm-up, then 3
@@ -119,6 +122,24 @@ Phases, each printing its own line(s):
                greedy argmax agreement), p50 of 5 calls, scored frames per
                second and a profiler pass (card busy ms, q4_wgmma's
                share);
+ 6a. train   - training on the same weights, eager: (a) rank-128 f32
+               LoRA adapters on every linear, lora_optimizer(make_optimizer),
+               seeded codes [2, 17, 256] repeated: the step-0 gradient of
+               every adapter with the kernels against the plain GEMVs in f32
+               (bound TRAIN_WITNESS_BOUND; the bf16 plain GEMVs' reading and
+               the one with every base's backward dropped beside it, the
+               latter above the bound), the same step with remat (equal,
+               128 recomputed q4_wgmma), then 6 steps: exactly 129 q4_wgmma
+               a step, s/step, frames/s, peak GiB, the frozen leaves byte for
+               byte, the loss falling; (b) LMGen at B = 1 over the trained
+               tree, 8 eager frames of exactly 129 q4_gemv and 208 int8_mma,
+               and the fused bf16 tree's text logits against the LoRA tree's;
+               (a2) the same as (a) over int8 serving weights cut to 8 layers
+               (1056 int8_mma a step, 16-row chunks of 512 rows), 2 steps;
+               (c) Mimi v0.1 in f32 through `python -m moshi_tpu_torch.train`
+               (two subprocesses with --deterministic: 20 steps saved at 10,
+               then a resume from 10), the loss at steps 1 and 20, entropy,
+               the synced codec's codes, the resumed final loss;
  6b. hibiki  - speech translation at the full width of s2s_2b_16rvq_202501
                with a Hibiki checkpoint's depformer fields (16 steps on 9
                weight sets, rank-128 depformer embeddings) and a
@@ -253,6 +274,7 @@ import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -302,15 +324,22 @@ Q4_SHAPES = {(4096, 12288): 32, (4096, 4096): 32, (4096, 22528): 32,
              (11264, 4096): 32, (4096, 32000): 1}
 INT8_SHAPES = {(1024, 3072): 48, (1024, 1024): 48, (1024, 5632): 48,
                (2816, 1024): 48, (1024, 2048): 8, (4096, 1024): 8}
-# q4_wgmma above a decoding batch (the offline forward's M = B * T rows):
-# checked and timed at these row counts at every Q4_SHAPES shape, whose
-# counts are also the launches of one offline forward, and at
+# q4_wgmma above a decoding batch (the offline forward's M = B * T rows, 256
+# in [offline] and 512 in [train]): checked and timed at these row counts
+# at every Q4_SHAPES shape, whose counts are also the launches of one
+# offline forward, and at
 # CROSSOVER_ROWS beside q4_mma (the route keeps q4_mma there); the f32
 # route (the q4_gemv kernel, one launch per 16 rows) checked at
 # F32_ROUTE_ROWS
-OFFLINE_ROWS = (32, 64, 256)
+OFFLINE_ROWS = (32, 64, 256, 512)
 CROSSOVER_ROWS = 16
 F32_ROUTE_ROWS = 40
+# int8 above a decoding batch: int8_gemv runs M rows as chunks of 16, one
+# int8_mma launch each; checked at INT8_CHECK_ROWS and timed at INT8_ROWS at
+# every INT8_SHAPES shape (the depformer's), beside torch.matmul on the bf16
+# weight and the bound; then int8_linear under autograd at 512 rows
+INT8_ROWS = (32, 64, 512)
+INT8_CHECK_ROWS = (33, 512)
 # the offline phase: Mimi v0.1 over B = 4 x 50 frames (4 s) of seeded PCM
 # plus one input 1000 samples longer (encode pads it to a whole frame), and
 # Moshi-7B's teacher-forced forward over seeded codes [2, 17, 128] (256 rows
@@ -792,6 +821,88 @@ def check_offline_q4(dev, g) -> dict:
             "max_abs_err": max_abs, "launches_per_forward": sum(Q4_SHAPES.values()),
             "f32_route": {"rows": M, "shape": f"{din}x{dout}", "q4_gemv_launches": launched[0],
                           "max_abs_err": err}}
+
+
+def check_int8_rows(dev, g) -> dict:
+    """int8_gemv above 16 rows (chunks of 16 on int8_mma, ceil(M / 16)
+    launches a call) at every INT8_SHAPES shape: against the plain version
+    at INT8_CHECK_ROWS, timed (operands cold in L2) at INT8_ROWS beside
+    the plain version, torch.matmul on the dequantized bf16 weight and the
+    bound, summed over the shape table's launches; then int8_linear under
+    autograd at 512 rows: the kernel's launches in the forward, the output
+    and dX against the plain path's."""
+    from moshi_tpu_torch.ops import qmatmul
+    from moshi_tpu_torch.utils.quantize import dequantize, quantize_tensor
+
+    plain = qmatmul.int8_gemv_plain
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    per_step = {M: dict.fromkeys(keys, 0.0) for M in INT8_ROWS}
+    by_shape, max_abs, bound_by = {}, 0.0, {M: set() for M in INT8_ROWS}
+    for (din, dout), n in INT8_SHAPES.items():
+        w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
+        qt = quantize_tensor(w)
+        bytes_w = qt.q.numel() + 4 * qt.scale.numel()
+        copies = [qt] + [quantize_tensor(w) for _ in range(copies_for_cold_l2(bytes_w) - 1)]
+        del w
+        dense = [dequantize(qt.q, qt.scale, torch.bfloat16)
+                 for _ in range(copies_for_cold_l2(2 * din * dout))]
+        for M in sorted(set(INT8_CHECK_ROWS + INT8_ROWS)):
+            x = torch.randn(M, din, device=dev, generator=g).to(torch.bfloat16)
+            before = qmatmul.int8_mma.launches, qmatmul.int8_gemv.launches
+            max_abs = max(max_abs, _check_against_plain("int8 rows", qmatmul.int8_gemv, plain,
+                                                        qt, x))
+            launched = (qmatmul.int8_mma.launches - before[0],
+                        qmatmul.int8_gemv.launches - before[1])
+            if launched != (-(-M // 16), 0):
+                raise RuntimeError(f"int8 {din}x{dout} at M = {M} launched (int8_mma, "
+                                   f"int8_gemv) {launched}")
+            if M not in INT8_ROWS:
+                continue
+            ops = [(x, c.q, c.scale) for c in copies]
+            t = {"ms": time_ms(qmatmul.int8_gemv, ops, iters=10), "plain_ms": time_ms(plain, ops),
+                 "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
+            t["bound_ms"], t["bound_by"] = bound(bytes_w + 2 * M * (din + dout),
+                                                 2 * M * din * dout)
+            bound_by[M].add(t["bound_by"])
+            by_shape[f"{din}x{dout} M={M}"] = t
+            for k in keys:
+                per_step[M][k] += n * t[k]
+            phase("kernels", f"int8 {din}x{dout} M={M} bf16 ({-(-M // 16)} int8_mma launches): "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        del copies, dense
+    for M in INT8_ROWS:
+        f = per_step[M]
+        f["bound_by"] = "operations" if bound_by[M] == {"operations"} else "bytes"
+        phase("kernels", f"int8 above 16 rows, the depformer's {sum(INT8_SHAPES.values())} "
+              f"linears at M={M}: {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, "
+              f"torch.matmul on bf16 {f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms "
+              f"({f['bound_by']})")
+
+    din, dout = 1024, 3072
+    qt = quantize_tensor(torch.randn(din, dout, device=dev, generator=g) / din ** 0.5)
+    x = torch.randn(2, 256, din, device=dev, generator=g).to(torch.bfloat16)
+    dy = torch.randn(2, 256, dout, device=dev, generator=g).to(torch.bfloat16)
+    xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    before = qmatmul.int8_mma.launches
+    y = qmatmul.int8_linear(xk, qt.q, qt.scale)
+    launched = qmatmul.int8_mma.launches - before
+    yp = plain(xp.reshape(-1, din), qt.q, qt.scale).reshape(y.shape)
+    (dxk,), (dxp,) = torch.autograd.grad(y, xk, dy), torch.autograd.grad(yp, xp, dy)
+    err_y, err_dx = rel_err(y, yp), rel_err(dxk, dxp)
+    ok = (launched == 32 and type(y.grad_fn).__name__ == "FrozenLinearBackward"
+          and err_y <= BOUNDS[torch.bfloat16] and err_dx <= BOUNDS[torch.bfloat16])
+    phase("kernels", f"int8_linear under autograd, x [2, 256, {din}] -> {dout}: {launched} "
+          f"int8_mma launches forward, grad_fn {type(y.grad_fn).__name__}; y max rel err "
+          f"{err_y:.3e}, dX max rel err {err_dx:.3e} against the plain path (bound "
+          f"{BOUNDS[torch.bfloat16]:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("int8_linear under autograd disagrees with the plain path")
+    free_memory()
+    return {"per_step": per_step, "by_shape": by_shape, "max_abs_err": max_abs,
+            "launches_per_step": sum(INT8_SHAPES.values()),
+            "autograd": {"rows": 512, "int8_mma_launches": launched, "y_rel_err": err_y,
+                         "dx_rel_err": err_dx}}
 
 
 def launch_floor_ms(dev, g) -> dict:
@@ -2253,10 +2364,6 @@ def hibiki_witness(state, pcm) -> dict:
     kernels, their inputs recorded, then the same inputs through the plain
     GEMVs in the kernels' place: the text logits' relative error (norm and
     max) and how many steps agree on the greedy text token."""
-    from moshi_tpu_torch.ops.q4matmul import q4_gemv_plain
-    from moshi_tpu_torch.ops.qmatmul import int8_gemv_plain
-    from moshi_tpu_torch.utils import matmul
-
     lm, calls = state.lm, []
     kernel_step = lm.forward_text_step
 
@@ -2266,19 +2373,13 @@ def hibiki_witness(state, pcm) -> dict:
         calls.append((seq.clone(), exec_mask.clone(), logits.float().clone()))
         return h, logits, tr_state
 
-    def plain(fn):
-        return lambda x, q, scale: fn(x.reshape(-1, x.shape[-1]), q, scale).reshape(
-            *x.shape[:-1], q.shape[-1])
-
     lm.forward_text_step = recorded
     try:
         state.run(pcm, max_steps=HIBIKI_WITNESS_STEPS)
     finally:
         del lm.forward_text_step
-    q4_linear, int8_linear = matmul.q4_linear, matmul.int8_linear
-    matmul.q4_linear, matmul.int8_linear = plain(q4_gemv_plain), plain(int8_gemv_plain)
     zero_counts()
-    try:
+    with plain_gemvs():
         tr = lm.transformer.init_state(calls[0][0].shape[0], torch.bfloat16, state.device)
         got, want = [], []
         for seq, mask, logits in calls[:HIBIKI_WITNESS_STEPS]:
@@ -2287,8 +2388,6 @@ def hibiki_witness(state, pcm) -> dict:
                                               exec_mask=mask)
             got.append(logits)
             want.append(ref.float())
-    finally:
-        matmul.q4_linear, matmul.int8_linear = q4_linear, int8_linear
     if any(read_counts().values()):
         raise RuntimeError("hibiki: the plain witness launched kernels")
     got, want = torch.stack(got), torch.stack(want)
@@ -4266,6 +4365,391 @@ def run_tts_serve(dev, card: str, tts: dict) -> dict:
             "checkpoint": tts["checkpoint"]}
 
 
+# ------------------------------------------------------------------ train
+# [train] (a): LoRA over [slice]'s Moshi-7B weights (q4 temporal linears and
+# text head, an int8 depformer, bf16), adapters of rank TRAIN_LORA["rank"]
+# on every linear in f32, lora_optimizer(make_optimizer(TRAIN_OPT)), seeded
+# codes [2, 17, 256] repeated every step (synthetic_repeat): 512 rows for
+# each temporal linear
+TRAIN_LORA = {"batch": 2, "frames": 256, "steps": 6, "rank": 128, "scaling": 2.0}
+TRAIN_OPT = {"lr": 1e-3, "grad_clip": 1.0}
+# (a2): the same over Moshi-7B's int8 serving weights (every linear int8,
+# quantize_lm_params' default mode), depth cut to TRAIN_INT8["layers"]: the
+# int8 GEMV at 512 rows under grad, 32 launches a linear
+TRAIN_INT8 = {"layers": 8, "steps": 2}
+# stated before the first card run (PERF.md §6): the step-0 gradient of
+# every adapter with the kernels against the same step through the plain
+# GEMVs on the card, ||g_kernel - g_plain|| / ||g_plain|| over all of them
+# (HIBIKI_WITNESS_BOUND's model), and the losses' relative difference; remat
+# against no remat, the same norm over all gradients.  The witness holds
+# the bound against the plain GEMVs in f32 (the kernels' arithmetic: exact
+# weights, f32 sums); in bf16 they round each weight before the product,
+# which 32 random layers spread to 5.239e-2 on an H100 (PERF.md §6), so
+# that reading is printed beside it, and the gradient with every base's
+# backward dropped must read above the bound
+TRAIN_WITNESS_BOUND = 5e-2
+TRAIN_LOSS_BOUND = 1e-2
+TRAIN_REMAT_BOUND = 1e-3
+# (b): LMGen at B = 1 over the trained tree, TRAIN_GEN_FRAMES eager frames;
+# the text logits of fuse_lora_params in bf16 against the LoRA tree's over
+# TRAIN_FUSED_FRAMES frames (offline forward_text), ||diff|| / ||LoRA||
+TRAIN_GEN_FRAMES = 8
+TRAIN_FUSED_FRAMES = 32
+TRAIN_FUSED_BOUND = 5e-2
+# (c): the CLI on Mimi v0.1 in f32 with 8 codebooks, B = 4 x 2 s of seeded
+# PCM repeated every step, 20 steps saved at 10; the resumed run's final
+# loss against the uninterrupted one's, relative.  Both calls pass
+# --deterministic (cuDNN's, cuBLAS's and index_add's deterministic
+# algorithms).  At lr 1e-3 the randomly initialised encoder outran its EMA
+# codebooks (commit losses up to ~3700) and the last loss was a draw;
+# at 1e-4 the loss fell at all but 1 of 19 steps (PERF.md §6)
+TRAIN_MIMI = {"batch_size": 4, "seq_len": 25, "steps": 20, "save_every": 10,
+              "mimi_config": {}, "num_codebooks": 8,
+              "optimizer": {"lr": 1e-4, "grad_clip": 1.0}}
+TRAIN_RESUME_BOUND = 1e-2
+TRAIN_DIR = ROOT / "build" / "train"
+
+
+@contextmanager
+def plain_gemvs(f32: bool = False):
+    """utils.matmul's q4_linear and int8_linear swapped for the plain
+    versions (torch ops, differentiable as they are) while entered: in x's
+    dtype (the weights dequantized to it first), or with `f32` on x and the
+    weights in f32, the output cast to x's dtype (the kernels' arithmetic:
+    exact weights, f32 sums, one rounding of the output)."""
+    from moshi_tpu_torch.ops.q4matmul import q4_gemv_plain
+    from moshi_tpu_torch.ops.qmatmul import int8_gemv_plain
+    from moshi_tpu_torch.utils import matmul
+
+    def plain(fn):
+        def linear(x, q, scale):
+            x2 = x.reshape(-1, x.shape[-1])
+            y = fn(x2.float(), q, scale).to(x.dtype) if f32 else fn(x2, q, scale)
+            return y.reshape(*x.shape[:-1], q.shape[-1])
+        return linear
+    saved = matmul.q4_linear, matmul.int8_linear
+    matmul.q4_linear, matmul.int8_linear = plain(q4_gemv_plain), plain(int8_gemv_plain)
+    try:
+        yield
+    finally:
+        matmul.q4_linear, matmul.int8_linear = saved
+
+
+@contextmanager
+def dropped_base_gradient():
+    """The kernels with the gradient through every frozen base dropped
+    (their input detached): the silent failure the witness must see."""
+    from moshi_tpu_torch.utils import matmul
+
+    saved = matmul.q4_linear, matmul.int8_linear
+    matmul.q4_linear, matmul.int8_linear = (
+        (lambda x, q, scale, fn=fn: fn(x.detach(), q, scale)) for fn in saved)
+    try:
+        yield
+    finally:
+        matmul.q4_linear, matmul.int8_linear = saved
+
+
+def grads_rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over every tensor of two lists."""
+    num = sum(float((g.float() - w.float()).pow(2).sum()) for g, w in zip(got, want))
+    den = sum(float(w.float().pow(2).sum()) for w in want)
+    return (num / den) ** 0.5
+
+
+def train_codes(lm, dev) -> torch.Tensor:
+    """The seeded synthetic_repeat batch of train._data_batches."""
+    from moshi_tpu_torch import train
+    cfg = {"batch_size": TRAIN_LORA["batch"], "seq_len": TRAIN_LORA["frames"],
+           "data": {"kind": "synthetic_repeat", "seed": SEED}}
+    return torch.from_numpy(next(train._data_batches(cfg, "lm", lm, 1))).long().to(dev)
+
+
+def lora_train(dev, card: str, lm, params, what: str, steps: int, per_step: dict,
+               remat: bool) -> dict:
+    """Adapters over `params`, the step-0 witness (the kernels against the
+    plain GEMVs: loss, every adapter's gradient, a layer-0 adapter's), with
+    remat the same step recomputed, then `steps` train steps: exact
+    launches a step, s/step, frames/s, peak GiB, the frozen leaves byte
+    for byte, the loss falling.  Returns the trained tree and the numbers."""
+    from dataclasses import replace
+    from moshi_tpu_torch import train
+    from moshi_tpu_torch.models.lm import LMModel
+    from moshi_tpu_torch.models.lora import replace_all_linear_with_lora
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    lp = replace_all_linear_with_lora(params, TRAIN_LORA["rank"], g, TRAIN_LORA["scaling"],
+                                      torch.float32)
+    opt = train.lora_optimizer(train.make_optimizer(TRAIN_OPT, steps), lp)
+    paths = opt.select(lp)
+    trained = set(paths)
+    frozen = [(p, t.clone()) for p, t in train.tree_leaves(lp) if p not in trained]
+    codes = train_codes(lm, dev)
+    loss_fn = train.make_loss_fn(lm)
+    expected = dict.fromkeys(counters(), 0)
+    expected.update(per_step)
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    loss_k, _, g_k = train.value_and_grad(loss_fn, lp, paths, codes)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != expected:
+        raise RuntimeError(f"{what}: one step's launches {launches}, expected {expected}")
+    errs = {}
+    for f32 in (False, True):
+        with plain_gemvs(f32):
+            zero_counts()
+            loss_p, _, g_p = train.value_and_grad(loss_fn, lp, paths, codes)
+            if any(read_counts().values()):
+                raise RuntimeError(f"{what}: the plain witness launched kernels")
+        errs["f32" if f32 else "bf16"] = grads_rel_err(g_k, g_p)
+        if not f32:
+            del g_p
+    err = errs["f32"]
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    layer0 = paths.index(("transformer", "layers", "attn", "in_proj", "b"))
+    g0k, g0p = g_k[layer0][0], g_p[layer0][0]
+    g0_norm, g0_err = float(g0k.float().norm()), grads_rel_err([g0k], [g0p])
+    with dropped_base_gradient():
+        _, _, g_d = train.value_and_grad(loss_fn, lp, paths, codes)
+    dropped = grads_rel_err(g_d, g_p)
+    del g_p, g_d
+    ok = (err <= TRAIN_WITNESS_BOUND and loss_err <= TRAIN_LOSS_BOUND and g0_norm > 0
+          and dropped > TRAIN_WITNESS_BOUND
+          and all(bool(torch.isfinite(t).all()) for t in g_k))
+    n_adapter = sum(t.numel() for p, t in train.tree_leaves(lp) if p in trained)
+    nonzero = {k: v for k, v in launches.items() if v}
+    phase("train", f"{what}: {len(paths)} adapter leaves ({n_adapter / 1e6:.1f}M f32), one "
+          f"step's launches {nonzero} over {codes.shape[0]} x "
+          f"{codes.shape[2]} frames; witness against the plain GEMVs in f32: loss "
+          f"{float(loss_k):.5f} vs {float(loss_p):.5f} (rel {loss_err:.2e}, bound "
+          f"{TRAIN_LOSS_BOUND:.0e}), gradients ||diff|| / ||plain|| {err:.3e} (bound "
+          f"{TRAIN_WITNESS_BOUND:.0e}; against the plain GEMVs in bf16 {errs['bf16']:.3e}; "
+          f"with every base's backward dropped {dropped:.3e}); layer 0's in_proj b: ||g|| "
+          f"{g0_norm:.3e}, rel err {g0_err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{what}: the kernels' gradient disagrees with the plain one's")
+    res = {"adapter_leaves": len(paths), "launches_per_step": launches, "loss0": float(loss_k),
+           "witness": {"grads_rel_err": err, "grads_rel_err_bf16_plain": errs["bf16"],
+                       "grads_rel_err_base_backward_dropped": dropped,
+                       "loss_rel_err": loss_err, "layer0_in_proj_b_norm": g0_norm,
+                       "layer0_rel_err": g0_err},
+           "step_peak_gib": peak}
+
+    if remat:
+        lm_r = LMModel(replace(lm.config, remat=True))
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        loss_r, _, g_r = train.value_and_grad(train.make_loss_fn(lm_r), lp, paths, codes)
+        launches_r = read_counts()
+        peak_r = torch.cuda.max_memory_allocated() / 2**30
+        bitwise = torch.equal(loss_r, loss_k) and all(torch.equal(a, b) for a, b in zip(g_r, g_k))
+        err_r = grads_rel_err(g_r, g_k)
+        recompute = lm.config.num_layers * 4
+        want_r = {**expected, "q4_wgmma": expected["q4_wgmma"] + recompute}
+        ok = err_r <= TRAIN_REMAT_BOUND and launches_r == want_r
+        phase("train", f"{what} with remat: launches {launches_r['q4_wgmma']} q4_wgmma (the "
+              f"{recompute} temporal linears recomputed), loss and gradients "
+              f"{'bit for bit equal' if bitwise else f'rel err {err_r:.3e}'} (bound "
+              f"{TRAIN_REMAT_BOUND:.0e}); peak {peak_r:.2f} GiB against {peak:.2f} without "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{what}: remat gives other gradients or launches {launches_r}")
+        res["remat"] = {"launches": launches_r, "bitwise": bitwise, "grads_rel_err": err_r,
+                        "peak_gib": peak_r}
+        del g_r
+    del g_k
+
+    state = opt.init(lp)
+    step = train.make_train_step(lm, opt)
+    losses, ms = [], []
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, state, loss, _ = step(lp, state, codes)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_counts(launches, expected, steps, what)
+    same = all(torch.equal(train._get(lp, p), t) for p, t in frozen)
+    frames = codes.shape[0] * codes.shape[2]
+    s_step = float(np.median(ms[1:])) / 1e3
+    ok = same and losses[-1] < losses[0] and all(np.isfinite(losses))
+    phase("train", f"{what}: {steps} steps, losses {[round(v, 4) for v in losses]}; launches "
+          f"{launches['q4_wgmma']} q4_wgmma, {launches['int8_mma']} int8_mma (per step x "
+          f"{steps}); base and embeddings byte-equal: {same}; {s_step:.3f} s/step (median of "
+          f"steps 2..), {frames / s_step:.0f} frames trained/s, peak {peak:.2f} GiB "
+          f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise RuntimeError(f"{what}: the frozen leaves changed or the loss did not fall")
+    del frozen, state
+    free_memory()
+    res.update({"losses": losses, "step_ms": ms, "s_per_step": s_step,
+                "frames_per_s": frames / s_step, "peak_gib": peak, "frozen_equal": same,
+                "launches": launches})
+    return lp, res
+
+
+def lora_serves(dev, card: str, lm, lp) -> dict:
+    """(b): LMGen at B = 1 over the trained LoRA tree, eager, each step's
+    launches exactly 129 q4_gemv and 208 int8_mma; the fused tree in bf16
+    against the LoRA tree: text logits of forward_text."""
+    from moshi_tpu_torch.models.lm_gen import LMGen, LMGenConfig
+    from moshi_tpu_torch.models.lora import fuse_lora_params
+
+    cfg = lm.config
+    expected = dict.fromkeys(counters(), 0)
+    expected.update({"q4_gemv": sum(Q4_SHAPES.values()), "int8_mma": sum(INT8_SHAPES.values())})
+    gen = LMGen(lm, LMGenConfig())
+    state = gen.init_state(1, torch.Generator(device=dev).manual_seed(SEED + 32),
+                           torch.bfloat16, dev)
+    n_in = cfg.num_codebooks - cfg.dep_q - 1
+    rs = np.random.RandomState(SEED + 33)
+    outs, ms = [], []
+    with torch.no_grad():
+        for t in range(TRAIN_GEN_FRAMES):
+            toks = torch.from_numpy(rs.randint(0, cfg.card, (1, n_in, 1))).to(dev)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, state = gen.step(lp, state, toks)
+            outs.append(out.cpu())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check_counts(read_counts(), expected, 1, f"LoRA LMGen.step {t}")
+        out = torch.cat(outs[cfg.max_delay:], dim=-1)
+        check_tokens(out[0].T.numpy(), cfg, "LoRA LMGen")
+        codes = train_codes(lm, dev)[:1, :, :TRAIN_FUSED_FRAMES]
+        _, text_lora = lm.forward_text(lp, codes)
+        fused = fuse_lora_params(lp)
+        _, text_fused = lm.forward_text(fused, codes)
+        del fused
+    err = ((text_fused.float() - text_lora.float()).norm() / text_lora.float().norm()).item()
+    ok = err <= TRAIN_FUSED_BOUND and bool(torch.isfinite(text_fused).all())
+    phase("train", f"LoRA tree serves: LMGen B = 1, {TRAIN_GEN_FRAMES} eager frames, launches "
+          f"a step {expected['q4_gemv']} q4_gemv + {expected['int8_mma']} int8_mma, p50 "
+          f"{float(np.percentile(ms, 50)):.2f} ms/frame; fuse_lora_params in bf16 against the "
+          f"LoRA tree over {TRAIN_FUSED_FRAMES} frames: text logits ||diff|| / ||LoRA|| "
+          f"{err:.3e} (bound {TRAIN_FUSED_BOUND:.0e}) {'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise RuntimeError("the fused LoRA tree's text logits disagree")
+    free_memory()
+    return {"launches": {k: v * TRAIN_GEN_FRAMES for k, v in expected.items()},
+            "per_step": expected, "p50_ms": float(np.percentile(ms, 50)),
+            "fused_text_logits_rel_err": err}
+
+
+def train_cli(args: list) -> list:
+    """`python -m moshi_tpu_torch.train ARGS` from the checkout's root:
+    its JSON lines."""
+    done = subprocess.run([sys.executable, "-m", "moshi_tpu_torch.train", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode:
+        raise RuntimeError(f"train CLI {args} exited {done.returncode}: {done.stderr[-3000:]}")
+    return [json.loads(line) for line in done.stdout.splitlines() if line.startswith("{")]
+
+
+def mimi_cli(dev, card: str) -> dict:
+    """(c): Mimi v0.1 trained through the CLI (f32, 8 codebooks), saved at
+    step 10; a second call resumes from it; the synced codec encodes."""
+    from moshi_tpu_torch import train
+    from moshi_tpu_torch.models.loaders import mimi_config_from_dict
+    from moshi_tpu_torch.models.mimi import MimiModel
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    cfg = {"target": "mimi", "seed": SEED, "data": {"kind": "synthetic_repeat", "seed": SEED},
+           "log_every": 1,
+           "out_dir": str(TRAIN_DIR / "run"), "device": str(dev), **TRAIN_MIMI}
+    (TRAIN_DIR / "mimi.json").write_text(json.dumps(cfg))
+    t0 = time.perf_counter()
+    run = train_cli(["--config", str(TRAIN_DIR / "mimi.json"), "--deterministic"])
+    wall = time.perf_counter() - t0
+    steps = [d for d in run if "step" in d and "loss" in d]
+    at = TRAIN_MIMI["save_every"]
+    resumed = train_cli(["--config", str(TRAIN_DIR / "mimi.json"), "--deterministic",
+                         "--resume",
+                         str(TRAIN_DIR / "run" / f"train-{at:06d}.safetensors"),
+                         "--out-dir", str(TRAIN_DIR / "resumed")])
+    first, last = steps[0], steps[-1]
+    final, final_r = run[-1]["final_loss"], resumed[-1]["final_loss"]
+    resume_err = abs(final_r - final) / abs(final)
+    params, _, step, _ = train.load_train_state(
+        TRAIN_DIR / "run" / f"train-{TRAIN_MIMI['steps']:06d}.safetensors", dev)
+    mimi = MimiModel(mimi_config_from_dict(TRAIN_MIMI["mimi_config"],
+                                           TRAIN_MIMI["num_codebooks"]))
+    pcm = torch.from_numpy((0.1 * np.random.RandomState(SEED + 34).randn(
+        1, 1, TRAIN_MIMI["seq_len"] * mimi.frame_size)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        codes = mimi.encode(params, pcm)
+        audio = mimi.decode(params, codes)
+    in_range = bool((codes >= 0).all() and (codes < mimi.cardinality).all())
+    ok = (len(steps) == TRAIN_MIMI["steps"] and last["loss"] < first["loss"]
+          and last["entropy"] > 0.5 and in_range and bool(torch.isfinite(audio).all())
+          and resume_err <= TRAIN_RESUME_BOUND and step == TRAIN_MIMI["steps"])
+    seconds = TRAIN_MIMI["seq_len"] * mimi.frame_size / mimi.config.sample_rate
+    phase("train", f"Mimi f32 through `python -m moshi_tpu_torch.train` (B = "
+          f"{TRAIN_MIMI['batch_size']} x {seconds:g} s): loss step 1 {first['loss']:.4f} -> step "
+          f"{last['step']} {last['loss']:.4f}, entropy {last['entropy']:.3f} (> 0.5), codes "
+          f"in [0, {mimi.cardinality}): {in_range}; resumed at step {at} (both calls "
+          f"--deterministic): final loss {final_r:.6f} vs {final:.6f} uninterrupted "
+          f"({'bit for bit' if final_r == final else 'not bit for bit'}; rel "
+          f"{resume_err:.2e}, bound "
+          f"{TRAIN_RESUME_BOUND:.0e}); {last['sec_per_step']:.3f} s/step, peak "
+          f"{last.get('peak_gib', float('nan')):.2f} GiB, the call {wall:.1f} s "
+          f"{'ok' if ok else 'FAIL'} ({card})")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if not ok:
+        raise RuntimeError("Mimi training through the CLI failed its checks")
+    return {"loss_first": first["loss"], "loss_last": last["loss"],
+            "entropy": last["entropy"], "resumed_final_loss": final_r, "final_loss": final,
+            "deterministic": True, "resume_bitwise": final_r == final,
+            "resume_rel_err": resume_err, "s_per_step": last["sec_per_step"],
+            "peak_gib": last.get("peak_gib"), "call_s": wall}
+
+
+def run_train(dev, card: str, lm, lm_params) -> dict:
+    """[train]: (a) LoRA over the q4/int8 Moshi-7B weights, with remat;
+    (a2) the same over int8 serving weights at cut depth; (b) the trained
+    tree served by LMGen and fused; (c) Mimi through the CLI."""
+    from dataclasses import replace
+    from moshi_tpu_torch.models.lm import LMModel
+    from moshi_tpu_torch.utils.quantize import quantize_lm_params
+
+    t0 = time.perf_counter()
+    rows = TRAIN_LORA["batch"] * TRAIN_LORA["frames"]
+    per_step = {"q4_wgmma": sum(Q4_SHAPES.values())}
+    lp, res = lora_train(dev, card, lm, lm_params, "LoRA over Moshi-7B q4/int8",
+                         TRAIN_LORA["steps"], per_step, remat=True)
+    res["serve"] = lora_serves(dev, card, lm, lp)
+    del lp
+    free_memory()
+
+    cfg8 = replace(lm.config, num_layers=TRAIN_INT8["layers"])
+    lm8 = LMModel(cfg8)
+    g = torch.Generator(device=dev).manual_seed(SEED + 35)
+    params8 = quantize_lm_params(lm8.init_params(g, torch.bfloat16, dev), mode="int8")
+    free_memory()
+    chunks = -(-rows // 16)
+    per_step8 = {"int8_mma": (4 * cfg8.num_layers + 1) * chunks}
+    _, res8 = lora_train(dev, card, lm8, params8,
+                         f"LoRA over Moshi-7B int8 ({cfg8.num_layers} layers)",
+                         TRAIN_INT8["steps"], per_step8, remat=False)
+    del params8
+    free_memory()
+    res["int8_base"] = res8
+    res["mimi"] = mimi_cli(dev, card)
+    res["phase_s"] = time.perf_counter() - t0
+    phase("train", f"the phase took {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch sees no CUDA device")
@@ -4299,6 +4783,7 @@ def main() -> None:
     attn8 = check_attention_int8(dev, g)
     tts_gemvs = check_tts_gemvs(dev, g)
     offline_q4 = check_offline_q4(dev, g)
+    int8_rows = check_int8_rows(dev, g)
     hibiki_gemvs = check_hibiki_gemvs(dev, g)
     free_memory()
 
@@ -4310,7 +4795,10 @@ def main() -> None:
     batched = run_batched(dev, card, lm_params, mimi, mimi_params)
     free_memory()
     offline = run_offline(dev, card, lm, lm_params, mimi, mimi_params)
-    del lm, lm_params, mimi, mimi_params
+    del mimi, mimi_params
+    free_memory()
+    train = run_train(dev, card, lm, lm_params)
+    del lm, lm_params
     free_memory()
     hibiki = run_hibiki(dev, card)
     asr = run_asr(dev, card)
@@ -4332,12 +4820,17 @@ def main() -> None:
                "offline_forward": offline["launches"],
                "hibiki": hibiki["launches"], "asr": asr["launches"], "stt": stt["launches"],
                "worker": worker["launches"], **tts["launches"],
-               "tts_serve": tts_serve["launches"]}
+               "tts_serve": tts_serve["launches"], "train_lora": train["launches"],
+               "train_int8_base": train["int8_base"]["launches"],
+               "train_lmgen": train["serve"]["launches"]}
     per_frame_by_path = {"batched": batched["per_frame"]["int4"],
                          "batched_int8": batched["per_frame"]["int8"],
                          "offline_forward": offline["launches"], "asr": asr["per_frame"],
                          **{f"worker_{m}": v for m, v in worker["per_frame"].items()},
-                         **tts["per_frame"], **hibiki["per_step"], "stt": stt["per_step"]}
+                         **tts["per_frame"], **hibiki["per_step"], "stt": stt["per_step"],
+                         "train_step": train["launches_per_step"],
+                         "train_int8_step": train["int8_base"]["launches_per_step"],
+                         "train_lmgen": train["serve"]["per_step"]}
     kernels = []
     # ms / plain_ms / library_ms / bound_ms: card time of one frame's
     # launches of the kernel (bf16, operands cold in L2) on the path it
@@ -4358,6 +4851,8 @@ def main() -> None:
             row["tts"] = tts_gemvs[k["name"]]
         if k["name"] in hibiki_gemvs:
             row["hibiki"] = hibiki_gemvs[k["name"]]
+        if k["name"] == "int8_mma":
+            row["rows_above_16"] = int8_rows
         kernels.append(row)
     # q4_wgmma: the offline forward's launches at M = 256 (OFFLINE_LM's
     # B * T), the other row counts timed and the crossover beside them
@@ -4400,7 +4895,8 @@ def main() -> None:
                       "tts": {key: v for key, v in tts.items()
                               if key not in ("launches", "per_frame", "checkpoint")},
                       "tts_serve": {key: v for key, v in tts_serve.items()
-                                    if key != "launches"}}), flush=True)
+                                    if key != "launches"},
+                      "train": train}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

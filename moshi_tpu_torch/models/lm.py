@@ -30,7 +30,10 @@ depformer embeddings (a table of rank `depformer_low_rank_embeddings`
 times a [rank, depformer_dim] expansion) and a demuxed second text stream
 (`out1` / `out2`).
 
-Not ported yet: the backward pass and training.
+Training (train.py) differentiates `forward` with autograd: `remat`
+recomputes each temporal layer in the backward, and `cross_entropy` is the
+per-codebook masked CE.  Only `causal: false` is refused (no preset runs an
+acausal LM).
 """
 
 from dataclasses import dataclass
@@ -53,8 +56,8 @@ _CHECKPOINT_KEYS = ("moshi_name", "mimi_name", "mimi_config_name", "tokenizer_na
                     "lora_scaling", "quantize", "conditioners", "fuser",
                     "depformer_context")
 # the JAX package's LmConfig fields the port lacks -> the value it runs
-# (remat belongs to training; no preset runs an acausal LM)
-_NOT_PORTED_FIELDS = {"causal": True, "remat": False}
+# (no preset runs an acausal LM)
+_NOT_PORTED_FIELDS = {"causal": True}
 
 
 @dataclass(frozen=True)
@@ -103,6 +106,9 @@ class LmConfig:
     # step k runs weight set schedule[k] (None: set k)
     depformer_weights_per_step_schedule: tuple[int, ...] | None = None
     depformer_low_rank_embeddings: int | None = None
+    # layer-wise recomputation in the temporal transformer's training
+    # forward (modules/transformer.py TransformerConfig.remat)
+    remat: bool = False
 
     @classmethod
     def from_dict(cls, d: dict) -> "LmConfig":
@@ -167,7 +173,7 @@ class LmConfig:
             cross_attention_gating=self.cross_attention_gating,
             cross_attention_norm=self.cross_attention_norm,
             cross_attention_kv_dim=self.cross_attention_kv_dim,
-            shared_cross_attn=self.shared_cross_attn)
+            shared_cross_attn=self.shared_cross_attn, remat=self.remat)
 
     @property
     def depformer_config(self) -> TransformerConfig:
@@ -374,6 +380,17 @@ def undelay_logits(delays: tuple[int, ...], logits: torch.Tensor
             mask[:, k, T - d:] = False
         outs.append(line)
     return torch.stack(outs, dim=1), mask
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Masked cross entropy in f32 over every position where `mask` holds,
+    averaged over them (moshi_tpu lm.py:477-483): logits [..., card],
+    targets and mask [...]."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    ll = torch.where(mask, ll, torch.zeros_like(ll))
+    return -ll.sum() / mask.sum().clamp(min=1)
 
 
 class LMModel:

@@ -17,9 +17,13 @@ F.conv1d / F.conv_transpose1d (utils/params.py):
   buffer names included.
 
 Trees are built on the host from the mapped file (utils/safetensors.py),
-then every leaf is made contiguous on the device asked for.  Files come
-from a local directory only: fetching from the Hugging Face hub and LoRA
-weights are not ported (ROADMAP A.11).
+then every leaf is made contiguous on the device asked for.  LoRA weights
+(`lora_weights`, a config's `lora_name`, `lora: true` with `lora_scaling`)
+are fused into a PyTorch-named state at load (models/lora.fuse_lora_state),
+as in the JAX package; a native checkpoint keeps its adapters in its own
+tree (`__lora__` nodes), and a `lora_name` beside one is refused (the JAX
+package ignores it).  Files come from a local directory only: fetching from
+the Hugging Face hub is not ported (ROADMAP A.11).
 """
 
 import json
@@ -31,6 +35,7 @@ import torch
 
 from . import lm as lm_mod
 from .lm import LMModel, LmConfig
+from .lora import fuse_lora_state
 from .mimi import MimiConfig, MimiModel
 from .native_ckpt import load_mimi_params, load_params
 from ..modules.seanet import SEANetConfig
@@ -424,20 +429,26 @@ def _lm_config(lm_config) -> LmConfig:
         return lm_mod.lm_config_v0_1()
     if isinstance(lm_config, LmConfig):
         return lm_config
-    if lm_config.get("lora"):
-        raise NotImplementedError(f"LoRA checkpoints are {_NOT_PORTED}")
     return LmConfig.from_dict(lm_config)
 
 
 def get_moshi_lm(weights_path: str | Path, lm_config: dict | LmConfig | None = None,
                  dtype=torch.bfloat16, device="cuda",
-                 lora_weights: str | Path | None = None) -> tuple[LMModel, dict]:
+                 lora_weights: str | Path | None = None,
+                 lora_scaling: float = 2.0) -> tuple[LMModel, dict]:
     """The LM from a PyTorch-named (or rust-named) checkpoint, its params
-    in `dtype` on `device`."""
-    if lora_weights is not None:
-        raise NotImplementedError(f"LoRA weights are {_NOT_PORTED}")
+    in `dtype` on `device`; with `lora_weights` the adapters are fused into
+    the state first, at the config's `lora_scaling` where it has one (a
+    config with `lora: true` requires them)."""
+    if isinstance(lm_config, dict):
+        if lora_weights is None and lm_config.get("lora"):
+            raise ValueError("config requires LoRA weights (lora=true)")
+        lora_scaling = lm_config.get("lora_scaling", lora_scaling)
     model = LMModel(_lm_config(lm_config))
-    params = lm_params_from_torch_state(model, load_weights(weights_path), dtype)
+    state = load_weights(weights_path)
+    if lora_weights is not None:
+        state = fuse_lora_state(state, load_file(lora_weights), lora_scaling)
+    params = lm_params_from_torch_state(model, state, dtype)
     return model, _to_device(params, device)
 
 
@@ -562,16 +573,21 @@ class CheckpointInfo:
     def get_moshi(self, dtype=torch.bfloat16, device="cuda") -> tuple[LMModel, dict]:
         """The LM; a native checkpoint keeps the dtypes and quantized leaves
         it was saved with, a PyTorch-named one is cast to `dtype`."""
-        if self.lora_name or "lora" in self.paths:
-            raise NotImplementedError(f"LoRA weights are {_NOT_PORTED}")
         moshi_path = self._path("moshi", self.moshi_name)
+        lora = (self._path("lora", self.lora_name)
+                if self.lora_name or "lora" in self.paths else None)
         if self.native_format:
+            if lora is not None:
+                raise NotImplementedError(
+                    "a LoRA file beside a native checkpoint (a native tree holds its "
+                    "adapters as __lora__ nodes; the JAX package ignores lora_name here)")
             model = LMModel(_lm_config(self.lm_config))
             # the conditioners' tensors in the same file are get_conditioners'
             params = {k: v for k, v in load_params(moshi_path, device).items()
                       if not k.startswith("condition_provider.")}
         else:
-            model, params = get_moshi_lm(moshi_path, self.lm_config, dtype, device)
+            model, params = get_moshi_lm(moshi_path, self.lm_config, dtype, device,
+                                         lora_weights=lora)
         if self.model_type == "hibiki":
             # hibiki samples EOS (2) too early now and then: its embedding
             # becomes PAD's (3), so an early EOS acts as PAD

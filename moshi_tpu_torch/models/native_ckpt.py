@@ -9,21 +9,29 @@ trees hold empty `output_projs` entries), and Mimi's conv weights in the
 JAX package's [K, Cin/g, Cout] (`save_mimi_params` / `load_mimi_params`
 convert).  A q4 leaf of the older
 two-plane packing (its q has as many axes as its scale) is repacked on
-load.  LoRA nodes (`__lora__`) are not ported (ROADMAP A.11).
+load.  A `LoRAWeight` is stored as a `__lora__` node holding its base (in
+the encodings above), a, b and an f32 scalar `scaling`, as the JAX package
+writes it.
 """
 
 from pathlib import Path
 
 import torch
 
+from .lora import LoRAWeight
 from ..utils.quantize import QTensor, QTensor4, repack_legacy_q4
 from ..utils.safetensors import load_file, save_file
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, torch.Tensor]:
-    """Tree (QTensor / QTensor4 leaves included) -> flat {path: tensor}."""
+    """Tree (QTensor / QTensor4 / LoRAWeight leaves included) -> flat
+    {path: tensor}."""
     out = {}
-    if isinstance(tree, QTensor):
+    if isinstance(tree, LoRAWeight):
+        out.update(flatten_tree({"__lora__": {
+            "base": tree.base, "a": tree.a, "b": tree.b,
+            "scaling": torch.tensor(tree.scaling, dtype=torch.float32)}}, prefix))
+    elif isinstance(tree, QTensor):
         out[prefix + "#q"], out[prefix + "#scale"] = tree.q, tree.scale
     elif isinstance(tree, QTensor4):
         out[prefix + "#q4"], out[prefix + "#scale4"] = tree.q, tree.scale
@@ -56,14 +64,8 @@ def unflatten_tree(flat: dict[str, torch.Tensor]) -> dict:
             else:
                 qts.setdefault(base, {})[field] = value
             continue
-        if "__lora__" in key.split("/"):
-            raise NotImplementedError(f"{key}: LoRA weights are not ported yet "
-                                      "(ROADMAP A.11, models/lora.py)")
         _insert(root, key.split("/"), value)
     for base, parts in qts.items():
-        if "__lora__" in base.split("/"):
-            raise NotImplementedError(f"{base}: LoRA weights are not ported yet "
-                                      "(ROADMAP A.11, models/lora.py)")
         if "q4" in parts:
             if parts["q4"].ndim == parts["scale4"].ndim:
                 leaf = repack_legacy_q4(parts["q4"], parts["scale4"])
@@ -76,7 +78,24 @@ def unflatten_tree(flat: dict[str, torch.Tensor]) -> dict:
         node, last = _walk(root, base.split("/"))
         d = node.get(last, {})
         node[last] = [d[str(i)] for i in range(lists[base])]
-    return root
+    return _rebuild_lora(root)
+
+
+def _rebuild_lora(tree):
+    """Every `__lora__` node of an unflattened tree as a LoRAWeight."""
+    if isinstance(tree, dict):
+        if "__lora__" in tree:
+            node = tree["__lora__"]
+            missing = {"base", "a", "b", "scaling"} - set(node)
+            if len(tree) > 1 or missing:
+                raise ValueError(f"a __lora__ node without {sorted(missing)} or beside "
+                                 f"{sorted(set(tree) - {'__lora__'})}")
+            return LoRAWeight(_rebuild_lora(node["base"]), node["a"], node["b"],
+                              float(node["scaling"]))
+        return {k: _rebuild_lora(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_rebuild_lora(v) for v in tree]
+    return tree
 
 
 def save_params(path: str | Path, params: dict) -> int:

@@ -38,7 +38,11 @@ zoo) and layer_scale_cross.  It is plain torch in the JAX package's dtypes
 `apply` is the offline forward over a whole sequence (moshi_tpu
 transformer.py:563-627): position embeddings from offset 0, the causal
 mask with `context` as a sliding window, no cache, and `cross_src`
-projected by `precompute_cross`.  Per-step weights over T > 1 positions
+projected by `precompute_cross`.  With `remat` and autograd recording,
+each layer runs under torch.utils.checkpoint (non-reentrant), which keeps
+its input and recomputes the rest in the backward: the JAX package's
+`jax.checkpoint` of the layer scan (transformer.py:622-625).  Per-step
+weights over T > 1 positions
 (the depformer's training pass) gather the T members, cast them to x's
 dtype and contract them with one einsum, as the JAX package does (no
 Pallas kernel there, plain torch here); a single position's member goes
@@ -55,9 +59,11 @@ from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .norm import LayerScale, make_norm
 from .rope import apply_rope
+from ..models.lora import LoRAWeight
 from ..ops.decode_attention import decode_attention_int8
 from ..ops.int4_attention import (_pack_nibble_cols, _quant_rows_int4,  # noqa: F401
                                   decode_attention_int4_write)
@@ -128,7 +134,10 @@ def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dense(w, dtype) -> torch.Tensor:
     """A weight as a dense tensor in `dtype`: a QTensor or QTensor4
-    dequantized (the JAX package's `w.astype(dtype)`), a tensor cast."""
+    dequantized (the JAX package's `w.astype(dtype)`), a LoRAWeight fused
+    (its `dense`), a tensor cast."""
+    if isinstance(w, LoRAWeight):
+        return w.dense(dtype)
     if isinstance(w, QTensor):
         return dequantize(w.q, w.scale, dtype)
     if isinstance(w, QTensor4):
@@ -169,6 +178,7 @@ class TransformerConfig:
     cross_attention_norm: str = "layer_norm"
     cross_attention_kv_dim: int | None = None  # the source's width (None: d_model)
     shared_cross_attn: bool = False  # one projection set for every layer
+    remat: bool = False  # apply under grad recomputes each layer in the backward
 
     @property
     def head_dim(self) -> int:
@@ -573,9 +583,11 @@ class StreamingTransformer:
 
         cross = (self._cross(params, self.precompute_cross(params, cross_src))
                  if cross_src is not None else self._cross(params, {}))
+        remat = c.remat and torch.is_grad_enabled()
         for layer in range(c.num_layers):
-            x = self._layer(layer_view(params["layers"], layer), x, attend, offset, widx,
-                            cross(layer))
+            args = (layer_view(params["layers"], layer), x, attend, offset, widx, cross(layer))
+            x = (checkpoint(self._layer, *args, use_reentrant=False) if remat
+                 else self._layer(*args))
         return x
 
     # ------------------------------------------------------------------- step

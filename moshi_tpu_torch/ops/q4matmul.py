@@ -20,7 +20,10 @@ CPU tensor it runs `q4_gemv_plain`; on a CUDA tensor, by M and dtype
   ceil(M / 16) launches a call (f32 is the parity dtype; no main path runs
   it on the card), each launch planned by `gemv_plan` (shared with the
   int8_gemv kernel of ops/qmatmul.py).
-Either way a CUDA tensor launches a kernel or raises.
+Either way a CUDA tensor launches a kernel or raises.  `q4_linear` is
+differentiable in x through `FrozenLinear` (training's backward, a
+torch.matmul on the dequantized weight); with no grad to record it runs the
+route alone.
 """
 
 import functools
@@ -443,8 +446,47 @@ q4_mma.launches = 0
 q4_wgmma.launches = 0
 
 
-def q4_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x [..., din] @ a QTensor4 [din, dout] through q4_gemv."""
+class FrozenLinear(torch.autograd.Function):
+    """x [..., din] @ a frozen quantized weight, differentiable in x only.
+    The forward is `linear(x, q, scale)`: the kernel route on the card, the
+    plain version on the CPU.  The backward is dX = dY @ dequant(q, scale,
+    dY.dtype)^T by torch.matmul in dY's dtype, and no gradient for q or
+    scale: the JAX package stops the gradient at a LoRA adapter's base
+    (moshi_tpu/utils/matmul.py:47-52), and XLA computes that transpose
+    outside any Pallas kernel there.  Without this Function a kernel's
+    output, written through a raw pointer into a fresh tensor, would have
+    no grad_fn, and the gradient through every frozen linear would be
+    dropped on the card while the CPU's plain path kept it."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, linear, dequant):
+        ctx.save_for_backward(q, scale)
+        ctx.dequant = dequant
+        return linear(x, q, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, scale = ctx.saved_tensors
+        w = ctx.dequant(q, scale, dy.dtype)
+        return torch.matmul(dy, w.transpose(-1, -2)), None, None, None, None
+
+
+def frozen_linear(linear, dequant, x, q, scale):
+    """`linear(x, q, scale)`, through FrozenLinear when autograd records
+    and x requires grad; as it is otherwise (serving runs the same
+    launches as without autograd)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return FrozenLinear.apply(x, q, scale, linear, dequant)
+    return linear(x, q, scale)
+
+
+def _q4_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     y = q4_gemv(x.reshape(math.prod(lead), x.shape[-1]).contiguous(), q, scale)
     return y.reshape(*lead, q.shape[-1])
+
+
+def q4_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [..., din] @ a QTensor4 [din, dout] through q4_gemv; differentiable
+    in x (FrozenLinear)."""
+    return frozen_linear(_q4_linear, dequantize4, x, q, scale)

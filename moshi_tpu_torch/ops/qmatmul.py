@@ -5,10 +5,13 @@ Counterpart of moshi_tpu/ops/qmatmul.py (`qgemv`) and of what `wdot` does
 for a `QTensor` (moshi_tpu/utils/matmul.py:83).  `int8_gemv` is the entry
 point: on a CPU tensor it runs `int8_gemv_plain`; on a CUDA tensor it
 launches `int8_mma` (tensor cores) where `use_mma` says so and the
-`int8_gemv` kernel (CUDA cores) otherwise, or raises.  The `int8_gemv`
-kernel takes any dout and a view at any byte offset, one launch a call
-planned by `int8_gemv_plan` (q4matmul.gemv_plan, shared with the q4_gemv
-kernel).
+`int8_gemv` kernel (CUDA cores) otherwise, or raises.  A launch takes at
+most MAX_BATCH rows; `int8_gemv` runs more (the JAX package's XLA product
+takes any M) as chunks of MAX_BATCH rows, one launch each.
+The `int8_gemv` kernel takes any dout and a view at any byte offset, one
+launch a call planned by `int8_gemv_plan` (q4matmul.gemv_plan, shared with
+the q4_gemv kernel).  `int8_linear` is differentiable in x through
+q4matmul.FrozenLinear (training's backward).
 """
 
 import math
@@ -18,7 +21,7 @@ import torch
 from ..utils.quantize import dequantize
 from . import build
 from .q4matmul import (MAX_BATCH, MMA_WARP_COLS, GemvPlan, _check_cuda, _num_sms,
-                       gemv_max_cols, gemv_plan, gemv_resident)
+                       frozen_linear, gemv_max_cols, gemv_plan, gemv_resident)
 
 # int8_mma takes bf16 calls of MMA_MIN_BATCH..MAX_BATCH rows
 MMA_MIN_BATCH = 1
@@ -79,20 +82,33 @@ def _check(x, q, scale):
 
 
 def int8_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x [B, din] bf16/f32; q [din, dout] int8; scale [1, dout] f32 ->
-    [B, dout] in x.dtype.  The `int8_gemv` kernel's launches are counted in
-    `int8_gemv.launches`, int8_mma's in `int8_mma.launches`."""
+    """x [M, din] bf16/f32; q [din, dout] int8; scale [1, dout] f32 ->
+    [M, dout] in x.dtype.  M rows run as chunks of at most MAX_BATCH, each
+    launched on int8_mma where `use_mma` admits the chunk and on the
+    `int8_gemv` kernel otherwise, their outputs concatenated:
+    ceil(M / MAX_BATCH) launches a call.  The `int8_gemv` kernel's launches
+    are counted in `int8_gemv.launches`, int8_mma's in `int8_mma.launches`."""
     _check(x, q, scale)
     if x.device.type == "cpu":
         return int8_gemv_plain(x, q, scale)
-    if use_mma(x.shape[0], x.dtype, x.shape[1], q.shape[1]):
-        return int8_mma(x, q, scale)
-    return int8_gemv_kernel(x, q, scale)
+    if x.shape[0] <= MAX_BATCH:
+        return _kernel(x, q)(x, q, scale)
+    # a chunk that does not start 16-byte aligned, as a fresh tensor does, is copied
+    chunks = [c if c.data_ptr() % 16 == 0 else c.clone()
+              for c in x.contiguous().split(MAX_BATCH)]
+    return torch.cat([_kernel(c, q)(c, q, scale) for c in chunks])
+
+
+def _kernel(x, q):
+    """The kernel a call of x's rows launches."""
+    return int8_mma if use_mma(x.shape[0], x.dtype, x.shape[1], q.shape[1]) \
+        else int8_gemv_kernel
 
 
 def int8_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8_gemv's function through the `int8_gemv` kernel (CUDA cores),
-    whatever `use_mma` says; on a CPU tensor the plain version."""
+    whatever `use_mma` says, x of 1..MAX_BATCH rows; on a CPU tensor the
+    plain version."""
     _check(x, q, scale)
     if x.device.type == "cpu":
         return int8_gemv_plain(x, q, scale)
@@ -150,8 +166,13 @@ int8_gemv.launches = 0
 int8_mma.launches = 0
 
 
-def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x [..., din] @ a QTensor [din, dout] through int8_gemv."""
+def _int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     y = int8_gemv(x.reshape(math.prod(lead), x.shape[-1]).contiguous(), q, scale)
     return y.reshape(*lead, q.shape[-1])
+
+
+def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [..., din] @ a QTensor [din, dout] through int8_gemv, any number of
+    rows; differentiable in x (q4matmul.FrozenLinear)."""
+    return frozen_linear(_int8_linear, dequantize, x, q, scale)

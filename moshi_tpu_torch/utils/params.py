@@ -8,7 +8,8 @@ weights are re-laid-out, for `torch.nn.functional.conv1d`
 (modules/conv.py).
 
 `from_jax` takes a moshi_tpu tree already on the host (`jax.device_get`):
-numpy arrays, and quantized leaves as objects with `q` and `scale`.  The
+numpy arrays, quantized leaves as objects with `q` and `scale`, and LoRA
+leaves as objects with `base`, `a`, `b` and `scaling` (models/lora.py).  The
 initialisers draw from an explicit `torch.Generator` with the distributions
 of moshi_tpu's `init_params`, so a model can be built on a machine that has
 no JAX; they do not reproduce jax.random's bits.
@@ -38,6 +39,10 @@ def _convert(tree, device):
         return {k: _convert(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_convert(v, device) for v in tree)
+    if hasattr(tree, "base") and hasattr(tree, "scaling"):  # a LoRAWeight
+        from ..models.lora import LoRAWeight
+        return LoRAWeight(_convert(tree.base, device), _tensor(tree.a, device),
+                          _tensor(tree.b, device), float(tree.scaling))
     if hasattr(tree, "q") and hasattr(tree, "scale"):
         q, scale = _tensor(tree.q, device), _tensor(tree.scale, device)
         # QTensor4 packs two din rows per byte: q has one axis fewer than

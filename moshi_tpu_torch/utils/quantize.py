@@ -81,6 +81,10 @@ class QTensor:
     def shape(self):
         return tuple(self.q.shape)
 
+    @property
+    def ndim(self):
+        return self.q.ndim
+
     def __getitem__(self, idx):
         return QTensor(self.q[idx], self.scale[idx])
 
@@ -97,6 +101,10 @@ class QTensor4:
     def shape(self):
         *lead, p2, dout = self.q.shape
         return tuple(lead) + (p2 * 2, dout)
+
+    @property
+    def ndim(self):
+        return self.q.ndim
 
     def __getitem__(self, idx):
         return QTensor4(self.q[idx], self.scale[idx])

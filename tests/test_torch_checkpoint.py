@@ -209,13 +209,23 @@ def test_legacy_q4_and_sentinels(tmp_path):
 
 
 def test_lora_node_raises(tmp_path):
+    """A `__lora__` node without its b and scaling is refused by name; a
+    whole one loads as the JAX package loads it."""
     from safetensors.numpy import save_file
-    save_file({"w/__lora__/a": np.zeros((2, 2), np.float32),
-               "w/__lora__/base#q": np.zeros((2, 2), np.int8),
-               "w/__lora__/base#scale": np.ones((1, 2), np.float32)},
-              str(tmp_path / "lora.safetensors"))
-    with pytest.raises(NotImplementedError, match="A.11"):
+    node = {"w/__lora__/a": np.ones((2, 3), np.float32),
+            "w/__lora__/base#q": np.full((2, 2), 3, np.int8),
+            "w/__lora__/base#scale": np.full((1, 2), 0.5, np.float32)}
+    save_file(node, str(tmp_path / "lora.safetensors"))
+    with pytest.raises(ValueError, match="__lora__"):
         tn.load_params(tmp_path / "lora.safetensors")
+    node.update({"w/__lora__/b": np.full((3, 2), 0.25, np.float32),
+                 "w/__lora__/scaling": np.asarray(2.0, np.float32)})
+    save_file(node, str(tmp_path / "lora.safetensors"))
+    got = tn.load_params(tmp_path / "lora.safetensors")["w"]
+    want = host(jn.load_params(tmp_path / "lora.safetensors"))["w"]
+    assert isinstance(got.base, QTensor) and got.scaling == want.scaling == 2.0
+    assert_same_tree({"base": got.base, "a": got.a, "b": got.b},
+                     from_jax({"base": want.base, "a": want.a, "b": want.b}))
 
 
 # ------------------------------------------------------------ torch layout
@@ -418,7 +428,8 @@ def test_config_parsers_match(ckpt):
     sched = {**cfg, "depformer_weights_per_step_schedule": [0, 0]}
     _same_fields(TLM(tl._lm_config(sched)).config, jl.LmConfig.from_dict(sched))
     with pytest.raises(NotImplementedError):
-        tl.LmConfig.from_dict({**cfg, "remat": True})
+        tl.LmConfig.from_dict({**cfg, "causal": False})
+    assert tl.LmConfig.from_dict({**cfg, "remat": True}).remat
     with pytest.raises(NotImplementedError):
         tl.mimi_config_from_dict({"seanet": {"pad_mode": "replicate"}})
     with pytest.raises(NotImplementedError, match="hub"):
@@ -429,7 +440,8 @@ def test_config_parsers_match(ckpt):
     assert info.tokenizer_path == Path("/elsewhere/t.model")
     assert info._path("moshi", info.moshi_name) == Path(ckpt) / "model.native.safetensors"
     with pytest.raises(NotImplementedError):
-        tl.CheckpointInfo({"lora_name": "lora.safetensors"}, root=Path(ckpt)).get_moshi()
+        tl.CheckpointInfo({"lora_name": "lora.safetensors", "native_format": True},
+                          root=Path(ckpt)).get_moshi()
 
 
 @pytest.mark.parametrize("vocab", [64, 32000])

@@ -1781,3 +1781,56 @@ def test_dropped_engine_frees_its_memory_without_the_cycle_collector(engine, gen
     finally:
         gc.enable()
     assert held > 0 and before - after >= held
+
+
+# int8 above a decoding batch: int8_gemv (the entry int8_linear calls) runs
+# M rows as chunks of at most 16, one launch each, into one output
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [33, 512])
+def test_int8_chunked_rows(M, dtype, gen):
+    """M = 33 (two whole chunks and one row) and 512 (the training
+    forward's B * T) at a depformer shape, bf16 on int8_mma and f32 on the
+    int8_gemv kernel: ceil(M / 16) launches, against the plain version;
+    the per-launch kernels still refuse more than 16 rows."""
+    din, dout = 1024, 3072
+    qt = tq.quantize_tensor(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
+    x = torch.randn(M, din, device="cuda", generator=gen).to(dtype)
+    counted = qmatmul.int8_mma if dtype == torch.bfloat16 else qmatmul.int8_gemv
+    other = qmatmul.int8_gemv if dtype == torch.bfloat16 else qmatmul.int8_mma
+    n, o = counted.launches, other.launches
+    y = qmatmul.int8_gemv(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert (counted.launches - n, other.launches - o) == (-(-M // 16), 0)
+    assert y.dtype == dtype and tuple(y.shape) == (M, dout)
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[dtype]
+    with pytest.raises(ValueError):
+        qmatmul.int8_mma(x[:17].to(torch.bfloat16), qt.q, qt.scale)
+    with pytest.raises(ValueError):
+        qmatmul.int8_gemv_kernel(x[:17], qt.q, qt.scale)
+
+
+@pytest.mark.parametrize("kind", ["q4", "int8"])
+def test_frozen_linear_dx_on_the_card(kind, gen):
+    """Under autograd the kernel runs forward (its launch counted) and dX
+    equals the plain path's, autograd through the plain version's torch
+    ops, at the training forward's 512 rows; the weight gets no grad."""
+    din, dout = 4096, 1024
+    w = torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5
+    if kind == "q4":
+        qt, linear, plain = tq.quantize_tensor4(w), q4matmul.q4_linear, q4matmul.q4_gemv_plain
+        counted = q4matmul.q4_wgmma
+    else:
+        qt, linear, plain = tq.quantize_tensor(w), qmatmul.int8_linear, qmatmul.int8_gemv_plain
+        counted = qmatmul.int8_mma
+    x = torch.randn(2, 256, din, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn(2, 256, dout, device="cuda", generator=gen).to(torch.bfloat16)
+    xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    n = counted.launches
+    y = linear(xk, qt.q, qt.scale)
+    assert counted.launches > n and type(y.grad_fn).__name__ == "FrozenLinearBackward"
+    yp = plain(xp.reshape(-1, din), qt.q, qt.scale).reshape(2, 256, dout)
+    assert _rel(y, yp) <= BOUND[torch.bfloat16]
+    (dxk,) = torch.autograd.grad(y, xk, dy)
+    (dxp,) = torch.autograd.grad(yp, xp, dy)
+    assert _rel(dxk, dxp) <= BOUND[torch.bfloat16]
+    assert qt.q.grad is None and qt.scale.grad is None

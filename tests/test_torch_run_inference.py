@@ -127,7 +127,7 @@ def test_lm_config_fields_match_jax(fields):
     assert (tdep.num_weights, tdep.weights_per_step_schedule) == (
         jdep.num_weights, jdep.weights_per_step_schedule)
     with pytest.raises(NotImplementedError):
-        tlm.LmConfig.from_dict({**d, "remat": True})
+        tlm.LmConfig.from_dict({**d, "causal": False})
 
 
 # ------------------------------------------------------------------- embed
