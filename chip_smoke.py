@@ -208,8 +208,38 @@ Phases, each printing its own line(s):
                [serve]'s session 1; the launches of the phase exactly each
                module's warm-up frames and one capture, none while
                serving; load and warm-up s of each module, p50/p90 ms per
-               batched frame of both loops, peak memory; both
-               checkpoints are deleted;
+               batched frame of both loops, peak memory;
+ 7c. fleet   - the serving fleet over both checkpoints, which are then
+               deleted: (a) `python -m moshi_tpu_torch.serve.dispatcher`
+               with its vault and three `python -m
+               moshi_tpu_torch.serve.worker` processes a, b, c on the one
+               card (a `moshi` module replicating every 25 frames, a
+               session log directory, and a `py` module that answers its
+               process's launch counts): unbroken greedy and sampled
+               sessions of 100 frames on b; a client ticketed by the
+               dispatcher to a streams 60 greedy frames with a resume id, a
+               is killed (SIGKILL) once its pushes have landed, the client
+               re-queues, is handed b and resumes there from the vault's
+               step to frame 100; the same sampled from c to b; each held
+               to the unbroken session byte for byte (PCM, text) and token
+               for token (b's session logs), 129 q4_gemv + 208 int8_mma a
+               captured step and none while those sessions ran, frame
+               p50/p90/worst on a beside [serve]'s p50, the snapshot's
+               bytes and each push's seconds; (b) MT 8 in-process on a
+               ServerState over seeded lm_config_v0_1_vision weights (q4
+               temporal and cross projections, int8 depformer), graphed
+               and eager: 10 frames, an image of 16 seeded embedding
+               frames, 20 frames, a second image, 10 frames; acks, every
+               message and token equal, the second image's K/V written
+               into the first one's tensors and equal to
+               precompute_cross's eager rows, launches a step without and
+               with the cross block; (c) build_app of a py_batched_asr
+               module (a script written here, the bitmask protocol over
+               StreamingASR, eager) beside batched_asr, both B = 16 over
+               [asr]'s checkpoint: 4 socket clients each over the same
+               seeded PCM, text tokens and words compared (a difference
+               reported with its first frame), 16 decode_attention_int8
+               a py frame and none from the captured engine;
   8. tts     - batched text-to-speech at the full width of tts_v0_1 (48
                layers of dim 2048, 32 heads x 64, a 16-step depformer;
                int8 weights, int4 KV at context 1000, bf16 Mimi with 16
@@ -1367,7 +1397,8 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return {name: fn.launches for name, fn in counters().items()}
 
 
@@ -1554,29 +1585,39 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-async def pcm_session(ws, pcm, on_frame=None) -> tuple[list, list]:
+async def frames_session(ws, pcm, on_frame=None) -> tuple[list, list]:
     """Raw PCM over an open session: the {"raw_pcm": true} metadata, then
     each frame followed by a ping, its replies read up to the ping
-    (`on_frame(i)` awaited before frame i).  Returns (the replies but the
-    pings, ms from a frame sent to its PCM reply)."""
+    (`on_frame(i)` awaited before frame i).  Returns (the replies to each
+    frame but the ping, ms from each frame sent to its PCM reply or None)."""
     from moshi_tpu_torch.serve import protocol as proto
 
     await ws.send_bytes(proto.msg(proto.MT_METADATA, json.dumps({"raw_pcm": True}).encode()))
     reply = json.loads((await ws.receive_bytes(timeout=SERVE_TIMEOUT))[1:])
     if not reply.get("raw_pcm"):
         raise RuntimeError(f"serve: raw PCM refused: {reply}")
-    msgs, ms = [], []
+    replies, ms = [], []
     for i, frame in enumerate(pcm):
         if on_frame is not None:
             await on_frame(i)
         t0 = time.perf_counter()
         await ws.send_bytes(proto.msg(proto.MT_PCM, frame.tobytes()))
         await ws.send_bytes(proto.msg(proto.MT_PING))
+        got, t = [], None
         while (m := await ws.receive_bytes(timeout=SERVE_TIMEOUT))[0] != proto.MT_PING:
             if m[0] == proto.MT_PCM:
-                ms.append((time.perf_counter() - t0) * 1e3)
-            msgs.append(m)
-    return msgs, ms
+                t = (time.perf_counter() - t0) * 1e3
+            got.append(m)
+        replies.append(got)
+        ms.append(t)
+    return replies, ms
+
+
+async def pcm_session(ws, pcm, on_frame=None) -> tuple[list, list]:
+    """frames_session's replies in one list, and the ms of the frames that
+    had a PCM reply."""
+    replies, ms = await frames_session(ws, pcm, on_frame)
+    return [m for r in replies for m in r], [t for t in ms if t is not None]
 
 
 async def drive_server(state, expected: dict) -> dict:
@@ -3163,124 +3204,917 @@ def run_worker(dev, card: str, serve: dict, batched_p50: float) -> dict:
     legacy framing); the batched module's sessions (twins, a resume on
     another slot); one Moshi socket session against [serve]'s tokens.  The
     launches of the whole phase: every module's warm-up frames and its one
-    capture, none while serving."""
-    import shutil
+    capture, none while serving.  The checkpoints stay for [fleet]."""
     import tomllib
     import aiohttp
     from moshi_tpu_torch.serve.worker import build_app
 
-    try:
-        free_memory()
-        torch.cuda.reset_peak_memory_stats(dev)
-        zero_counts()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    app = build_app(tomllib.loads(worker_toml()), device=dev)
+    build_s = time.perf_counter() - t0
+    built = read_counts()
+    modules = app["modules"]
+    chat, batched, asr = (modules[k]["state"] for k in ("chat", "batched", "asr"))
+    for name, m in modules.items():
+        phase("worker", f"module {name} ({m['type']}): loaded in {m['load_s']:.2f} s, "
+              f"warm-up and captures {m['warmup_s']:.2f} s")
+
+    # the launches of the build: each module's eager warm-up frames, then
+    # one captured frame (its graphs), each the module's per-frame count
+    moshi_step = per_step_launches(chat.lm.config, chat.lm_params, 1)
+    batched_frame = per_step_launches(batched.lm.config, batched.lm_params, SLOTS)
+    asr_step = dict.fromkeys(TPU_KERNELS, 0)
+    asr_step["decode_attention_int8"] = asr.asr.lm.config.num_layers
+    chat_frames = max(4, chat.lm.config.max_delay + 2) + 1
+    expected = {k: moshi_step[k] * chat_frames + batched_frame[k] * 4 + asr_step[k] * 4
+                for k in TPU_KERNELS}
+    if built != expected:
+        raise RuntimeError(f"worker: build launched {built}, expected {expected}")
+
+    out = asyncio.run(drive_worker(app, asr, batched, chat))
+    launches = read_counts()
+    if launches != built:
+        raise RuntimeError(f"worker: serving launched kernels outside the graphs: "
+                           f"{launches} after the build's {built}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    info = out["modules_info"]
+    want_info = {"chat": {"type": "moshi", "route": "/api/chat"},
+                 "batched": {"type": "batched_moshi", "batch_size": SLOTS,
+                             "route": "/api/batched"},
+                 "asr": {"type": "batched_asr", "batch_size": WORKER_ASR_SLOTS,
+                         "route": "/api/asr-streaming"}}
+    if out["unauthorized"] != 401 or info != want_info or out["metrics"] != 200:
+        raise RuntimeError(f"worker: auth {out['unauthorized']}, modules {info}, "
+                           f"metrics {out['metrics']}")
+
+    # ASR: twins, the resume, the legacy twin, markers after their words
+    msgs = out["asr"]
+    for i in range(0, WORKER_ASR_CLIENTS, 2):
+        for a, b in ((i, i + 1),) + (((0, WORKER_ASR_CLIENTS),) if i == 0 else ()):
+            if asr_words(msgs[a]) != asr_words(msgs[b]):
+                raise RuntimeError(f"worker asr: clients {a} and {b} heard the same PCM "
+                                   f"but said different words")
+    said = sum(len(asr_words(m)) for m in msgs)
+    if not asr_words(msgs[0]) or said == 0:
+        raise RuntimeError("worker asr: no words")
+    ordered = [markers_after_their_words(m) for m in msgs]
+    if not all(ordered):
+        raise RuntimeError(f"worker asr: markers out of order for clients "
+                           f"{[i for i, ok in enumerate(ordered) if not ok]}")
+    if any(m["type"] == "Error" for c in msgs for m in c):
+        raise RuntimeError("worker asr: an Error message")
+    frames = sum(FRAMES for _ in msgs)
+    a50, a90 = (float(np.percentile(out["asr_frame_ms"], p)) for p in (50, 90))
+    phase("worker", f"asr over the socket: {len(msgs)} clients x {FRAMES} frames "
+          f"({WORKER_ASR_CLIENTS} msgpack, 1 legacy \\x08), twins said equal words (the "
+          f"legacy client too), client 15 left after frame {WORKER_LEAVE} and resumed "
+          f"with its twin's words; {said} Word / EndWord messages; every marker came "
+          f"back after its words; {len(out['asr_frame_ms'])} batched frames at B = "
+          f"{WORKER_ASR_SLOTS}: p50 {a50:.2f} ms, p90 {a90:.2f} ms; "
+          f"{frames / out['asr_s']:.0f} client frames/s through the socket ({card})")
+
+    # batched Moshi: twins and the resumed session
+    b = out["batched"]
+    tokens = b["tokens"]
+    for i in range(0, 14, 2):
+        if not np.array_equal(tokens[i], tokens[i + 1]):
+            raise RuntimeError(f"worker batched: twin sessions {i} and {i + 1} differ")
+    if not np.array_equal(tokens[14], tokens[0]):
+        raise RuntimeError("worker batched: the resumed session differs from its twin")
+    for t in tokens.values():
+        check_tokens(t, batched.lm.config, "worker batched")
+    m50, m90 = (float(np.percentile(out["batched_frame_ms"], p)) for p in (50, 90))
+    phase("worker", f"batched_moshi B = {SLOTS} int4 KV through run_loop: 7 twin pairs "
+          f"x {FRAMES} frames equal token for token; the session that left slot "
+          f"{b['left']} after frame {WORKER_LEAVE} resumed on slot {b['back']} (a tenant "
+          f"took slot {b['tenant']}) and repeats its twin; "
+          f"{len(out['batched_frame_ms'])} frames p50 {m50:.2f} ms, p90 {m90:.2f} ms per "
+          f"batched frame ([batched] graphed greedy p50 {batched_p50:.2f} ms in this run; "
+          f"{card})")
+
+    # Moshi over the socket against [serve]'s session 1
+    if not np.array_equal(out["chat_tokens"], serve["greedy_tokens"]):
+        raise RuntimeError("worker chat: the socket session's tokens differ from "
+                           "[serve]'s")
+    c50 = float(np.percentile(out["chat_ms"], 50))
+    used = {k: v for k, v in built.items() if v}
+    phase("worker", f"moshi over /api/chat: {len(out['chat_tokens'])} greedy token "
+          f"frames equal [serve]'s session 1; p50 {c50:.2f} ms frame to PCM reply")
+    phase("worker", f"build_app {build_s:.2f} s (aiohttp {aiohttp.__version__}); launches "
+          f"{used} = warm-up + 1 captured frame of each module (chat "
+          f"{chat_frames} steps, batched 4 frames, asr 4 steps), none while serving; "
+          f"peak {peak:.2f} GiB allocated ({card})")
+    seconds = {k: {"load_s": m["load_s"], "warmup_s": m["warmup_s"]}
+               for k, m in modules.items()}
+    del app, modules, chat, batched, asr
+    return {"launches": launches, "build_s": build_s, "modules": seconds,
+            "asr_p50_ms": a50, "asr_p90_ms": a90,
+            "asr_client_frames_per_s": frames / out["asr_s"],
+            "batched_p50_ms": m50, "batched_p90_ms": m90, "chat_p50_ms": c50,
+            "peak_gib": peak,
+            "per_frame": {"chat": moshi_step, "batched": batched_frame, "asr": asr_step}}
+
+
+# ------------------------------------------------------------------ fleet
+FLEET_DIR = ROOT / "build" / "fleet"
+FLEET_FRAMES = 100        # a migrated session's frames after the skipped one
+FLEET_KILL = 60           # the frame after which the session's first worker is killed
+FLEET_REPLICATE = 25      # the fleet workers' replicate_every
+FLEET_AUTH = "smoke-fleet"
+FLEET_SAMPLED = {**SAMPLED, "text_seed": "5"}
+FLEET_START_TIMEOUT = 240  # seconds a fleet process may take to come up
+FLEET_DEVICE = "cuda"     # the workers' --device
+VISION_LAYERS = 32        # lm_config_v0_1_vision's depth in [fleet] (b)
+VISION_FRAMES = (10, 20, 10)  # frames before the first image, between the two, after
+VISION_IMAGE = 16         # frames of an image's embeddings
+PY_BASR_SLOTS = 16
+PY_BASR_CLIENTS = 4
+PY_BASR_FRAMES = 100      # seeded PCM frames a py_basr client sends before its Marker
+PY_BASR_TAIL = ASR_DELAY + 4  # silent frames after the Marker, so the clock passes it
+
+COUNTS_SCRIPT = '''
+"""A `py` module of the [fleet] workers: its process's kernel launch counts."""
+import chip_smoke
+
+
+class App:
+    async def handle(self, request):
+        from aiohttp import web
+        return web.json_response(chip_smoke.read_counts())
+
+
+def init(batch_size, config):
+    return App()
+'''
+
+# a py_batched_asr app over the port's StreamingASR, eager, the ASR
+# checkpoint's knobs of [worker]: the bitmask step protocol of
+# serve/py_basr.py; a slot's text token goes out once the slot has run
+# asr_delay_in_tokens steps (before, a pad), as StreamingASR's words count
+PY_BASR_SCRIPT = '''
+"""py_batched_asr over StreamingASR (chip_smoke.py [fleet] (c))."""
+import time
+
+import numpy as np
+
+ACTIVE, RESET = -1, -2
+
+
+class App:
+    def __init__(self, batch_size, config):
+        from moshi_tpu_torch.models.asr import StreamingASR, asr_sum_condition
+        from moshi_tpu_torch.models.loaders import CheckpointInfo
+        from moshi_tpu_torch.utils.serving import apply_serving_overrides
+
+        info = CheckpointInfo.from_dir(config["checkpoint_dir"])
+        dev = config["device"]
+        mimi, mimi_params = info.get_mimi(device=dev)
+        lm, lm_params = info.get_moshi(device=dev)
+        lm, self.lm_params, self.mimi_params, md = apply_serving_overrides(
+            lm, lm_params, mimi_params, kv_cache=config["kv_cache"],
+            mimi_dtype=config["mimi_dtype"])
+        cond = asr_sum_condition(info, lm.config.dim, device=dev,
+                                 conditioning_delay=config["conditioning_delay"])
+        self.delay = int(config["asr_delay_in_tokens"])
+        self.asr = StreamingASR(mimi, lm, batch_size, asr_delay_in_tokens=self.delay,
+                                mimi_dtype=md, sum_condition=cond, device=dev,
+                                graphed=False)
+        self.state = self.asr.init_state()
+        self.batch_size = batch_size
+        self.frames, self.ms = 0, []
+        self.tokens = {b: [] for b in range(batch_size)}  # a slot's session's tokens
+
+    def warmup(self):
+        self.state = self.asr.warmup(self.mimi_params, self.lm_params, self.state)
+
+    def step(self, pcm, flags, tokens, extra, updates):
+        mask = np.zeros(self.batch_size, bool)
+        for b, u in enumerate(updates):
+            flags[b] = 0
+            if u == RESET:
+                self.state = self.asr.reset_batch_idx(self.state, b)
+                self.tokens[b] = []
+            elif u == ACTIVE:
+                mask[b] = True
+        if not mask.any():
+            return
         t0 = time.perf_counter()
-        app = build_app(tomllib.loads(worker_toml()), device=dev)
-        build_s = time.perf_counter() - t0
-        built = read_counts()
-        modules = app["modules"]
-        chat, batched, asr = (modules[k]["state"] for k in ("chat", "batched", "asr"))
-        for name, m in modules.items():
-            phase("worker", f"module {name} ({m['type']}): loaded in {m['load_s']:.2f} s, "
-                  f"warm-up and captures {m['warmup_s']:.2f} s")
+        _, self.state = self.asr.step_pcm(self.mimi_params, self.lm_params, self.state,
+                                          pcm.reshape(self.batch_size, 1, -1), mask)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.frames += 1
+        for b in np.nonzero(mask)[0]:
+            item = self.asr.items[b]
+            self.tokens[b].append(item.text_token)
+            flags[b] = 1
+            tokens[b] = item.text_token if item.step_idx >= self.delay else 0
 
-        # the launches of the build: each module's eager warm-up frames, then
-        # one captured frame (its graphs), each the module's per-frame count
-        moshi_step = per_step_launches(chat.lm.config, chat.lm_params, 1)
-        batched_frame = per_step_launches(batched.lm.config, batched.lm_params, SLOTS)
-        asr_step = dict.fromkeys(TPU_KERNELS, 0)
-        asr_step["decode_attention_int8"] = asr.asr.lm.config.num_layers
-        chat_frames = max(4, chat.lm.config.max_delay + 2) + 1
-        expected = {k: moshi_step[k] * chat_frames + batched_frame[k] * 4 + asr_step[k] * 4
-                    for k in TPU_KERNELS}
-        if built != expected:
-            raise RuntimeError(f"worker: build launched {built}, expected {expected}")
 
-        out = asyncio.run(drive_worker(app, asr, batched, chat))
-        launches = read_counts()
-        if launches != built:
-            raise RuntimeError(f"worker: serving launched kernels outside the graphs: "
-                               f"{launches} after the build's {built}")
-        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+def init(batch_size, config):
+    return App(batch_size, config)
+'''
 
-        info = out["modules_info"]
-        want_info = {"chat": {"type": "moshi", "route": "/api/chat"},
-                     "batched": {"type": "batched_moshi", "batch_size": SLOTS,
-                                 "route": "/api/batched"},
-                     "asr": {"type": "batched_asr", "batch_size": WORKER_ASR_SLOTS,
-                             "route": "/api/asr-streaming"}}
-        if out["unauthorized"] != 401 or info != want_info or out["metrics"] != 200:
-            raise RuntimeError(f"worker: auth {out['unauthorized']}, modules {info}, "
-                               f"metrics {out['metrics']}")
 
-        # ASR: twins, the resume, the legacy twin, markers after their words
-        msgs = out["asr"]
-        for i in range(0, WORKER_ASR_CLIENTS, 2):
-            for a, b in ((i, i + 1),) + (((0, WORKER_ASR_CLIENTS),) if i == 0 else ()):
-                if asr_words(msgs[a]) != asr_words(msgs[b]):
-                    raise RuntimeError(f"worker asr: clients {a} and {b} heard the same PCM "
-                                       f"but said different words")
-        said = sum(len(asr_words(m)) for m in msgs)
-        if not asr_words(msgs[0]) or said == 0:
-            raise RuntimeError("worker asr: no words")
-        ordered = [markers_after_their_words(m) for m in msgs]
-        if not all(ordered):
-            raise RuntimeError(f"worker asr: markers out of order for clients "
-                               f"{[i for i, ok in enumerate(ordered) if not ok]}")
-        if any(m["type"] == "Error" for c in msgs for m in c):
-            raise RuntimeError("worker asr: an Error message")
-        frames = sum(FRAMES for _ in msgs)
-        a50, a90 = (float(np.percentile(out["asr_frame_ms"], p)) for p in (50, 90))
-        phase("worker", f"asr over the socket: {len(msgs)} clients x {FRAMES} frames "
-              f"({WORKER_ASR_CLIENTS} msgpack, 1 legacy \\x08), twins said equal words (the "
-              f"legacy client too), client 15 left after frame {WORKER_LEAVE} and resumed "
-              f"with its twin's words; {said} Word / EndWord messages; every marker came "
-              f"back after its words; {len(out['asr_frame_ms'])} batched frames at B = "
-              f"{WORKER_ASR_SLOTS}: p50 {a50:.2f} ms, p90 {a90:.2f} ms; "
-              f"{frames / out['asr_s']:.0f} client frames/s through the socket ({card})")
+def fleet_toml(name: str, disp_port: int) -> str:
+    return f"""
+[modules.chat]
+type = "moshi"
+route = "/api/chat"
+checkpoint_dir = "{SERVE_DIR}"
+vault_url = "http://127.0.0.1:{disp_port}"
+fleet_auth = "{FLEET_AUTH}"
+replicate_every = {FLEET_REPLICATE}
+log_dir = "{FLEET_DIR / ('logs_' + name)}"
 
-        # batched Moshi: twins and the resumed session
-        b = out["batched"]
-        tokens = b["tokens"]
-        for i in range(0, 14, 2):
-            if not np.array_equal(tokens[i], tokens[i + 1]):
-                raise RuntimeError(f"worker batched: twin sessions {i} and {i + 1} differ")
-        if not np.array_equal(tokens[14], tokens[0]):
-            raise RuntimeError("worker batched: the resumed session differs from its twin")
-        for t in tokens.values():
-            check_tokens(t, batched.lm.config, "worker batched")
-        m50, m90 = (float(np.percentile(out["batched_frame_ms"], p)) for p in (50, 90))
-        phase("worker", f"batched_moshi B = {SLOTS} int4 KV through run_loop: 7 twin pairs "
-              f"x {FRAMES} frames equal token for token; the session that left slot "
-              f"{b['left']} after frame {WORKER_LEAVE} resumed on slot {b['back']} (a tenant "
-              f"took slot {b['tenant']}) and repeats its twin; "
-              f"{len(out['batched_frame_ms'])} frames p50 {m50:.2f} ms, p90 {m90:.2f} ms per "
-              f"batched frame ([batched] graphed greedy p50 {batched_p50:.2f} ms in this run; "
-              f"{card})")
+[modules.counts]
+type = "py"
+route = "/api/counts"
+script = "{FLEET_DIR / 'counts.py'}"
+"""
 
-        # Moshi over the socket against [serve]'s session 1
-        if not np.array_equal(out["chat_tokens"], serve["greedy_tokens"]):
-            raise RuntimeError("worker chat: the socket session's tokens differ from "
-                               "[serve]'s")
-        c50 = float(np.percentile(out["chat_ms"], 50))
-        used = {k: v for k, v in built.items() if v}
-        phase("worker", f"moshi over /api/chat: {len(out['chat_tokens'])} greedy token "
-              f"frames equal [serve]'s session 1; p50 {c50:.2f} ms frame to PCM reply")
-        phase("worker", f"build_app {build_s:.2f} s (aiohttp {aiohttp.__version__}); launches "
-              f"{used} = warm-up + 1 captured frame of each module (chat "
-              f"{chat_frames} steps, batched 4 frames, asr 4 steps), none while serving; "
-              f"peak {peak:.2f} GiB allocated ({card})")
-        seconds = {k: {"load_s": m["load_s"], "warmup_s": m["warmup_s"]}
-                   for k, m in modules.items()}
-        del app, modules, chat, batched, asr
-        return {"launches": launches, "build_s": build_s, "modules": seconds,
-                "asr_p50_ms": a50, "asr_p90_ms": a90,
-                "asr_client_frames_per_s": frames / out["asr_s"],
-                "batched_p50_ms": m50, "batched_p90_ms": m90, "chat_p50_ms": c50,
-                "peak_gib": peak,
-                "per_frame": {"chat": moshi_step, "batched": batched_frame, "asr": asr_step}}
+
+class FleetProc:
+    """One process of the fleet (a worker or the dispatcher), its output in
+    FLEET_DIR/<name>.log."""
+
+    def __init__(self, name: str, args: list, port: int):
+        self.name, self.port = name, port
+        self.log_path = FLEET_DIR / f"{name}.log"
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
+                                     stdout=self._log, stderr=subprocess.STDOUT)
+        self.base = f"http://127.0.0.1:{port}"
+        self.chat = f"ws://127.0.0.1:{port}/api/chat"
+
+    def tail(self, n: int = 20) -> str:
+        return "\n".join(self.log_path.read_text().splitlines()[-n:])
+
+    def pushes(self, rid: str) -> tuple[set, dict]:
+        """(the steps of `rid`'s vault pushes started, {step: (bytes, s, s of
+        the stream to the vault)} of those finished), from the worker's
+        log."""
+        text = self.log_path.read_text()
+        started = {int(s) for s in re.findall(rf"vault push {rid}: step (\d+) started", text)}
+        done = {int(s): (int(b), float(t), float(v)) for s, b, t, v in re.findall(
+            rf"vault push {rid}: step (\d+), (\d+) bytes in ([0-9.]+) s \(([0-9.]+) s to the "
+            rf"vault\)", text)}
+        failed = re.findall(rf"vault push {rid} failed: (.*)", text)
+        if failed:
+            raise RuntimeError(f"fleet {self.name}: a vault push failed: {failed[0]}")
+        return started, done
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._log.close()
+
+
+async def fleet_up(http, p: FleetProc, path: str):
+    """Wait until `p` answers on `path`."""
+    import aiohttp
+    t0 = time.perf_counter()
+    while True:
+        if p.proc.poll() is not None:
+            raise RuntimeError(f"fleet: {p.name} exited {p.proc.returncode}:\n{p.tail()}")
+        try:
+            async with http.get(p.base + path, timeout=aiohttp.ClientTimeout(total=2)) as r:
+                if r.status == 200:
+                    return time.perf_counter() - t0
+        except (aiohttp.ClientError, asyncio.TimeoutError):
+            pass
+        if time.perf_counter() - t0 > FLEET_START_TIMEOUT:
+            raise RuntimeError(f"fleet: {p.name} did not come up:\n{p.tail()}")
+        await asyncio.sleep(0.25)
+
+
+async def open_chat(http, url: str, query: dict) -> tuple:
+    """A /api/chat session: (socket, the config echo or None)."""
+    from moshi_tpu_torch.serve import protocol as proto
+    ws = await http.ws_connect(url, params=query)
+    if (first := await ws.receive_bytes(timeout=SERVE_TIMEOUT)) != proto.handshake():
+        raise RuntimeError(f"fleet: handshake {first!r}")
+    echo = (json.loads((await ws.receive_bytes(timeout=SERVE_TIMEOUT))[1:]) if query else None)
+    return ws, echo
+
+
+async def new_log(p: FleetProc, before: set) -> np.ndarray:
+    """The token rows [T, 1 + dep_q] of the session log `p` writes next."""
+    from moshi_tpu_torch.utils.safetensors import load_file
+    d = FLEET_DIR / f"logs_{p.name}"
+    t0 = time.perf_counter()
+    while not (new := set(d.glob("*.safetensors")) - before):
+        if time.perf_counter() - t0 > SERVE_TIMEOUT:
+            raise RuntimeError(f"fleet: {p.name} wrote no session log")
+        await asyncio.sleep(0.05)
+    await asyncio.sleep(0.2)  # written whole
+    t = load_file(new.pop())
+    if t["text_tokens"].dtype != torch.int32:
+        raise RuntimeError("fleet: a session log's tokens are not int32")
+    return np.concatenate([t["text_tokens"].numpy()[:, None], t["audio_tokens"].numpy().T], 1)
+
+
+def logs_of(p: FleetProc) -> set:
+    return set((FLEET_DIR / f"logs_{p.name}").glob("*.safetensors"))
+
+
+async def counts_of(http, p: FleetProc) -> dict:
+    async with http.get(p.base + "/api/counts") as r:
+        return await r.json()
+
+
+async def migrate(http, first: FleetProc, second: FleetProc, query: dict, pcm, disp=None) -> dict:
+    """A session with a resume id on `first` for FLEET_KILL frames after the
+    skipped one, live replication on; once its pushes have landed, `first`
+    is killed (no disconnect snapshot); through the dispatcher `disp`
+    (when given) the client takes a new ticket, and resumes on `second`
+    from the vault's step for the rest of `pcm`."""
+    async def ticket():
+        t = await (await http.get(f"{disp.base}/add_user", params={"queue_id": "smoke"})).json()
+        return await (await http.get(f"{disp.base}/check_user", params={
+            "session_id": str(t["session_id"]), "session_auth_id": t["session_auth_id"]})).json()
+
+    out = {}
+    if disp is not None:
+        c = await ticket()
+        if c["status"] != "ready" or c["worker_addr"] != first.chat:
+            raise RuntimeError(f"fleet: the dispatcher handed out {c}, not {first.name}")
+    ws, echo = await open_chat(http, first.chat, {"resume_support": "1", **query})
+    rid = echo["resume_id"]
+    out["first"], out["first_ms"] = await frames_session(ws, pcm[:1 + FLEET_KILL])
+    t0 = time.perf_counter()
+    while True:  # every push started has landed in the vault
+        started, done = first.pushes(rid)
+        if started and started <= set(done):
+            break
+        if time.perf_counter() - t0 > SERVE_TIMEOUT:
+            raise RuntimeError(f"fleet: {first.name}'s pushes {started} never landed ({done})")
+        await asyncio.sleep(0.05)
+    out["pushes"], out["resume_step"] = done, max(done)
+    out["first_counts"] = await counts_of(http, first)
+    first.kill()
+    try:
+        await asyncio.wait_for(ws.close(), 5)
+    except Exception:
+        pass  # the worker is gone
+    if disp is not None:
+        t0 = time.perf_counter()
+        while True:  # the dispatcher's poll has seen the worker go
+            stats = await (await http.get(f"{disp.base}/stats")).json()
+            if not next(w for w in stats["workers"] if w["addr"] == first.chat)["reachable"]:
+                break
+            if time.perf_counter() - t0 > SERVE_TIMEOUT:
+                raise RuntimeError(f"fleet: the dispatcher never saw {first.name} die")
+            await asyncio.sleep(0.05)
+        c = await ticket()
+        if c["status"] != "ready" or c["worker_addr"] != second.chat:
+            raise RuntimeError(f"fleet: the re-queued client was handed {c}, not {second.name}")
+    before = logs_of(second)
+    t0 = time.perf_counter()
+    ws, echo = await open_chat(http, second.chat, {"resume_support": "1", "resume": rid})
+    out["resume_s"] = time.perf_counter() - t0
+    if echo.get("resumed") is not True:
+        raise RuntimeError(f"fleet: {second.name} did not resume the session: {echo}")
+    out["second"], _ = await frames_session(ws, pcm[1 + out["resume_step"]:])
+    await ws.close()
+    out["second_tokens"] = await new_log(second, before)
+    return out
+
+
+async def reference_session(http, p: FleetProc, query: dict, pcm) -> dict:
+    """An unbroken session on `p` over all of `pcm`, no resume id (so no
+    replication): its replies per frame and its token log."""
+    before = logs_of(p)
+    ws, _ = await open_chat(http, p.chat, query)
+    replies, _ = await frames_session(ws, pcm)
+    await ws.close()
+    return {"replies": replies, "tokens": await new_log(p, before)}
+
+
+def fleet_pcm(frame_size: int) -> np.ndarray:
+    return (0.3 * np.random.RandomState(SEED + 70).randn(1 + FLEET_FRAMES, frame_size)
+            ).astype(np.float32)
+
+
+async def drive_fleet(procs: dict, disp: FleetProc, frame_size: int, delay: int) -> dict:
+    """(a) of [fleet]: the references and the two migrations."""
+    import aiohttp
+    a, b, c = procs["a"], procs["b"], procs["c"]
+    pcm = fleet_pcm(frame_size)
+    out = {}
+    async with aiohttp.ClientSession() as http:
+        ups = await asyncio.gather(*(fleet_up(http, p, "/api/counts")
+                                     for p in procs.values()), fleet_up(http, disp, "/stats"))
+        out["up_s"] = max(ups)
+        out["build"] = {n: await counts_of(http, p) for n, p in procs.items()}
+        out["ref"] = {"greedy": await reference_session(http, b, {}, pcm),
+                      "sampled": await reference_session(http, b, FLEET_SAMPLED, pcm)}
+        # C's first session of the sampled override set warms and captures
+        # its step: here, before the measured runs
+        ws, _ = await open_chat(http, c.chat, FLEET_SAMPLED)
+        await frames_session(ws, pcm[:2])
+        await ws.close()
+        out["base"] = {n: await counts_of(http, p) for n, p in procs.items()}
+        out["greedy"] = await migrate(http, a, b, {}, pcm, disp)
+        out["sampled"] = await migrate(http, c, b, FLEET_SAMPLED, pcm)
+        out["end_b"] = await counts_of(http, b)
+    out["delay"] = delay
+    return out
+
+
+def check_migration(run: dict, ref: dict, delay: int, what: str) -> dict:
+    """A migrated session against the unbroken one: the first worker's
+    replies to frames 0..FLEET_KILL and the second's from the resumed step
+    on, byte for byte (PCM and text), and the second's session log from
+    that step on, token for token."""
+    s = run["resume_step"]
+    if run["first"] != ref["replies"][:1 + FLEET_KILL]:
+        raise RuntimeError(f"fleet {what}: the first worker's replies differ from the "
+                           f"unbroken session's")
+    if run["second"] != ref["replies"][1 + s:]:
+        i = next(i for i, (x, y) in enumerate(zip(run["second"], ref["replies"][1 + s:]))
+                 if x != y)
+        raise RuntimeError(f"fleet {what}: the resumed session differs from the unbroken one "
+                           f"at frame {1 + s + i}")
+    want = ref["tokens"][s - delay:]
+    if not np.array_equal(run["second_tokens"], want):
+        raise RuntimeError(f"fleet {what}: the resumed tokens differ from the unbroken ones")
+    pcm_frames = sum(any(m[0] == 10 for m in r) for r in run["second"])
+    return {"resume_step": s, "frames_compared": FLEET_FRAMES - s, "pcm_frames": pcm_frames,
+            "token_rows": len(want)}
+
+
+def run_fleet_migration(dev, card: str) -> dict:
+    """(a): the dispatcher and three workers as subprocesses on the card."""
+    from moshi_tpu_torch.models.loaders import CheckpointInfo, _lm_config, mimi_config_from_dict
+    from moshi_tpu_torch.models.mimi import MimiModel
+
+    info = CheckpointInfo.from_dir(SERVE_DIR)
+    cfg = _lm_config(info.lm_config)
+    mimi_cfg = (json.loads((SERVE_DIR / info.mimi_config_name).read_text())
+                if info.mimi_config_name else None)
+    frame_size = MimiModel(mimi_config_from_dict(mimi_cfg, info.num_mimi_codebooks())).frame_size
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    FLEET_DIR.mkdir(parents=True)
+    (FLEET_DIR / "counts.py").write_text(COUNTS_SCRIPT)
+    disp_port = free_port()
+    ports = {n: free_port() for n in "abc"}
+    procs, disp = {}, None
+    t0 = time.perf_counter()
+    try:
+        disp = FleetProc("dispatcher", [
+            "moshi_tpu_torch.serve.dispatcher", "--host", "127.0.0.1", "--port", str(disp_port),
+            "--worker", f"ws://127.0.0.1:{ports['a']}/api/chat=1",
+            "--worker", f"ws://127.0.0.1:{ports['b']}/api/chat=1",
+            "--poll", "0.2", "--fleet-auth", FLEET_AUTH], disp_port)
+        for n, port in ports.items():
+            (FLEET_DIR / f"{n}.toml").write_text(fleet_toml(n, disp_port))
+            procs[n] = FleetProc(n, ["moshi_tpu_torch.serve.worker", "--config",
+                                     str(FLEET_DIR / f"{n}.toml"), "--host", "127.0.0.1",
+                                     "--port", str(port), "--device", FLEET_DEVICE], port)
+        out = asyncio.run(drive_fleet(procs, disp, frame_size, cfg.max_delay))
     finally:
-        shutil.rmtree(SERVE_DIR, ignore_errors=True)
-        shutil.rmtree(ASR_DIR, ignore_errors=True)
+        for p in list(procs.values()) + ([disp] if disp else []):
+            p.kill()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ------------------------------------------------------------ fleet (b)
+def build_vision(dev):
+    """lm_config_v0_1_vision (VISION_LAYERS deep) from a seed, q4 temporal
+    linears, text head and cross projections, int8 depformer, and a bf16
+    Mimi v0.1."""
+    from dataclasses import replace
+    from moshi_tpu_torch.models.lm import LMModel, lm_config_v0_1_vision
+    from moshi_tpu_torch.models.mimi import MimiModel, mimi_v0_1_config
+    from moshi_tpu_torch.utils.quantize import QTensor4, quantize_lm_params
+
+    t0 = time.perf_counter()
+    cfg = lm_config_v0_1_vision()
+    if VISION_LAYERS != cfg.num_layers:
+        cfg = replace(cfg, num_layers=VISION_LAYERS)
+    lm = LMModel(cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 80)
+    params = quantize_lm_params(lm.init_params(g, torch.bfloat16, dev), mode="int4")
+    free_memory()
+    shared = params["transformer"]["cross_attn_shared"]
+    if not all(isinstance(shared[k], QTensor4) for k in ("q_proj", "kv_proj", "out_proj")):
+        raise RuntimeError("fleet vision: the cross projections are not q4")
+    mimi = MimiModel(mimi_v0_1_config(cfg.dep_q))
+    mimi_params = mimi.init_params(g, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    return lm, params, mimi, mimi_params, time.perf_counter() - t0
+
+
+def vision_session(state, payloads) -> tuple[list, list]:
+    """The payloads through the session loop in-process: (the messages
+    sent, the state's cross K/V tensors right after each MT 8 was taken)."""
+    from moshi_tpu_torch.serve import protocol as proto
+    sent, seen = [], []
+
+    async def messages():
+        for p in payloads:
+            yield p
+            if p[0] == proto.MT_IMAGE:  # taken once the loop asks for the next one
+                tr = state.gen_state["transformer"]
+                seen.append((tr["k_cross"], tr["k_cross"].data_ptr()))
+
+    async def send(b):
+        sent.append(b)
+
+    asyncio.run(state.run_session({}, messages(), send))
+    return sent, seen
+
+
+def run_vision(dev, card: str, moshi_step: dict) -> dict:
+    """(b): MT 8 on ServerState over the vision preset, graphed against
+    eager: 10 frames, an image, 20 frames, a second image of the same size,
+    10 frames."""
+    import struct
+    from moshi_tpu_torch.serve import protocol as proto
+    from moshi_tpu_torch.serve.server import ServerState
+    from moshi_tpu_torch.utils.safetensors import load_file
+
+    lm, params, mimi, mimi_params, build_s = build_vision(dev)
+    cfg = lm.config
+    kv_dim = cfg.cross_attention_kv_dim or cfg.dim
+    rs = np.random.RandomState(SEED + 81)
+    pcm = (0.3 * rs.randn(1 + sum(VISION_FRAMES), mimi.frame_size)).astype(np.float32)
+    images = [(0.5 * rs.randn(VISION_IMAGE, kv_dim)).astype(np.float32) for _ in range(2)]
+    image_msgs = [proto.msg(proto.MT_IMAGE, struct.pack("<II", *im.shape) + im.tobytes())
+                  for im in images]
+    n0, n1, n2 = VISION_FRAMES
+    payloads = ([proto.msg(proto.MT_METADATA, json.dumps({"raw_pcm": True}).encode())]
+                + [proto.msg(proto.MT_PCM, f.tobytes()) for f in pcm[:1 + n0]] + [image_msgs[0]]
+                + [proto.msg(proto.MT_PCM, f.tobytes()) for f in pcm[1 + n0:1 + n0 + n1]]
+                + [image_msgs[1]]
+                + [proto.msg(proto.MT_PCM, f.tobytes()) for f in pcm[1 + n0 + n1:]]
+                + [proto.msg(proto.MT_PING)])
+    out = {}
+    for graphed in (True, False):
+        log_dir = FLEET_DIR / f"vision_{'graphed' if graphed else 'eager'}"
+        state = ServerState(mimi, mimi_params, lm, params, device=dev, graphed=graphed,
+                            use_sampling=False, log_dir=str(log_dir))
+        zero_counts()
+        state.warmup()
+        state.capture()
+        built = read_counts()
+        t0 = time.perf_counter()
+        sent, seen = vision_session(state, payloads)
+        seconds = time.perf_counter() - t0
+        launched = {k: v - built[k] for k, v in read_counts().items()}
+        tr = state.gen_state["transformer"]
+        src = torch.from_numpy(images[1]).to(dev)[None]
+        eager_rows = lm.transformer.precompute_cross(params["transformer"], src,
+                                                     params["text_emb"]["weight"].dtype)
+        rows_equal = all(torch.equal(tr[k], eager_rows[k]) for k in ("k_cross", "v_cross"))
+        logs = list(log_dir.glob("*.safetensors"))
+        t = load_file(logs[0])
+        out[graphed] = {"sent": sent, "built": built, "launched": launched, "s": seconds,
+                        "rows_equal": rows_equal, "in_place": (seen[0][0] is seen[1][0]
+                                                               and seen[0][1] == seen[1][1]),
+                        "tokens": np.concatenate([t["text_tokens"].numpy()[:, None],
+                                                  t["audio_tokens"].numpy().T], 1),
+                        "cross_replays": state._gens[()].step_cross.replays}
+        del state, tr, eager_rows
+        free_memory()
+    g, e = out[True], out[False]
+    ack = proto.msg(proto.MT_METADATA, json.dumps({"image": "ok", "frames": VISION_IMAGE}
+                                                  ).encode())
+    if [m for m in g["sent"] if m[0] == proto.MT_METADATA][-2:] != [ack, ack]:
+        raise RuntimeError("fleet vision: an image was not acknowledged")
+    if g["sent"] != e["sent"] or not np.array_equal(g["tokens"], e["tokens"]):
+        raise RuntimeError("fleet vision: the graphed session differs from the eager one")
+    if not (g["rows_equal"] and e["rows_equal"] and g["in_place"] and e["in_place"]):
+        raise RuntimeError(f"fleet vision: cross K/V rows equal {g['rows_equal']} / "
+                           f"{e['rows_equal']}, in place {g['in_place']} / {e['in_place']}")
+    check_tokens(g["tokens"], cfg, "fleet vision")
+    # eager: every frame launches; per step without the cross block (n0
+    # steps) and with it (n1 + n2 steps)
+    per_cross = {}
+    for k in TPU_KERNELS:
+        rest = e["launched"][k] - n0 * moshi_step[k]
+        per_cross[k], odd = divmod(rest, n1 + n2)
+        if odd:
+            raise RuntimeError(f"fleet vision: {k} launched {e['launched'][k]} eagerly, not "
+                               f"{n0} x {moshi_step[k]} + {n1 + n2} x a cross step")
+    # graphed: the build's warm-up frames and captures, then the cross
+    # step's one capture, at the first frame after the first image
+    warm = max(4, cfg.max_delay + 2)
+    want_built = {k: (warm + 1) * moshi_step[k] + per_cross[k] for k in TPU_KERNELS}
+    if g["built"] != want_built or g["launched"] != per_cross:
+        raise RuntimeError(f"fleet vision: graphed launches {g['built']} + {g['launched']}, "
+                           f"expected {want_built} + {per_cross}")
+    generated = len(g["tokens"])
+    phase("fleet", f"(b) vision: lm_config_v0_1_vision {cfg.num_layers} layers of {cfg.dim} "
+          f"(q4 temporal and cross projections, int8 depformer) + bf16 Mimi from seed in "
+          f"{build_s:.1f} s; MT 8 in-process: {n0} frames, an image of {VISION_IMAGE} x "
+          f"{kv_dim} seeded embeddings, {n1} frames, a second image, {n2} frames: both acked "
+          f"{{\"image\": \"ok\", \"frames\": {VISION_IMAGE}}}; graphed = eager in every "
+          f"message and {generated} token frames; the second image's cross K/V written into "
+          f"the first one's tensors (the cross step captured once, {g['cross_replays']} "
+          f"replays), equal to precompute_cross's eager rows; a step launches "
+          f"{ {k: v for k, v in moshi_step.items() if v} } without the cross block, "
+          f"{ {k: v for k, v in per_cross.items() if v} } with it; session {g['s']:.2f} s "
+          f"graphed, {e['s']:.2f} s eager ({card})")
+    launches = {k: g["built"][k] + g["launched"][k] for k in TPU_KERNELS}
+    return {"layers": cfg.num_layers, "build_s": build_s, "per_cross_step": per_cross,
+            "graphed_s": g["s"], "eager_s": e["s"], "token_frames": generated,
+            "launches": launches}
+
+
+# ------------------------------------------------------------ fleet (c)
+def py_basr_toml(dev, tokenizer) -> str:
+    knobs = (f'asr_delay_in_tokens = {ASR_DELAY}\nconditioning_delay = {ASR_COND["delay"]}\n'
+             f'kv_cache = "int8"\nmimi_dtype = "bf16"\n')
+    return f"""
+[modules.pyasr]
+type = "py_batched_asr"
+route = "/api/py-asr"
+script = "{FLEET_DIR / 'py_basr_app.py'}"
+batch_size = {PY_BASR_SLOTS}
+asr_delay_in_tokens = {ASR_DELAY}
+text_tokenizer_file = "{tokenizer}"
+
+[modules.pyasr.config]
+checkpoint_dir = "{ASR_DIR}"
+device = "{torch.device(dev).type}"
+{knobs}
+[modules.asr]
+type = "batched_asr"
+route = "/api/asr-streaming"
+checkpoint_dir = "{ASR_DIR}"
+batch_size = {PY_BASR_SLOTS}
+{knobs}"""
+
+
+async def basr_client(http, url: str, slots: dict, state):
+    """A socket on the ASR route, its Ready read; the slot it took is
+    appended to slots[url]."""
+    from moshi_tpu_torch.serve.msgpack_codec import unpackb
+    before = set(state.slot_queues)
+    ws = await http.ws_connect(url)
+    if unpackb(await ws.receive_bytes(timeout=WORKER_TIMEOUT)).get("type") != "Ready":
+        raise RuntimeError("fleet py_basr: no Ready")
+    slots[url].append((set(state.slot_queues) - before).pop())
+    return ws
+
+
+async def basr_stream(ws, frames, done) -> list:
+    """The frames, a Marker and PY_BASR_TAIL silent frames as fast as the
+    socket takes them; every message until the Marker's echo, `done()`
+    (every frame stepped) and 0.5 s after."""
+    from moshi_tpu_torch.serve.msgpack_codec import packb, unpackb
+    out = []
+
+    async def read():
+        while True:
+            out.append(unpackb(await ws.receive_bytes(timeout=WORKER_TIMEOUT)))
+
+    reader = asyncio.ensure_future(read())
+    silence = np.zeros_like(frames[0])
+    for f in frames:
+        await ws.send_bytes(packb({"type": "Audio", "pcm": f.tolist()}))
+    await ws.send_bytes(packb({"type": "Marker", "id": 1}))
+    for _ in range(PY_BASR_TAIL):
+        await ws.send_bytes(packb({"type": "Audio", "pcm": silence.tolist()}))
+    t0 = time.perf_counter()
+    while not (any(m["type"] == "Marker" for m in out) and done()):
+        if reader.done():
+            reader.result()
+        if time.perf_counter() - t0 > WORKER_TIMEOUT:
+            raise RuntimeError("fleet py_basr: the Marker did not come back, or a frame was "
+                               "not stepped")
+        await asyncio.sleep(0.01)
+    await asyncio.sleep(0.5)
+    reader.cancel()
+    await ws.close()
+    return out
+
+
+def run_py_basr(dev, card: str) -> dict:
+    """(c): a worker of a py_batched_asr module (PY_BASR_SCRIPT over
+    StreamingASR, eager) beside a batched_asr one over [asr]'s checkpoint,
+    both at B = PY_BASR_SLOTS; PY_BASR_CLIENTS socket clients each, the
+    same seeded PCM to both."""
+    import tomllib
+    import aiohttp
+    from aiohttp import web
+    from moshi_tpu_torch.models.loaders import CheckpointInfo
+    from moshi_tpu_torch.serve.worker import build_app
+
+    (FLEET_DIR / "py_basr_app.py").write_text(PY_BASR_SCRIPT)
+    tokenizer = CheckpointInfo.from_dir(ASR_DIR).tokenizer_path
+    zero_counts()
+    t0 = time.perf_counter()
+    app = build_app(tomllib.loads(py_basr_toml(dev, tokenizer)), device=dev)
+    build_s = time.perf_counter() - t0
+    built = read_counts()
+    pstate, bstate = app["modules"]["pyasr"]["state"], app["modules"]["asr"]["state"]
+    papp = pstate.app
+    # the batched engine's text token of each executing slot, each frame
+    btokens = {b: [] for b in range(PY_BASR_SLOTS)}
+    step_pcm = bstate.asr.step_pcm
+
+    def recorded(mimi_params, lm_params, state, pcm, exec_mask=None):
+        out = step_pcm(mimi_params, lm_params, state, pcm, exec_mask)
+        mask = np.ones(PY_BASR_SLOTS, bool) if exec_mask is None else np.asarray(exec_mask)
+        for b in np.nonzero(mask)[0]:
+            btokens[int(b)].append(bstate.asr.items[b].text_token)
+        return out
+
+    bstate.asr.step_pcm = recorded
+    layers = bstate.asr.lm.config.num_layers
+    # unit-RMS noise (a quiet random Mimi maps noise to one code)
+    pcm = np.random.RandomState(SEED + 90).randn(
+        PY_BASR_CLIENTS, PY_BASR_FRAMES, bstate.frame_size).astype(np.float32)
+
+    async def drive():
+        runner = web.AppRunner(app)
+        await runner.setup()
+        port = free_port()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        urls = {"py": f"ws://127.0.0.1:{port}/api/py-asr",
+                "batched": f"ws://127.0.0.1:{port}/api/asr-streaming"}
+        slots = {u: [] for u in urls.values()}
+        try:
+            async with aiohttp.ClientSession() as http:
+                socks = {k: [await basr_client(http, u, slots,
+                                               pstate if k == "py" else bstate)
+                             for _ in range(PY_BASR_CLIENTS)] for k, u in urls.items()}
+                zero_counts()
+                for b in btokens:
+                    btokens[b].clear()
+                n = PY_BASR_FRAMES + PY_BASR_TAIL
+                stepped = {"py": lambda b: len(papp.tokens[b]) >= n,
+                           "batched": lambda b: len(btokens[b]) >= n}
+                got = await asyncio.gather(*(
+                    basr_stream(ws, pcm[i], lambda k=k, b=slots[urls[k]][i]: stepped[k](b))
+                    for k in urls for i, ws in enumerate(socks[k])))
+                # the py loop's last frame, still on its thread, lands
+                last, t0 = -1, time.perf_counter()
+                while pstate.step_idx != last or time.perf_counter() - t0 < 0.5:
+                    if pstate.step_idx != last:
+                        last, t0 = pstate.step_idx, time.perf_counter()
+                    await asyncio.sleep(0.05)
+                served, py_frames = read_counts(), papp.frames
+        finally:
+            await runner.cleanup()
+        return ({k: got[j * PY_BASR_CLIENTS:(j + 1) * PY_BASR_CLIENTS]
+                 for j, k in enumerate(urls)},
+                {k: slots[u] for k, u in urls.items()}, served, py_frames)
+
+    try:
+        msgs, slots, served, py_frames = asyncio.run(drive())
+    finally:
+        bstate.asr.step_pcm = step_pcm
+    want = {k: layers * py_frames if k == "decode_attention_int8" else 0 for k in TPU_KERNELS}
+    if served != want:
+        raise RuntimeError(f"fleet py_basr: serving launched {served}, expected {want} "
+                           f"({layers} a frame of the py app's {py_frames}, none of the "
+                           f"captured batched_asr)")
+    want_built = {k: layers * (3 + 4) if k == "decode_attention_int8" else 0
+                  for k in TPU_KERNELS}
+    if built != want_built:
+        raise RuntimeError(f"fleet py_basr: the build launched {built}, expected {want_built} "
+                           f"(the py app's 3 eager warm-up frames, batched_asr's 3 + a "
+                           f"capture)")
+    findings, equal_tokens, equal_words = [], 0, 0
+    n = PY_BASR_FRAMES + PY_BASR_TAIL
+    for i in range(PY_BASR_CLIENTS):
+        pt = papp.tokens[slots["py"][i]]
+        bt = btokens[slots["batched"][i]]
+        if len(pt) != n or len(bt) != n:
+            raise RuntimeError(f"fleet py_basr: client {i} ran {len(pt)} / {len(bt)} frames")
+        pw = [m["text"] for m in msgs["py"][i] if m["type"] == "Word"]
+        bw = [m["text"] for m in msgs["batched"][i] if m["type"] == "Word"]
+        if pt == bt:
+            equal_tokens += 1
+        else:
+            first = next(f for f, (x, y) in enumerate(zip(pt, bt)) if x != y)
+            findings.append(f"client {i}: tokens differ from frame {first}")
+        if pw == bw:
+            equal_words += 1
+        else:
+            findings.append(f"client {i}: words {pw[:4]} vs {bw[:4]}")
+    said = {k: sum(m["type"] == "Word" for c in msgs[k] for m in c) for k in msgs}
+    if not said["batched"] or not said["py"]:
+        raise RuntimeError(f"fleet py_basr: Words from py_basr / batched_asr: {said}")
+    pt50 = float(np.percentile(papp.ms, 50))
+    bt50 = float(np.percentile(list(bstate.frame_times), 50))
+    first_word = {k: next((f"{m['start_time']:.2f} s" for c in msgs[k] for m in c
+                           if m["type"] == "Word"), "none") for k in msgs}
+    phase("fleet", f"(c) py_batched_asr (a script over StreamingASR, eager) beside batched_asr "
+          f"(graphed), both B = {PY_BASR_SLOTS} over [asr]'s checkpoint, int8 KV; "
+          f"{PY_BASR_CLIENTS} socket clients each, {PY_BASR_FRAMES} seeded frames, a Marker, "
+          f"{PY_BASR_TAIL} silent ones: text tokens equal for {equal_tokens} of "
+          f"{PY_BASR_CLIENTS} clients over {n} frames, words equal for {equal_words} "
+          f"({said['py']} py_basr Words, {said['batched']} batched_asr's, by client "
+          f"{[sum(m['type'] == 'Word' for m in c) for c in msgs['py']]}); "
+          f"{'; '.join(findings) or 'no difference'}; the first "
+          f"word's start_time py_basr {first_word['py']} (its own frame clock) vs batched_asr "
+          f"{first_word['batched']}; "
+          f"decode_attention_int8 {served.get('decode_attention_int8')} launches = {layers} x "
+          f"{py_frames} py frames, none from the captured engine; py frame p50 "
+          f"{pt50:.2f} ms eager, batched_asr p50 {bt50:.2f} ms graphed; build_app "
+          f"{build_s:.2f} s ({card})")
+    del app, pstate, bstate, papp
+    return {"build_s": build_s, "equal_tokens": equal_tokens, "equal_words": equal_words,
+            "clients": PY_BASR_CLIENTS, "frames": n, "findings": findings,
+            "py_frames": py_frames, "py_p50_ms": pt50,
+            "batched_p50_ms": bt50, "per_frame": {k: (layers if k == "decode_attention_int8"
+                                                     else 0) for k in TPU_KERNELS},
+            "launches": {k: built[k] + served[k] for k in TPU_KERNELS}}
+
+
+# --------------------------------------------------------- fleet, whole
+def run_fleet(dev, card: str, serve: dict, worker: dict) -> dict:
+    """[fleet]: (a) migration through the dispatcher's vault across worker
+    subprocesses, (b) MT 8 on the vision preset, (c) py_batched_asr."""
+    t0 = time.perf_counter()
+    moshi_step = worker["per_frame"]["chat"]
+    mig = run_fleet_migration(dev, card)
+    delay = mig["delay"]
+    chat_frames = max(4, delay + 2) + 1
+    for n, got in mig["build"].items():
+        if got != {k: moshi_step[k] * chat_frames for k in got}:
+            raise RuntimeError(f"fleet: worker {n}'s build launched {got}")
+    override = {k: 3 * moshi_step[k] for k in moshi_step}
+    for n in "bc":  # the sampled override set: 2 warm-up steps and its capture
+        if mig["base"][n] != {k: mig["build"][n][k] + override[k] for k in override}:
+            raise RuntimeError(f"fleet: worker {n} launched {mig['base'][n]} before the runs")
+    for what, got, want in (("a at its kill", mig["greedy"]["first_counts"], mig["base"]["a"]),
+                            ("c at its kill", mig["sampled"]["first_counts"], mig["base"]["c"]),
+                            ("b at the end", mig["end_b"], mig["base"]["b"])):
+        if got != want:
+            raise RuntimeError(f"fleet: worker {what} launched {got}, {want} before the "
+                               f"migrations: kernels outside the graphs while serving")
+    res = {}
+    for kind in ("greedy", "sampled"):
+        res[kind] = check_migration(mig[kind], mig["ref"][kind], delay, kind)
+        check_tokens(mig[kind]["second_tokens"], _fleet_cfg(), f"fleet {kind}")
+    if mig["ref"]["greedy"]["replies"] == mig["ref"]["sampled"]["replies"]:
+        raise RuntimeError("fleet: the sampled session equals the greedy one")
+    ms = [m for m in mig["greedy"]["first_ms"] if m is not None]
+    worst = int(np.argmax(ms))
+    p50, p90 = (float(np.percentile(ms, p)) for p in (50, 90))
+    pushes = {k: mig[k]["pushes"] for k in ("greedy", "sampled")}
+    nbytes = max(b for p in pushes.values() for b, _, _ in p.values())
+    push_s = [s for p in pushes.values() for _, s, _ in p.values()]
+    send_s = [v for p in pushes.values() for _, _, v in p.values()]
+    used = {k: v for k, v in moshi_step.items() if v}
+    phase("fleet", f"(a) the dispatcher and workers a, b, c (moshi + a launch-count py "
+          f"module, replicate_every {FLEET_REPLICATE}, vault on the dispatcher) as "
+          f"subprocesses on the one card, up in {mig['up_s']:.1f} s; greedy: the client's "
+          f"ticket went to a, {FLEET_KILL} frames, a SIGKILLed after its pushes of steps "
+          f"{sorted(pushes['greedy'])} landed; the re-queued ticket went to b, which pulled "
+          f"step {res['greedy']['resume_step']} from the vault in {mig['greedy']['resume_s']:.2f}"
+          f" s and streamed to frame {FLEET_FRAMES}: replies byte for byte and "
+          f"{res['greedy']['token_rows']} token rows equal an unbroken session on b; sampled "
+          f"({FLEET_SAMPLED}): c killed after steps {sorted(pushes['sampled'])}, resumed on b "
+          f"from step {res['sampled']['resume_step']}, its draws equal the unbroken sampled "
+          f"session's")
+    phase("fleet", f"(a) launches per captured step {used}; a worker's build {chat_frames} x "
+          f"that, the sampled override set 3 x at its first session on b and c, none while "
+          f"the migrated sessions ran (a, c at their kill, b at the end)")
+    phase("fleet", f"(a) on a with replication on: frame sent -> PCM reply p50 {p50:.2f} ms, "
+          f"p90 {p90:.2f} ms, worst {ms[worst]:.2f} ms (step {worst + 1 + delay}; "
+          f"[serve] p50 {serve['p50_ms']:.2f} ms in this run); a snapshot {nbytes} bytes, "
+          f"pushes {[round(s, 3) for s in push_s]} s, of which the stream into the vault "
+          f"{[round(s, 3) for s in send_s]} s; the resumes' pulls and restores "
+          f"{[round(mig[k]['resume_s'], 2) for k in ('greedy', 'sampled')]} s ({card})")
+    mig_s = mig["phase_s"]
+    free_memory()
+    zero_counts()
+    vision = run_vision(dev, card, moshi_step)
+    free_memory()
+    basr = run_py_basr(dev, card)
+    free_memory()
+    seconds = time.perf_counter() - t0
+    phase("fleet", f"the phase took {seconds:.1f} s ((a) {mig_s:.1f} s)")
+    workers = [mig["greedy"]["first_counts"], mig["sampled"]["first_counts"], mig["end_b"]]
+    launches = {k: sum(w[k] for w in workers) + vision["launches"][k] for k in TPU_KERNELS}
+    return {"launches": launches, "per_step": moshi_step, "vision_per_step": vision[
+                "per_cross_step"], "py_basr": basr,
+            "vision": {k: v for k, v in vision.items() if k != "launches"},
+            "migration": {"up_s": mig["up_s"], "p50_ms": p50, "p90_ms": p90,
+                          "worst_ms": ms[worst], "worst_step": worst + 1 + delay,
+                          "frame_ms": [round(m, 2) for m in ms],
+                          "serve_p50_ms": serve["p50_ms"], "snapshot_bytes": nbytes,
+                          "push_s": push_s, "push_send_s": send_s, **{k: res[k] for k in res},
+                          "resume_s": [mig[k]["resume_s"] for k in ("greedy", "sampled")],
+                          "phase_s": mig_s},
+            "phase_s": seconds}
+
+
+def _fleet_cfg():
+    from moshi_tpu_torch.models.lm import lm_config_v0_1
+    return lm_config_v0_1()
 
 
 # -------------------------------------------------------------------- tts
@@ -4804,7 +5638,13 @@ def main() -> None:
     asr = run_asr(dev, card)
     free_memory()
     stt = run_stt(dev, card)
-    worker = run_worker(dev, card, serve, batched["greedy"]["p50_ms"])
+    try:
+        worker = run_worker(dev, card, serve, batched["greedy"]["p50_ms"])
+        free_memory()
+        fleet = run_fleet(dev, card, serve, worker)
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+        shutil.rmtree(ASR_DIR, ignore_errors=True)
     free_memory()
     try:
         tts = run_tts(dev, card)   # writes TTS_DIR at its end
@@ -4819,7 +5659,8 @@ def main() -> None:
                **{f"batched_{p}": v for p, v in batched["launches"].items()},
                "offline_forward": offline["launches"],
                "hibiki": hibiki["launches"], "asr": asr["launches"], "stt": stt["launches"],
-               "worker": worker["launches"], **tts["launches"],
+               "worker": worker["launches"], "fleet": fleet["launches"],
+               "py_basr": fleet["py_basr"]["launches"], **tts["launches"],
                "tts_serve": tts_serve["launches"], "train_lora": train["launches"],
                "train_int8_base": train["int8_base"]["launches"],
                "train_lmgen": train["serve"]["launches"]}
@@ -4827,6 +5668,8 @@ def main() -> None:
                          "batched_int8": batched["per_frame"]["int8"],
                          "offline_forward": offline["launches"], "asr": asr["per_frame"],
                          **{f"worker_{m}": v for m, v in worker["per_frame"].items()},
+                         "fleet": fleet["per_step"], "fleet_vision": fleet["vision_per_step"],
+                         "py_basr": fleet["py_basr"]["per_frame"],
                          **tts["per_frame"], **hibiki["per_step"], "stt": stt["per_step"],
                          "train_step": train["launches_per_step"],
                          "train_int8_step": train["int8_base"]["launches_per_step"],
@@ -4883,6 +5726,10 @@ def main() -> None:
                                 if key not in ("launches", "greedy_tokens")},
                       "worker": {key: v for key, v in worker.items()
                                  if key not in ("launches", "per_frame")},
+                      "fleet": {"migration": fleet["migration"], "vision": fleet["vision"],
+                                "py_basr": {key: v for key, v in fleet["py_basr"].items()
+                                            if key not in ("launches", "per_frame")},
+                                "phase_s": fleet["phase_s"]},
                       "batched": {key: batched[key] for key in ("sampled", "sampled_eager",
                                                                 "greedy", "int8_greedy")},
                       "offline": {key: v for key, v in offline.items() if key != "launches"},

@@ -12,20 +12,27 @@ waits for that move first, so a restore always reads host copies.
 `serialize_snapshot` / `deserialize_snapshot` are the wire format of a
 snapshot that leaves the process, byte-compatible with the JAX
 package's: one safetensors blob of native_ckpt's flattened tree, bf16
-leaves as U16 named in the `__meta__` header.
+leaves as U16 named in the `__meta__` header.  `vault_push` / `vault_pull`
+move such blobs to and from the fleet dispatcher's vault
+(serve/dispatcher.py) with the standard library's HTTP client, so a
+worker thread can stream a snapshot of GBs without holding up an event
+loop; `host_copy` brings a snapshot's card copies to host memory on a
+stream of its own, so the copy runs beside the frames' kernels.
 """
 
 import asyncio
+import http.client
 import json
 import secrets
 import time
+from urllib.parse import urlsplit
 
 import numpy as np
 import torch
 
 from ..models.native_ckpt import flatten_tree, unflatten_tree
-from ..utils.safetensors import dumps, loads
-from ..utils.trees import to_device
+from ..utils.safetensors import dump_chunks, loads
+from ..utils.trees import copy_into, map_tensors, to_device
 
 
 def new_resume_id() -> str:
@@ -39,6 +46,12 @@ def wants_resume(query) -> bool:
 # ------------------------------------------------------------ wire format
 def serialize_snapshot(arrays, meta: dict) -> bytes:
     """(a tree of tensors, JSON-able meta) -> one safetensors blob."""
+    return b"".join(snapshot_chunks(arrays, meta)[0])
+
+
+def snapshot_chunks(arrays, meta: dict) -> tuple[list, int]:
+    """serialize_snapshot's blob as a list of buffers (views of the host
+    tensors) and its length."""
     flat, bf16_keys = {}, []
     for k, v in flatten_tree({"state": arrays}).items():
         t = torch.as_tensor(v).detach().cpu()
@@ -48,7 +61,7 @@ def serialize_snapshot(arrays, meta: dict) -> bytes:
         flat[k] = t.contiguous()
     header = json.dumps({"meta": meta, "bf16": bf16_keys}).encode("utf-8")
     flat["__meta__"] = torch.from_numpy(np.frombuffer(header, np.uint8).copy())
-    return dumps(flat)
+    return dump_chunks(flat)
 
 
 def deserialize_snapshot(data: bytes):
@@ -58,6 +71,76 @@ def deserialize_snapshot(data: bytes):
     for k in header["bf16"]:
         flat[k] = flat[k].view(torch.bfloat16)
     return unflatten_tree(flat)["state"], header["meta"]
+
+
+# ------------------------------------------------------------ the vault
+def _vault_request(method: str, url: str, rid: str, auth: str, timeout: float,
+                   chunks=None, nbytes: int = 0) -> tuple[int, bytes]:
+    """One request to `{url}/snapshot/{rid}` with the fleet token; (HTTP
+    status, body)."""
+    u = urlsplit(url)
+    conn_cls = http.client.HTTPSConnection if u.scheme == "https" else http.client.HTTPConnection
+    conn = conn_cls(u.hostname, u.port, timeout=timeout)
+    try:
+        headers = {"X-Fleet-Auth": auth}
+        if chunks is not None:
+            headers["Content-Length"] = str(nbytes)
+            headers["Content-Type"] = "application/octet-stream"
+        conn.request(method, f"{u.path.rstrip('/')}/snapshot/{rid}",
+                     body=iter(chunks) if chunks is not None else None, headers=headers)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def vault_push(url: str, rid: str, auth: str, arrays, meta: dict,
+               timeout: float = 30.0) -> int:
+    """POST a snapshot (host tensors) to the vault, streamed from the
+    tensors' memory.  Returns its bytes; raises unless the vault took it."""
+    chunks, nbytes = snapshot_chunks(arrays, meta)
+    status, body = _vault_request("POST", url, rid, auth, timeout, chunks, nbytes)
+    if status != 200:
+        raise RuntimeError(f"vault push {rid}: HTTP {status} {body[:80]!r}")
+    return nbytes
+
+
+def vault_pull(url: str, rid: str, auth: str, timeout: float = 30.0):
+    """GET (and so take: the vault's entries are one-shot) a snapshot:
+    (tree of host tensors, meta), or None."""
+    status, body = _vault_request("GET", url, rid, auth, timeout)
+    return deserialize_snapshot(body) if status == 200 else None
+
+
+def pinned_like(tree):
+    """Host tensors of `tree`'s leaves' shapes and dtypes: pinned for the
+    leaves on a CUDA device (the staging buffers of `host_copy`)."""
+    return map_tensors(tree, lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                   pin_memory=t.is_cuda))
+
+
+def same_layout(a, b) -> bool:
+    """Whether two trees have the same paths, shapes and dtypes."""
+    if a is None or b is None:
+        return False
+    fa, fb = flatten_tree({"t": a}), flatten_tree({"t": b})
+    return fa.keys() == fb.keys() and all(
+        fa[k].shape == fb[k].shape and fa[k].dtype == fb[k].dtype for k in fa)
+
+
+def host_copy(tree, ready=None, stream=None, out=None):
+    """`tree` with every tensor on the host.  With `ready` (a CUDA event
+    recorded after the copies in `tree` were made), `stream` and `out`
+    (pinned_like(tree)), the copies run on `stream` once `ready` has
+    passed, into `out`, which is returned: beside the work the producer
+    queued since, and into pinned memory, so that no other thread's
+    launches wait for them (a copy to pageable memory holds them up for
+    all of its length)."""
+    if ready is None:
+        return to_device(tree, "cpu")
+    with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        return copy_into(out, tree)
 
 
 # -------------------------------------------------------------- slot ids

@@ -17,9 +17,7 @@ The rust production worker's schema (`rust/moshi-server/src/main.rs:
 the tag to the native type, `path` to `route`, and the inline schema to a
 config.json dict (models/rust_config.py) carried under `_inline`, which
 `inline_checkpoint_info` turns into a CheckpointInfo over the explicit
-files.  The dicts equal the JAX package's.  The Mimi, Tts and PyBatchedAsr
-modules translate, but the worker does not build them yet (ROADMAP
-A.12).
+files.  The dicts equal the JAX package's.
 """
 
 from __future__ import annotations

@@ -41,10 +41,16 @@ schema, `type = "BatchedAsr"` and its kin, verbatim):
 - `py` / `py_post`: a user script whose `init(batch_size, config)` returns
   an app with `async handle(request)` (GET) or `async handle_post(request)`
   (POST), optionally `warmup()` and `async run_loop()` (moshi-server's
-  py_module, py_module.rs:399-441).
-Not ported yet, and refused with NotImplementedError: the type
-`py_batched_asr`, and the keys `tp`, `hf_repo`, `vault_url`, `fleet_auth`
-and `log_dir`.
+  py_module, py_module.rs:399-441);
+- `py_batched_asr`: serve/py_basr.py, a user script's `init(batch_size,
+  config)` app stepped with the bitmask protocol behind the msgpack ASR
+  socket (`script`, `batch_size`, `asr_delay_in_tokens`,
+  `text_tokenizer_file`, `config`).
+A `moshi` module also takes `log_dir` (session token logs), and
+`vault_url`, `fleet_auth` and `replicate_every` (cross-worker migration
+through the dispatcher's vault, serve/dispatcher.py).
+Not ported yet, and refused with NotImplementedError: the keys `tp` and
+`hf_repo`.
 
 Every model module loads onto `--device` (`cuda` by default, which must be
 there).  After all modules have warmed up, `main` calls `gc.freeze()`: the
@@ -66,11 +72,8 @@ from pathlib import Path
 from .metrics import OPEN_CHANNELS, REGISTRY
 
 # what the worker does not build yet -> the ROADMAP item it waits for
-NOT_PORTED_TYPES = {"py_batched_asr": "A.12 (py_basr.py)"}
-NOT_PORTED_KEYS = {"tp": "A.13 (the multi-card mesh)", "hf_repo": "A.11 (the hub fetch)",
-                   "vault_url": "A.12 (the vault and migration)",
-                   "fleet_auth": "A.12 (the vault and migration)",
-                   "log_dir": "A.12 (--log-dir)"}
+NOT_PORTED_TYPES: dict[str, str] = {}
+NOT_PORTED_KEYS = {"tp": "A.13 (the multi-card mesh)", "hf_repo": "A.11 (the hub fetch)"}
 
 
 def log(level: str, msg: str):
@@ -134,6 +137,9 @@ def build_module(name: str, mcfg: dict, seed: int, device="cuda"):
     mtype, route = mcfg["type"], mcfg["route"]
     if mtype in ("py", "py_post"):
         return _build_py_module(name, mcfg)
+    if mtype == "py_batched_asr":
+        from .py_basr import build_py_batched_asr
+        return build_py_batched_asr(name, mcfg)
     if mtype not in ("moshi", "batched_moshi", "batched_asr", "asr", "tts", "batched_tts",
                      "mimi"):
         raise ValueError(f"unknown module type {mtype}")
@@ -162,7 +168,9 @@ def build_module(name: str, mcfg: dict, seed: int, device="cuda"):
         state = ServerState(mimi, mimi_params, lm, lm_params, info=info,
                             text_tokenizer=tokenizer,
                             cfg_coef=mcfg.get("cfg_coef", ckpt_cfg_coef), device=device,
-                            rng_seed=seed, **gen_cfg)
+                            rng_seed=seed, log_dir=mcfg.get("log_dir"),
+                            vault_url=mcfg.get("vault_url"), fleet_auth=mcfg.get("fleet_auth"),
+                            replicate_every=mcfg.get("replicate_every", 125), **gen_cfg)
         return route, state.handle_chat, None, _warm(state, t0, {"type": mtype})
 
     if mtype == "batched_moshi":

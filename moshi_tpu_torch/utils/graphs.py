@@ -102,6 +102,11 @@ class GraphedStep:
         self.warm = True
         return out
 
+    def recapture(self):
+        """Drop the captured graph: the next call captures again (over the
+        tensors it is given then).  The step stays warm."""
+        self.graph = self.inputs = self.outputs = None
+
     def __call__(self, *args):
         if not self.graphed:
             return self.fn(*args)

@@ -90,8 +90,17 @@ def save_file(tensors: dict[str, torch.Tensor], path: str | Path,
 
 def dumps(tensors: dict[str, torch.Tensor], metadata: dict[str, str] | None = None) -> bytes:
     """The bytes `save_file` would write."""
+    return b"".join(dump_chunks(tensors, metadata)[0])
+
+
+def dump_chunks(tensors: dict[str, torch.Tensor],
+                metadata: dict[str, str] | None = None) -> tuple[list, int]:
+    """The bytes `save_file` would write, as the header and one buffer per
+    tensor (views of host tensors, not copies), and their total length:
+    a body to stream without joining it first."""
     head, names = _header(tensors, metadata)
-    return b"".join([head] + [_raw(tensors[name]) for name in names])
+    chunks = [head] + [_raw(tensors[name]) for name in names]
+    return chunks, sum(len(c) for c in chunks)
 
 
 def _header(tensors: dict, metadata: dict | None) -> tuple[bytes, list]:

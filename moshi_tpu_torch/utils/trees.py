@@ -114,7 +114,14 @@ def put_slots(state, slot_state, idx, axes):
     return state
 
 
+def map_tensors(state, fn):
+    """`state` with every tensor leaf replaced by fn(leaf) (`torch.clone`:
+    copies on their devices, in the current stream's order); other leaves
+    are passed through."""
+    return _map(lambda s: fn(s) if isinstance(s, torch.Tensor) else s, state)
+
+
 def to_device(state, device):
     """`state` with every tensor leaf moved to `device` (a leaf already
     there is kept, not copied); other leaves are passed through."""
-    return _map(lambda s: s.to(device) if isinstance(s, torch.Tensor) else s, state)
+    return map_tensors(state, lambda s: s.to(device))

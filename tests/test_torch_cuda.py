@@ -1394,6 +1394,140 @@ def test_graphed_server_sessions_with_overrides_equal_eager(gen, tmp_path):
     assert len(steps) == 3 and all(s.graph is not None for s in steps)
 
 
+def _session(state, query, payloads):
+    """One session through run_session, in-process; its messages, once
+    its snapshot (if any) is on the host."""
+    import asyncio
+    out = []
+
+    async def messages():
+        for p in payloads:
+            yield p
+
+    async def send(b):
+        out.append(b)
+
+    async def run():
+        await state.run_session(query, messages(), send)
+        if state._push_task is not None:
+            await state._push_task
+
+    asyncio.run(run())
+    return out
+
+
+@pytest.mark.parametrize("kind", ["greedy", "sampled"])
+def test_graphed_server_resume_equals_unbroken(kind, gen):
+    """A graphed B = 1 server: 1 + 6 frames, a drop, the resume and 6
+    more equal an unbroken 13-frame session byte for byte (the restore
+    writes the captured buffers in place and sets the generator's seed and
+    offset), greedy and sampled."""
+    import json
+    kw = {"use_sampling": False} if kind == "greedy" else {"temp": 0.8, "temp_text": 0.7}
+    state = _server(True, **kw)
+    ptrs = [t.data_ptr() for t in _leaves([state.enc_state, state.dec_state, state.gen_state])]
+    fs = state.frame_size
+    pcm = (0.3 * np.random.RandomState(2).randn(13, fs)).astype(np.float32)
+    raw = [b"\x04" + json.dumps({"raw_pcm": True}).encode()]
+    frames = [b"\x0a" + f.tobytes() for f in pcm]
+    query = {"resume_support": "1", "text_seed": "9"}
+    full = _session(state, query, raw + frames)
+    first = _session(state, query, raw + frames[:7])
+    rid = json.loads(first[1][1:])["resume_id"]
+    second = _session(state, {"resume": rid}, raw + frames[7:])
+    assert json.loads(second[1][1:])["resumed"] is True
+    pcm_of = lambda msgs: [m for m in msgs if m[0] == 10]  # noqa: E731
+    assert pcm_of(first) + pcm_of(second) == pcm_of(full)
+    assert len(pcm_of(full)) == 12 - state.lm.config.max_delay
+    assert [t.data_ptr() for t in _leaves([state.enc_state, state.dec_state,
+                                          state.gen_state])] == ptrs
+
+
+def _tiny_vision():
+    """_tiny_moshi's LM with the vision presets' cross-attention: gated by
+    a conditional sigmoid, an RMS cross-norm, one shared q4 projection
+    set."""
+    from dataclasses import replace
+    from moshi_tpu_torch.models.lm import LMModel
+    mimi, mimi_params, lm, _ = _tiny_moshi()
+    cfg = replace(lm.config, cross_attention=True,
+                  cross_attention_gating="conditional_gated_sigmoid",
+                  cross_attention_norm="rms_norm_f32", shared_cross_attn=True)
+    lm = LMModel(cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = tq.quantize_lm_params(lm.init_params(g, torch.bfloat16, "cuda"), min_size=1,
+                                   mode="int4")
+    assert isinstance(params["transformer"]["cross_attn_shared"]["kv_proj"], tq.QTensor4)
+    return mimi, mimi_params, lm, params
+
+
+def test_cross_state_in_place_under_a_captured_step(gen):
+    """Images into a graphed server between frames: the second image of the
+    same size is written into the first one's K/V tensors, which the step
+    captured with the cross block keeps reading (one capture); its rows
+    equal precompute_cross's eager ones, and the tokens the eager server's
+    over the same frames and images."""
+    from moshi_tpu_torch.serve.server import ServerState
+    models = _tiny_vision()
+    rs = np.random.RandomState(3)
+    images = [rs.randn(5, models[2].config.dim).astype(np.float32) for _ in range(2)]
+    pcm = (0.3 * rs.randn(18, models[0].frame_size)).astype(np.float32)
+    got = {}
+    for graphed in (True, False):
+        state = ServerState(*models, device="cuda", graphed=graphed, use_sampling=False)
+        state.warmup()
+        state.capture()
+        state.skip_frame(pcm[0])
+        seen = []
+        for i, f in enumerate(pcm[1:]):
+            if i in (3, 9):
+                state.set_image_embeddings(images[i == 9])
+                k = state.gen_state["transformer"]["k_cross"]
+                seen.append((k, k.data_ptr()))
+            state.step_frame(f)
+        tr = state.gen_state["transformer"]
+        src = torch.from_numpy(images[1]).cuda()[None]
+        want = models[2].transformer.precompute_cross(models[3]["transformer"], src,
+                                                      models[3]["text_emb"]["weight"].dtype)
+        for k in ("k_cross", "v_cross"):
+            assert torch.equal(tr[k], want[k])
+        assert seen[0][0] is seen[1][0] and seen[0][1] == seen[1][1]
+        got[graphed] = np.stack(state.session_tokens)
+        if graphed:
+            assert state._gens[()].step_cross.replays == 17 - 3
+    np.testing.assert_array_equal(got[True], got[False])
+
+
+def test_replication_copy_between_replays_is_the_state_at_its_step(gen):
+    """A replication's copy, made on the card between two replays and moved
+    to the host on the copy stream after three more replays overwrote the
+    live buffers, equals the state of a twin server stopped at that step."""
+    from moshi_tpu_torch.serve.server import ServerState
+    from moshi_tpu_torch.utils.trees import to_device
+    models = _tiny_moshi()
+    a = ServerState(*models, device="cuda", graphed=True, temp=0.8)
+    b = ServerState(*models, device="cuda", graphed=True, temp=0.8)
+    pcm = (0.3 * np.random.RandomState(4).randn(12, a.frame_size)).astype(np.float32)
+    for s in (a, b):
+        s.warmup()
+        s.skip_frame(pcm[0])
+    for f in pcm[1:8]:
+        a.step_frame(f)
+        b.step_frame(f)
+    copies, ready = a._state_copy()
+    for f in pcm[8:]:
+        a.step_frame(f)
+    host = a._host(copies, ready)
+    want, _ = b._state_copy()
+    want = to_device(want, "cpu")
+    flat = lambda t: list(_leaves(t))  # noqa: E731
+    assert len(flat(host)) == len(flat(want)) > 0
+    for x, y in zip(flat(host), flat(want)):
+        assert x.device.type == "cpu" and torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+    assert not all(torch.equal(x.view(torch.uint8), y.cpu().view(torch.uint8)) for x, y in
+                   zip(flat(host), flat({"enc": a.enc_state, "dec": a.dec_state})))
+
+
 def _graph_schedule():
     """tick -> {slot: action} at B = 4: the schedule of
     tests/test_torch_batched_server.py (slot 2 joins late, slot 1 freezes

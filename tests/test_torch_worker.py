@@ -9,8 +9,9 @@ app, built by each package's `build_app`, gives the same ASR messages, and
 (`models/rust_config.py`) and the serving overrides' quantized bytes.
 Also: auth (401 without the key),
 `/api/modules_info`, `/metrics`, `/api/build_info`, a drain (503 for a new
-session while an open one finishes), a `py` / `py_post` module, the type
-and keys not ported yet, and the CLI's refusal of `cuda` without a card."""
+session while an open one finishes), a `py` / `py_post` module, the keys
+not ported yet, the fleet's type and keys reaching their builders, and the
+CLI's refusal of `cuda` without a card."""
 
 import asyncio
 import os
@@ -391,18 +392,68 @@ script = "{script}"
 
 
 @pytest.mark.parametrize("module", [
-    {"type": "py_batched_asr"},
-    {"type": "PyBatchedAsr", "path": "/p", "batch_size": 2, "text_tokenizer_file": "y",
-     "asr_delay_in_tokens": 2},
-    {"type": "moshi", "tp": 2}, {"type": "batched_asr", "hf_repo": "kyutai/stt"},
-    {"type": "moshi", "vault_url": "http://v"}, {"type": "moshi", "fleet_auth": "k"},
-    {"type": "moshi", "log_dir": "/tmp/logs"}], ids=lambda m: "-".join(map(str, m.values()))[:40])
+    {"type": "moshi", "tp": 2}, {"type": "batched_asr", "hf_repo": "kyutai/stt"}],
+    ids=lambda m: "-".join(map(str, m.values()))[:40])
 def test_not_ported_types_and_keys_raise(module):
-    """A module type or key the worker does not build yet raises
+    """A module key the worker does not build yet raises
     NotImplementedError naming its ROADMAP item, before loading anything."""
     mcfg = {"route": "/api/x", "checkpoint_dir": "/nonexistent", **module}
     with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
         tworker.build_module("m", mcfg, seed=0, device="cpu")
+
+
+class Taken(Exception):
+    """Raised by the stand-ins below with the arguments they were given."""
+
+
+@pytest.mark.parametrize("module", [
+    {"type": "py_batched_asr", "script": "s.py", "batch_size": 2, "asr_delay_in_tokens": 2},
+    {"type": "PyBatchedAsr", "path": "/p", "script": "s.py", "batch_size": 2,
+     "text_tokenizer_file": "y", "asr_delay_in_tokens": 2},
+    {"type": "moshi", "vault_url": "http://v"}, {"type": "moshi", "fleet_auth": "k"},
+    {"type": "moshi", "log_dir": "/tmp/logs"}], ids=lambda m: "-".join(map(str, m.values()))[:40])
+def test_worker_takes_fleet_types_and_keys(module, monkeypatch):
+    """The module types and keys that were refused until the fleet was
+    ported: `py_batched_asr` (native or the reference's `PyBatchedAsr`)
+    reaches build_py_batched_asr with its table, and a `moshi` module's
+    `vault_url`, `fleet_auth`, `replicate_every` and `log_dir` reach
+    ServerState."""
+    from moshi_tpu_torch.models import loaders
+    from moshi_tpu_torch.serve import py_basr, server
+    from moshi_tpu_torch.utils import serving
+
+    class Info:
+        lm_gen_config = {}
+
+        def get_text_tokenizer(self):
+            return None
+
+        def get_mimi(self, device):
+            return None, None
+
+        def get_moshi(self, device):
+            return None, None
+
+    def take(*args, **kwargs):
+        raise Taken(args, kwargs)
+
+    monkeypatch.setattr(loaders.CheckpointInfo, "from_dir", staticmethod(lambda d: Info()))
+    monkeypatch.setattr(serving, "override_lm", lambda lm, *_: lm)
+    monkeypatch.setattr(server, "ServerState", take)
+    monkeypatch.setattr(py_basr, "build_py_batched_asr", take)
+    mcfg = {"route": "/api/x", "checkpoint_dir": "/nonexistent", **module}
+    tworker._refuse_not_ported("m", mcfg)
+    with pytest.raises(Taken) as got:
+        tworker.build_module("m", mcfg, seed=0, device="cpu")
+    args, kwargs = got.value.args
+    if module["type"] == "moshi":
+        key = next(k for k in module if k != "type")
+        assert kwargs[key] == module[key] and kwargs["replicate_every"] == 125
+        assert {"vault_url", "fleet_auth", "log_dir"} <= set(kwargs)
+    else:
+        name, table = args
+        assert name == "m" and table["type"] == "py_batched_asr" and table["script"] == "s.py"
+        assert table["batch_size"] == 2 and table["asr_delay_in_tokens"] == 2
 
 
 def test_worker_refuses_cuda_without_a_card(tmp_path):
