@@ -56,7 +56,9 @@ Phases, each printing its own line(s):
                over one LMGen.step's launches; int8 above 16 rows at the
                depformer's shapes (16-row chunks: checked at M = 33 and 512,
                timed at 32, 64 and 512) and int8_linear under autograd at
-               512 rows against the plain path (output and dX);
+               512 rows against the plain path (output and dX); q4_wgmma at
+               Helium-1 2B's 203-row prefill at its five q4 shapes, checked
+               and timed as above, summed over the prefill's 97 launches;
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
                depformer, bf16 KV cache, bf16 Mimi, all initialised from a
                seed on the card; the graphed ServerState: warm-up, then 3
@@ -157,6 +159,32 @@ Phases, each printing its own line(s):
                (a)'s first 8 temporal steps with the kernels against the
                same inputs through the plain GEMVs, the text logits held
                to HIBIKI_WITNESS_BOUND; the checkpoint is deleted;
+ 6c. helium  - text generation at the full width of Helium-1 preview 2B
+               (dim 2560, 24 layers, 20 heads of 128, FFN 7040, text card
+               48000, context 4096), q4 on its 96 layer linears and head,
+               from a seed, written as a native checkpoint (model_type
+               helium, a synthetic 48000-piece tokenizer) and run through
+               run_helium over a 203-token prompt (a multiple of neither 16
+               nor 128): (a) main greedy, graphed, 128 tokens, twice (equal
+               tokens); (b) generate_text eagerly over the same ids (the
+               graphed tokens); each run's forward_text_step calls: the
+               prefill's 97 q4_wgmma launches of 203 rows, 97 q4_gemv in
+               each decode step that launches (graphed: the warm-up and the
+               capture, the rest replays), nothing else; the plain witness
+               (the prefill's last logits against the plain GEMVs in f32,
+               HELIUM_WITNESS_BOUND); (c) main at its sampling defaults
+               twice (equal tokens); prefill ms, ms/token p50/p90 graphed
+               and eager, tokens/s, peak GiB, a profiler pass over an eager
+               run (q4_gemv's card ms a step); the checkpoint is deleted;
+ 6d. bench_cli - moshi_tpu_torch.benchmark.main in-process: --mimi-only
+               (100 steps), --mode duplex --model moshi_7b_int4 (60 paced
+               steps, f32 Mimi, three graphs: [slice]'s 129 q4_gemv + 208
+               int8_mma at the warm-up step and at the capture, nothing
+               while replaying; its p50 beside [slice]'s) and --mode asr
+               --batch 64 --kv-cache int8 --mimi-dtype bf16 (30 steps, 16
+               decode_attention_int8 in each warm-up frame and the capture,
+               the host-only part merged in); each printed JSON's keys the
+               JAX function's;
   7. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
@@ -298,13 +326,14 @@ script exits non-zero and prints no result.
 
 import asyncio
 import gc
+import io
 import json
 import re
 import shutil
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext, redirect_stdout
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -851,6 +880,54 @@ def check_offline_q4(dev, g) -> dict:
             "max_abs_err": max_abs, "launches_per_forward": sum(Q4_SHAPES.values()),
             "f32_route": {"rows": M, "shape": f"{din}x{dout}", "q4_gemv_launches": launched[0],
                           "max_abs_err": err}}
+
+
+def check_helium_q4(dev, g) -> dict:
+    """q4_wgmma at Helium-1 2B's prefill: HELIUM_PROMPT rows (a multiple of
+    neither 16 nor 128: the last row tile mostly padding) at its five q4
+    shapes, against the plain version in bf16; then (operands cold in L2)
+    its time beside the plain version's, torch.matmul's on the bf16 weight
+    and the bound, summed over the prefill's 97 launches."""
+    from moshi_tpu_torch.ops import q4matmul
+    from moshi_tpu_torch.utils.quantize import dequantize4, quantize_tensor4
+
+    M, plain = HELIUM_PROMPT, q4matmul.q4_gemv_plain
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    total, by_shape, max_abs, bound_by = dict.fromkeys(keys, 0.0), {}, 0.0, set()
+    for (din, dout), n in HELIUM_Q4_SHAPES.items():
+        if q4matmul.route(M, torch.bfloat16, 32, dout) != "q4_wgmma":
+            raise RuntimeError(f"helium q4 {din}x{dout} at M = {M} would not run q4_wgmma")
+        w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
+        qt = quantize_tensor4(w)
+        bytes_w = qt.q.numel() + 4 * qt.scale.numel()
+        copies = [qt] + [quantize_tensor4(w) for _ in range(copies_for_cold_l2(bytes_w) - 1)]
+        del w
+        dense = [dequantize4(qt.q, qt.scale, torch.bfloat16)
+                 for _ in range(copies_for_cold_l2(2 * din * dout))]
+        x = torch.randn(M, din, device=dev, generator=g).to(torch.bfloat16)
+        max_abs = max(max_abs, _check_against_plain("q4_wgmma", q4matmul.q4_wgmma, plain, qt,
+                                                    x))
+        ops = [(x, c.q, c.scale) for c in copies]
+        t = {"ms": time_ms(q4matmul.q4_wgmma, ops), "plain_ms": time_ms(plain, ops),
+             "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
+        t["bound_ms"], by = bound(bytes_w + 2 * M * (din + dout), 2 * M * din * dout)
+        bound_by.add(by)
+        by_shape[f"{din}x{dout} M={M}"] = {**t, "launches": n}
+        for k in keys:
+            total[k] += n * t[k]
+        phase("kernels", f"helium prefill q4_wgmma {din}x{dout} M={M} bf16 ({n} a prefill): "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by})")
+        del copies, dense
+    total["bound_by"] = "operations" if bound_by == {"operations"} else "bytes"
+    total["tflops"] = 2 * M * sum(n * din * dout for (din, dout), n in
+                                  HELIUM_Q4_SHAPES.items()) / total["ms"] / 1e9
+    phase("kernels", f"helium prefill ({sum(HELIUM_Q4_SHAPES.values())} q4_wgmma launches, "
+          f"M={M}): kernel {total['ms']:.3f} ms ({total['tflops']:.1f} TFLOP/s), plain "
+          f"{total['plain_ms']:.3f} ms, torch.matmul on bf16 {total['library_ms']:.3f} ms, "
+          f"bound {total['bound_ms']:.3f} ms ({total['bound_by']})")
+    free_memory()
+    return {"per_prefill": total, "by_shape": by_shape, "max_abs_err": max_abs, "rows": M}
 
 
 def check_int8_rows(dev, g) -> dict:
@@ -2499,6 +2576,408 @@ def run_hibiki(dev, card: str) -> dict:
     return {"runs": runs, "witness": witness, "checkpoint_gb": written["bytes"] / 1e9,
             "peak_gib": peak, "launches": launches,
             "per_step": {f"hibiki_b{rows}": expected[rows] for rows in HIBIKI_ROWS}}
+
+
+HELIUM_DIR = ROOT / "build" / "helium_checkpoint"
+# Helium-1 preview 2B (kyutai/helium-1-preview-2b): bench.py's moshi_2b
+# temporal stack and scripts/import_helium.py's defaults.  Its linears are
+# Hibiki-2B's temporal ones: 97 a step, 4 a layer and the 48000-column head
+HELIUM_Q4_SHAPES = HIBIKI_Q4_SHAPES
+HELIUM_PROMPT = 203       # prompt tokens: a multiple of neither 16 nor 128
+HELIUM_STEPS = 128        # tokens of each run
+HELIUM_PROFILED = 33      # tokens of the profiled eager run (32 decode steps)
+# ||logits(kernels) - logits(plain)|| / ||logits(plain)|| of the prefill's
+# last position, at most (PERF.md §6, stated before the first run)
+HELIUM_WITNESS_BOUND = HIBIKI_WITNESS_BOUND
+
+
+def helium_config():
+    """Helium-1 preview 2B's LM: dim 2560, 24 layers, 20 heads of 128,
+    FFN 7040, text card 48000, context 4096, rope max_period 100000; no
+    audio codebooks, no depformer (import_helium.py's config)."""
+    from moshi_tpu_torch.models.lm import LmConfig
+
+    return LmConfig(dim=2560, num_heads=20, num_layers=24, hidden_scale=4.125, kv_repeat=1,
+                    n_q=0, dep_q=0, card=0, text_card=48000, context=4096,
+                    max_period=100_000.0, gating="silu", norm="rms_norm_f32",
+                    positional_embedding="rope", delays=(0,), depformer_dim=0,
+                    depformer_num_heads=1, depformer_num_layers=0,
+                    depformer_multi_linear=False, depformer_weights_per_step=False)
+
+
+def helium_expected(rows: int) -> dict:
+    """Launches of one forward_text_step of `rows` rows: each q4 linear on
+    the kernel q4matmul.route picks for bf16 x of that many rows."""
+    from moshi_tpu_torch.ops import q4matmul
+
+    out = dict.fromkeys(counters(), 0)
+    for (_, dout), n in HELIUM_Q4_SHAPES.items():
+        out[q4matmul.route(rows, torch.bfloat16, 32, dout)] += n
+    return out
+
+
+def write_helium_checkpoint(dev, out: Path) -> int:
+    """Seeded Helium-1 2B, q4 (group 32) on the 96 layer linears and the
+    head, written as a native checkpoint with a config.json of model_type
+    helium and a synthetic tokenizer of the 48000 text pieces.  Returns
+    the bytes of the weights."""
+    import dataclasses
+    from moshi_tpu_torch.models.lm import LMModel
+    from moshi_tpu_torch.models.native_ckpt import save_params
+    from moshi_tpu_torch.text.spm import spm_model_bytes
+    from moshi_tpu_torch.utils.quantize import QTensor4, quantize_lm_params
+
+    t0 = time.perf_counter()
+    cfg = helium_config()
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    params = quantize_lm_params(LMModel(cfg).init_params(g, torch.bfloat16, dev), mode="int4")
+    layers = params["transformer"]["layers"]
+    linears = [layers["attn"]["in_proj"], layers["attn"]["out_proj"],
+               layers["mlp"]["linear_in"], layers["mlp"]["linear_out"],
+               params["text_linear"]["weight"]]
+    if not all(isinstance(w, QTensor4) for w in linears):
+        raise RuntimeError("helium: a linear of the quantized tree is not q4")
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    nbytes = save_params(out / "model.q4.native.safetensors", params)
+    (out / "tokenizer.model").write_bytes(spm_model_bytes(cfg.text_card))
+    config = {k: list(v) if isinstance(v, tuple) else v
+              for k, v in dataclasses.asdict(cfg).items()}
+    config.update(moshi_name="model.q4.native.safetensors", tokenizer_name="tokenizer.model",
+                  model_type="helium", native_format=True)
+    (out / "config.json").write_text(json.dumps(config, indent=2))
+    tc = cfg.transformer_config
+    phase("helium", f"Helium-1 2B q4 (dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} "
+          f"heads x {tc.head_dim}, kv_repeat {cfg.kv_repeat}, FFN {tc.hidden}, text card "
+          f"{cfg.text_card}, context {cfg.context}, rope {cfg.max_period:g}) built from seed "
+          f"{SEED + 23} in {built:.1f} s; written as a native checkpoint of "
+          f"{nbytes / 1e9:.3f} GB in {time.perf_counter() - t0 - built:.1f} s")
+    del params, layers, linears
+    free_memory()
+    return nbytes
+
+
+@contextmanager
+def text_step_launches():
+    """LMModel.forward_text_step recorded while entered: each call's rows
+    and the kernel launches it made, read from the host counters with no
+    sync (a call may be a capture)."""
+    from moshi_tpu_torch.models.lm import LMModel
+
+    calls, fns, original = [], counters(), LMModel.forward_text_step
+
+    def recorded(self, params, tr_state, sequence, *args, **kwargs):
+        before = {name: fn.launches for name, fn in fns.items()}
+        out = original(self, params, tr_state, sequence, *args, **kwargs)
+        calls.append((sequence.shape[-1],
+                      {name: fn.launches - before[name] for name, fn in fns.items()}))
+        return out
+
+    LMModel.forward_text_step = recorded
+    try:
+        yield calls
+    finally:
+        LMModel.forward_text_step = original
+
+
+def check_helium_calls(calls, launches: dict, graphed: bool, what: str) -> None:
+    """A generate_text run's forward_text_step calls: the prefill of
+    HELIUM_PROMPT rows first, then one row a call, each with exactly the
+    launches its rows imply; graphed, two calls only (the warm-up and the
+    capture: the other steps are replays); nothing launched outside."""
+    steps = 2 if graphed else HELIUM_STEPS - 1
+    if [rows for rows, _ in calls] != [HELIUM_PROMPT] + [1] * steps:
+        raise RuntimeError(f"{what}: forward_text_step calls of rows "
+                           f"{[rows for rows, _ in calls]}")
+    if calls[0][1] != helium_expected(HELIUM_PROMPT):
+        raise RuntimeError(f"{what}: the prefill launched {calls[0][1]}")
+    if any(delta != helium_expected(1) for _, delta in calls[1:]):
+        raise RuntimeError(f"{what}: a decode step launched {calls[1][1]}")
+    if launches != {k: sum(d[k] for _, d in calls) for k in launches}:
+        raise RuntimeError(f"{what}: kernels launched outside forward_text_step: {launches}")
+
+
+def helium_cli(dev, args: list) -> dict:
+    """run_helium.main over HELIUM_DIR (the CLI in-process, its print
+    captured): tokens, stats, the calls' launches, peak GiB, seconds."""
+    from moshi_tpu_torch import run_helium
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stats, printed = {}, io.StringIO()
+    t0 = time.perf_counter()
+    with text_step_launches() as calls, redirect_stdout(printed):
+        ids = run_helium.main(["--checkpoint-dir", str(HELIUM_DIR), "-n", str(HELIUM_STEPS),
+                               "--device", str(dev), *args], stats=stats)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    return {"ids": ids, "stats": stats, "calls": calls, "launches": launches, "wall_s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "printed": printed.getvalue()}
+
+
+def step_summary(stats: dict, skip: int) -> dict:
+    ms = np.asarray(stats["step_ms"][skip:])
+    return {"prefill_ms": stats["prefill_ms"], "p50_ms": float(np.percentile(ms, 50)),
+            "p90_ms": float(np.percentile(ms, 90)), "tokens_per_s": 1e3 / float(ms.mean())}
+
+
+def run_helium(dev, card: str) -> dict:
+    """Helium-1 2B through run_helium: the checkpoint written; (a) main
+    greedy, graphed, twice over a HELIUM_PROMPT-token prompt; (b) the same
+    ids through generate_text eagerly; the plain witness of the prefill's
+    last logits; (c) main sampled at its defaults, twice, and the same
+    draws through generate_text eagerly; a profiler pass over an eager run (the same launches as a graphed one's replays; no
+    capture under the profiler).  The checkpoint is deleted."""
+    from moshi_tpu_torch.models.loaders import CheckpointInfo
+    from moshi_tpu_torch.run_helium import generate_text
+    from moshi_tpu_torch.text.spm import SentencePieceTokenizer
+
+    t_phase = time.perf_counter()
+    try:
+        nbytes = write_helium_checkpoint(dev, HELIUM_DIR)
+        info = CheckpointInfo.from_dir(HELIUM_DIR)
+        tok = SentencePieceTokenizer(info.tokenizer_path)
+        text_card = helium_config().text_card
+        words = np.random.RandomState(SEED + 24).randint(3, text_card, HELIUM_PROMPT)
+        prompt = " ".join(f"w{i}" for i in words)
+        ids = tok.encode(prompt)
+        if ids != words.tolist():
+            raise RuntimeError(f"helium: the prompt encodes to {len(ids)} ids, not its "
+                               f"{HELIUM_PROMPT} words")
+        prefill_calls, decode_calls = [], []
+
+        def keep(calls):
+            prefill_calls.extend(d for rows, d in calls if rows > 1)
+            decode_calls.extend(d for rows, d in calls if rows == 1)
+
+        # (a) the CLI, greedy, graphed, twice
+        greedy = []
+        for i in range(2):
+            r = helium_cli(dev, ["--prompt", prompt, "--temp", "0"])
+            check_helium_calls(r["calls"], r["launches"], True, f"helium (a) run {i + 1}")
+            keep(r["calls"])
+            if not (len(r["ids"]) == HELIUM_STEPS and r["printed"].startswith(prompt)
+                    and all(0 <= t < text_card for t in r["ids"])):
+                raise RuntimeError("helium (a): tokens out of range or the print wrong")
+            greedy.append(r)
+        if greedy[0]["ids"] != greedy[1]["ids"]:
+            raise RuntimeError("helium (a): two greedy runs gave different tokens")
+        graphed = step_summary(greedy[1]["stats"], 2)
+        completion = r["printed"][len(prompt):].split()
+        phase("helium", f"(a) run_helium.main --temp 0 -n {HELIUM_STEPS}, graphed, twice: "
+              f"equal tokens ({' '.join(completion[:6])} ...); forward_text_step calls: the "
+              f"prefill of {HELIUM_PROMPT} rows {greedy[1]['calls'][0][1]['q4_wgmma']} "
+              f"q4_wgmma, the warm-up and the capture {helium_expected(1)['q4_gemv']} "
+              f"q4_gemv each, {HELIUM_STEPS - 3} replays, nothing else; prefill "
+              f"{graphed['prefill_ms']:.2f} ms, ms/token p50 {graphed['p50_ms']:.3f}, p90 "
+              f"{graphed['p90_ms']:.3f}, {graphed['tokens_per_s']:.1f} tokens/s; peak "
+              f"{greedy[1]['peak_gib']:.2f} GiB; {greedy[1]['wall_s']:.1f} s with the load "
+              f"({card})")
+
+        # (b) eager, the same ids
+        lm, params = info.get_moshi(device=dev)
+        zero_counts()
+        stats = {}
+        with text_step_launches() as calls:
+            eager_ids = generate_text(lm, params, ids, HELIUM_STEPS,
+                                      torch.Generator(device=dev).manual_seed(0), temp=0.0,
+                                      graphed=False, stats=stats)
+        check_helium_calls(calls, read_counts(), False, "helium (b)")
+        keep(calls)
+        if eager_ids != greedy[0]["ids"]:
+            same = sum(a == b for a, b in zip(eager_ids, greedy[0]["ids"]))
+            raise RuntimeError(f"helium (b): eager tokens differ from graphed ({same} of "
+                               f"{HELIUM_STEPS} equal)")
+        eager = step_summary(stats, 0)
+        phase("helium", f"(b) generate_text graphed=False over the same ids: the graphed "
+              f"tokens, {HELIUM_STEPS - 1} decode calls of {helium_expected(1)['q4_gemv']} "
+              f"q4_gemv; prefill {eager['prefill_ms']:.2f} ms, ms/token p50 "
+              f"{eager['p50_ms']:.3f}, p90 {eager['p90_ms']:.3f}, "
+              f"{eager['tokens_per_s']:.1f} tokens/s ({card})")
+
+        # the plain witness: the prefill's last logits, kernels against plain f32
+        prompt_t = torch.tensor(ids, dtype=torch.long, device=dev)[None, None]
+        logits = []
+        for plain in (False, True):
+            state = lm.transformer.init_state(1, torch.bfloat16, dev)
+            with (plain_gemvs(f32=True) if plain else nullcontext()), \
+                    text_step_launches() as calls:
+                zero_counts()
+                logits.append(
+                    lm.forward_text_step(params, state, prompt_t)[1][0, 0, -1].float())
+                launched = read_counts()
+            if launched != (dict.fromkeys(launched, 0) if plain
+                            else helium_expected(HELIUM_PROMPT)):
+                raise RuntimeError(f"helium: the witness's {'plain' if plain else 'kernel'} "
+                                   f"prefill launched {launched}")
+            if not plain:
+                keep(calls)
+        got, want = logits
+        witness = {"norm_rel_err": ((got - want).norm() / want.norm()).item(),
+                   "max_rel_err": rel_err(got, want),
+                   "same_argmax": bool(got.argmax() == want.argmax())}
+        phase("helium", f"plain witness: the prefill's last-position logits ({HELIUM_PROMPT} "
+              f"rows, {sum(HELIUM_Q4_SHAPES.values())} q4_wgmma) against the same weights "
+              f"through the plain GEMVs in f32: "
+              f"||d|| / ||plain|| {witness['norm_rel_err']:.3e} (bound "
+              f"{HELIUM_WITNESS_BOUND:.0e}), max rel {witness['max_rel_err']:.3e}; greedy "
+              f"token {'equal' if witness['same_argmax'] else 'DIFFERENT'}")
+        if witness["norm_rel_err"] > HELIUM_WITNESS_BOUND:
+            raise RuntimeError("helium: the kernels' logits leave the plain witness's bound")
+
+        # (c) the CLI's sampling defaults (temp 0.7, top-k 50, generator seeded 0), twice
+        sampled = [helium_cli(dev, ["--prompt", prompt]) for _ in range(2)]
+        for r in sampled:
+            check_helium_calls(r["calls"], r["launches"], True, "helium (c)")
+            keep(r["calls"])
+        if sampled[0]["ids"] != sampled[1]["ids"]:
+            raise RuntimeError("helium (c): two sampled runs of one seed differ")
+        # eager over the same ids and a generator seeded 0: a replay that drew
+        # with the wrong generator state would still repeat itself, not this
+        zero_counts()
+        with text_step_launches() as calls:
+            eager_sampled = generate_text(lm, params, ids, HELIUM_STEPS,
+                                          torch.Generator(device=dev).manual_seed(0),
+                                          temp=0.7, top_k=50, graphed=False)
+        check_helium_calls(calls, read_counts(), False, "helium (c) eager")
+        keep(calls)
+        if eager_sampled != sampled[0]["ids"]:
+            same = sum(a == b for a, b in zip(eager_sampled, sampled[0]["ids"]))
+            raise RuntimeError(f"helium (c): eager sampled tokens differ from graphed ({same} "
+                               f"of {HELIUM_STEPS} equal)")
+        same = sum(a == b for a, b in zip(sampled[0]["ids"], greedy[0]["ids"]))
+        phase("helium", f"(c) run_helium.main at its defaults (temp 0.7, top-k 50, generator "
+              f"seeded 0), twice, and generate_text graphed=False on the same seed: equal "
+              f"tokens, {same} of {HELIUM_STEPS} equal to the greedy ones; ms/token p50 "
+              f"{step_summary(sampled[1]['stats'], 2)['p50_ms']:.3f} ({card})")
+
+        # the card's time of the kernels, over an eager run
+        with text_step_launches() as calls:
+            prof = profile_frames(lambda i: generate_text(
+                lm, params, ids, HELIUM_PROFILED, torch.Generator(device=dev).manual_seed(0),
+                temp=0.0, graphed=False), 1)
+        keep(calls)
+        steps = HELIUM_PROFILED - 1
+        per_kernel = prof["kernel_ms_per_frame"]
+        profiled = {"decode_steps": steps, "busy_ms": prof["busy_ms_per_frame"],
+                    "q4_gemv_ms_per_step": per_kernel.get("q4_gemv", 0.0) / steps,
+                    "q4_wgmma_prefill_ms": per_kernel.get("q4_wgmma", 0.0),
+                    "host_ms": prof["host_ms_per_frame"],
+                    "top_device_ms": prof["top_device_ms_per_frame"]}
+        phase("helium", f"profiler over an eager run ({HELIUM_PROMPT}-row prefill, {steps} "
+              f"decode steps): card busy {profiled['busy_ms']:.2f} ms of "
+              f"{profiled['host_ms']:.2f}; q4_gemv {profiled['q4_gemv_ms_per_step']:.3f} ms a "
+              f"step ({sum(HELIUM_Q4_SHAPES.values())} launches), the prefill's q4_wgmma "
+              f"{profiled['q4_wgmma_prefill_ms']:.3f}"
+              f" ms; the most costly {json.dumps(profiled['top_device_ms'])}")
+        del lm, params
+    finally:
+        shutil.rmtree(HELIUM_DIR, ignore_errors=True)
+    free_memory()
+    seconds = time.perf_counter() - t_phase
+    phase("helium", f"phase {seconds:.1f} s")
+    total = {k: sum(d[k] for d in prefill_calls) for k in counters()}
+    decode = {k: sum(d[k] for d in decode_calls) for k in counters()}
+    return {"checkpoint_gb": nbytes / 1e9, "graphed": graphed, "eager": eager,
+            "witness": witness, "profile": profiled, "peak_gib": greedy[1]["peak_gib"],
+            "prompt_tokens": HELIUM_PROMPT, "steps": HELIUM_STEPS, "phase_s": seconds,
+            "launches": {"helium_prefill": total, "helium_decode": decode},
+            "per_step": {"helium_prefill": helium_expected(HELIUM_PROMPT),
+                         "helium_decode": helium_expected(1)}}
+
+
+# the benchmark CLI's modes on the card, and the summary keys of the JAX
+# function each runs (moshi_tpu/benchmark.py: bench_mimi_only, bench_paced,
+# bench_asr with bench_asr_host_only's merged in by main)
+BENCH_CLI_RUNS = {
+    "mimi_only": ["--mimi-only", "--steps", "100"],
+    "duplex": ["--mode", "duplex", "--model", "moshi_7b_int4", "--steps", "60"],
+    "asr": ["--mode", "asr", "--batch", "64", "--kv-cache", "int8", "--mimi-dtype", "bf16",
+            "--steps", "30"],
+}
+BENCH_CLI_KEYS = {
+    "mimi_only": {"mimi_steps_per_s", "ms_per_step", "rtf"},
+    "duplex": {"model", "steps", "frame_interval_ms", "p50_ms", "p90_ms", "max_ms", "realtime"},
+    "asr": {"mode", "model", "batch", "mimi_chunks", "kv_cache", "context", "weights", "mimi",
+            "steps", "p50_ms", "p90_ms", "ms_per_user_p50", "device_only_ms",
+            "host_roundtrip_ms", "realtime", "realtime_device_only", "host_python_ms",
+            "host_python_us_per_user", "msgs_per_step"},
+}
+ASR_WARM_FRAMES = 3       # StreamingASR.warmup's eager frames
+BENCH_CLI_LOGS = ROOT / "build" / "bench_cli"  # --out event logs of the timed modes
+
+
+def bench_cli_expected() -> dict:
+    """Launches each mode's run implies: none for Mimi alone; for duplex
+    (Moshi-7B q4 + int8 depformer at B = 1) the warm-up step and the
+    capture, each [slice]'s per-step count; for asr (bf16 weights, int8
+    KV) 16 K6 in each warm-up frame and in the capture."""
+    from moshi_tpu_torch.models.lm import lm_config_asr_300m_202501
+    from moshi_tpu_torch.ops import q4matmul, qmatmul
+
+    none = dict.fromkeys(counters(), 0)
+    step = dict(none)
+    for (_, dout), n in Q4_SHAPES.items():
+        step[q4matmul.route(1, torch.bfloat16, 32, dout)] += n
+    for (din, dout), n in INT8_SHAPES.items():
+        step["int8_mma" if qmatmul.use_mma(1, torch.bfloat16, din, dout) else "int8_gemv"] += n
+    frame = {**none, "decode_attention_int8": lm_config_asr_300m_202501().num_layers}
+    return {"mimi_only": (none, 0), "duplex": (step, 2), "asr": (frame, ASR_WARM_FRAMES + 1)}
+
+
+def run_bench_cli(dev, card: str, slice_p50: float) -> dict:
+    """moshi_tpu_torch.benchmark.main in-process, once per BENCH_CLI_RUNS
+    mode, the launch counters read around each call: the printed JSON's
+    keys equal the JAX function's, the launches what the mode implies.
+    `timed_steps` is the count of the timed window's events in the --out
+    log (asr's summary `steps` is the host-only pass's, as in the JAX
+    package's main)."""
+    from moshi_tpu_torch import benchmark
+
+    t_phase = time.perf_counter()
+    expected, runs, launches = bench_cli_expected(), {}, {}
+    BENCH_CLI_LOGS.mkdir(parents=True, exist_ok=True)
+    for name, argv in BENCH_CLI_RUNS.items():
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        log = BENCH_CLI_LOGS / f"{name}.json"
+        out_arg = [] if name == "mimi_only" else ["--out", str(log)]
+        t0 = time.perf_counter()
+        with redirect_stdout(printed):
+            out = benchmark.main([*argv, *out_arg, "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        launched = read_counts()
+        if json.loads(printed.getvalue().strip().splitlines()[-1]) != out:
+            raise RuntimeError(f"bench_cli {name}: the printed line is not the summary")
+        if set(out) != BENCH_CLI_KEYS[name]:
+            raise RuntimeError(f"bench_cli {name}: keys {sorted(out)}")
+        per, times = expected[name]
+        check_counts(launched, per, times, f"bench_cli {name}")
+        timed = len(json.loads(log.read_text())["events"]) if out_arg else int(argv[-1])
+        runs[name] = {**out, "timed_steps": timed, "wall_s": wall,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        launches[name] = launched
+        phase("bench_cli", f"benchmark.main {' '.join(argv)}: {json.dumps(out)}; "
+              f"{timed} timed steps; launches "
+              f"{ {k: v for k, v in launched.items() if v} } = {times} x "
+              f"{ {k: v for k, v in per.items() if v} }; {wall:.1f} s, peak "
+              f"{runs[name]['peak_gib']:.2f} GiB ({card})")
+        free_memory()
+    d = runs["duplex"]
+    if not d["realtime"]:
+        raise RuntimeError("bench_cli duplex: p90 above the frame interval")
+    phase("bench_cli", f"duplex moshi_7b_int4 (f32 Mimi, three graphs, paced): p50 "
+          f"{d['p50_ms']:.2f} ms, p90 {d['p90_ms']:.2f}, max {d['max_ms']:.2f}, realtime "
+          f"{d['realtime']}; [slice]'s graphed p50 {slice_p50:.2f} ms (bf16 Mimi, one "
+          f"session's frame); phase {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(BENCH_CLI_LOGS, ignore_errors=True)
+    return {"runs": runs, "phase_s": time.perf_counter() - t_phase,
+            "launches": {f"bench_cli_{k}": launches[k] for k in ("duplex", "asr")},
+            "per_step": {f"bench_cli_{k}": expected[k][0] for k in ("duplex", "asr")}}
 
 
 def build_asr(dev):
@@ -5619,6 +6098,7 @@ def main() -> None:
     offline_q4 = check_offline_q4(dev, g)
     int8_rows = check_int8_rows(dev, g)
     hibiki_gemvs = check_hibiki_gemvs(dev, g)
+    helium_q4 = check_helium_q4(dev, g)
     free_memory()
 
     lm, lm_params, mimi, mimi_params = build_models(dev)
@@ -5635,6 +6115,8 @@ def main() -> None:
     del lm, lm_params
     free_memory()
     hibiki = run_hibiki(dev, card)
+    helium = run_helium(dev, card)
+    bench_cli = run_bench_cli(dev, card, slice_["p50_ms"])
     asr = run_asr(dev, card)
     free_memory()
     stt = run_stt(dev, card)
@@ -5663,7 +6145,8 @@ def main() -> None:
                "py_basr": fleet["py_basr"]["launches"], **tts["launches"],
                "tts_serve": tts_serve["launches"], "train_lora": train["launches"],
                "train_int8_base": train["int8_base"]["launches"],
-               "train_lmgen": train["serve"]["launches"]}
+               "train_lmgen": train["serve"]["launches"], **helium["launches"],
+               **bench_cli["launches"]}
     per_frame_by_path = {"batched": batched["per_frame"]["int4"],
                          "batched_int8": batched["per_frame"]["int8"],
                          "offline_forward": offline["launches"], "asr": asr["per_frame"],
@@ -5673,7 +6156,8 @@ def main() -> None:
                          **tts["per_frame"], **hibiki["per_step"], "stt": stt["per_step"],
                          "train_step": train["launches_per_step"],
                          "train_int8_step": train["int8_base"]["launches_per_step"],
-                         "train_lmgen": train["serve"]["per_step"]}
+                         "train_lmgen": train["serve"]["per_step"], **helium["per_step"],
+                         **bench_cli["per_step"]}
     kernels = []
     # ms / plain_ms / library_ms / bound_ms: card time of one frame's
     # launches of the kernel (bf16, operands cold in L2) on the path it
@@ -5694,6 +6178,8 @@ def main() -> None:
             row["tts"] = tts_gemvs[k["name"]]
         if k["name"] in hibiki_gemvs:
             row["hibiki"] = hibiki_gemvs[k["name"]]
+        if k["name"] == "q4_gemv":
+            row["helium_profiled_ms_per_step"] = helium["profile"]["q4_gemv_ms_per_step"]
         if k["name"] == "int8_mma":
             row["rows_above_16"] = int8_rows
         kernels.append(row)
@@ -5701,6 +6187,7 @@ def main() -> None:
     # B * T), the other row counts timed and the crossover beside them
     kernels.append({"name": "q4_wgmma", **offline_q4["per_forward"][256],
                     "per_forward_by_rows": offline_q4["per_forward"],
+                    "helium_prefill": helium_q4,
                     **{key: v for key, v in offline_q4.items() if key != "per_forward"}})
     tts_per_launch = {"decode_attention_int4": write["tts_k4_per_launch"],
                       "cache_write_int4": write["tts_per_launch"],
@@ -5743,7 +6230,10 @@ def main() -> None:
                               if key not in ("launches", "per_frame", "checkpoint")},
                       "tts_serve": {key: v for key, v in tts_serve.items()
                                     if key != "launches"},
-                      "train": train}), flush=True)
+                      "train": train, "helium": {key: v for key, v in helium.items()
+                                                 if key not in ("launches", "per_step")},
+                      "bench_cli": {key: bench_cli[key] for key in ("runs", "phase_s")}}),
+          flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -435,12 +435,16 @@ class LMModel:
 
     def embed_inputs(self, params: dict, sequence: torch.Tensor) -> torch.Tensor:
         """sequence [B, K = 1 + n_q, T] token ids -> summed embeddings
-        [B, T, dim]."""
+        [B, T, dim].  A text-only LM (n_q == 0, Helium) embeds the text
+        alone."""
         c = self.config
+        text = embed(params["text_emb"], sequence[:, 0])
+        if c.n_q == 0:
+            return text
         w = params["emb"]["weight"]
         audio = torch.stack([embed({"weight": w[k]}, sequence[:, c.audio_offset + k])
                              for k in range(c.n_q)])
-        return audio.sum(dim=0) + embed(params["text_emb"], sequence[:, 0])
+        return audio.sum(dim=0) + text
 
     def _text_head(self, params: dict, h: torch.Tensor):
         h = self._out_norm.apply(params["out_norm"], h)

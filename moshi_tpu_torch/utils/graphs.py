@@ -102,6 +102,13 @@ class GraphedStep:
         self.warm = True
         return out
 
+    def warm_or_call(self, *args):
+        """The warm-up at the first call of a graphed step (the next call
+        captures), else the call."""
+        if self.graphed and not self.warm:
+            return self.warm_up(*args)
+        return self(*args)
+
     def recapture(self):
         """Drop the captured graph: the next call captures again (over the
         tensors it is given then).  The step stays warm."""

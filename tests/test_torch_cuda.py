@@ -1968,3 +1968,66 @@ def test_frozen_linear_dx_on_the_card(kind, gen):
     (dxp,) = torch.autograd.grad(yp, xp, dy)
     assert _rel(dxk, dxp) <= BOUND[torch.bfloat16]
     assert qt.q.grad is None and qt.scale.grad is None
+
+
+# ------------------------------------------ Helium: run_helium and its prefill
+@pytest.mark.parametrize("din,dout", [(2560, 7680), (7040, 2560), (2560, 48000)])
+def test_q4_wgmma_prefill_rows_write_nothing_past_y(din, dout, gen):
+    """Helium-1 2B's 203-row prefill on q4_wgmma (its second 128-row tile
+    75 rows full) at three of its shapes: within the bf16 bound of the
+    plain version, equal to the wrapper's result, and no byte of a guard
+    band of rows before and after y, and after the split partials,
+    written."""
+    from moshi_tpu_torch.ops import build
+    M, G, sentinel = 203, 64, 7.0
+    x, qt = _mma_case(gen, M, din, dout)
+    gs = din // qt.scale.shape[0]
+    gps, splits = q4matmul.wgmma_plan_splits(din, dout, gs, q4matmul._num_sms(0), M)
+    ybuf = torch.full((M + 2 * G, dout), sentinel, dtype=torch.bfloat16, device="cuda")
+    pbuf = torch.full((splits * M + 2 * G, dout), sentinel, dtype=torch.float32, device="cuda")
+    y, partial = ybuf[G:G + M], pbuf[G:G + splits * M]
+    lib = build.load("q4_wgmma")
+    err = lib.q4_wgmma(x.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(), y.data_ptr(),
+                       (partial if splits > 1 else y).data_ptr(), M, din, dout, gs, gps, splits,
+                       torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "q4_wgmma")
+    torch.cuda.synchronize()
+    assert _rel(y, q4matmul.q4_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+    assert torch.equal(y, _wg_check(x, qt))
+    for band in (ybuf[:G], ybuf[G + M:], pbuf[:G], pbuf[G + splits * M:]):
+        assert (band == sentinel).all()
+
+
+def _tiny_helium():
+    """A small text-only LM (n_q = dep_q = 0, 2 layers of dim 256, q4 on
+    every linear and the head) from a seed on the card."""
+    from moshi_tpu_torch.models.lm import LmConfig, LMModel
+    cfg = LmConfig(dim=256, num_heads=2, num_layers=2, n_q=0, dep_q=0, card=0, text_card=128,
+                   context=64, delays=(0,))
+    lm = LMModel(cfg)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    return lm, tq.quantize_lm_params(lm.init_params(g, torch.bfloat16, "cuda"), min_size=1,
+                                     mode="int4")
+
+
+@pytest.mark.parametrize("temp", [0.0, 0.7])
+def test_graphed_helium_step_equals_eager(temp, gen):
+    """run_helium.generate_text graphed (the first step the warm-up, the
+    second captured, replays after) gives the eager run's tokens, greedy
+    and sampled from one seed; the prefill of 37 rows runs q4_wgmma, each
+    step's linears the q4_gemv kernel, graphed twice only."""
+    from moshi_tpu_torch.run_helium import generate_text
+    lm, params = _tiny_helium()
+    prompt = torch.randint(0, 128, (37,), generator=gen, device="cuda").tolist()
+    counted = (q4matmul.q4_gemv, MMA, WG)
+    per_step = 2 * 4 + 1
+    runs = {}
+    for graphed, decode_calls in ((False, 23), (True, 2)):
+        n = [fn.launches for fn in counted]
+        runs[graphed] = generate_text(lm, params, prompt, 24,
+                                      torch.Generator(device="cuda").manual_seed(5), temp=temp,
+                                      graphed=graphed)
+        torch.cuda.synchronize()
+        assert ([fn.launches - k for fn, k in zip(counted, n)]
+                == [decode_calls * per_step, 0, per_step])
+    assert runs[True] == runs[False] and len(runs[True]) == 24
