@@ -185,6 +185,24 @@ Phases, each printing its own line(s):
                decode_attention_int8 in each warm-up frame and the capture,
                the host-only part merged in); each printed JSON's keys the
                JAX function's;
+ 6d. configs - the options the other phases do not run: (a) after
+               [offline], on its q4 weights, Moshi-7B's temporal
+               transformer and text head at B = 2 over the model-dtype,
+               int8 and int4 KV caches at ctx 3000 in turn: 8 steps of
+               T = 1, one of T = 64 (exactly 129 q4_wgmma of 128 rows and
+               nothing else; host ms, peak GiB), 8 of T = 1, against 80
+               steps of T = 1, the last 8 steps' text logits held to
+               HIBIKI_WITNESS_BOUND; (c) Mimi at v0.1's widths in f32 with
+               replicate padding, shortcut convs and a gelu-gated
+               transformer of d_model 1024 between its 512-wide ends, held
+               to OFFLINE_BOUNDS["f32"] as [offline] holds Mimi v0.1; (b)
+               inside [tts], on its weights, batched TTS at 32 model rows:
+               B = 32 slots, then B = 16 under true CFG 3.0 on the model
+               built without its `cfg` condition, 10 greedy frames graphed
+               and 5 eager each, equal in tokens, PCM and every state byte,
+               launches 2 x 688 int8_mma, 2 x 17 int8_gemv and 48 fused
+               decode_attention_int4 a frame, p50 / p90 ms; [kernels] times
+               the frame's int8 linears at 32 rows on that route;
   7. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
@@ -413,6 +431,23 @@ OFFLINE_LM = {"batch": 2, "frames": 128}
 OFFLINE_BOUNDS = {"f32": {"share": 0.999, "pcm": 1e-4},
                   "bf16": {"share": 0.5, "pcm": 1e-1}, "lm_text_logits": 2e-2}
 TTS_PREFIX_SECONDS = 2   # the PCM of [tts]'s get_prefix call
+# the configs phase: (a) a prefill of CONFIGS_CHUNK positions between
+# CONFIGS_STEPS single steps at B = CONFIGS_BATCH over each KV cache,
+# against as many single steps; (b) batched TTS at CONFIGS_TTS_ROWS model
+# rows, CONFIGS_TTS_SLOTS slots without CFG and CONFIGS_TTS_CFG_SLOTS under
+# true CFG at CONFIGS_TTS_CFG, CONFIGS_TTS_FRAMES frames graphed and
+# CONFIGS_TTS_EAGER eager; (c) Mimi with every option and a transformer of
+# d_model CONFIGS_MIMI_DIM between its 512-wide ends
+CONFIGS_BATCH = 2
+CONFIGS_STEPS = 8
+CONFIGS_CHUNK = 64
+CONFIGS_TTS_ROWS = 32
+CONFIGS_TTS_SLOTS = 32
+CONFIGS_TTS_CFG_SLOTS = 16
+CONFIGS_TTS_CFG = 3.0
+CONFIGS_TTS_FRAMES = 10
+CONFIGS_TTS_EAGER = 5
+CONFIGS_MIMI_DIM = 1024
 # the int4 KV cache of the batched phase: Moshi-7B, context 3000
 KV = {"layers": 32, "heads": 32, "head_dim": 128, "cap": 3000}
 # the tts phase: tts_v0_1 with int8 weights, int4 KV at context 1000, B = 16
@@ -726,6 +761,80 @@ def check_tts_gemvs(dev, g) -> dict:
     return out
 
 
+def int8_rows_times(dev, g, din: int, dout: int, checked: tuple, timed: tuple):
+    """int8_gemv above 16 rows at one weight shape: 16-row chunks, one
+    launch each on the kernel qmatmul.use_mma picks for 16 rows (int8_mma,
+    or the int8_gemv kernel for widths off 64), checked against the plain
+    version at every row count of `checked` and `timed`, then timed at
+    `timed` (operands cold in L2) beside the plain version, torch.matmul
+    on the bf16 weight and the bound.  Returns (the kernel's name, {M:
+    times}, max |kernel - plain| / max |plain|)."""
+    from moshi_tpu_torch.ops import qmatmul
+    from moshi_tpu_torch.utils.quantize import dequantize, quantize_tensor
+
+    plain = qmatmul.int8_gemv_plain
+    name = "int8_mma" if qmatmul.use_mma(16, torch.bfloat16, din, dout) else "int8_gemv"
+    w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
+    qt = quantize_tensor(w)
+    bytes_w = qt.q.numel() + 4 * qt.scale.numel()
+    copies = [qt] + [quantize_tensor(w) for _ in range(copies_for_cold_l2(bytes_w) - 1)]
+    del w
+    dense = [dequantize(qt.q, qt.scale, torch.bfloat16)
+             for _ in range(copies_for_cold_l2(2 * din * dout))]
+    times, max_abs = {}, 0.0
+    for M in sorted(set(checked + timed)):
+        x = torch.randn(M, din, device=dev, generator=g).to(torch.bfloat16)
+        before = qmatmul.int8_mma.launches, qmatmul.int8_gemv.launches
+        max_abs = max(max_abs, _check_against_plain("int8 rows", qmatmul.int8_gemv, plain,
+                                                    qt, x))
+        launched = (qmatmul.int8_mma.launches - before[0],
+                    qmatmul.int8_gemv.launches - before[1])
+        chunks = -(-M // 16)
+        if launched != ((chunks, 0) if name == "int8_mma" else (0, chunks)):
+            raise RuntimeError(f"int8 {din}x{dout} at M = {M} launched (int8_mma, "
+                               f"int8_gemv) {launched}")
+        if M not in timed:
+            continue
+        ops = [(x, c.q, c.scale) for c in copies]
+        t = {"ms": time_ms(qmatmul.int8_gemv, ops, iters=10), "plain_ms": time_ms(plain, ops),
+             "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
+        t["bound_ms"], t["bound_by"] = bound(bytes_w + 2 * M * (din + dout), 2 * M * din * dout)
+        times[M] = t
+    del copies, dense
+    return name, times, max_abs
+
+
+def check_tts_rows(dev, g) -> dict:
+    """The TTS frame's int8 linears (TTS_INT8_SHAPES) at CONFIGS_TTS_ROWS
+    rows, on the route [configs] (b) takes (int8_rows_times), summed by
+    kernel over one frame's linears.  Returns {kernel: its summary}."""
+    M, keys = CONFIGS_TTS_ROWS, ("ms", "plain_ms", "library_ms", "bound_ms")
+    out = {name: {"per_frame": dict.fromkeys(keys, 0.0), "launches_per_frame": 0,
+                  "by_shape": {}, "max_abs_err": 0.0, "bound_by": set()}
+           for name in ("int8_mma", "int8_gemv")}
+    for (din, dout), n in TTS_INT8_SHAPES.items():
+        name, times, err = int8_rows_times(dev, g, din, dout, (), (M,))
+        t, row = times[M], out[name]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["bound_by"].add(t["bound_by"])
+        for k in keys:
+            row["per_frame"][k] += n * t[k]
+        row["launches_per_frame"] += n * -(-M // 16)
+        row["by_shape"][f"{din}x{dout} M={M}"] = {**t, "launches_per_frame": n * -(-M // 16)}
+        phase("kernels", f"tts {name} {din}x{dout} M={M} bf16 ({n} per frame, {-(-M // 16)} "
+              f"launches each): {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul "
+              f"on bf16 {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})")
+    for name, row in out.items():
+        row["bound_by"] = "operations" if row["bound_by"] == {"operations"} else "bytes"
+        f = row["per_frame"]
+        phase("kernels", f"tts per frame at {M} rows: {name} x {row['launches_per_frame']}: "
+              f"{f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, torch.matmul on bf16 "
+              f"{f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms")
+    free_memory()
+    return out
+
+
 def check_hibiki_gemvs(dev, g) -> dict:
     """The GEMVs at Hibiki-2B's new shapes (HIBIKI_TIMED: the five q4 ones
     and depformer_in 2560 -> 1024) at HIBIKI_ROWS rows, each on the kernel
@@ -939,37 +1048,16 @@ def check_int8_rows(dev, g) -> dict:
     autograd at 512 rows: the kernel's launches in the forward, the output
     and dX against the plain path's."""
     from moshi_tpu_torch.ops import qmatmul
-    from moshi_tpu_torch.utils.quantize import dequantize, quantize_tensor
+    from moshi_tpu_torch.utils.quantize import quantize_tensor
 
     plain = qmatmul.int8_gemv_plain
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     per_step = {M: dict.fromkeys(keys, 0.0) for M in INT8_ROWS}
     by_shape, max_abs, bound_by = {}, 0.0, {M: set() for M in INT8_ROWS}
     for (din, dout), n in INT8_SHAPES.items():
-        w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
-        qt = quantize_tensor(w)
-        bytes_w = qt.q.numel() + 4 * qt.scale.numel()
-        copies = [qt] + [quantize_tensor(w) for _ in range(copies_for_cold_l2(bytes_w) - 1)]
-        del w
-        dense = [dequantize(qt.q, qt.scale, torch.bfloat16)
-                 for _ in range(copies_for_cold_l2(2 * din * dout))]
-        for M in sorted(set(INT8_CHECK_ROWS + INT8_ROWS)):
-            x = torch.randn(M, din, device=dev, generator=g).to(torch.bfloat16)
-            before = qmatmul.int8_mma.launches, qmatmul.int8_gemv.launches
-            max_abs = max(max_abs, _check_against_plain("int8 rows", qmatmul.int8_gemv, plain,
-                                                        qt, x))
-            launched = (qmatmul.int8_mma.launches - before[0],
-                        qmatmul.int8_gemv.launches - before[1])
-            if launched != (-(-M // 16), 0):
-                raise RuntimeError(f"int8 {din}x{dout} at M = {M} launched (int8_mma, "
-                                   f"int8_gemv) {launched}")
-            if M not in INT8_ROWS:
-                continue
-            ops = [(x, c.q, c.scale) for c in copies]
-            t = {"ms": time_ms(qmatmul.int8_gemv, ops, iters=10), "plain_ms": time_ms(plain, ops),
-                 "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
-            t["bound_ms"], t["bound_by"] = bound(bytes_w + 2 * M * (din + dout),
-                                                 2 * M * din * dout)
+        _, times, err = int8_rows_times(dev, g, din, dout, INT8_CHECK_ROWS, INT8_ROWS)
+        max_abs = max(max_abs, err)
+        for M, t in times.items():
             bound_by[M].add(t["bound_by"])
             by_shape[f"{din}x{dout} M={M}"] = t
             for k in keys:
@@ -977,7 +1065,6 @@ def check_int8_rows(dev, g) -> dict:
             phase("kernels", f"int8 {din}x{dout} M={M} bf16 ({-(-M // 16)} int8_mma launches): "
                   f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
                   f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-        del copies, dense
     for M in INT8_ROWS:
         f = per_step[M]
         f["bound_by"] = "operations" if bound_by[M] == {"operations"} else "bytes"
@@ -1486,6 +1573,11 @@ def check_counts(launches: dict, expected: dict, steps: int, what: str) -> None:
                                f"{expected[name]} x {steps}")
 
 
+def used(counts: dict) -> dict:
+    """The kernels of a launch count that ran."""
+    return {k: v for k, v in counts.items() if v}
+
+
 def check_tokens(tokens, cfg, what: str) -> None:
     if not ((tokens[:, 0] >= 0).all() and (tokens[:, 0] < cfg.text_card).all()
             and (tokens[:, 1:] >= 0).all() and (tokens[:, 1:] < cfg.card).all()):
@@ -1865,9 +1957,6 @@ def run_serve(dev, card: str, lm, lm_params, mimi, mimi_params, slice_p50: float
               f"weights ({len(pieces)} text pieces); sessions 2 and 3 (text_seed 5) "
               f"identical, 2 and 4 not; a client queued during session 1 got "
               f"{out['queued']['queue_messages']} MT 4 queue positions, then its session")
-        def used(d):
-            return {k: v for k, v in d.items() if v}
-
         phase("serve", f"launches {used(launches)} = per captured step {used(expected)} x (1 "
               f"greedy capture + 2 override sets x (2 warm-up steps + 1 capture)); the first "
               f"capture alone {used(checks['first_capture'])}")
@@ -2200,12 +2289,14 @@ def stream_decode(mimi, params, codes, dtype):
                       for f in range(codes.shape[-1])], dim=-1)
 
 
-def offline_mimi(dev, card: str, mimi, params, dtype) -> dict:
+def offline_mimi(dev, card: str, mimi, params, dtype, phase_name: str = "offline",
+                 what: str = "Mimi v0.1") -> dict:
     """Mimi's offline encode and decode in `dtype` against encode_step /
     decode_step over the same input from a fresh state: the share of equal
     codes (with the first difference's frame and codebook) and the relative
     error of the decoded PCM, each held to OFFLINE_BOUNDS; the offline
-    calls' ms and seconds of audio per second."""
+    calls' ms and seconds of audio per second.  Printed under `phase_name`,
+    the codec named `what`."""
     name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
     B, n, extra = OFFLINE_MIMI["batch"], OFFLINE_MIMI["frames"], OFFLINE_MIMI["extra"]
     fs = mimi.frame_size
@@ -2238,7 +2329,7 @@ def offline_mimi(dev, card: str, mimi, params, dtype) -> dict:
     bounds = OFFLINE_BOUNDS[name]
     seconds = B * n * fs / mimi.config.sample_rate
     ok = share >= bounds["share"] and err <= bounds["pcm"]
-    phase("offline", f"Mimi v0.1 {name}, B = {B} x {n} frames ({seconds / B:.1f} s each) and "
+    phase(phase_name, f"{what} {name}, B = {B} x {n} frames ({seconds / B:.1f} s each) and "
           f"one input {extra} samples longer: encode {enc_ms:.2f} ms "
           f"({seconds / enc_ms * 1e3:.1f} s of audio per s), decode {dec_ms:.2f} ms "
           f"({seconds / dec_ms * 1e3:.1f} s/s); codes equal to encode_step's: share "
@@ -2246,7 +2337,7 @@ def offline_mimi(dev, card: str, mimi, params, dtype) -> dict:
           f"decode_step: rel err {err:.3e} (bound {bounds['pcm']:.0e}) "
           f"{'ok' if ok else 'FAIL'} ({card})")
     if not ok:
-        raise RuntimeError(f"offline Mimi {name} disagrees with its streaming path")
+        raise RuntimeError(f"offline {what} {name} disagrees with its streaming path")
     return {"encode_ms": enc_ms, "decode_ms": dec_ms, "audio_s": seconds,
             "encode_audio_s_per_s": seconds / enc_ms * 1e3,
             "decode_audio_s_per_s": seconds / dec_ms * 1e3, "codes_equal_share": share,
@@ -2363,6 +2454,236 @@ def run_offline(dev, card: str, lm, lm_params, mimi, mimi_params) -> dict:
     free_memory()
     res["mimi_bf16"] = offline_mimi(dev, card, mimi, mimi_params, torch.bfloat16)
     res.update(offline_lm(dev, card, lm, lm_params))
+    return res
+
+
+# ---------------------------------------------------------------- configs
+def configs_prefill(dev, card: str, lm, lm_params) -> dict:
+    """(a) A prefill over each KV cache at Moshi-7B's full width ([slice]'s
+    q4 weights, the temporal transformer and text head): B =
+    CONFIGS_BATCH, context 3000, caches model dtype, int8, int4 in turn.
+    Run 1: CONFIGS_STEPS steps of T = 1, one step of T = CONFIGS_CHUNK,
+    CONFIGS_STEPS steps of T = 1; run 2: as many steps of T = 1 on the same
+    seeded codes.  The text logits of the last CONFIGS_STEPS steps, chunked
+    against per-step (norm-relative), held to HIBIKI_WITNESS_BOUND over the
+    model-dtype and int8 caches; over int4, where a T = 1 step merges its
+    own row unquantized and a chunk reads its rows back at 4 bits, to the
+    per-step int4 run's own distance from the model-dtype one (the cache's
+    quantization error; tests/test_torch_configs.py holds the same), each
+    printed beside the bound; the chunk's launches exactly one q4_wgmma of
+    B * T rows per q4 linear and nothing else; its host ms and peak GiB."""
+    from dataclasses import replace
+
+    from moshi_tpu_torch.models.lm import LMModel
+
+    B, n, T = CONFIGS_BATCH, CONFIGS_STEPS, CONFIGS_CHUNK
+    total = 2 * n + T
+    rs = np.random.RandomState(SEED + 40)
+    codes = rs.randint(0, lm.config.card, (B, lm.config.num_codebooks, total))
+    codes[:, 0] = rs.randint(0, lm.config.text_card, (B, total))
+    codes = torch.from_numpy(codes).to(dev)
+    chunk_expected = dict.fromkeys(counters(), 0)
+    chunk_expected["q4_wgmma"] = sum(Q4_SHAPES.values())
+    out, exact = {}, None
+    for kv in ("model", "int8", "int4"):
+        m = LMModel(replace(lm.config, kv_cache_dtype=kv))
+
+        def step(state, a, b):
+            return m.forward_text_step(lm_params, state, codes[:, :, a:b])[1]
+
+        zero_counts()
+        state = m.transformer.init_state(B, torch.bfloat16, dev)
+        for t in range(n):
+            step(state, t, t + 1)
+        before = read_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with RowsSeen() as seen:
+            step(state, n, n + T)
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        chunk = {k: v - before[k] for k, v in read_counts().items()}
+        chunked = torch.cat([step(state, t, t + 1) for t in range(n + T, total)], dim=2)
+        del state
+        state = m.transformer.init_state(B, torch.bfloat16, dev)
+        per = torch.cat([step(state, t, t + 1) for t in range(total)][-n:], dim=2)
+        launches = read_counts()
+        del state
+        def rel(a, b):
+            return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+        exact = per if kv == "model" else exact
+        err, own = rel(chunked, per), rel(per, exact)
+        limit = own if kv == "int4" else HIBIKI_WITNESS_BOUND
+        ok = (err <= limit and chunk == chunk_expected
+              and seen.rows == [B * T] * chunk_expected["q4_wgmma"]
+              and bool(torch.isfinite(chunked).all()) and bool(torch.isfinite(per).all()))
+        phase("configs", f"(a) prefill over the {kv} KV cache, Moshi-7B q4, B = {B}, ctx "
+              f"{m.config.context}: {n} steps, a chunk of {T}, {n} steps against {total} "
+              f"single steps: text logits of the last {n} ||diff|| / ||per-step|| {err:.3e} "
+              f"({'under' if err <= HIBIKI_WITNESS_BOUND else 'above'} "
+              f"{HIBIKI_WITNESS_BOUND:.0e}; held to {limit:.3e}), the per-step run against the "
+              f"model-dtype cache's {own:.3e}; the chunk: "
+              f"launches {used(chunk)}, q4_wgmma rows {sorted(set(seen.rows))}, host "
+              f"{chunk_ms:.2f} ms, peak {peak:.2f} GiB; both runs' launches {used(launches)} "
+              f"{'ok' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise RuntimeError(f"configs (a): the {kv} cache's prefill fails its checks")
+        out[kv] = {"text_logits_rel_err": err, "per_step_vs_model_dtype": own,
+                   "held_to": limit, "chunk_launches": chunk, "chunk_host_ms": chunk_ms,
+                   "chunk_peak_gib": peak, "launches": launches}
+        free_memory()
+    return out
+
+
+def configs_tts_run(dev, models, lm, tts, cp_params, slots: int, what: str) -> dict:
+    """One engine of CONFIGS_TTS_ROWS model rows (`slots` slots of `tts`,
+    int8 weights, int4 KV), graphed then eager, each slot opened with a
+    seeded voice and fed words: the eager frames and the graphed ones equal
+    in tokens and PCM, and every state byte after CONFIGS_TTS_EAGER frames;
+    the graphed run's launches one capture of each graph, the eager run's
+    each frame's, with every int8 linear in two 16-row chunks.  Returns
+    the graphed launches, the per-frame counts, the replay frames' p50 /
+    p90 and the first frame's ms."""
+    from moshi_tpu_torch.serve.batched_tts import BatchedTTSState
+
+    per = tts_launches(lm.config, models["lm_params"], TTS_SLOTS)   # 16 rows a launch
+    chunks = CONFIGS_TTS_ROWS // TTS_SLOTS
+    per_frame = {k: per["main"][k] + per["depth"][k] for k in per["main"]}
+    per_frame.update({k: chunks * per_frame[k] for k in ("int8_mma", "int8_gemv")})
+    runs = {}
+    for graphed, frames in ((True, CONFIGS_TTS_FRAMES), (False, CONFIGS_TTS_EAGER)):
+        state = BatchedTTSState(tts, models["lm_params"], models["mimi_params"], slots,
+                                condition_params=cp_params, voice_frames=TTS_VOICE[0],
+                                device=dev, graphed=graphed, rng_seed=SEED)
+        if state.h.shape[0] != CONFIGS_TTS_ROWS:
+            raise RuntimeError(f"configs (b) {what}: {state.h.shape[0]} model rows")
+        state.warmup()
+        rs = np.random.RandomState(SEED + 41)
+        for s in range(slots):
+            state.open_slot(s)
+            state.set_slot_voice(s, rs.randn(*TTS_VOICE).astype(np.float32))
+        state.apply_pending_ops()
+        zero_counts()
+        outs, ms, leaves = [], [], None
+        for i in range(frames):
+            for s in range(slots):
+                if len(state.slots[s].state.entries) < 4:
+                    state.feed_words(s, tts_words(6, s))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = state.tick()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if res is None:
+                raise RuntimeError(f"configs (b) {what}: no slot ran")
+            outs.append((res[1].copy(), res[2].copy(),
+                         [list(state.slots[s].outbox) for s in range(slots)]))
+            for s in range(slots):
+                state.slots[s].outbox.clear()
+            if i == CONFIGS_TTS_EAGER - 1:
+                leaves = [t.clone() for t in tts_leaves(state)]
+        runs[graphed] = {"launches": read_counts(), "outs": outs, "ms": ms, "leaves": leaves,
+                         "replays": (state.main[True].replays, state.depth.replays)}
+        del state
+        free_memory()
+    g, e = runs[True], runs[False]
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1].view(np.uint8),
+                                                              b[1].view(np.uint8))
+               and [[x[0] for x in o] for o in a[2]] == [[x[0] for x in o] for o in b[2]]
+               for a, b in zip(g["outs"], e["outs"]))
+    same_state = all(same_bytes(a, b) for a, b in zip(g["leaves"], e["leaves"]))
+    captured = {k: per["main"][k] + per["depth"][k] for k in per["main"]}
+    captured.update({k: chunks * captured[k] for k in ("int8_mma", "int8_gemv")})
+    check_counts(g["launches"], captured, 1, f"configs (b) {what} graphed run")
+    check_counts(e["launches"], per_frame, CONFIGS_TTS_EAGER, f"configs (b) {what} eager run")
+    if g["replays"] != (CONFIGS_TTS_FRAMES, CONFIGS_TTS_FRAMES):
+        raise RuntimeError(f"configs (b) {what}: replays {g['replays']}")
+    delivered = [x[1] for _, _, boxes in g["outs"] for box in boxes for x in box
+                 if x[0] == "pcm"]
+    for tokens, _, _ in g["outs"]:
+        check_tts_frames(tokens[:, :, 0], lm.config, f"configs (b) {what}")
+    check_pcm(delivered, models["mimi"].frame_size, f"configs (b) {what}")
+    replays = g["ms"][1:]
+    p50, p90 = (float(np.percentile(replays, p)) for p in (50, 90))
+    phase("configs", f"(b) {what}: {CONFIGS_TTS_FRAMES} greedy frames graphed, "
+          f"{CONFIGS_TTS_EAGER} eager: tokens and PCM {'equal' if same else 'DIFFER'}, every "
+          f"state byte after {CONFIGS_TTS_EAGER} frames {'equal' if same_state else 'DIFFERS'} "
+          f"({len(delivered)} PCM frames delivered: the audio runs {tts.delay_steps} frames "
+          f"behind the text); "
+          f"per frame {used(per_frame)} (eager run {used(e['launches'])}, graphed run "
+          f"{used(g['launches'])}: one capture of each graph); replays {g['replays']}; "
+          f"frames 2-{CONFIGS_TTS_FRAMES} (replays) p50 {p50:.2f} ms, p90 {p90:.2f} ms per "
+          f"batched frame ({'' if p90 < 80 else 'not '}real time), {p50 / slots:.3f} ms per "
+          f"stream; the first (the captures) {g['ms'][0]:.2f} ms; eager p50 "
+          f"{float(np.percentile(e['ms'], 50)):.2f} ms")
+    if not (same and same_state):
+        raise RuntimeError(f"configs (b) {what}: graphed frames differ from eager ones")
+    return {"launches": g["launches"], "eager_launches": e["launches"], "per_frame": per_frame,
+            "pcm_frames_delivered": len(delivered),
+            "p50_ms": p50, "p90_ms": p90, "first_ms": g["ms"][0],
+            "ms_per_stream": p50 / slots, "eager_p50_ms": float(np.percentile(e["ms"], 50))}
+
+
+def configs_tts(dev, card: str, models) -> dict:
+    """(b) Batched TTS above 16 model rows on [tts]'s weights: B =
+    CONFIGS_TTS_SLOTS slots without CFG, then B = CONFIGS_TTS_CFG_SLOTS under
+    true CFG (cfg_coef CONFIGS_TTS_CFG on the model built without the `cfg`
+    condition), each CONFIGS_TTS_ROWS model rows."""
+    from moshi_tpu_torch.conditioners import ConditionFuser, ConditionProvider
+    from moshi_tpu_torch.models.tts import StateMachine, TokenIds, TTSModel
+
+    lm = models["lm"]
+    c = lm.config
+    plain = ConditionProvider({"speaker_wavs": models["provider"].conditioners["speaker_wavs"]})
+    cfg_tts = TTSModel(lm, models["mimi"], TtsTokenizer(),
+                       StateMachine(TokenIds(card=c.text_card + 1), max_padding=8,
+                                    initial_padding=2),
+                       delay_steps=TTS_DELAY_STEPS, condition_provider=plain,
+                       fuser=ConditionFuser({"cross": ["speaker_wavs"]}),
+                       max_speakers=TTS_MAX_SPEAKERS, temp=0.0, cfg_coef=CONFIGS_TTS_CFG,
+                       n_q=c.dep_q, max_gen_length=10_000, final_padding=4)
+    cp_plain = {"speaker_wavs": models["cp_params"]["speaker_wavs"]}
+    out = {"no_cfg": configs_tts_run(dev, models, lm, tts_model(models, lm, 0.0),
+                                     models["cp_params"], CONFIGS_TTS_SLOTS,
+                                     f"B = {CONFIGS_TTS_SLOTS} slots without CFG"),
+           "cfg": configs_tts_run(dev, models, lm, cfg_tts, cp_plain, CONFIGS_TTS_CFG_SLOTS,
+                                  f"B = {CONFIGS_TTS_CFG_SLOTS} slots under true CFG "
+                                  f"{CONFIGS_TTS_CFG}")}
+    phase("configs", f"(b) tts_v0_1 int8, int4 KV at ctx {c.context}, bf16 Mimi with "
+          f"{models['mimi'].num_codebooks} codebooks, {CONFIGS_TTS_ROWS} model rows both ways "
+          f"({card})")
+    return out
+
+
+def configs_mimi(dev, card: str) -> dict:
+    """(c) Mimi at v0.1's widths in f32 with every option on: replicate
+    padding, SEANet shortcut convs, a gelu-gated transformer of d_model
+    CONFIGS_MIMI_DIM (16 heads of 64) between the 512-wide SEANet ends, so
+    both projections are real; offline against streaming over [offline]'s
+    PCM, held to OFFLINE_BOUNDS["f32"]."""
+    from dataclasses import replace
+
+    from moshi_tpu_torch.models.mimi import MimiModel, mimi_v0_1_config
+
+    base = mimi_v0_1_config(8)
+    cfg = replace(base, seanet=replace(base.seanet, pad_mode="replicate", true_skip=False),
+                  transformer=replace(base.transformer, d_model=CONFIGS_MIMI_DIM,
+                                      num_heads=CONFIGS_MIMI_DIM // 64,
+                                      dim_feedforward=4 * CONFIGS_MIMI_DIM, gating="gelu"))
+    mimi = MimiModel(cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+    params = mimi.init_params(g, torch.float32, dev)
+    et = params["encoder_transformer"]
+    if not ("input_proj" in et and "weight" in et["output_projs"][0]
+            and "shortcut" in params["encoder"]["model"][1]):
+        raise RuntimeError("configs (c): the Mimi tree lacks its projections or shortcuts")
+    res = offline_mimi(dev, card, mimi, params, torch.float32, "configs",
+                       f"(c) Mimi at v0.1's widths with replicate padding, shortcut convs and "
+                       f"a gelu-gated transformer of d_model {CONFIGS_MIMI_DIM} (both "
+                       f"projections)")
+    del params
+    free_memory()
     return res
 
 
@@ -5096,13 +5417,18 @@ def run_tts(dev, card: str) -> dict:
 
     lm8 = LMModel(replace(lm.config, kv_cache_dtype="int8"))
     int8_launches, int8 = tts_greedy(dev, models, lm8, "int8 greedy", profile=True)
+    configs = configs_tts(dev, card, models)
     checkpoint = write_tts_checkpoint(dev, card, models, TTS_DIR)
     del models
     free_memory()
-    return {"checkpoint": checkpoint,
+    return {"checkpoint": checkpoint, "configs": configs,
             "launches": {"tts_greedy": greedy_launches, "tts_sampled": g["launches"],
-                         "tts_int8_greedy": int8_launches},
+                         "tts_int8_greedy": int8_launches,
+                         **{f"configs_tts_{k}_{run}": v[key] for k, v in configs.items()
+                            for run, key in (("graphed", "launches"),
+                                             ("eager", "eager_launches"))}},
             "per_frame": {"tts": per_frame,
+                          "configs_tts_32_rows": configs["no_cfg"]["per_frame"],
                           "tts_int8": {**per_frame, "decode_attention_int4": 0,
                                        "cache_write_int4": 0,
                                        "decode_attention_int8": lm8.config.num_layers}},
@@ -6097,6 +6423,7 @@ def main() -> None:
     tts_gemvs = check_tts_gemvs(dev, g)
     offline_q4 = check_offline_q4(dev, g)
     int8_rows = check_int8_rows(dev, g)
+    tts_rows = check_tts_rows(dev, g)
     hibiki_gemvs = check_hibiki_gemvs(dev, g)
     helium_q4 = check_helium_q4(dev, g)
     free_memory()
@@ -6111,6 +6438,8 @@ def main() -> None:
     offline = run_offline(dev, card, lm, lm_params, mimi, mimi_params)
     del mimi, mimi_params
     free_memory()
+    configs = {"prefill": configs_prefill(dev, card, lm, lm_params),
+               "mimi": configs_mimi(dev, card)}
     train = run_train(dev, card, lm, lm_params)
     del lm, lm_params
     free_memory()
@@ -6146,7 +6475,8 @@ def main() -> None:
                "tts_serve": tts_serve["launches"], "train_lora": train["launches"],
                "train_int8_base": train["int8_base"]["launches"],
                "train_lmgen": train["serve"]["launches"], **helium["launches"],
-               **bench_cli["launches"]}
+               **bench_cli["launches"],
+               **{f"configs_prefill_{kv}": v["launches"] for kv, v in configs["prefill"].items()}}
     per_frame_by_path = {"batched": batched["per_frame"]["int4"],
                          "batched_int8": batched["per_frame"]["int8"],
                          "offline_forward": offline["launches"], "asr": asr["per_frame"],
@@ -6182,6 +6512,8 @@ def main() -> None:
             row["helium_profiled_ms_per_step"] = helium["profile"]["q4_gemv_ms_per_step"]
         if k["name"] == "int8_mma":
             row["rows_above_16"] = int8_rows
+        if k["name"] in tts_rows:
+            row["tts_rows_32"] = tts_rows[k["name"]]
         kernels.append(row)
     # q4_wgmma: the offline forward's launches at M = 256 (OFFLINE_LM's
     # B * T), the other row counts timed and the crossover beside them
@@ -6227,7 +6559,8 @@ def main() -> None:
                       "stt": {key: v for key, v in stt.items()
                               if key not in ("launches", "per_step")},
                       "tts": {key: v for key, v in tts.items()
-                              if key not in ("launches", "per_frame", "checkpoint")},
+                              if key not in ("launches", "per_frame", "checkpoint", "configs")},
+                      "configs": {**configs, "tts": tts["configs"]},
                       "tts_serve": {key: v for key, v in tts_serve.items()
                                     if key != "launches"},
                       "train": train, "helium": {key: v for key, v in helium.items()

@@ -403,7 +403,7 @@ def bench_tts_batched(model_name: str = "tts_v0_1", batch: int = 8,
     BatchedTTSState.step_batch with every slot active (one temporal step,
     the per-slot DSM machines, depformer, Mimi decode).  Also the
     pure-python host share (the machines and the masks) with the two device
-    steps stubbed.  BatchedTTSState refuses more than 16 model rows."""
+    steps stubbed."""
     from .serve.batched_tts import BatchedTTSState, _TtsSlot
     from .utils.serving import override_lm
 
@@ -521,8 +521,7 @@ def main(argv=None) -> dict:
                         choices=("duplex", "tts", "asr"))
     parser.add_argument("--batch", type=int, default=8,
                         help="asr/tts batch size (tts batch>1 runs the "
-                             "batched multi-tenant step, which takes at most "
-                             "16 model rows: ROADMAP B.2a)")
+                             "batched multi-tenant step)")
     parser.add_argument("--kv-cache", default=None,
                         choices=["int8", "int4"],
                         help="KV cache dtype for batched tts/asr")

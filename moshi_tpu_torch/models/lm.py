@@ -32,8 +32,9 @@ times a [rank, depformer_dim] expansion) and a demuxed second text stream
 
 Training (train.py) differentiates `forward` with autograd: `remat`
 recomputes each temporal layer in the backward, and `cross_entropy` is the
-per-codebook masked CE.  Only `causal: false` is refused (no preset runs an
-acausal LM).
+per-codebook masked CE.  `causal: false` goes to both transformers: their
+offline `apply` attends every position, their streaming steps keep the
+ring mask (moshi_tpu lm.py:51, 144, 165).
 """
 
 from dataclasses import dataclass
@@ -55,9 +56,6 @@ _CHECKPOINT_KEYS = ("moshi_name", "mimi_name", "mimi_config_name", "tokenizer_na
                     "stt_config", "model_id", "depformer_causal", "lora", "lora_rank",
                     "lora_scaling", "quantize", "conditioners", "fuser",
                     "depformer_context")
-# the JAX package's LmConfig fields the port lacks -> the value it runs
-# (no preset runs an acausal LM)
-_NOT_PORTED_FIELDS = {"causal": True}
 
 
 @dataclass(frozen=True)
@@ -73,6 +71,7 @@ class LmConfig:
     text_card_out: int | None = None  # the text head's width (None: text_card)
     norm: str = "rms_norm_f32"
     context: int | None = 100
+    causal: bool = True   # False: the offline forward attends every position
     max_period: float = 10_000.0
     gating: str = "silu"
     positional_embedding: str = "rope"
@@ -113,20 +112,12 @@ class LmConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "LmConfig":
         """Build from the reference `config.json` schema (moshi_tpu lm.py
-        `LmConfig.from_dict`).  The JAX package's fields that the port does
-        not have are accepted at the one value the port runs and refused at
-        any other."""
+        `LmConfig.from_dict`)."""
         d = dict(d)
         for k in _CHECKPOINT_KEYS:
             d.pop(k, None)
         if "demux_second_stream" in d:
             d["demux_second_text_stream"] = d.pop("demux_second_stream")
-        for k, supported in _NOT_PORTED_FIELDS.items():
-            if k in d:
-                v = d.pop(k)
-                if (tuple(v) if isinstance(v, list) else v) != supported:
-                    raise NotImplementedError(f"LM config {k}={v!r} is not ported (the "
-                                              f"port runs {supported!r}; ROADMAP A.10)")
         unknown = sorted(set(d) - set(cls.__dataclass_fields__))
         if unknown:
             raise ValueError(f"unknown LM config keys: {unknown}")
@@ -165,7 +156,8 @@ class LmConfig:
     def transformer_config(self) -> TransformerConfig:
         return TransformerConfig(
             d_model=self.dim, num_heads=self.num_heads, num_layers=self.num_layers,
-            dim_feedforward=int(self.hidden_scale * self.dim), context=self.context,
+            dim_feedforward=int(self.hidden_scale * self.dim), causal=self.causal,
+            context=self.context,
             positional_embedding=self.positional_embedding, max_period=self.max_period,
             gating=self.gating, norm=self.norm, layer_scale=self.layer_scale,
             kv_repeat=self.kv_repeat, kv_cache_dtype=self.kv_cache_dtype,
@@ -182,7 +174,8 @@ class LmConfig:
             ff = int(self.hidden_scale * self.depformer_dim)
         return TransformerConfig(
             d_model=self.depformer_dim, num_heads=self.depformer_num_heads,
-            num_layers=self.depformer_num_layers, dim_feedforward=ff, context=None,
+            num_layers=self.depformer_num_layers, dim_feedforward=ff, causal=self.causal,
+            context=None,
             positional_embedding=self.depformer_pos_emb,
             max_period=self.depformer_max_period, gating=self.depformer_gating,
             norm=self.depformer_norm or self.norm,

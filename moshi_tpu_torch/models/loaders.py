@@ -22,12 +22,17 @@ then every leaf is made contiguous on the device asked for.  LoRA weights
 are fused into a PyTorch-named state at load (models/lora.fuse_lora_state),
 as in the JAX package; a native checkpoint keeps its adapters in its own
 tree (`__lora__` nodes), and a `lora_name` beside one is refused (the JAX
-package ignores it).  Files come from a local directory only: fetching from
-the Hugging Face hub is not ported (ROADMAP A.11).
+package ignores it).
+
+Files come from a local directory or from the Hugging Face hub (`hf_get`,
+`CheckpointInfo.from_hf_repo`): `hf://org/repo/path` names a file of
+another repository, and a bare name inside a repository downloads into
+the hub's local cache (`huggingface_hub`, imported only then).
 """
 
 import json
 import re
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -43,9 +48,6 @@ from ..modules.transformer import TransformerConfig
 from ..quantization.vq import RVQConfig
 from ..utils.quantize import QTensor, QTensor4
 from ..utils.safetensors import load_file
-
-_NOT_PORTED = "not ported yet (ROADMAP A.11)"
-
 
 # --------------------------------------------------------------------- utils
 def load_weights(path: str | Path) -> dict[str, torch.Tensor]:
@@ -205,25 +207,26 @@ def transformer_layers_from_torch(state: dict, prefix: str, cfg: TransformerConf
     return _stack(layers)
 
 
-def _projected_transformer_from_torch(state: dict, prefix: str, cfg: TransformerConfig) -> dict:
-    """Mimi's encoder / decoder transformer.  The port runs it at the SEANet
-    width, so its one output projection is the identity (an empty entry, as
-    in the JAX package's tree); a checkpoint with projections is refused
-    (ROADMAP C.2)."""
-    for key in (f"{prefix}.input_proj.weight", f"{prefix}.output_projs.0.weight"):
-        if key in state:
-            raise NotImplementedError(f"{key}: Mimi transformer projections are not "
-                                      "ported (ROADMAP C.2)")
-    return {"layers": transformer_layers_from_torch(state, f"{prefix}.transformer", cfg),
-            "output_projs": [{}]}
+def _projected_transformer_from_torch(state: dict, prefix: str, model) -> dict:
+    """Mimi's encoder / decoder transformer (a ProjectedTransformer): the
+    layers, `input_proj` where the file has one, and an `output_projs`
+    entry per output, empty (the identity) where the file has none."""
+    p = {"layers": transformer_layers_from_torch(state, f"{prefix}.transformer",
+                                                 model.config)}
+    if f"{prefix}.input_proj.weight" in state:
+        p["input_proj"] = {"weight": _lin(state, f"{prefix}.input_proj.weight")}
+    keys = [f"{prefix}.output_projs.{i}.weight" for i in range(len(model.output_dimensions))]
+    p["output_projs"] = [{"weight": _lin(state, k)} if k in state else {} for k in keys]
+    return p
 
 
 # --------------------------------------------------------------------- seanet
 def _resblock_params(state: dict, prefix: str, block) -> dict:
-    if f"{prefix}.shortcut.conv.conv.weight" in state:
-        raise NotImplementedError(f"{prefix}: SEANet shortcut convolutions are not ported")
-    return {"block": [_conv_params(state, f"{prefix}.block.{2 * j + 1}.conv.conv")
-                      for j in range(len(block.convs))]}
+    p = {"block": [_conv_params(state, f"{prefix}.block.{2 * j + 1}.conv.conv")
+                   for j in range(len(block.convs))]}
+    if block.shortcut is not None:
+        p["shortcut"] = _conv_params(state, f"{prefix}.shortcut.conv.conv")
+    return p
 
 
 def seanet_from_torch(state: dict, prefix: str, net) -> dict:
@@ -266,7 +269,6 @@ def _rvq_params(state: dict, prefix: str, n_q: int, eps: float = 1e-5) -> dict:
 # ----------------------------------------------------------------------- Mimi
 def mimi_params_from_torch_state(model: MimiModel, state: dict) -> dict:
     q = model.quantizer
-    tcfg = model.config.transformer
     down = ("downsample.conv.conv.conv" if "downsample.conv.conv.conv.weight" in state
             else "downsample.conv.conv")
     up = ("upsample.convtr.convtr.convtr" if "upsample.convtr.convtr.convtr.weight" in state
@@ -275,9 +277,9 @@ def mimi_params_from_torch_state(model: MimiModel, state: dict) -> dict:
         "encoder": seanet_from_torch(state, "encoder", model.encoder),
         "decoder": seanet_from_torch(state, "decoder", model.decoder),
         "encoder_transformer": _projected_transformer_from_torch(
-            state, "encoder_transformer", tcfg),
+            state, "encoder_transformer", model.encoder_transformer),
         "decoder_transformer": _projected_transformer_from_torch(
-            state, "decoder_transformer", tcfg),
+            state, "decoder_transformer", model.decoder_transformer),
         "downsample": _conv_params(state, down),
         "upsample": _conv_params(state, up),
         "quantizer": {
@@ -289,29 +291,24 @@ def mimi_params_from_torch_state(model: MimiModel, state: dict) -> dict:
 
 def mimi_config_from_dict(d: dict | None, num_codebooks: int = 8) -> MimiConfig:
     """A MimiConfig from the reference `mimi_config` schema, the v0.1
-    hyperparameters by default.  Settings the port does not run (replicate
-    padding, an acausal transformer) are refused."""
+    hyperparameters by default."""
     if d is None:
         return MimiConfig(num_codebooks=num_codebooks)
     sn = d.get("seanet", {})
     tr = d.get("transformer", {})
     qt = d.get("quantizer", {})
-    for where, key, supported in (("seanet", "pad_mode", "constant"),
-                                  ("transformer", "causal", True)):
-        v = {"seanet": sn, "transformer": tr}[where].get(key, supported)
-        if v != supported:
-            raise NotImplementedError(f"Mimi {where}.{key}={v!r} is not ported")
     seanet = SEANetConfig(
         channels=sn.get("channels", 1), dimension=sn.get("dimension", 512),
         n_filters=sn.get("n_filters", 64), n_residual_layers=sn.get("n_residual_layers", 1),
         ratios=tuple(sn.get("ratios", (8, 6, 5, 4))), kernel_size=sn.get("kernel_size", 7),
         residual_kernel_size=sn.get("residual_kernel_size", 3),
         last_kernel_size=sn.get("last_kernel_size", 3),
-        dilation_base=sn.get("dilation_base", 2), compress=sn.get("compress", 2))
+        dilation_base=sn.get("dilation_base", 2), compress=sn.get("compress", 2),
+        pad_mode=sn.get("pad_mode", "constant"))
     transformer = TransformerConfig(
         d_model=tr.get("d_model", 512), num_heads=tr.get("num_heads", 8),
         num_layers=tr.get("num_layers", 8), dim_feedforward=tr.get("dim_feedforward", 2048),
-        context=tr.get("context", 250),
+        causal=tr.get("causal", True), context=tr.get("context", 250),
         positional_embedding=tr.get("positional_embedding", "rope"),
         max_period=tr.get("max_period", 10_000.0), gating=tr.get("gating", "none"),
         norm=tr.get("norm", "layer_norm"), layer_scale=tr.get("layer_scale", 0.01))
@@ -468,26 +465,46 @@ LM_PRESETS = {
 }
 
 
-def local_path(filename: str | Path, root: str | Path | None = None) -> Path:
-    """A checkpoint file on this machine (moshi_tpu loaders.py `hf_get`
-    without the hub): a Path or a plain name as it is, `file://` stripped,
-    a bare name inside the directory `root`.  An `hf://` URI, or a `root`
-    that is not a directory (a hub repository), is refused."""
+def hf_get(filename: str | Path, hf_repo: str | None = None,
+           check_local_file_exists: bool = False, revision: str | None = None) -> Path:
+    """A checkpoint file on this machine (moshi_tpu loaders.py `hf_get`): a
+    Path as it is; `hf://org/repo/path` downloaded from that repository;
+    `file://` stripped; a bare name inside `hf_repo` (a local directory
+    standing in for a repository, else a download into the hub's cache;
+    with `check_local_file_exists`, a name that exists here is taken as
+    it is); any other name a local path."""
     if isinstance(filename, Path):
         return filename
-    if filename.startswith("hf://") or (root is not None and not Path(root).is_dir()):
-        raise NotImplementedError(f"{filename}: fetching from the Hugging Face hub is "
-                                  f"{_NOT_PORTED}; pass local paths")
+    if filename.startswith("hf://"):
+        parts = filename.removeprefix("hf://").split("/")
+        return Path(_hf_hub_download(f"{parts[0]}/{parts[1]}", "/".join(parts[2:]),
+                                     revision=revision))
     if filename.startswith("file://"):
         return Path(filename.removeprefix("file://"))
-    return Path(root) / filename if root is not None else Path(filename)
+    if hf_repo is not None:
+        if check_local_file_exists and Path(filename).exists():
+            return Path(filename)
+        if Path(hf_repo).is_dir():
+            return Path(hf_repo) / filename
+        return Path(_hf_hub_download(hf_repo, filename, revision=revision))
+    return Path(filename)
+
+
+def _hf_hub_download(repo: str, filename: str, revision: str | None = None) -> str:
+    """One file of a hub repository, through the hub's local cache."""
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError as e:
+        raise RuntimeError("huggingface_hub is required to resolve hub checkpoints; "
+                           "pass local paths instead") from e
+    return hf_hub_download(repo, filename, revision=revision)
 
 
 # --------------------------------------------------------------- CheckpointInfo
 class CheckpointInfo:
     """The reference repository's `config.json`, over a local directory
-    (`from_dir`) or per-file local paths (`paths`: moshi, mimi, tokenizer,
-    mimi_config)."""
+    (`from_dir`), a hub repository (`from_hf_repo`) or per-file paths
+    (`paths`: moshi, mimi, tokenizer, mimi_config, lora)."""
 
     def __init__(self, config: dict | None, root: Path | None = None,
                  paths: dict | None = None):
@@ -515,7 +532,7 @@ class CheckpointInfo:
         else:
             self.lm_config = config if config else None
         self.root = None if root is None else Path(root)
-        self.paths = {k: local_path(v) for k, v in (paths or {}).items()}
+        self.paths = {k: hf_get(v) for k, v in (paths or {}).items()}
 
     def _path(self, key: str, name: str | None) -> Path:
         if key in self.paths:
@@ -547,6 +564,45 @@ class CheckpointInfo:
         if (path / "config.json").exists():
             cfg = json.loads((path / "config.json").read_text())
         return cls(cfg, root=path, paths={k: v for k, v in paths.items() if v is not None})
+
+    @classmethod
+    def from_hf_repo(cls, hf_repo: str, moshi_weights: Path | str | None = None,
+                     mimi_weights: Path | str | None = None,
+                     tokenizer: Path | str | None = None,
+                     config_path: Path | str | None = None,
+                     mimi_config_path: Path | str | None = None,
+                     lora_weights: Path | str | None = None,
+                     revision: str | None = None) -> "CheckpointInfo":
+        """The checkpoint of a hub repository (moshi_tpu loaders.py
+        `from_hf_repo`), each file through `hf_get`; a per-file override
+        is a local path or an `hf://` name.  A repository without a
+        config.json is taken, with a warning, for the legacy Moshi-7B
+        layout."""
+        cfg = None
+        if config_path is None:
+            try:
+                config_path = hf_get("config.json", hf_repo, revision=revision)
+            except Exception:
+                warnings.warn(f"Repository {hf_repo} contains no config.json; "
+                              "assuming a legacy Moshi 7B layout.")
+        if config_path is not None:
+            cfg = json.loads(Path(config_path).read_text())
+        info = cls(cfg)
+
+        def resolve(override, name):
+            if override is not None:
+                return hf_get(override, revision=revision)
+            return None if name is None else hf_get(name, hf_repo, revision=revision)
+
+        info.paths = {"moshi": resolve(moshi_weights, info.moshi_name),
+                      "mimi": resolve(mimi_weights, info.mimi_name),
+                      "tokenizer": resolve(tokenizer, info.tokenizer_name)}
+        for key, override, name in (("mimi_config", mimi_config_path, info.mimi_config_name),
+                                    ("lora", lora_weights, info.lora_name)):
+            path = resolve(override, name)
+            if path is not None:
+                info.paths[key] = path
+        return info
 
     def num_mimi_codebooks(self) -> int:
         if self.lm_config is None:

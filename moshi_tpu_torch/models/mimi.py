@@ -6,9 +6,11 @@ The offline path (`encode`, `decode`, `decode_latent`, `encode_to_latent`)
 runs each module's `apply` over the whole input, which equals streaming it
 from a fresh state; `encode` right-pads the audio with zeros to a whole
 frame.  Streaming state is one tree of preallocated tensors that
-`encode_step` and `decode_step` update in place.  The encoder and decoder transformers run at
-the SEANet width, so the JAX package's ProjectedTransformer projections are
-identities here (its `output_projs` entries are empty) and are not ported.
+`encode_step` and `decode_step` update in place.  The encoder and decoder
+transformers are ProjectedTransformers: where the transformer's width
+differs from the SEANet's, an input projection and an output projection
+surround it; at equal widths both are identities (an empty `output_projs`
+entry), as in the JAX package's tree.
 """
 
 from dataclasses import dataclass, field
@@ -18,7 +20,7 @@ import torch
 from ..modules.conv import conv_from_jax, conv_to_jax, convtr_from_jax, convtr_to_jax
 from ..modules.resample import ConvDownsample1d, ConvTrUpsample1d
 from ..modules.seanet import SEANetConfig, SEANetDecoder, SEANetEncoder
-from ..modules.transformer import StreamingTransformer, TransformerConfig
+from ..modules.transformer import ProjectedTransformer, TransformerConfig
 from ..quantization.vq import RVQConfig, SplitResidualVectorQuantizer
 
 
@@ -60,12 +62,11 @@ def mimi_v0_1_config(num_codebooks: int = 8) -> MimiConfig:
 class MimiModel:
     def __init__(self, config: MimiConfig):
         self.config = c = config
-        if c.transformer.d_model != c.seanet.dimension:
-            raise NotImplementedError("transformer projections are not ported")
         self.encoder = SEANetEncoder(c.seanet)
         self.decoder = SEANetDecoder(c.seanet)
-        self.encoder_transformer = StreamingTransformer(c.transformer)
-        self.decoder_transformer = StreamingTransformer(c.transformer)
+        dims = (c.seanet.dimension,)
+        self.encoder_transformer = ProjectedTransformer(c.transformer, c.seanet.dimension, dims)
+        self.decoder_transformer = ProjectedTransformer(c.transformer, c.seanet.dimension, dims)
         self.downsample = ConvDownsample1d(c.downsample_stride, c.seanet.dimension)
         self.upsample = ConvTrUpsample1d(c.downsample_stride, c.seanet.dimension,
                                          channel_wise=True)
@@ -90,12 +91,10 @@ class MimiModel:
         return {
             "encoder": self.encoder.init_params(generator, dtype, device),
             "decoder": self.decoder.init_params(generator, dtype, device),
-            # each with the JAX tree's identity output projection (one empty
-            # entry), so the JAX package loads what the port saves
-            "encoder_transformer": {**self.encoder_transformer.init_params(
-                generator, dtype, device), "output_projs": [{}]},
-            "decoder_transformer": {**self.decoder_transformer.init_params(
-                generator, dtype, device), "output_projs": [{}]},
+            "encoder_transformer": self.encoder_transformer.init_params(
+                generator, dtype, device),
+            "decoder_transformer": self.decoder_transformer.init_params(
+                generator, dtype, device),
             "downsample": self.downsample.init_params(generator, dtype, device),
             "upsample": self.upsample.init_params(generator, dtype, device),
             "quantizer": self.quantizer.init_params(generator, dtype, device),
@@ -114,7 +113,7 @@ class MimiModel:
         for seanet, key in ((self.encoder, "encoder"), (self.decoder, "decoder")):
             for (kind, mod, _), p in zip(seanet.items, params[key]["model"]):
                 if kind == "block":
-                    for cp in p["block"]:
+                    for cp in p["block"] + ([p["shortcut"]] if "shortcut" in p else []):
                         put(cp)
                 else:
                     put(p, mod.groups if kind == "convtr" else None)
@@ -143,7 +142,7 @@ class MimiModel:
         if pad:
             x = torch.nn.functional.pad(x, (0, pad))
         emb = self.encoder.apply(params["encoder"], x.transpose(1, 2))
-        emb = self.encoder_transformer.apply(params["encoder_transformer"], emb)
+        (emb,) = self.encoder_transformer.apply(params["encoder_transformer"], emb)
         return self.downsample.apply(params["downsample"], emb)
 
     def encode(self, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -154,7 +153,7 @@ class MimiModel:
         """Codes [B, K, T_frames] -> audio [B, C, T_frames * frame_size]."""
         emb = self.quantizer.decode(params["quantizer"], codes)
         emb = self.upsample.apply(params["upsample"], emb)
-        emb = self.decoder_transformer.apply(params["decoder_transformer"], emb)
+        (emb,) = self.decoder_transformer.apply(params["decoder_transformer"], emb)
         return self.decoder.apply(params["decoder"], emb).transpose(1, 2)
 
     def decode_latent(self, params: dict, codes: torch.Tensor) -> torch.Tensor:
@@ -182,9 +181,9 @@ class MimiModel:
         default); a frozen slot's codes are computed and meaningless."""
         emb, _ = self.encoder.step(params["encoder"], state["encoder"], x.transpose(1, 2),
                                    exec_mask)
-        emb, _ = self.encoder_transformer.step(params["encoder_transformer"],
-                                               state["transformer"], emb,
-                                               exec_mask=exec_mask)
+        (emb,), _ = self.encoder_transformer.step(params["encoder_transformer"],
+                                                  state["transformer"], emb,
+                                                  exec_mask=exec_mask)
         emb, _ = self.downsample.step(params["downsample"], state["downsample"], emb,
                                       exec_mask)
         return self.quantizer.encode(params["quantizer"], emb), state
@@ -195,8 +194,8 @@ class MimiModel:
         exec_mask as in encode_step."""
         emb = self.quantizer.decode(params["quantizer"], codes)
         emb, _ = self.upsample.step(params["upsample"], state["upsample"], emb, exec_mask)
-        emb, _ = self.decoder_transformer.step(params["decoder_transformer"],
-                                               state["transformer"], emb,
-                                               exec_mask=exec_mask)
+        (emb,), _ = self.decoder_transformer.step(params["decoder_transformer"],
+                                                  state["transformer"], emb,
+                                                  exec_mask=exec_mask)
         out, _ = self.decoder.step(params["decoder"], state["decoder"], emb, exec_mask)
         return out.transpose(1, 2), state

@@ -10,17 +10,15 @@ optional `[depformer]` table (`lm.rs:23-27`), optional
 Enum names are serde defaults: CamelCase for NormType, PositionalEmbedding
 and CrossAttentionGating, lowercase for the activations.
 
-`rust_lm_kwargs` gives the JAX package's LmConfig fields, `causal`
-(which the port does not have) included, so `lm_config_dict_from_rust` is
-the config.json dict the JAX package writes; `LmConfig.from_dict` refuses
-`causal` at any value but True.
+`rust_lm_kwargs` gives the JAX package's LmConfig fields, so
+`lm_config_dict_from_rust` is the config.json dict the JAX package writes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from .lm import _NOT_PORTED_FIELDS, LmConfig, _acoustic_delays
+from .lm import LmConfig, _acoustic_delays
 
 # rust NormType (lib.rs) -> modules/norm.py names.  The rust RmsNorm upcasts
 # to f32 internally (norm.rs), matching our rms_norm_f32.
@@ -166,15 +164,11 @@ def lm_config_dict_from_rust(d: dict, gen: dict | None = None) -> dict:
     """The whole config.json dict of the JAX package's LmConfig for an
     inline rust model table: every field, defaults included, delays as a
     list."""
-    kw = rust_lm_kwargs(d, gen)
-    not_ported = {k: kw.pop(k, v) for k, v in _NOT_PORTED_FIELDS.items()}
-    cfg = dataclasses.asdict(LmConfig(**kw))
-    cfg.update(not_ported)
+    cfg = dataclasses.asdict(LmConfig(**rust_lm_kwargs(d, gen)))
     cfg["delays"] = list(cfg["delays"])
     return cfg
 
 
 def lm_config_from_rust_dict(d: dict, gen: dict | None = None) -> LmConfig:
-    """`moshi::lm::Config` -> the port's LmConfig (NotImplementedError for
-    what the port does not run)."""
+    """`moshi::lm::Config` -> the port's LmConfig."""
     return LmConfig.from_dict(rust_lm_kwargs(d, gen))

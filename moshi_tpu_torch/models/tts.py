@@ -13,17 +13,16 @@ embeddings (`make_condition_attributes`), or through an audio prefix
 that `generate`'s `prefixes` take); CFG's null condition drops every
 condition.
 
-Voice names resolve in a local voice directory (`voice_repo`): an alias
-first, then `name + voice_suffix`.  Fetching from the hub (a `voice_repo`
-that is not a directory, an `hf://` name) is not ported and raises
-(ROADMAP A.11).
+Voice names resolve as the JAX package's do (models/loaders.py `hf_get`):
+an alias first, then `name + voice_suffix`; a file that exists as it is,
+an `hf://org/repo/path` name, or a name inside `voice_repo`, a local
+directory or a hub repository.
 """
 
 import re
 import typing as tp
 from collections import deque
 from dataclasses import dataclass, field
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -275,15 +274,14 @@ class TTSModel:
         return ConditionAttributes(text=text, tensor=tensors)
 
     def get_voice_path(self, voice_name: str):
-        """The local file of a voice name: an alias's file, else
-        `voice_name + voice_suffix`, each a path that exists as it is or a
-        name inside the voice directory `voice_repo`."""
-        from .loaders import local_path
+        """The local file of a voice name (moshi_tpu tts.py:290-296): an
+        alias's file, else `voice_name + voice_suffix`, each a path that
+        exists as it is, an `hf://` name, or a name inside `voice_repo`
+        (fetched from the hub when that is not a local directory)."""
+        from .loaders import hf_get
 
         name = self.voice_aliases.get(voice_name, voice_name + self.voice_suffix)
-        if not name.startswith(("hf://", "file://")) and Path(name).exists():
-            return Path(name)
-        return local_path(name, self.voice_repo)
+        return hf_get(name, self.voice_repo, check_local_file_exists=True)
 
     @staticmethod
     def load_voice_embedding(path) -> np.ndarray:

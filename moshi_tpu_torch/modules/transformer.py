@@ -25,6 +25,16 @@ int4 KV paths of batched serving.
   the layer's whole ring with the `decode_attention_int8` kernel, so the
   current row is read back quantized (moshi_tpu transformer.py:670-746,
   where XLA's `_attention` puts the scales on scores and weights).
+- A step of T > 1 positions (a prefill) over either quantized cache writes
+  the T rows quantized at their ring positions (int4: one packed column a
+  position, as the JAX package does), then attends over the layer's
+  dequantized ring with the JAX package's formulation, the per-row scales
+  on the scores and the softmax weights (moshi_tpu transformer.py:426-470,
+  629-746).  That is plain torch: the JAX package computes it in XLA.
+
+The FFN is a GELU MLP (`gating="none"`) or a GLU whose gate takes `silu`,
+`gelu` (exact), `relu`, `tanh` or `sigmoid` (moshi_tpu
+transformer.py:539-547, 966-977).
 
 Cross-attention (the TTS and vision presets, moshi_tpu
 transformer.py:375-423 and :525-535): `precompute_cross` projects a
@@ -37,8 +47,10 @@ zoo) and layer_scale_cross.  It is plain torch in the JAX package's dtypes
 
 `apply` is the offline forward over a whole sequence (moshi_tpu
 transformer.py:563-627): position embeddings from offset 0, the causal
-mask with `context` as a sliding window, no cache, and `cross_src`
-projected by `precompute_cross`.  With `remat` and autograd recording,
+mask with `context` as a sliding window (no mask at all with
+`causal=False`; a streaming `step` keeps its ring mask either way, as the
+JAX package's does), no cache, and `cross_src` projected by
+`precompute_cross`.  With `remat` and autograd recording,
 each layer runs under torch.utils.checkpoint (non-reentrant), which keeps
 its input and recomputes the rest in the backward: the JAX package's
 `jax.checkpoint` of the layer scan (transformer.py:622-625).  Per-step
@@ -48,9 +60,9 @@ dtype and contract them with one einsum, as the JAX package does (no
 Pallas kernel there, plain torch here); a single position's member goes
 through `wdot` and so to the GEMV kernels.
 
-Not ported yet: T > 1 steps over the quantized caches (the prefill path,
-which LMGen, the ASR and the TTS engines never take) and
-`attention_int8_qk` (an XLA-only option).
+`ProjectedTransformer` wraps one with Mimi's input and output projections
+(moshi_tpu transformer.py:980-1034).  Refused: `attention_int8_qk` (an
+XLA-only option of the JAX package).
 """
 
 import math
@@ -65,15 +77,18 @@ from .norm import LayerScale, make_norm
 from .rope import apply_rope
 from ..models.lora import LoRAWeight
 from ..ops.decode_attention import decode_attention_int8
-from ..ops.int4_attention import (_pack_nibble_cols, _quant_rows_int4,  # noqa: F401
+from ..ops.int4_attention import (_pack_nibble_cols, _quant_rows_int4,
                                   decode_attention_int4_write)
 from ..utils.matmul import wdot
 from ..utils.params import trunc_normal
-from ..utils.quantize import QTensor, QTensor4, dequantize, dequantize4, divide
+from ..utils.quantize import (QTensor, QTensor4, dequantize, dequantize4, divide,
+                              unpack_nibbles)
+
+GATINGS = ("none", "silu", "gelu", "relu", "tanh", "sigmoid")
 
 
 def gating_hidden_dim(dim: int, dim_feedforward: int) -> int:
-    """Hidden width of the SiLU-gated FFN."""
+    """Hidden width of the gated FFN."""
     if dim_feedforward == 4 * dim:
         return 21 * dim // 8
     return 2 * dim_feedforward // 3
@@ -132,6 +147,30 @@ def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
+def _unpack_int4_channel_major(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """One layer's channel-pair packed cache [B, Hkv*D/2, cap] int8 ->
+    the int4 values [B, cap, Hkv, D] (moshi_tpu transformer.py:954-960)."""
+    low, high = unpack_nibbles(x)
+    u = torch.stack([low, high], dim=-1).transpose(1, 2)       # [B, cap, hd/2, 2]
+    B, cap, h2, _ = u.shape
+    return u.reshape(B, cap, heads, 2 * h2 // heads)
+
+
+def _activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The GLU's gate (moshi_tpu transformer.py:966-977); gelu is exact."""
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x)
+    if name == "relu":
+        return F.relu(x)
+    if name == "tanh":
+        return torch.tanh(x)
+    if name == "sigmoid":
+        return torch.sigmoid(x)
+    raise ValueError(f"unknown activation {name}")
+
+
 def dense(w, dtype) -> torch.Tensor:
     """A weight as a dense tensor in `dtype`: a QTensor or QTensor4
     dequantized (the JAX package's `w.astype(dtype)`), a LoRAWeight fused
@@ -159,10 +198,11 @@ class TransformerConfig:
     num_heads: int
     num_layers: int
     dim_feedforward: int = 2048
+    causal: bool = True   # False: apply attends every position (step keeps its ring mask)
     context: int | None = None
     positional_embedding: str = "rope"  # rope | rope_concat | sin | sin_rope | none
     max_period: float = 10_000.0
-    gating: str = "none"  # none (GELU MLP) | silu (gated)
+    gating: str = "none"  # none (GELU MLP) | silu | gelu | relu | tanh | sigmoid (GLU)
     norm: str = "layer_norm"
     layer_scale: float | None = None
     kv_repeat: int = 1
@@ -241,8 +281,8 @@ class StreamingTransformer:
         if c.positional_embedding not in ("rope", "rope_concat", "sin", "sin_rope", "none"):
             raise NotImplementedError(
                 f"positional embedding {c.positional_embedding!r} is not ported")
-        if c.gating not in ("none", "silu"):
-            raise NotImplementedError(f"gating {c.gating!r} is not ported")
+        if c.gating not in GATINGS:
+            raise ValueError(f"gating {c.gating!r} not in {GATINGS}")
         if c.d_model % c.num_heads or c.num_heads % c.kv_repeat:
             raise ValueError("heads must divide d_model and kv_repeat the heads")
         if c.attention_int8_qk:
@@ -430,21 +470,30 @@ class StreamingTransformer:
         return lambda layer: (k[layer], v[layer], None)
 
     # ------------------------------------------------------------- layer body
-    def _attention(self, q, k, v, mask):
+    def _attention(self, q, k, v, mask, k_scale=None, v_scale=None):
         """q [B, H, T, D]; k, v [B, S, Hkv, D]; mask [B, 1, T, S] bool or
         None (attend every position).  Scores and softmax in f32 as in the
         JAX package (its scores einsum asks for an f32 result); the
-        products run in q's dtype."""
+        products run in q's dtype.  k_scale, v_scale [B, S, Hkv, 1]: the
+        quantized cache's per-row scales, put on the scores and on the
+        softmax weights (moshi_tpu transformer.py:426-470)."""
         c = self.config
         if c.kv_repeat > 1:
             k = k.repeat_interleave(c.kv_repeat, dim=2)
             v = v.repeat_interleave(c.kv_repeat, dim=2)
+            if k_scale is not None:
+                k_scale = k_scale.repeat_interleave(c.kv_repeat, dim=2)
+                v_scale = v_scale.repeat_interleave(c.kv_repeat, dim=2)
         compute = q.dtype
         scores = torch.einsum("bhtd,bshd->bhts", q, k.to(compute)).float()
+        if k_scale is not None:
+            scores = scores * k_scale.float().permute(0, 2, 3, 1)
         scores = scores * (1.0 / math.sqrt(c.head_dim))
         if mask is not None:
             scores = scores.masked_fill(~mask, float("-inf"))
         w = torch.softmax(scores, dim=-1)
+        if v_scale is not None:
+            w = w * v_scale.float().permute(0, 2, 3, 1)
         out = torch.einsum("bhts,bshd->bthd", w.to(compute), v.to(compute))
         return out.reshape(*out.shape[:2], -1)  # [B, T, H*D]
 
@@ -472,6 +521,36 @@ class StreamingTransformer:
         out = decode_attention_int8(q[:, 0].contiguous(), layer, state["k"], state["v"],
                                     state["k_scale"], state["v_scale"], mask)
         return out.reshape(B, 1, H * D).to(q.dtype)
+
+    def _quant_ring_attention(self, q, kk, vv, *, state, layer, write_idx, mask):
+        """T > 1 rows over a quantized cache: quantize kk, vv [B, T, Hkv,
+        D] and write them at write_idx [B, T] of every slot (int4: one
+        packed column a position, in order), then attend over the layer's
+        whole ring, scales on the scores and weights (moshi_tpu
+        transformer.py:629-746).  q [B, T, H, D]; returns [B, T, H*D]."""
+        c = self.config
+        B, T = kk.shape[:2]
+        b = torch.arange(B, device=q.device)
+        if c.kv_cache_dtype == "int8":
+            for name, rows in (("k", kk), ("v", vv)):
+                vals, scale = _quant_rows(rows)
+                state[name][layer, b[:, None], write_idx] = vals
+                state[name + "_scale"][layer, b[:, None], write_idx] = scale.to(torch.bfloat16)
+            return self._attention(q.transpose(1, 2), state["k"][layer], state["v"][layer],
+                                   mask, state["k_scale"][layer], state["v_scale"][layer])
+        cap = mask.shape[-1]  # the logical capacity; the lanes are padded past it
+        for name, rows in (("k", kk), ("v", vv)):
+            vals, scale = _quant_rows_int4(rows)
+            vals = vals.reshape(B, T, -1)
+            for t in range(T):
+                pos = write_idx[:, t]
+                state[name][layer, b, :, pos] = _pack_nibble_cols(vals[:, t])
+                state[name + "_scale"][layer, b, :, pos] = scale[:, t, :, 0].to(torch.bfloat16)
+        Hkv = c.num_kv_heads
+        k, v = (_unpack_int4_channel_major(state[n][layer], Hkv)[:, :cap] for n in ("k", "v"))
+        ks, vs = (state[n][layer].transpose(1, 2)[:, :cap, :, None]
+                  for n in ("k_scale", "v_scale"))
+        return self._attention(q.transpose(1, 2), k, v, mask, ks, vs)
 
     def _int4_attention(self, q, kk, vv, *, state, layer, ctx):
         """Decode attention over the packed int4 cache plus the current row.
@@ -543,7 +622,7 @@ class StreamingTransformer:
         else:
             u = _per_step_linear(pl["mlp"]["linear_in"], h, widx)
             a, g = u.chunk(2, dim=-1)
-            u = F.silu(a) * g
+            u = _activation(c.gating, a) * g
             u = _per_step_linear(pl["mlp"]["linear_out"], u, widx)
         if "layer_scale_2" in pl:
             u = pl["layer_scale_2"]["scale"].to(u.dtype) * u
@@ -563,20 +642,23 @@ class StreamingTransformer:
               cross_src: torch.Tensor | None = None) -> torch.Tensor:
         """Offline forward of a whole sequence x [B, T, d_model] -> [B, T,
         d_model], with no cache: positions from 0, the causal mask with
-        `context` as a sliding window.  steps: the absolute step index of
-        each position, for per-step weights (default range(T)); cross_src
-        [B, Ts, kv_dim]: the cross-attention source, projected once."""
+        `context` as a sliding window (no mask when not `causal`).  steps:
+        the absolute step index of each position, for per-step weights
+        (default range(T)); cross_src [B, Ts, kv_dim]: the cross-attention
+        source, projected once."""
         c = self.config
         B, T, _ = x.shape
         offset = torch.zeros(B, dtype=torch.long, device=x.device)
         x = self._pos_embed(x, offset)
         widx = c.steps_to_weight_indices(range(T) if steps is None else steps)
-        t = torch.arange(T, device=x.device)
-        delta = t[:, None] - t[None, :]
-        mask = delta >= 0
-        if c.context is not None:
-            mask &= delta < c.context
-        mask = mask[None, None]
+        mask = None
+        if c.causal:
+            t = torch.arange(T, device=x.device)
+            delta = t[:, None] - t[None, :]
+            mask = delta >= 0
+            if c.context is not None:
+                mask &= delta < c.context
+            mask = mask[None, None]
 
         def attend(q, kk, vv):
             return self._attention(q.transpose(1, 2), kk, vv, mask)
@@ -602,13 +684,11 @@ class StreamingTransformer:
         c = self.config
         B, T, _ = x.shape
         widx = c.steps_to_weight_indices(range(T) if steps is None else steps)
-        if c.kv_cache_dtype in ("int8", "int4") and T != 1:
-            raise NotImplementedError(f"T > 1 steps over the {c.kv_cache_dtype} KV "
-                                      f"cache (the prefill path) are not ported")
-        if c.kv_cache_dtype == "int4":
+        if c.kv_cache_dtype == "int4" and T == 1:
             return self._step_int4_decode(params, state, x, exec_mask, widx)
         offset = state["offset"]
-        cap = state["k"].shape[2]
+        # the int4 cache's lane axis is padded past the capacity
+        cap = c.kv_capacity if c.kv_cache_dtype == "int4" else state["k"].shape[2]
         x = self._pos_embed(x, offset)
 
         ar = torch.arange(T, device=x.device)
@@ -625,9 +705,12 @@ class StreamingTransformer:
         for layer in range(c.num_layers):
             # int8 KV (moshi_tpu transformer.py:670-746 at T = 1): the same
             # ring mask, the current row written quantized before attending
-            if c.kv_cache_dtype == "int8":
+            if c.kv_cache_dtype == "int8" and T == 1:
                 attend = partial(self._int8_attention, state=state, layer=layer,
                                  write_pos=write_idx[:, 0], mask=mask[:, 0, 0])
+            elif c.kv_cache_dtype != "model":
+                attend = partial(self._quant_ring_attention, state=state, layer=layer,
+                                 write_idx=write_idx, mask=mask)
             else:
                 attend = partial(self._ring_attention, state=state, layer=layer,
                                  write_idx=write_idx, mask=mask)
@@ -669,3 +752,55 @@ class StreamingTransformer:
         offset.copy_(offset_next)
         return x, state
 
+
+
+class ProjectedTransformer:
+    """A StreamingTransformer between an input projection and one output
+    projection per output width (moshi_tpu transformer.py:980-1034): the
+    params hold `input_proj` where the input width differs from d_model
+    and `output_projs`, one entry per output, empty (the identity) where
+    the width is d_model.  Layout [B, T, C]; the projections are plain
+    products in x's dtype, as the JAX package's `dot`."""
+
+    def __init__(self, config: TransformerConfig, input_dimension: int,
+                 output_dimensions: tuple[int, ...]):
+        self.transformer = StreamingTransformer(config)
+        self.config = config
+        self.input_dimension = input_dimension
+        self.output_dimensions = tuple(output_dimensions)
+
+    def init_params(self, generator: torch.Generator, dtype=torch.float32,
+                    device=None) -> dict:
+        d = self.config.d_model
+        p = self.transformer.init_params(generator, dtype, device)
+        if self.input_dimension != d:
+            p["input_proj"] = {"weight": trunc_normal(generator, (self.input_dimension, d),
+                                                      self.input_dimension, dtype, device)}
+        p["output_projs"] = [{} if od == d else
+                             {"weight": trunc_normal(generator, (d, od), d, dtype, device)}
+                             for od in self.output_dimensions]
+        return p
+
+    def init_state(self, batch_size: int, dtype=torch.float32, device=None) -> dict:
+        return self.transformer.init_state(batch_size, dtype, device)
+
+    @staticmethod
+    def _project_in(params: dict, x: torch.Tensor) -> torch.Tensor:
+        if "input_proj" in params:
+            x = torch.matmul(x, params["input_proj"]["weight"].to(x.dtype))
+        return x
+
+    @staticmethod
+    def _project_out(params: dict, z: torch.Tensor) -> list[torch.Tensor]:
+        return [torch.matmul(z, op["weight"].to(z.dtype)) if "weight" in op else z
+                for op in params["output_projs"]]
+
+    def apply(self, params: dict, x: torch.Tensor) -> list[torch.Tensor]:
+        z = self.transformer.apply(params, self._project_in(params, x))
+        return self._project_out(params, z)
+
+    def step(self, params: dict, state: dict, x: torch.Tensor,
+             exec_mask: torch.Tensor | None = None) -> tuple[list[torch.Tensor], dict]:
+        z, state = self.transformer.step(params, state, self._project_in(params, x),
+                                         exec_mask=exec_mask)
+        return self._project_out(params, z), state

@@ -6,9 +6,10 @@ a JSONL script in, one wav per item out.
 
 A JSONL line is {"turns": [...]} or {"text": ...}, with "voices": voice
 .safetensors files.  The simple mode (`--text`, `--voice`, each
-repeatable) broadcasts texts against voices; a voice is a file, a name in
-`--voice-repo` (a local directory), or `file://x.wav` for an audio-prefix
-model.  The items of a run are generated together, eagerly on `--device`;
+repeatable) broadcasts texts against voices; a voice is a file, an
+`hf://org/repo/name` on the hub, a name in `--voice-repo` (a local
+directory or a hub repository, by default the JAX package's
+kyutai/tts-voices), or `file://x.wav` for an audio-prefix model.  The items of a run are generated together, eagerly on `--device`;
 draws come from a generator seeded 0.  `--debug-json` writes the JSONL
 items' transcripts with their timings.
 """

@@ -44,8 +44,10 @@ One deliberate difference from the JAX package: on a CFG-distilled model
 `load_tts` gives `cfg_coef` to the voices as their `cfg` condition and
 leaves the model batch undoubled (what `TTSModel.simple_generate` does in
 both packages), where the JAX package's engine runs true CFG on a doubled
-batch and leaves the voices' `cfg` to its padding.  A batch doubled past
-the GEMV kernels' 16 rows is refused when the engine is built.
+batch and leaves the voices' `cfg` to its padding.  On a model without
+that condition, true CFG runs B slots as 2B model rows through the same
+two graphs; the int8 linears take any row count (16-row `int8_mma` chunks
+above 16, ops/qmatmul.py).
 """
 
 import asyncio
@@ -61,7 +63,6 @@ from ..conditioners import dropout_all_conditions
 from ..models.lm import UNGENERATED_TOKEN, ZERO_TOKEN
 from ..models.lm_gen import LMGen, LMGenConfig
 from ..models.tts import Entry
-from ..ops.q4matmul import MAX_BATCH
 from ..utils.graphs import GraphedStep, run_on_device
 from ..utils.trees import masked_reset, put_slots, state_batch_axes, take_slots
 from .metrics import CONNECT_COUNT, MODEL_STEP_DURATION, OPEN_CHANNELS, TOTAL_STEPS
@@ -109,10 +110,6 @@ class BatchedTTSState:
             use_sampling=tts.temp > 0.0, temp=tts.temp, temp_text=tts.temp,
             cfg_coef=tts.cfg_coef, padding_bonus=tts.padding_bonus))
         self.mult = self.gen.model_batch_mult
-        if B * self.mult > MAX_BATCH:   # on every device: a CPU rehearsal refuses it too
-            raise NotImplementedError(
-                f"BatchedTTSState: {B} slots x {self.mult} (CFG) = {B * self.mult} model rows; "
-                f"the GEMV kernels take at most {MAX_BATCH} (ROADMAP B.2a)")
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(rng_seed)
         self.gen_state = self.gen.init_state(B, self.generator, torch.bfloat16, dev)

@@ -186,16 +186,15 @@ def _with_knobs(out: dict, m: dict) -> dict:
 
 
 def inline_checkpoint_info(inline: dict):
-    """A CheckpointInfo over explicit per-file local paths (the reference
-    worker resolves a local path or `hf://repo/file`, main.rs:211-277; an
-    `hf://` path raises NotImplementedError here, ROADMAP A.11).
+    """A CheckpointInfo over explicit per-file paths, each a local path or
+    `hf://repo/file` (the reference worker's resolution, main.rs:211-277).
 
     The rust schema never describes the Mimi architecture (the rust worker
     hardcodes the standard one); another Mimi is described by a
     `mimi_config.json` beside the audio tokenizer's weights."""
-    from ..models.loaders import CheckpointInfo, local_path
+    from ..models.loaders import CheckpointInfo, hf_get
 
-    paths = {k: local_path(v) for k, v in inline["paths"].items()}
+    paths = {k: hf_get(v) for k, v in inline["paths"].items()}
     if "mimi" in paths and "mimi_config" not in paths:
         side = Path(paths["mimi"]).parent / "mimi_config.json"
         if side.exists():

@@ -12,9 +12,11 @@ Behavioral reference: `rust/moshi-server/src/main.rs`: auth by the
 `/api/drain` with a key, or SIGTERM) answers 503 to new sessions and stops
 the server once the open ones have finished or `--drain-timeout` passed.
 
-Module types of the native schema (`[modules.NAME]`, `type`, `route`,
-`checkpoint_dir`; serve/toml_compat.py reads the reference moshi-server
-schema, `type = "BatchedAsr"` and its kin, verbatim):
+Module types of the native schema (`[modules.NAME]`, `type`, `route`, and
+`checkpoint_dir` or `hf_repo`, a hub repository, with `moshi_weights`,
+`mimi_weights`, `tokenizer_file` and `revision` beside it;
+serve/toml_compat.py reads the reference moshi-server schema, `type =
+"BatchedAsr"` and its kin, with its `hf://` file paths, verbatim):
 - `moshi`: one session at a time (serve/server.py), `kv_cache`, `cfg_coef`;
 - `batched_moshi`: serve/batched_moshi.py, `batch_size`, `kv_cache`,
   `context`, `mimi_dtype`;
@@ -25,8 +27,8 @@ schema, `type = "BatchedAsr"` and its kin, verbatim):
 - `batched_tts`: serve/batched_tts.py, `batch_size`, `kv_cache`,
   `context`, `weights`, `mimi_dtype`, `temp`, `cfg_coef` (on a
   CFG-distilled model the voices' `cfg` condition, where the JAX
-  package's module runs true CFG; on another it doubles the model batch,
-  which the engine refuses above 16 rows: ROADMAP B.2a), `n_q`,
+  package's module runs true CFG; on another it doubles the model batch),
+  `n_q`,
   `max_padding`, `voice_dir`, `voices` (name -> file), `voice_frames`
   (by default the first voice file's);
 - `tts`: serve/tts_ws.py, the same keys but the batch's.  The JAX package
@@ -49,8 +51,7 @@ schema, `type = "BatchedAsr"` and its kin, verbatim):
 A `moshi` module also takes `log_dir` (session token logs), and
 `vault_url`, `fleet_auth` and `replicate_every` (cross-worker migration
 through the dispatcher's vault, serve/dispatcher.py).
-Not ported yet, and refused with NotImplementedError: the keys `tp` and
-`hf_repo`.
+Not ported yet, and refused with NotImplementedError: the key `tp`.
 
 Every model module loads onto `--device` (`cuda` by default, which must be
 there).  After all modules have warmed up, `main` calls `gc.freeze()`: the
@@ -73,7 +74,7 @@ from .metrics import OPEN_CHANNELS, REGISTRY
 
 # what the worker does not build yet -> the ROADMAP item it waits for
 NOT_PORTED_TYPES: dict[str, str] = {}
-NOT_PORTED_KEYS = {"tp": "A.13 (the multi-card mesh)", "hf_repo": "A.11 (the hub fetch)"}
+NOT_PORTED_KEYS = {"tp": "A.13 (the multi-card mesh)"}
 
 
 def log(level: str, msg: str):
@@ -149,8 +150,13 @@ def build_module(name: str, mcfg: dict, seed: int, device="cuda"):
         info = inline_checkpoint_info(mcfg["_inline"])
     elif ckpt is not None:
         info = CheckpointInfo.from_dir(ckpt)
+    elif "hf_repo" in mcfg:
+        info = CheckpointInfo.from_hf_repo(
+            mcfg["hf_repo"], moshi_weights=mcfg.get("moshi_weights"),
+            mimi_weights=mcfg.get("mimi_weights"), tokenizer=mcfg.get("tokenizer_file"),
+            revision=mcfg.get("revision"))
     else:
-        raise ValueError(f"module {name}: set checkpoint_dir")
+        raise ValueError(f"module {name}: set checkpoint_dir or hf_repo")
     if mtype == "mimi":
         return _build_mimi(mcfg, info, t0, device)
     if mtype in ("tts", "batched_tts"):

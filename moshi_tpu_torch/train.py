@@ -403,14 +403,14 @@ def make_mimi_loss_fn(mimi, tcfg=None, loss_weights: dict | None = None):
         fs = mimi.frame_size
         pcm = pcm[..., :pcm.shape[-1] - pcm.shape[-1] % fs]
         emb = mimi.encoder.apply(params["encoder"], pcm.transpose(1, 2))
-        emb = mimi.encoder_transformer.apply(params["encoder_transformer"], emb)
+        (emb,) = mimi.encoder_transformer.apply(params["encoder_transformer"], emb)
         emb = mimi.downsample.apply(params["downsample"], emb)
         r1, st1 = rvq_train_forward(q.rvq_first.config, tcfg, params["quantizer"]["rvq_first"],
                                     vq_state["first"], emb, generator)
         r2, st2 = rvq_train_forward(q.rvq_rest.config, tcfg, params["quantizer"]["rvq_rest"],
                                     vq_state["rest"], emb, generator)
         out = mimi.upsample.apply(params["upsample"], r1["quantized"] + r2["quantized"])
-        out = mimi.decoder_transformer.apply(params["decoder_transformer"], out)
+        (out,) = mimi.decoder_transformer.apply(params["decoder_transformer"], out)
         recon = mimi.decoder.apply(params["decoder"], out).transpose(1, 2)
         n = min(recon.shape[-1], pcm.shape[-1])
         a, b = recon[:, 0, :n], pcm[:, 0, :n]

@@ -164,9 +164,9 @@ def test_tts_batched_keys(tiny, capsys, extra):
     assert out["weights"] == ("int8" if extra else "bf16")
 
 
-def test_tts_batched_refuses_above_16_rows(tiny, capsys):
-    with pytest.raises(NotImplementedError, match="B.2a"):
-        run_main(capsys, "--mode", "tts", "--batch", "17", "--steps", "2")
+def test_tts_batched_above_16_rows(tiny, capsys):
+    out = run_main(capsys, "--mode", "tts", "--batch", "17", "--steps", "2")
+    assert set(out) == TTS_BATCHED_KEYS and out["batch"] == 17
 
 
 def test_mimi_only_keys(tiny, capsys):

@@ -419,23 +419,28 @@ def test_presets_match(preset):
     assert info.num_mimi_codebooks() == jl.CheckpointInfo({"preset": preset}).num_mimi_codebooks()
 
 
-def test_config_parsers_match(ckpt):
+def test_config_parsers_match(ckpt, monkeypatch):
     cfg = torch_layout_config(ckpt)
     _same_fields(TLM(tl._lm_config(cfg)).config, jl.LmConfig.from_dict(cfg))
     mcfg = json.loads((Path(ckpt) / "mimi_config.json").read_text())
-    for d in (mcfg, None):
+    acausal = {**mcfg, "seanet": {**mcfg["seanet"], "pad_mode": "replicate"},
+               "transformer": {**mcfg["transformer"], "causal": False}}
+    for d in (mcfg, None, acausal):
         _same_fields(tl.mimi_config_from_dict(d, 3), jl.mimi_config_from_dict(d, 3))
     sched = {**cfg, "depformer_weights_per_step_schedule": [0, 0]}
     _same_fields(TLM(tl._lm_config(sched)).config, jl.LmConfig.from_dict(sched))
-    with pytest.raises(NotImplementedError):
-        tl.LmConfig.from_dict({**cfg, "causal": False})
+    acausal_lm = {**cfg, "causal": False}
+    _same_fields(TLM(tl._lm_config(acausal_lm)).config, jl.LmConfig.from_dict(acausal_lm))
     assert tl.LmConfig.from_dict({**cfg, "remat": True}).remat
-    with pytest.raises(NotImplementedError):
-        tl.mimi_config_from_dict({"seanet": {"pad_mode": "replicate"}})
-    with pytest.raises(NotImplementedError, match="hub"):
-        tl.local_path("hf://kyutai/moshiko/model.safetensors")
-    with pytest.raises(NotImplementedError, match="hub"):
-        tl.local_path("model.safetensors", root="kyutai/moshiko-pytorch-bf16")
+    # hub names resolve through each package's download (stubbed here)
+    for mod in (tl, jl):
+        monkeypatch.setattr(mod, "_hf_hub_download",
+                            lambda repo, name, revision=None: f"/hub/{repo}/{name}")
+    for args in (("hf://kyutai/moshiko/model.safetensors",),
+                 ("model.safetensors", "kyutai/moshiko-pytorch-bf16")):
+        assert tl.hf_get(*args) == jl.hf_get(*args) == Path(
+            "/hub/kyutai/moshiko" + ("" if len(args) == 1 else "-pytorch-bf16")
+            + "/model.safetensors")
     info = tl.CheckpointInfo.from_dir(ckpt, tokenizer="file:///elsewhere/t.model")
     assert info.tokenizer_path == Path("/elsewhere/t.model")
     assert info._path("moshi", info.moshi_name) == Path(ckpt) / "model.native.safetensors"

@@ -1215,6 +1215,38 @@ def test_quantization_on_the_card_gives_the_cpus_bytes(name, gen):
         assert torch.equal(s_card.cpu(), s_cpu), (name, shape)
 
 
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+def test_prefill_write_on_the_card_gives_the_cpus_bytes(kv, gen):
+    """A step of T = 64 rows over a quantized cache (the prefill path)
+    writes the same bytes on the card as on the CPU for the same seeded
+    bf16 rows (C.7), at Moshi's head shape, 2 slots, a ring of 100 that
+    wraps inside the chunk; its attention outputs agree within
+    BOUND[bf16]."""
+    from moshi_tpu_torch.modules.transformer import (StreamingTransformer, TransformerConfig,
+                                                     ring_positions)
+    B, T, cap = 2, 64, 100
+    model = StreamingTransformer(TransformerConfig(d_model=4096, num_heads=32, num_layers=1,
+                                                   context=cap, kv_cache_dtype=kv))
+    cpu_gen = torch.Generator().manual_seed(11)
+    q, kk, vv = (_cpu_rows(cpu_gen, (B, T, 32, 128)) for _ in range(3))
+    outs, caches = [], []
+    for dev in ("cpu", "cuda"):
+        state = model.init_state(B, torch.bfloat16, dev)
+        offset = torch.tensor([70, 5], device=dev)
+        ar = torch.arange(T, device=dev)
+        pos_k, _ = ring_positions(offset, T, cap)
+        delta = (offset[:, None] + ar)[:, :, None] - pos_k[:, None, :]
+        mask = ((pos_k[:, None, :] >= 0) & (delta >= 0) & (delta < cap))[:, None]
+        outs.append(model._quant_ring_attention(
+            q.to(dev), kk.to(dev), vv.to(dev), state=state, layer=0,
+            write_idx=(offset[:, None] + ar) % cap, mask=mask))
+        caches.append({k: v.cpu() for k, v in state.items() if k != "offset"})
+    torch.cuda.synchronize()
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(caches[1][name], caches[0][name]), name
+    assert _rel(outs[1].cpu(), outs[0]) <= BOUND[torch.bfloat16]
+
+
 @pytest.mark.parametrize("top_k", [0, 25, 250])
 def test_written_out_draw_is_multinomials_on_the_card(top_k, gen):
     """On the card too, sample_token's exponential race draws what
@@ -1824,7 +1856,7 @@ def _tts_leaves(state):
 
 
 @pytest.mark.parametrize("kv", ["int4", "int8"])
-@pytest.mark.parametrize("batch", [4, 16])
+@pytest.mark.parametrize("batch", [4, 16, 32])
 def test_graphed_tts_equals_eager(batch, kv, gen):
     """Greedy, over a voiceless start, joins, a starve, a voice change, a
     reset and a leave: the graphed engine's output frames, Text events and
@@ -1832,7 +1864,8 @@ def test_graphed_tts_equals_eager(batch, kv, gen):
     (the cross K/V and the summed condition too) does at the end; no op
     between frames moves a state tensor; graph 1 is captured once in each
     mode, graph 2 once, and the captures counted one frame's K4 or K6
-    launches per mode."""
+    launches per mode.  At 32 slots every int8 linear runs as two 16-row
+    int8 GEMV launches."""
     from moshi_tpu_torch.serve.batched_tts import serve_tts
     models = _tiny_tts(kv)
     schedule = _tts_schedule(batch)

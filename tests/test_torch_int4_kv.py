@@ -315,16 +315,21 @@ def test_fused_write_plain_skips_lanes_outside_the_cache():
     assert not torch.equal(cache[0][0, 2, :, 5], before[0][0, 2, :, 5])
 
 
-def test_int4_prefill_and_int8_are_refused():
-    """T > 1 steps over either quantized cache (the prefill path) and the
-    XLA-only int8 x int8 scores are not ported."""
-    _, _, _, tmodel, tparams = _build(1)
-    state = tmodel.init_state(1, torch.float32)
-    with pytest.raises(NotImplementedError):
-        tmodel.step(tparams, state, torch.zeros(1, 2, 64))
-    int8 = ttr.StreamingTransformer(ttr.TransformerConfig(**dict(CFG, kv_cache_dtype="int8")))
-    with pytest.raises(NotImplementedError, match="T > 1"):
-        int8.step(tparams, int8.init_state(1), torch.zeros(1, 2, 64))
+def test_int4_prefill_runs_and_int8_qk_is_refused():
+    """A T = 2 step over either quantized cache (the prefill path) from a
+    fresh state gives JAX's outputs within TOL_PLAIN and its cache bytes
+    (tests/test_torch_configs.py holds wrapped rings and frozen slots);
+    the XLA-only int8 x int8 scores are refused."""
+    cfg, jmodel, params, tmodel, tparams = _build(1)
+    x = (0.5 * np.random.RandomState(13).randn(2, 2, 64)).astype(np.float32)
+    for kv in ("int4", "int8"):
+        jm = jtr.StreamingTransformer(jtr.TransformerConfig(**dict(CFG, kv_cache_dtype=kv)))
+        tm = ttr.StreamingTransformer(ttr.TransformerConfig(**dict(CFG, kv_cache_dtype=kv)))
+        yj, jstate = jm.step(params, jm.init_state(2, jnp.float32), jnp.asarray(x))
+        yt, tstate = tm.step(tparams, tm.init_state(2, torch.float32), torch.from_numpy(x))
+        assert max_abs(to_np(yt), yj) <= TOL_PLAIN, kv
+        for name in ("k", "v", "k_scale", "v_scale", "offset"):
+            assert _bytes_equal(tstate[name], jstate[name]), (kv, name)
     with pytest.raises(NotImplementedError, match="attention_int8_qk"):
         ttr.StreamingTransformer(ttr.TransformerConfig(
             **dict(CFG, kv_cache_dtype="int8"), attention_int8_qk=True))

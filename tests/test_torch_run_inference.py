@@ -126,8 +126,10 @@ def test_lm_config_fields_match_jax(fields):
     tdep, jdep = got.depformer_config, want.depformer_config
     assert (tdep.num_weights, tdep.weights_per_step_schedule) == (
         jdep.num_weights, jdep.weights_per_step_schedule)
-    with pytest.raises(NotImplementedError):
-        tlm.LmConfig.from_dict({**d, "causal": False})
+    acausal = {**d, "causal": False}
+    got, want = tlm.LmConfig.from_dict(acausal), jlm_mod.LmConfig.from_dict(acausal)
+    assert got == port_lm_config(want) and not got.causal
+    assert not got.transformer_config.causal and not got.depformer_config.causal
 
 
 # ------------------------------------------------------------------- embed

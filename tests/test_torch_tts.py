@@ -167,13 +167,14 @@ def test_generate_and_synthesize_match_jax(case):
         assert max_abs(a, b) <= PCM_TOL
 
 
-def test_simple_generate_takes_embeddings_and_refuses_the_rest(tmp_path):
+def test_simple_generate_takes_embeddings_and_refuses_the_rest(tmp_path, monkeypatch):
+    from moshi_tpu_torch.models import loaders as tloaders
     (_, _, _, _), (tt, tp, tm, tcp) = _tts_pair()
     voice = _voices(1)[0][None]
     pcm = tt.simple_generate(tp, tm, ["hi there", "yes"], voice, cfg_coef=2.0,
                              condition_params=tcp)
     assert len(pcm) == 2 and all(p.ndim == 1 and len(p) for p in pcm)
-    # a voice name resolves in the local voice directory; the hub does not
+    # a voice name resolves in the local voice directory or on the hub
     save_file({"speaker_wavs": torch.from_numpy(np.ascontiguousarray(voice.transpose(0, 2, 1)))},
               tmp_path / "some_voice_name.sig@1.safetensors")
     tt.voice_repo, tt.voice_suffix = str(tmp_path), ".sig@1.safetensors"
@@ -181,12 +182,18 @@ def test_simple_generate_takes_embeddings_and_refuses_the_rest(tmp_path):
                                  condition_params=tcp)
     by_array = tt.simple_generate(tp, tm, "hi", voice, cfg_coef=2.0, condition_params=tcp)
     assert len(by_name) == 1 and np.array_equal(by_name[0], by_array[0])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tt.simple_generate(tp, tm, "hi", "hf://kyutai/tts-voices/x",
-                           condition_params=tcp)
+    asked = []
+
+    def download(repo, filename, revision=None):   # the hub, served from tmp_path
+        asked.append((repo, filename))
+        return str(tmp_path / filename)
+
+    monkeypatch.setattr(tloaders, "_hf_hub_download", download)
+    hub_file = tmp_path / "some_voice_name.sig@1.safetensors"
+    assert tt.get_voice_path("hf://kyutai/tts-voices/some_voice_name") == hub_file
     tt.voice_repo = "kyutai/tts-voices"
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tt.simple_generate(tp, tm, "hi", "some_voice_name", condition_params=tcp)
+    assert tt.get_voice_path("some_voice_name") == hub_file
+    assert asked == [("kyutai/tts-voices", hub_file.name)] * 2
     prefix = tt.get_prefix(tm, np.zeros(5 * tt.mimi.frame_size, np.float32))
     assert prefix.shape == (1 + 2, 3) and (prefix[0] == ttts.ZERO_TOKEN).all()
     with pytest.raises(ValueError):

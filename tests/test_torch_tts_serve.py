@@ -588,7 +588,23 @@ def same_pcm(got, want):
         assert max_abs(a, b) <= PCM_TOL
 
 
-def test_build_tts_from_info_matches_jax(voiced_ckpt):
+def serve_hub(monkeypatch, root: Path):
+    """Both packages' hub download replaced by one that serves `root` (a
+    repository's files by name, whatever the repository)."""
+    from moshi_tpu.models import loaders as jloaders
+    from moshi_tpu_torch.models import loaders as tloaders
+
+    def download(repo, filename, revision=None):
+        path = root / filename
+        if not path.exists():
+            raise FileNotFoundError(f"{repo}/{filename}")
+        return str(path)
+
+    for mod in (jloaders, tloaders):
+        monkeypatch.setattr(mod, "_hf_hub_download", download)
+
+
+def test_build_tts_from_info_matches_jax(voiced_ckpt, monkeypatch):
     tt, tp, tm, tcp = trun.build_tts_from_info(CheckpointInfo.from_dir(voiced_ckpt),
                                                voice_repo=str(voiced_ckpt / "voices"),
                                                device="cpu")
@@ -602,20 +618,22 @@ def test_build_tts_from_info_matches_jax(voiced_ckpt):
         voiced_ckpt / "voices" / "alice.abc@1.safetensors"
     np.testing.assert_array_equal(tt.load_voice_embedding(tt.get_voice_path("bob")),
                                   jt.load_voice_embedding(jt.get_voice_path("bob")))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tt.get_voice_path("hf://kyutai/tts-voices/alice")
+    serve_hub(monkeypatch, voiced_ckpt / "voices")
+    assert tt.get_voice_path("hf://kyutai/tts-voices/alice") == \
+        jt.get_voice_path("hf://kyutai/tts-voices/alice") == \
+        voiced_ckpt / "voices" / "alice.abc@1.safetensors"
 
 
 def test_run_tts_simple_mode_matches_jax(voiced_ckpt, tmp_path, monkeypatch):
-    """Greedy simple mode, two texts in two voices named in the local voice
-    directory: the port's wavs are JAX's; an hf:// voice raises A.11."""
+    """Greedy simple mode, two texts in two voices, one an hf:// name
+    fetched from the hub (both packages' download served from the voice
+    directory), one named in the local voice directory: the port's wavs are
+    JAX's."""
+    serve_hub(monkeypatch, voiced_ckpt / "voices")
     args = ["--checkpoint-dir", str(voiced_ckpt), "--temp", "0", "--voice-repo",
             str(voiced_ckpt / "voices"), "--text", WORDS, "--text", "w7 w8",
-            "--voice", "alice", "--voice", "bob"]
+            "--voice", "hf://kyutai/tts-voices/alice", "--voice", "bob"]
     same_pcm(*run_both(monkeypatch, args, tmp_path))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        trun.main(["--device", "cpu", "--checkpoint-dir", str(voiced_ckpt), "--text", "w1",
-                   "--voice", "hf://kyutai/tts-voices/alice", str(tmp_path / "hf")])
 
 
 def test_run_tts_jsonl_matches_jax(voiced_ckpt, tmp_path, monkeypatch):
@@ -746,13 +764,15 @@ def test_worker_native_toml_matches_jax(voiced_ckpt):
                    np.frombuffer(want[3][1][1:], np.float32)) <= PCM_TOL
 
 
-def test_worker_refuses_cfg_above_16_rows(voiced_ckpt):
+def test_worker_builds_cfg_above_16_rows(voiced_ckpt):
     """cfg_coef on a model without CFG distillation doubles the model batch:
-    past 16 rows a batched_tts module is refused at build, naming B.2a."""
+    a batched_tts module of 9 slots builds with 18 model rows (its frames
+    are held against JAX's in tests/test_torch_configs.py)."""
     mcfg = {"type": "batched_tts", "route": "/t", "checkpoint_dir": str(voiced_ckpt),
             "batch_size": 9, "cfg_coef": 2.0}
-    with pytest.raises(NotImplementedError, match="B.2a"):
-        tworker.build_module("tts", mcfg, seed=0, device="cpu")
+    _, _, _, info = tworker.build_module("tts", mcfg, seed=0, device="cpu")
+    st = info["state"]
+    assert (st.batch_size, st.mult, st.h.shape[0]) == (9, 2, 18)
 
 
 async def two_voiced_sessions(st, drain, tokens):

@@ -394,16 +394,35 @@ script = "{script}"
 @pytest.mark.parametrize("module", [
     {"type": "moshi", "tp": 2}, {"type": "batched_asr", "hf_repo": "kyutai/stt"}],
     ids=lambda m: "-".join(map(str, m.values()))[:40])
-def test_not_ported_types_and_keys_raise(module):
-    """A module key the worker does not build yet raises
-    NotImplementedError naming its ROADMAP item, before loading anything."""
+def test_not_ported_types_and_keys_raise(module, monkeypatch):
+    """The module key the worker does not build yet (`tp`) raises
+    NotImplementedError naming its ROADMAP item, before loading anything;
+    an `hf_repo` module is built from the hub repository (the download
+    stubbed here to raise with what it was asked: config.json first, then
+    the LM's file of a legacy repository)."""
+    from moshi_tpu_torch.models import loaders as tl
+
+    asked = []
+
+    def download(repo, filename, revision=None):
+        asked.append((repo, filename))
+        raise Taken(repo, filename)
+
+    monkeypatch.setattr(tl, "_hf_hub_download", download)
+    if "hf_repo" in module:
+        mcfg = {"route": "/api/x", **module}
+        with pytest.warns(UserWarning, match="no config.json"), pytest.raises(Taken):
+            tworker.build_module("m", mcfg, seed=0, device="cpu")
+        assert asked == [("kyutai/stt", "config.json"), ("kyutai/stt", "model.safetensors")]
+        return
     mcfg = {"route": "/api/x", "checkpoint_dir": "/nonexistent", **module}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
         tworker.build_module("m", mcfg, seed=0, device="cpu")
 
 
 class Taken(Exception):
-    """Raised by the stand-ins below with the arguments they were given."""
+    """Raised by the stand-ins in this file with the arguments they were
+    given."""
 
 
 @pytest.mark.parametrize("module", [
