@@ -53,10 +53,12 @@ Phases, each printing its own line(s):
                with a 7040 hidden size and a 48000-column head, and
                depformer_in 2560 -> 1024) at 1 and 4 rows, each on the
                kernel its route takes, checked and timed as above, summed
-               over one LMGen.step's launches; int8 above 16 rows at the
-               depformer's shapes (16-row chunks: checked at M = 33 and 512,
-               timed at 32, 64 and 512) and int8_linear under autograd at
-               512 rows against the plain path (output and dX); q4_wgmma at
+               over one LMGen.step's launches; int8_wgmma above 16 rows at
+               the depformer's shapes (one launch a call: checked at M =
+               17, 33, 63-65, 127-129, 200 and 512, timed at 17, 32, 64 and
+               512 beside the 16-row int8_mma chunks it replaced) and
+               int8_linear under autograd at 512 rows (one int8_wgmma
+               launch) against the plain path (output and dX); q4_wgmma at
                Helium-1 2B's 203-row prefill at its five q4 shapes, checked
                and timed as above, summed over the prefill's 97 launches;
   4. slice   - Moshi-7B shapes with q4 temporal weights and an int8
@@ -137,7 +139,7 @@ Phases, each printing its own line(s):
                tree, 8 eager frames of exactly 129 q4_gemv and 208 int8_mma,
                and the fused bf16 tree's text logits against the LoRA tree's;
                (a2) the same as (a) over int8 serving weights cut to 8 layers
-               (1056 int8_mma a step, 16-row chunks of 512 rows), 2 steps;
+               (33 int8_wgmma a step, one launch of 512 rows each), 2 steps;
                (c) Mimi v0.1 in f32 through `python -m moshi_tpu_torch.train`
                (two subprocesses with --deterministic: 20 steps saved at 10,
                then a resume from 10), the loss at steps 1 and 20, entropy,
@@ -200,9 +202,10 @@ Phases, each printing its own line(s):
                B = 32 slots, then B = 16 under true CFG 3.0 on the model
                built without its `cfg` condition, 10 greedy frames graphed
                and 5 eager each, equal in tokens, PCM and every state byte,
-               launches 2 x 688 int8_mma, 2 x 17 int8_gemv and 48 fused
-               decode_attention_int4 a frame, p50 / p90 ms; [kernels] times
-               the frame's int8 linears at 32 rows on that route;
+               launches 688 int8_wgmma, 2 x 17 int8_gemv (the heads' 16-row
+               chunks) and 48 fused decode_attention_int4 a frame, p50 / p90
+               ms; [kernels] times the frame's int8 linears at 32 rows on
+               that route, int8_wgmma beside the int8_mma chunks;
   7. asr     - batched speech-to-text at the full width of asr_300m_202501
                (bf16 weights, int8 KV cache, bf16 Mimi with 32 codebooks, a
                `delay` condition), all from a seed, B = 256 slots of
@@ -337,8 +340,9 @@ Phases, each printing its own line(s):
                second; a room whose two listeners hear the same bytes, raw
                f32le, as the card's machine has no libopus); the
                checkpoint is deleted.
-Then a JSON line of the kernels, the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}.  Any failed check raises, so the
+Then a [done] line with the seconds every phase took, a JSON line of the
+kernels, the card's name and power limit, and as the last line {"ok":
+true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result.
 """
 
@@ -411,12 +415,14 @@ INT8_SHAPES = {(1024, 3072): 48, (1024, 1024): 48, (1024, 5632): 48,
 OFFLINE_ROWS = (32, 64, 256, 512)
 CROSSOVER_ROWS = 16
 F32_ROUTE_ROWS = 40
-# int8 above a decoding batch: int8_gemv runs M rows as chunks of 16, one
-# int8_mma launch each; checked at INT8_CHECK_ROWS and timed at INT8_ROWS at
-# every INT8_SHAPES shape (the depformer's), beside torch.matmul on the bf16
-# weight and the bound; then int8_linear under autograd at 512 rows
-INT8_ROWS = (32, 64, 512)
-INT8_CHECK_ROWS = (33, 512)
+# int8 above a decoding batch: int8_gemv runs bf16 x of more than 16 rows as
+# one int8_wgmma launch; checked at INT8_CHECK_ROWS (the edges of its 64-row
+# warpgroups and 128-row tiles) and timed at INT8_ROWS at every INT8_SHAPES
+# shape (the depformer's), beside the 16-row int8_mma chunks it replaces,
+# torch.matmul on the bf16 weight and the bound; then int8_linear under
+# autograd at 512 rows
+INT8_ROWS = (17, 32, 64, 512)
+INT8_CHECK_ROWS = (17, 33, 63, 64, 65, 127, 128, 129, 200, 512)
 # the offline phase: Mimi v0.1 over B = 4 x 50 frames (4 s) of seeded PCM
 # plus one input 1000 samples longer (encode pads it to a whole frame), and
 # Moshi-7B's teacher-forced forward over seeded codes [2, 17, 128] (256 rows
@@ -497,10 +503,11 @@ TPU_KERNELS = {
     "q4_gemv": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     "q4_mma": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
     "q4_wgmma": "moshi_tpu/ops/q4matmul.py:83, moshi_tpu/ops/q4matmul.py:144",
-    # qgemv: int8_gemv on the CUDA cores (f32), int8_mma on the tensor cores
-    # (bf16, B = 1..16)
+    # qgemv: int8_gemv on the CUDA cores (f32, widths off 64), int8_mma on
+    # the tensor cores (bf16, B = 1..16), int8_wgmma with wgmma (bf16, M > 16)
     "int8_gemv": "moshi_tpu/ops/qmatmul.py:48",
     "int8_mma": "moshi_tpu/ops/qmatmul.py:48",
+    "int8_wgmma": "moshi_tpu/ops/qmatmul.py:48",
     "decode_attention_int4": "moshi_tpu/ops/int4_attention.py:165",
     "cache_write_int4": "moshi_tpu/ops/int4_attention.py:313",
     "decode_attention_int8": "moshi_tpu/ops/decode_attention.py:90",
@@ -761,19 +768,29 @@ def check_tts_gemvs(dev, g) -> dict:
     return out
 
 
+def chunked_int8_mma(x, q, scale):
+    """The route int8_wgmma replaced above 16 rows: 16-row chunks of x, one
+    int8_mma launch each, their outputs concatenated (timed beside it)."""
+    from moshi_tpu_torch.ops import qmatmul
+
+    chunks = [c if c.data_ptr() % 16 == 0 else c.clone() for c in x.split(16)]
+    return torch.cat([qmatmul.int8_mma(c, q, scale) for c in chunks])
+
+
 def int8_rows_times(dev, g, din: int, dout: int, checked: tuple, timed: tuple):
-    """int8_gemv above 16 rows at one weight shape: 16-row chunks, one
-    launch each on the kernel qmatmul.use_mma picks for 16 rows (int8_mma,
-    or the int8_gemv kernel for widths off 64), checked against the plain
-    version at every row count of `checked` and `timed`, then timed at
-    `timed` (operands cold in L2) beside the plain version, torch.matmul
-    on the bf16 weight and the bound.  Returns (the kernel's name, {M:
-    times}, max |kernel - plain| / max |plain|)."""
+    """int8_gemv above 16 rows at one weight shape, on the kernel its route
+    takes (int8_route: one int8_wgmma launch, or 16-row chunks of the
+    int8_gemv kernel for widths off 64): checked against the plain version
+    at every row count of `checked` and `timed`, with exactly the route's
+    launches, then timed at `timed` (operands cold in L2) beside the plain
+    version, torch.matmul on the bf16 weight and the bound, and, where the
+    route is int8_wgmma, beside the 16-row int8_mma chunks it replaced
+    (chunked_ms).  Returns (the kernel's name, {M: times}, max |kernel -
+    plain| / max |plain|)."""
     from moshi_tpu_torch.ops import qmatmul
     from moshi_tpu_torch.utils.quantize import dequantize, quantize_tensor
 
     plain = qmatmul.int8_gemv_plain
-    name = "int8_mma" if qmatmul.use_mma(16, torch.bfloat16, din, dout) else "int8_gemv"
     w = torch.randn(din, dout, device=dev, generator=g) / din ** 0.5
     qt = quantize_tensor(w)
     bytes_w = qt.q.numel() + 4 * qt.scale.numel()
@@ -781,56 +798,71 @@ def int8_rows_times(dev, g, din: int, dout: int, checked: tuple, timed: tuple):
     del w
     dense = [dequantize(qt.q, qt.scale, torch.bfloat16)
              for _ in range(copies_for_cold_l2(2 * din * dout))]
-    times, max_abs = {}, 0.0
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    counted = ("int8_gemv", "int8_mma", "int8_wgmma")
+    times, max_abs, name = {}, 0.0, None
     for M in sorted(set(checked + timed)):
+        name, n = int8_route(M, din, dout)
         x = torch.randn(M, din, device=dev, generator=g).to(torch.bfloat16)
-        before = qmatmul.int8_mma.launches, qmatmul.int8_gemv.launches
-        max_abs = max(max_abs, _check_against_plain("int8 rows", qmatmul.int8_gemv, plain,
-                                                    qt, x))
-        launched = (qmatmul.int8_mma.launches - before[0],
-                    qmatmul.int8_gemv.launches - before[1])
-        chunks = -(-M // 16)
-        if launched != ((chunks, 0) if name == "int8_mma" else (0, chunks)):
-            raise RuntimeError(f"int8 {din}x{dout} at M = {M} launched (int8_mma, "
-                               f"int8_gemv) {launched}")
+        before = read_counts()
+        max_abs = max(max_abs, _check_against_plain(f"int8 rows ({name})", qmatmul.int8_gemv,
+                                                    plain, qt, x))
+        after = read_counts()
+        launched = {k: after[k] - before[k] for k in counted}
+        if launched != {**dict.fromkeys(counted, 0), name: n}:
+            raise RuntimeError(f"int8 {din}x{dout} at M = {M} launched {launched}, not {n} "
+                               f"{name}")
         if M not in timed:
             continue
         ops = [(x, c.q, c.scale) for c in copies]
-        t = {"ms": time_ms(qmatmul.int8_gemv, ops, iters=10), "plain_ms": time_ms(plain, ops),
-             "library_ms": time_ms(torch.matmul, [(x, d) for d in dense])}
+        t = {"ms": time_ms(qmatmul.int8_gemv, ops, iters=10 if n > 1 else 20),
+             "plain_ms": time_ms(plain, ops),
+             "library_ms": time_ms(torch.matmul, [(x, d) for d in dense]), "launches": n}
+        if name == "int8_wgmma":
+            t["chunked_ms"] = time_ms(chunked_int8_mma, ops, iters=10)
+            split_rows, splits = qmatmul.int8_wgmma_plan(din, dout, num_sms, M)
+            t["plan"] = {"split_rows": split_rows, "splits": splits}
         t["bound_ms"], t["bound_by"] = bound(bytes_w + 2 * M * (din + dout), 2 * M * din * dout)
         times[M] = t
     del copies, dense
     return name, times, max_abs
 
 
+def rows_phrase(t: dict) -> str:
+    """An int8 rows timing as a phrase: the kernel, beside the chunks it
+    replaced where it is int8_wgmma, the plain version, torch.matmul and
+    the bound."""
+    chunked = (f" (the 16-row int8_mma chunks {t['chunked_ms']:.4f} ms)"
+               if "chunked_ms" in t else "")
+    return (f"{t['ms']:.4f} ms{chunked}, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+
+
 def check_tts_rows(dev, g) -> dict:
     """The TTS frame's int8 linears (TTS_INT8_SHAPES) at CONFIGS_TTS_ROWS
-    rows, on the route [configs] (b) takes (int8_rows_times), summed by
-    kernel over one frame's linears.  Returns {kernel: its summary}."""
+    rows, on the route [configs] (b) takes (int8_rows_times: int8_wgmma,
+    the heads' int8_gemv chunks), summed by kernel over one frame's
+    linears.  Returns {kernel: its summary}."""
     M, keys = CONFIGS_TTS_ROWS, ("ms", "plain_ms", "library_ms", "bound_ms")
     out = {name: {"per_frame": dict.fromkeys(keys, 0.0), "launches_per_frame": 0,
                   "by_shape": {}, "max_abs_err": 0.0, "bound_by": set()}
-           for name in ("int8_mma", "int8_gemv")}
+           for name in ("int8_wgmma", "int8_gemv")}
+    out["int8_wgmma"]["per_frame"]["chunked_ms"] = 0.0
     for (din, dout), n in TTS_INT8_SHAPES.items():
         name, times, err = int8_rows_times(dev, g, din, dout, (), (M,))
         t, row = times[M], out[name]
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["bound_by"].add(t["bound_by"])
-        for k in keys:
+        for k in row["per_frame"]:
             row["per_frame"][k] += n * t[k]
-        row["launches_per_frame"] += n * -(-M // 16)
-        row["by_shape"][f"{din}x{dout} M={M}"] = {**t, "launches_per_frame": n * -(-M // 16)}
-        phase("kernels", f"tts {name} {din}x{dout} M={M} bf16 ({n} per frame, {-(-M // 16)} "
-              f"launches each): {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul "
-              f"on bf16 {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})")
+        row["launches_per_frame"] += n * t["launches"]
+        row["by_shape"][f"{din}x{dout} M={M}"] = {**t, "launches_per_frame": n * t["launches"]}
+        phase("kernels", f"tts {name} {din}x{dout} M={M} bf16 ({n} per frame, {t['launches']} "
+              f"launches each): {rows_phrase(t)}")
     for name, row in out.items():
         row["bound_by"] = "operations" if row["bound_by"] == {"operations"} else "bytes"
-        f = row["per_frame"]
         phase("kernels", f"tts per frame at {M} rows: {name} x {row['launches_per_frame']}: "
-              f"{f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, torch.matmul on bf16 "
-              f"{f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms")
+              f"{rows_phrase({**row['per_frame'], 'bound_by': row['bound_by']})}")
     free_memory()
     return out
 
@@ -1040,54 +1072,53 @@ def check_helium_q4(dev, g) -> dict:
 
 
 def check_int8_rows(dev, g) -> dict:
-    """int8_gemv above 16 rows (chunks of 16 on int8_mma, ceil(M / 16)
-    launches a call) at every INT8_SHAPES shape: against the plain version
-    at INT8_CHECK_ROWS, timed (operands cold in L2) at INT8_ROWS beside
-    the plain version, torch.matmul on the dequantized bf16 weight and the
-    bound, summed over the shape table's launches; then int8_linear under
-    autograd at 512 rows: the kernel's launches in the forward, the output
-    and dX against the plain path's."""
+    """int8_gemv above 16 rows (one int8_wgmma launch a call) at every
+    INT8_SHAPES shape: against the plain version at INT8_CHECK_ROWS, timed
+    (operands cold in L2) at INT8_ROWS beside the 16-row int8_mma chunks it
+    replaced, the plain version, torch.matmul on the dequantized bf16 weight
+    and the bound, summed over the shape table's launches; then int8_linear
+    under autograd at 512 rows: one int8_wgmma launch in the forward, the
+    output and dX against the plain path's."""
     from moshi_tpu_torch.ops import qmatmul
     from moshi_tpu_torch.utils.quantize import quantize_tensor
 
     plain = qmatmul.int8_gemv_plain
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "chunked_ms", "plain_ms", "library_ms", "bound_ms")
     per_step = {M: dict.fromkeys(keys, 0.0) for M in INT8_ROWS}
     by_shape, max_abs, bound_by = {}, 0.0, {M: set() for M in INT8_ROWS}
     for (din, dout), n in INT8_SHAPES.items():
-        _, times, err = int8_rows_times(dev, g, din, dout, INT8_CHECK_ROWS, INT8_ROWS)
+        name, times, err = int8_rows_times(dev, g, din, dout, INT8_CHECK_ROWS, INT8_ROWS)
+        if name != "int8_wgmma":
+            raise RuntimeError(f"int8 {din}x{dout} above 16 rows would not run int8_wgmma")
         max_abs = max(max_abs, err)
         for M, t in times.items():
             bound_by[M].add(t["bound_by"])
             by_shape[f"{din}x{dout} M={M}"] = t
             for k in keys:
                 per_step[M][k] += n * t[k]
-            phase("kernels", f"int8 {din}x{dout} M={M} bf16 ({-(-M // 16)} int8_mma launches): "
-                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul on bf16 "
-                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            phase("kernels", f"int8_wgmma {din}x{dout} M={M} bf16 ({t['plan']['splits']} "
+                  f"splits): {rows_phrase(t)}")
     for M in INT8_ROWS:
         f = per_step[M]
         f["bound_by"] = "operations" if bound_by[M] == {"operations"} else "bytes"
         phase("kernels", f"int8 above 16 rows, the depformer's {sum(INT8_SHAPES.values())} "
-              f"linears at M={M}: {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, "
-              f"torch.matmul on bf16 {f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms "
-              f"({f['bound_by']})")
+              f"linears at M={M}: int8_wgmma {rows_phrase(f)}")
 
     din, dout = 1024, 3072
     qt = quantize_tensor(torch.randn(din, dout, device=dev, generator=g) / din ** 0.5)
     x = torch.randn(2, 256, din, device=dev, generator=g).to(torch.bfloat16)
     dy = torch.randn(2, 256, dout, device=dev, generator=g).to(torch.bfloat16)
     xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
-    before = qmatmul.int8_mma.launches
+    before = read_counts()
     y = qmatmul.int8_linear(xk, qt.q, qt.scale)
-    launched = qmatmul.int8_mma.launches - before
+    launched = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
     yp = plain(xp.reshape(-1, din), qt.q, qt.scale).reshape(y.shape)
     (dxk,), (dxp,) = torch.autograd.grad(y, xk, dy), torch.autograd.grad(yp, xp, dy)
     err_y, err_dx = rel_err(y, yp), rel_err(dxk, dxp)
-    ok = (launched == 32 and type(y.grad_fn).__name__ == "FrozenLinearBackward"
+    ok = (launched == {"int8_wgmma": 1} and type(y.grad_fn).__name__ == "FrozenLinearBackward"
           and err_y <= BOUNDS[torch.bfloat16] and err_dx <= BOUNDS[torch.bfloat16])
-    phase("kernels", f"int8_linear under autograd, x [2, 256, {din}] -> {dout}: {launched} "
-          f"int8_mma launches forward, grad_fn {type(y.grad_fn).__name__}; y max rel err "
+    phase("kernels", f"int8_linear under autograd, x [2, 256, {din}] -> {dout}: launches "
+          f"forward {launched}, grad_fn {type(y.grad_fn).__name__}; y max rel err "
           f"{err_y:.3e}, dX max rel err {err_dx:.3e} against the plain path (bound "
           f"{BOUNDS[torch.bfloat16]:.0e}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1095,7 +1126,7 @@ def check_int8_rows(dev, g) -> dict:
     free_memory()
     return {"per_step": per_step, "by_shape": by_shape, "max_abs_err": max_abs,
             "launches_per_step": sum(INT8_SHAPES.values()),
-            "autograd": {"rows": 512, "int8_mma_launches": launched, "y_rel_err": err_y,
+            "autograd": {"rows": 512, "launches": launched, "y_rel_err": err_y,
                          "dx_rel_err": err_dx}}
 
 
@@ -1500,11 +1531,11 @@ def per_step_launches(cfg, params, batch: int, q4_shapes=Q4_SHAPES,
     temporal linear once per layer plus the text head, each on the kernel
     that q4matmul.route picks for bf16 x of `batch` rows; each int8
     depformer linear once per layer and codebook, plus depformer_in and the
-    output head per codebook, each on the kernel that qmatmul.use_mma
-    picks; with the int4 KV cache, one decode_attention_int4 per layer,
-    each writing its layer's column (counted as cache_write_int4 too); with
-    the int8 KV cache, one decode_attention_int8 per layer."""
-    from moshi_tpu_torch.ops import q4matmul, qmatmul
+    output head per codebook, each on the kernel that qmatmul.route picks
+    (int8_route); with the int4 KV cache, one decode_attention_int4 per
+    layer, each writing its layer's column (counted as cache_write_int4
+    too); with the int8 KV cache, one decode_attention_int8 per layer."""
+    from moshi_tpu_torch.ops import q4matmul
     from moshi_tpu_torch.utils.quantize import QTensor, QTensor4
 
     layers = params["transformer"]["layers"]
@@ -1518,7 +1549,7 @@ def per_step_launches(cfg, params, batch: int, q4_shapes=Q4_SHAPES,
                                                        params["linears"]["weight"]]])
     if not all(kinds):
         raise RuntimeError("the quantized tree is not q4 temporal / int8 depformer")
-    per_step = dict.fromkeys(("q4_gemv", "q4_mma", "q4_wgmma", "int8_gemv", "int8_mma"), 0)
+    per_step = dict.fromkeys(TPU_KERNELS, 0)
     for w, n in [(w, cfg.num_layers) for w in temporal] + [(params["text_linear"]["weight"], 1)]:
         dout = w.q.shape[-1]
         gs = 2 * w.q.shape[-2] // w.scale.shape[-3]
@@ -1526,18 +1557,28 @@ def per_step_launches(cfg, params, batch: int, q4_shapes=Q4_SHAPES,
     for w, n in ([(w, cfg.depformer_num_layers * cfg.dep_q) for w in dep]
                  + [(params["depformer_in"]["weight"], cfg.dep_q),
                     (params["linears"]["weight"], cfg.dep_q)]):
-        din, dout = w.q.shape[-2:]
-        per_step["int8_mma" if qmatmul.use_mma(batch, torch.bfloat16, din, dout)
-                 else "int8_gemv"] += n
+        name, launches = int8_route(batch, *w.q.shape[-2:])
+        per_step[name] += n * launches
     if (per_step["q4_gemv"] + per_step["q4_mma"] + per_step["q4_wgmma"]
             != sum(q4_shapes.values())
-            or per_step["int8_gemv"] + per_step["int8_mma"] != sum(int8_shapes.values())):
+            or per_step["int8_gemv"] + per_step["int8_mma"] + per_step["int8_wgmma"]
+            != sum(int8_shapes.values())):
         raise RuntimeError(f"launches per step {per_step} do not match the shape tables")
     int4 = cfg.kv_cache_dtype == "int4"
     per_step["decode_attention_int4"] = cfg.num_layers if int4 else 0
     per_step["cache_write_int4"] = cfg.num_layers if int4 else 0
     per_step["decode_attention_int8"] = cfg.num_layers if cfg.kv_cache_dtype == "int8" else 0
     return per_step
+
+
+def int8_route(rows: int, din: int, dout: int) -> tuple[str, int]:
+    """The kernel a bf16 int8 linear of `rows` rows launches
+    (qmatmul.route, q 16-byte aligned as every main path's weights are) and
+    its launches a call: one int8_wgmma launch, else one per 16 rows."""
+    from moshi_tpu_torch.ops import qmatmul
+
+    name = qmatmul.route(rows, torch.bfloat16, din, dout, True)
+    return name, 1 if name == "int8_wgmma" else -(-rows // 16)
 
 
 def counters() -> dict:
@@ -1547,9 +1588,9 @@ def counters() -> dict:
     from moshi_tpu_torch.ops.int4_attention import (decode_attention_int4_stats,
                                                     decode_attention_int4_write)
     from moshi_tpu_torch.ops.q4matmul import q4_gemv, q4_mma, q4_wgmma
-    from moshi_tpu_torch.ops.qmatmul import int8_gemv, int8_mma
+    from moshi_tpu_torch.ops.qmatmul import int8_gemv, int8_mma, int8_wgmma
     return {"q4_gemv": q4_gemv, "q4_mma": q4_mma, "q4_wgmma": q4_wgmma, "int8_gemv": int8_gemv,
-            "int8_mma": int8_mma,
+            "int8_mma": int8_mma, "int8_wgmma": int8_wgmma,
             "decode_attention_int4": decode_attention_int4_stats,
             "cache_write_int4": decode_attention_int4_write,
             "decode_attention_int8": decode_attention_int8}
@@ -2543,15 +2584,16 @@ def configs_tts_run(dev, models, lm, tts, cp_params, slots: int, what: str) -> d
     seeded voice and fed words: the eager frames and the graphed ones equal
     in tokens and PCM, and every state byte after CONFIGS_TTS_EAGER frames;
     the graphed run's launches one capture of each graph, the eager run's
-    each frame's, with every int8 linear in two 16-row chunks.  Returns
+    each frame's: every int8 linear one int8_wgmma launch, the heads of
+    32001 and 2049 columns two 16-row int8_gemv launches.  Returns
     the graphed launches, the per-frame counts, the replay frames' p50 /
     p90 and the first frame's ms."""
     from moshi_tpu_torch.serve.batched_tts import BatchedTTSState
 
-    per = tts_launches(lm.config, models["lm_params"], TTS_SLOTS)   # 16 rows a launch
-    chunks = CONFIGS_TTS_ROWS // TTS_SLOTS
+    per = tts_launches(lm.config, models["lm_params"], CONFIGS_TTS_ROWS)
     per_frame = {k: per["main"][k] + per["depth"][k] for k in per["main"]}
-    per_frame.update({k: chunks * per_frame[k] for k in ("int8_mma", "int8_gemv")})
+    if per_frame["int8_mma"] or not per_frame["int8_wgmma"]:
+        raise RuntimeError(f"configs (b) {what}: a frame would launch {used(per_frame)}")
     runs = {}
     for graphed, frames in ((True, CONFIGS_TTS_FRAMES), (False, CONFIGS_TTS_EAGER)):
         state = BatchedTTSState(tts, models["lm_params"], models["mimi_params"], slots,
@@ -2593,9 +2635,7 @@ def configs_tts_run(dev, models, lm, tts, cp_params, slots: int, what: str) -> d
                and [[x[0] for x in o] for o in a[2]] == [[x[0] for x in o] for o in b[2]]
                for a, b in zip(g["outs"], e["outs"]))
     same_state = all(same_bytes(a, b) for a, b in zip(g["leaves"], e["leaves"]))
-    captured = {k: per["main"][k] + per["depth"][k] for k in per["main"]}
-    captured.update({k: chunks * captured[k] for k in ("int8_mma", "int8_gemv")})
-    check_counts(g["launches"], captured, 1, f"configs (b) {what} graphed run")
+    check_counts(g["launches"], per_frame, 1, f"configs (b) {what} graphed run")
     check_counts(e["launches"], per_frame, CONFIGS_TTS_EAGER, f"configs (b) {what} eager run")
     if g["replays"] != (CONFIGS_TTS_FRAMES, CONFIGS_TTS_FRAMES):
         raise RuntimeError(f"configs (b) {what}: replays {g['replays']}")
@@ -3237,14 +3277,14 @@ def bench_cli_expected() -> dict:
     capture, each [slice]'s per-step count; for asr (bf16 weights, int8
     KV) 16 K6 in each warm-up frame and in the capture."""
     from moshi_tpu_torch.models.lm import lm_config_asr_300m_202501
-    from moshi_tpu_torch.ops import q4matmul, qmatmul
+    from moshi_tpu_torch.ops import q4matmul
 
     none = dict.fromkeys(counters(), 0)
     step = dict(none)
     for (_, dout), n in Q4_SHAPES.items():
         step[q4matmul.route(1, torch.bfloat16, 32, dout)] += n
     for (din, dout), n in INT8_SHAPES.items():
-        step["int8_mma" if qmatmul.use_mma(1, torch.bfloat16, din, dout) else "int8_gemv"] += n
+        step[int8_route(1, din, dout)[0]] += n
     frame = {**none, "decode_attention_int8": lm_config_asr_300m_202501().num_layers}
     return {"mimi_only": (none, 0), "duplex": (step, 2), "asr": (frame, ASR_WARM_FRAMES + 1)}
 
@@ -5029,8 +5069,8 @@ def tts_launches(cfg, params, batch: int) -> dict:
     (the same without the cross block, while no slot has a voice) and
     "depth" (graph 2: each depformer linear per layer and step,
     depformer_in and the audio head per step); each linear on the kernel
-    qmatmul.use_mma picks for bf16 x of `batch` rows; no q4."""
-    from moshi_tpu_torch.ops import qmatmul
+    qmatmul.route picks for bf16 x of `batch` rows (int8_route: one
+    int8_wgmma launch above 16 rows, the heads in 16-row chunks); no q4."""
     from moshi_tpu_torch.utils.quantize import QTensor
 
     tl, dl = params["transformer"]["layers"], params["depformer"]["layers"]
@@ -5052,8 +5092,8 @@ def tts_launches(cfg, params, batch: int) -> dict:
             if not isinstance(w, QTensor):
                 raise RuntimeError("the tts tree is not int8 on every linear")
             din, dout = w.q.shape[-2:]
-            per["int8_mma" if qmatmul.use_mma(batch, torch.bfloat16, din, dout)
-                else "int8_gemv"] += n
+            kernel, launches = int8_route(batch, din, dout)
+            per[kernel] += n * launches
             if name != "main_plain":
                 shapes[(din, dout)] = shapes.get((din, dout), 0) + n
         if name != "depth":
@@ -6222,7 +6262,7 @@ def lora_train(dev, card: str, lm, params, what: str, steps: int, per_step: dict
     s_step = float(np.median(ms[1:])) / 1e3
     ok = same and losses[-1] < losses[0] and all(np.isfinite(losses))
     phase("train", f"{what}: {steps} steps, losses {[round(v, 4) for v in losses]}; launches "
-          f"{launches['q4_wgmma']} q4_wgmma, {launches['int8_mma']} int8_mma (per step x "
+          f"{launches['q4_wgmma']} q4_wgmma, {launches['int8_wgmma']} int8_wgmma (per step x "
           f"{steps}); base and embeddings byte-equal: {same}; {s_step:.3f} s/step (median of "
           f"steps 2..), {frames / s_step:.0f} frames trained/s, peak {peak:.2f} GiB "
           f"{'ok' if ok else 'FAIL'} ({card})")
@@ -6375,8 +6415,7 @@ def run_train(dev, card: str, lm, lm_params) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 35)
     params8 = quantize_lm_params(lm8.init_params(g, torch.bfloat16, dev), mode="int8")
     free_memory()
-    chunks = -(-rows // 16)
-    per_step8 = {"int8_mma": (4 * cfg8.num_layers + 1) * chunks}
+    per_step8 = {"int8_wgmma": 4 * cfg8.num_layers + 1}   # one launch of B * T rows each
     _, res8 = lora_train(dev, card, lm8, params8,
                          f"LoRA over Moshi-7B int8 ({cfg8.num_layers} layers)",
                          TRAIN_INT8["steps"], per_step8, remat=False)
@@ -6395,6 +6434,7 @@ def main() -> None:
     import moshi_tpu_torch  # noqa: F401  (pins TF32 off)
     from moshi_tpu_torch.ops import build
 
+    start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     phase("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
@@ -6413,6 +6453,7 @@ def main() -> None:
         if spills:
             raise RuntimeError(f"{name} spills registers")
 
+    t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED)
     gemvs = check_gemvs(dev, g)
     attn = check_attention(dev, g)
@@ -6427,6 +6468,7 @@ def main() -> None:
     hibiki_gemvs = check_hibiki_gemvs(dev, g)
     helium_q4 = check_helium_q4(dev, g)
     free_memory()
+    phase("kernels", f"the phase took {time.perf_counter() - t0:.1f} s")
 
     lm, lm_params, mimi, mimi_params = build_models(dev)
     slice_ = run_slice(dev, card, lm, lm_params, mimi, mimi_params)
@@ -6497,7 +6539,8 @@ def main() -> None:
     # fused launch's time over the attention alone), a B = 256 ASR frame for
     # decode_attention_int8, one offline forward (M = 256) for q4_wgmma
     # (int8_gemv: Moshi's depformer linears at B = 16,
-    # as int8_mma, though only the TTS heads launch it on a path);
+    # as int8_mma, though only the TTS heads launch it on a path); the
+    # 32-row TTS frame ([configs] (b)) for int8_wgmma;
     # "per_frame_by_batch" has the GEMVs' Moshi frames at each batch timed,
     # "tts" / "tts_per_frame" the TTS frame's launches
     for k in gemvs:
@@ -6510,11 +6553,15 @@ def main() -> None:
             row["hibiki"] = hibiki_gemvs[k["name"]]
         if k["name"] == "q4_gemv":
             row["helium_profiled_ms_per_step"] = helium["profile"]["q4_gemv_ms_per_step"]
-        if k["name"] == "int8_mma":
-            row["rows_above_16"] = int8_rows
-        if k["name"] in tts_rows:
-            row["tts_rows_32"] = tts_rows[k["name"]]
+        if k["name"] == "int8_gemv":
+            row["tts_rows_32"] = tts_rows["int8_gemv"]
         kernels.append(row)
+    # int8_wgmma: the 32-row TTS frame's launches ([configs] (b)), the
+    # depformer's linears at INT8_ROWS and the 16-row chunks it replaced beside
+    wg8 = tts_rows["int8_wgmma"]
+    kernels.append({"name": "int8_wgmma", **wg8["per_frame"], "bound_by": wg8["bound_by"],
+                    "max_abs_err": max(wg8["max_abs_err"], int8_rows["max_abs_err"]),
+                    "tts_rows_32": wg8, "depformer_rows": int8_rows})
     # q4_wgmma: the offline forward's launches at M = 256 (OFFLINE_LM's
     # B * T), the other row counts timed and the crossover beside them
     kernels.append({"name": "q4_wgmma", **offline_q4["per_forward"][256],
@@ -6540,6 +6587,7 @@ def main() -> None:
                   "launches": sum(v[name] for v in by_path.values()),
                   "launches_by_path": {p: v[name] for p, v in by_path.items()},
                   "launches_per_frame": {p: v[name] for p, v in per_frame_by_path.items()}})
+    phase("done", f"every phase in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels, "slice": slice_,
                       "serve": {key: v for key, v in serve.items()
                                 if key not in ("launches", "greedy_tokens")},

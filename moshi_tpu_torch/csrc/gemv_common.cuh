@@ -1,6 +1,7 @@
 // Shared pieces of the weight-only GEMV kernels: the skeleton of the
-// CUDA-core ones (int8_gemv.cu, q4_gemv.cu), the din-split reduce and the
-// mma.sync of the tensor-core ones (q4_mma.cu, q4_wgmma.cu, int8_mma.cu).
+// CUDA-core ones (int8_gemv.cu, q4_gemv.cu), the din-split reduce, the
+// mma.sync of the tensor-core ones (q4_mma.cu, q4_wgmma.cu, int8_mma.cu) and
+// the exact int8 -> bf16 conversion (int8_mma.cu, int8_wgmma.cu).
 //
 // The CUDA-core kernels compute y[B, dout] = x[B, din] @ W[din, dout] for a
 // small batch B (1..kMaxBatch) over weights stored dout-contiguous, the
@@ -375,7 +376,7 @@ int dispatch(int batch, int cols, A... args) {
 }
 
 // ---- the din-split reduce of the tensor-core kernels that split din over
-// blocks (q4_mma.cu, q4_wgmma.cu)
+// blocks (q4_mma.cu, q4_wgmma.cu, int8_wgmma.cu)
 
 // out[i] = (sum over splits of partial[s, i]) * scale[i % dout], for i over
 // [n = B * dout); scale may be null.
@@ -396,6 +397,26 @@ void launch_reduce(const float* partial, const float* scale, T* out, int splits,
                    int n, int dout, cudaStream_t stream) {
   reduce_splits<T><<<(n + 255) / 256, 256, 0, stream>>>(partial, scale, out,
                                                          splits, n, dout);
+}
+
+// ---- int8 -> bf16, exact, in registers (int8_mma.cu, int8_wgmma.cu)
+
+constexpr uint32_t kInt8Bias = 0x80808080u;     // byte v -> v ^ 0x80 = v + 128
+constexpr uint32_t kTwo23 = 0x4B000000u;        // f32 2^23
+constexpr float kTwo23Plus128 = 8388736.0f;     // 2^23 + 128
+
+// A bf16 pair from two words of biased bytes (w ^ kInt8Bias): byte t of
+// `lo` as the low bf16, byte t of `hi` as the high one.  A byte permute puts
+// the biased byte u = v + 128 under the exponent of 2^23 (f32 2^23 + u), one
+// f32 subtraction of 2^23 + 128 gives v exactly, and v has at most 8
+// significant bits, so the f32's low half is zero and its high half is v in
+// bf16: one more permute packs the two halves.  1.5 permutes and one FADD a
+// byte.
+__device__ __forceinline__ uint32_t int8_bf16_pair(uint32_t lo, uint32_t hi, int t) {
+  const uint32_t sel = 0x7440u | t;  // bytes (u, 0, 0, 0x4B): f32 2^23 + u
+  const float flo = __uint_as_float(__byte_perm(lo, kTwo23, sel)) - kTwo23Plus128;
+  const float fhi = __uint_as_float(__byte_perm(hi, kTwo23, sel)) - kTwo23Plus128;
+  return __byte_perm(__float_as_uint(flo), __float_as_uint(fhi), 0x7632u);
 }
 
 // ---- the tensor-core kernels: mma.sync.m16n8k16 with bf16 operands

@@ -42,11 +42,10 @@ namespace {
 
 using gemv::Args;
 using gemv::kBatchRows;
+using gemv::kInt8Bias;
+using gemv::kTwo23;
+using gemv::kTwo23Plus128;
 using gemv::Vec;
-
-constexpr uint32_t kBias = 0x80808080u;      // byte v -> v ^ 0x80 = v + 128
-constexpr uint32_t kTwo23 = 0x4B000000u;     // f32 2^23
-constexpr float kTwo23Plus128 = 8388736.0f;  // 2^23 + 128
 
 // A warp's ring in shared memory: stages of kBatchRows rows; a row is the
 // warp's 32 * C bytes, and with C = 4 the word past them (lane 31's next
@@ -113,7 +112,7 @@ __device__ __forceinline__ void compute(const unsigned char* st, float (&acc)[NB
       }
 #pragma unroll
       for (int k = 0; k < C / 4; ++k) {
-        const uint32_t u = wd[k] ^ kBias;
+        const uint32_t u = wd[k] ^ kInt8Bias;
 #pragma unroll
         for (int t = 0; t < 4; ++t)
           wf[j][4 * k + t] = __uint_as_float(__byte_perm(u, kTwo23, 0x7440u | t)) - kTwo23Plus128;

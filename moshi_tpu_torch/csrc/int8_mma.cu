@@ -87,6 +87,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using gemv::int8_bf16_pair;
+using gemv::kInt8Bias;
 using gemv::mma_bf16;
 
 constexpr int kTiles = 8;                // n8 tiles per warp
@@ -95,9 +97,6 @@ constexpr int kWarps = 4;                // warps that split a block's din rows
 constexpr int kThreads = 32 * kWarps;
 constexpr int kDepth = 1;                // k16 steps of bytes loaded ahead
 constexpr int kMaxCluster = 8;                  // the portable cluster size
-constexpr uint32_t kBias = 0x80808080u;         // byte v -> v ^ 0x80 = v + 128
-constexpr uint32_t kTwo23 = 0x4B000000u;        // f32 2^23
-constexpr float kTwo23Plus128 = 8388736.0f;     // 2^23 + 128
 
 // The lane's 8 bytes of one weight row: read once, so not kept in L1, and
 // with a 256-byte L2 prefetch, so that the neighbouring warps' bytes of the
@@ -119,15 +118,6 @@ __device__ __forceinline__ void load_step(const int8_t* q, size_t dout,
   for (int r = 0; r < 4; ++r) w[r] = load8(q + r * dout);
   xv[0] = lo_row ? __ldg(reinterpret_cast<const uint2*>(xlo)) : make_uint2(0, 0);
   xv[1] = hi_row ? __ldg(reinterpret_cast<const uint2*>(xhi)) : make_uint2(0, 0);
-}
-
-// A B register from biased words: byte t of `lo` as the low bf16, byte t of
-// `hi` as the high one (see the note at the top: exact).
-__device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi, int t) {
-  const uint32_t sel = 0x7440u | t;  // bytes (u, 0, 0, 0x4B): f32 2^23 + u
-  const float flo = __uint_as_float(__byte_perm(lo, kTwo23, sel)) - kTwo23Plus128;
-  const float fhi = __uint_as_float(__byte_perm(hi, kTwo23, sel)) - kTwo23Plus128;
-  return __byte_perm(__float_as_uint(flo), __float_as_uint(fhi), 0x7632u);
 }
 
 // Shared memory of a block: the slots of the outputs it owns, float4
@@ -207,8 +197,8 @@ __global__ void __launch_bounds__(kThreads) int8_mma_kernel(
         uint32_t w[4][2];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          w[r][0] = ring[i][r].x ^ kBias;
-          w[r][1] = ring[i][r].y ^ kBias;
+          w[r][0] = ring[i][r].x ^ kInt8Bias;
+          w[r][1] = ring[i][r].y ^ kInt8Bias;
         }
         const uint32_t a[4] = {xring[i][0].x, xring[i][1].x, xring[i][0].y, xring[i][1].y};
         if (j + kDepth < mine) {
@@ -218,8 +208,8 @@ __global__ void __launch_bounds__(kThreads) int8_mma_kernel(
         }
 #pragma unroll
         for (int t = 0; t < kTiles; ++t)
-          mma_bf16(acc[t], a, bf16_pair(w[0][t / 4], w[1][t / 4], t % 4),
-                   bf16_pair(w[2][t / 4], w[3][t / 4], t % 4));
+          mma_bf16(acc[t], a, int8_bf16_pair(w[0][t / 4], w[1][t / 4], t % 4),
+                   int8_bf16_pair(w[2][t / 4], w[3][t / 4], t % 4));
       }
     }
   }

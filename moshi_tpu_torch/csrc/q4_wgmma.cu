@@ -66,11 +66,11 @@
 
 #include <climits>
 
-#include <cuda.h>  // the tensor map's types; the encoder is found at run time
-
-#include "gemv_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
+
+using namespace wgmma;
 
 constexpr int kRows = 128;   // rows of x a block takes: two m64 warpgroups (ops/q4matmul.py WGMMA_ROWS)
 constexpr int kCols = 128;   // columns of y a block takes: wgmma n128 (ops/q4matmul.py WGMMA_COLS)
@@ -100,112 +100,6 @@ constexpr uint32_t kBf16Pair136 = 0x43084308u;
 static_assert(kStageBytes % 1024 == 0 && kBOffset % 1024 == 0 && kQOffset % 1024 == 0,
               "swizzled tiles start on 1024-byte boundaries");
 static_assert(kProducerRegs * kProducers + kConsumerRegs * kConsumers <= 65536, "registers");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers, TMA, proxy fence
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one arrival on `bar` that also expects `bytes` of asynchronous copies
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}"
-               ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// The tile at (inner, outer) of a 2D tensor map into shared memory (TMA),
-// its bytes completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int inner,
-                                            int outer, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer), "r"(bar)
-      : "memory");
-}
-
-// this thread's shared-memory writes made visible to wgmma's async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// ---- wgmma
-
-// Descriptor of a K-major tile of 128-byte rows with the 128-byte swizzle:
-// 8-row groups 1024 bytes apart (SBO), the leading offset unused (1).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// until at most N of this warpgroup's committed wgmma groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// a wgmma wait.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A[64 x 16] @ B[16 x 128], A and B in shared memory by descriptor,
-// both K-major; accumulate = 0 overwrites d.  Lane l of warp w of the
-// warpgroup holds d[4j + i] at row 16 w + l / 4 + 8 (i / 2), column
-// 8 j + 2 (l % 4) + i % 2.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // ---- the unpack
 
@@ -268,11 +162,6 @@ __device__ __forceinline__ void scale_group(float (&acc)[64], const float (&g)[6
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 struct Args {
   const __nv_bfloat16* x;
   const unsigned char* q;
@@ -296,17 +185,7 @@ __device__ __forceinline__ Split this_split(const Args& a) {
 }
 
 // The block's shared memory and barriers (mbarrier addresses).
-struct Ring {
-  unsigned char* smem;
-  uint32_t full, ready, empty;
-  __device__ __forceinline__ unsigned char* stage(int s) const {
-    return smem + (s % kStages) * kStageBytes;
-  }
-  __device__ __forceinline__ uint32_t bar(uint32_t base, int s) const {
-    return base + 8 * (s % kStages);
-  }
-  __device__ __forceinline__ uint32_t parity(int s) const { return (s / kStages) & 1; }
-};
+using Ring = StageRing<kStages, kStageBytes>;
 
 // The block's three tensor maps: x, packed q and the scales.
 struct Maps {
@@ -562,37 +441,6 @@ cudaError_t launch(const Maps& maps, const Args& a, dim3 grid, cudaStream_t s) {
   }
   q4_wgmma_kernel<G><<<grid, kThreads, kSmemBytes, s>>>(maps, a);
   return cudaSuccess;
-}
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (this
-// library does not link libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// A 2D tensor map of `rows` rows of `cols` elements (`row_bytes` apart) in
-// boxes of box_rows x box_cols; elements outside it read as zero.
-cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int cols,
-                       int rows, size_t row_bytes, int box_cols, int box_rows,
-                       CUtensorMapSwizzle swizzle) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                                    cudaEnableDefault);
-    if (err != cudaSuccess) return err;
-    if (fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
-                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // x [m, din] bf16 in kRows x kK tiles, q [din/2, dout] bytes in

@@ -46,6 +46,9 @@ SIGNATURES = {
     "int8_gemv": [_P] * 4 + [_I] * 9 + [_P],
     # x, q, scale, out, batch, din, dout, rows_per_block, cluster, stream
     "int8_mma": [_P] * 4 + [_I] * 5 + [_P],
+    # x, q, scale, out, partial, M, din, dout, then the plan (split_rows,
+    # splits), stream
+    "int8_wgmma": [_P] * 5 + [_I] * 5 + [_P],
     # q, k_all, v_all, k_scale, v_scale, mask, kk, vv, pos, acc, m, l, layer,
     # B, H, Hkv, D, cap, cap_pad, warps, kk_stride, vv_stride, stream
     "decode_attention_int4": [_P] * 12 + [_I] * 10 + [_P],

@@ -238,40 +238,51 @@ def mma_plan_splits(din: int, dout: int, group_size: int, num_sms: int) -> tuple
     return _split(din, group_size, 4 * num_sms // col_blocks, MAX_SPLIT_ROWS)
 
 
-def wgmma_plan_splits(din: int, dout: int, group_size: int, num_sms: int,
-                      rows: int) -> tuple[int, int]:
-    """(groups_per_split, splits) of q4_wgmma for x of `rows` rows.  A block
-    takes WGMMA_ROWS x WGMMA_COLS of y and has an SM to itself, so the
+def wgmma_splits(din: int, dout: int, rows: int, num_sms: int, grain: int,
+                 min_split_rows: int, weight_bytes: float) -> tuple[int, int]:
+    """(grains_per_split, splits) of a wgmma kernel (q4_wgmma, int8_wgmma)
+    for x of `rows` rows: din cut into whole grains of `grain` rows.  A
+    block takes WGMMA_ROWS x WGMMA_COLS of y and has an SM to itself, so the
     blocks run in waves of num_sms.  Where the tiles are under one wave, din
-    is split into whole groups until the grid fills one (at least
-    WGMMA_WAVE_FILL of the SMs, as far as the limits below allow); of the
-    plans that do, the plan takes the fewest splits of the least modelled
-    time (WGMMA_MODEL): a block's time is the larger of its flops (the rows
-    of its live warpgroups) at an SM's share of the kernel's rate and its
-    packed weights and scales at its share of the device memory rate, times
+    is split until the grid fills one (at least WGMMA_WAVE_FILL of the SMs,
+    as far as the limits below allow); of the plans that do, the plan takes
+    the fewest splits of the least modelled time (WGMMA_MODEL): a block's
+    time is the larger of its flops (the rows of its live warpgroups) at an
+    SM's share of the kernel's rate and its weights (`weight_bytes` a
+    weight, scales included) at its share of the device memory rate, times
     the waves; a split adds the reduce's pass over the f32 partial sums
-    (written and read) and a launch.  Each split has at least WGMMA_MIN_SPLIT_ROWS din rows, and the
-    partials [splits, rows, dout] stay within MMA_WORKSPACE_BYTES."""
+    (written and read) and a launch.  Each split has at least min_split_rows
+    din rows, and the partials [splits, rows, dout] stay within
+    MMA_WORKSPACE_BYTES."""
     flops_per_s, bytes_per_s, launch_s = WGMMA_MODEL
     tiles = -(-rows // WGMMA_ROWS) * -(-dout // WGMMA_COLS)
     live = min(WGMMA_ROWS, -(-rows // 64) * 64)
-    groups = din // group_size
-    most = min(groups, max(1, din // WGMMA_MIN_SPLIT_ROWS),
+    grains = -(-din // grain)
+    most = min(grains, max(1, din // min_split_rows),
                max(1, MMA_WORKSPACE_BYTES // (4 * rows * dout)))
     plans = []
     for want in range(1, most + 1):
-        gps = -(-groups // want)
-        splits = -(-groups // gps)
-        k, blocks = gps * group_size, tiles * splits
+        gps = -(-grains // want)
+        splits = -(-grains // gps)
+        k, blocks = gps * grain, tiles * splits
         block_s = max(2 * live * WGMMA_COLS * k / (flops_per_s / num_sms),
-                      k * WGMMA_COLS * (0.5 + 4 / group_size)
-                      / (bytes_per_s / min(blocks, num_sms)))
+                      k * WGMMA_COLS * weight_bytes / (bytes_per_s / min(blocks, num_sms)))
         t = -(-blocks // num_sms) * block_s
         if splits > 1:
             t += (8 * splits + 2) * rows * dout / bytes_per_s + launch_s
         plans.append((blocks < WGMMA_WAVE_FILL * num_sms, t, splits, gps))
     _, _, splits, gps = min(plans)
     return gps, splits
+
+
+def wgmma_plan_splits(din: int, dout: int, group_size: int, num_sms: int,
+                      rows: int) -> tuple[int, int]:
+    """(groups_per_split, splits) of q4_wgmma for x of `rows` rows
+    (wgmma_splits): din split into whole groups of at least
+    WGMMA_MIN_SPLIT_ROWS rows, half a byte of packed weight and 4 / gs of
+    scale a weight."""
+    return wgmma_splits(din, dout, rows, num_sms, group_size, WGMMA_MIN_SPLIT_ROWS,
+                        0.5 + 4 / group_size)
 
 
 def use_mma(batch: int, dtype: torch.dtype, group_size: int, dout: int) -> bool:

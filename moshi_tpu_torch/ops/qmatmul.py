@@ -1,17 +1,28 @@
 """int8 weight-only GEMV: the wrappers of the CUDA kernels
-`csrc/int8_gemv.cu` and `csrc/int8_mma.cu` and their plain PyTorch version.
+`csrc/int8_gemv.cu`, `csrc/int8_mma.cu` and `csrc/int8_wgmma.cu` and their
+plain PyTorch version.
 
 Counterpart of moshi_tpu/ops/qmatmul.py (`qgemv`) and of what `wdot` does
-for a `QTensor` (moshi_tpu/utils/matmul.py:83).  `int8_gemv` is the entry
-point: on a CPU tensor it runs `int8_gemv_plain`; on a CUDA tensor it
-launches `int8_mma` (tensor cores) where `use_mma` says so and the
-`int8_gemv` kernel (CUDA cores) otherwise, or raises.  A launch takes at
-most MAX_BATCH rows; `int8_gemv` runs more (the JAX package's XLA product
-takes any M) as chunks of MAX_BATCH rows, one launch each.
-The `int8_gemv` kernel takes any dout and a view at any byte offset, one
-launch a call planned by `int8_gemv_plan` (q4matmul.gemv_plan, shared with
-the q4_gemv kernel).  `int8_linear` is differentiable in x through
-q4matmul.FrozenLinear (training's backward).
+for a `QTensor` at any row count (moshi_tpu/utils/matmul.py:83).
+`int8_gemv` is the entry point: on a CPU tensor it runs `int8_gemv_plain`;
+on a CUDA tensor, by rows, dtype and shape (`route`):
+- bf16 x of more than MAX_BATCH rows, din a multiple of 16, dout a
+  multiple of MMA_WARP_COLS and q 16-byte aligned (the TMA's rules) ->
+  `int8_wgmma`: wgmma over 128-row tiles, each weight converted once per
+  tile, one launch a call (its din-split reduce, where `int8_wgmma_plan`
+  splits, is a second kernel of the same call);
+- bf16 x of 1..MAX_BATCH rows where `use_mma` admits it -> `int8_mma` on
+  the tensor cores, one launch;
+- the rest, one launch per MAX_BATCH rows (above that, 16-row chunks,
+  their outputs concatenated): f32 x and widths off 64 (the TTS heads of
+  32001 and 2049 columns) on the `int8_gemv` kernel (CUDA cores), bf16 x
+  on q off 16 bytes on `int8_mma`.  A route chosen by shape: f32 is the
+  parity dtype, and the TTS heads are the only main-path widths off 64.
+Either way a CUDA tensor launches a kernel or raises.  The `int8_gemv`
+kernel takes any dout and a view at any byte offset, one launch planned by
+`int8_gemv_plan` (q4matmul.gemv_plan, shared with the q4_gemv kernel).
+`int8_linear` is differentiable in x through q4matmul.FrozenLinear
+(training's backward).
 """
 
 import math
@@ -20,14 +31,16 @@ import torch
 
 from ..utils.quantize import dequantize
 from . import build
-from .q4matmul import (MAX_BATCH, MMA_WARP_COLS, GemvPlan, _check_cuda, _num_sms,
-                       frozen_linear, gemv_max_cols, gemv_plan, gemv_resident)
+from .q4matmul import (MAX_BATCH, MMA_WARP_COLS, WGMMA_MIN_SPLIT_ROWS, GemvPlan, _check_cuda,
+                       _num_sms, frozen_linear, gemv_max_cols, gemv_plan, gemv_resident,
+                       wgmma_splits)
 
 # int8_mma takes bf16 calls of MMA_MIN_BATCH..MAX_BATCH rows
 MMA_MIN_BATCH = 1
 MMA_BLOCK_COLS = MMA_WARP_COLS  # int8_mma.cu kBlockCols: one warp's 64 columns
 MMA_MAX_CLUSTER = 8             # int8_mma.cu kMaxCluster: the portable cluster size
 MMA_BLOCKS_PER_SM = 2           # int8_mma_plan fills about this many blocks per SM
+WGMMA_STAGE_ROWS = 64           # int8_wgmma.cu kK: din rows of a stage, a din split's grain
 
 
 def int8_gemv_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -70,6 +83,31 @@ def use_mma(batch: int, dtype: torch.dtype, din: int, dout: int) -> bool:
             and din % 16 == 0 and dout % MMA_WARP_COLS == 0)
 
 
+def int8_wgmma_plan(din: int, dout: int, num_sms: int, rows: int) -> tuple[int, int]:
+    """(split_rows, splits) of int8_wgmma for x of `rows` rows:
+    q4matmul.wgmma_splits over whole stages of WGMMA_STAGE_ROWS din rows, at
+    least WGMMA_MIN_SPLIT_ROWS (four stages) a split as for q4_wgmma, a byte
+    a weight.  (Splits of one stage, which fill the card at the depformer's
+    widths, measured 5-8% slower at 32 and 64 rows on the H100; PERF.md
+    §6.)"""
+    per, splits = wgmma_splits(din, dout, rows, num_sms, WGMMA_STAGE_ROWS,
+                               WGMMA_MIN_SPLIT_ROWS, 1.0)
+    return per * WGMMA_STAGE_ROWS, splits
+
+
+def route(rows: int, dtype: torch.dtype, din: int, dout: int, aligned: bool) -> str:
+    """The kernel every launch of a CUDA call of int8_gemv runs, for x of
+    `rows` rows: "int8_wgmma" (one launch) for bf16 x of more than
+    MAX_BATCH rows where din % 16 == 0, dout % MMA_WARP_COLS == 0 and q is
+    16-byte aligned (`aligned`); else, one launch per MAX_BATCH rows,
+    "int8_mma" where use_mma admits the rows and "int8_gemv" (the CUDA-core
+    kernel) otherwise."""
+    if (dtype == torch.bfloat16 and rows > MAX_BATCH and din % 16 == 0
+            and dout % MMA_WARP_COLS == 0 and aligned):
+        return "int8_wgmma"
+    return "int8_mma" if use_mma(min(rows, MAX_BATCH), dtype, din, dout) else "int8_gemv"
+
+
 def _check(x, q, scale):
     if not (x.device == q.device == scale.device):
         raise ValueError(f"int8_gemv: tensors on {x.device}, {q.device}, {scale.device}")
@@ -83,26 +121,25 @@ def _check(x, q, scale):
 
 def int8_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [M, din] bf16/f32; q [din, dout] int8; scale [1, dout] f32 ->
-    [M, dout] in x.dtype.  M rows run as chunks of at most MAX_BATCH, each
-    launched on int8_mma where `use_mma` admits the chunk and on the
-    `int8_gemv` kernel otherwise, their outputs concatenated:
-    ceil(M / MAX_BATCH) launches a call.  The `int8_gemv` kernel's launches
-    are counted in `int8_gemv.launches`, int8_mma's in `int8_mma.launches`."""
+    [M, dout] in x.dtype, on the kernel `route` names: one int8_wgmma
+    launch, or chunks of at most MAX_BATCH rows, one launch each, their
+    outputs concatenated.  The `int8_gemv` kernel's launches are counted in
+    `int8_gemv.launches`, int8_mma's in `int8_mma.launches`, int8_wgmma's in
+    `int8_wgmma.launches`."""
     _check(x, q, scale)
     if x.device.type == "cpu":
         return int8_gemv_plain(x, q, scale)
-    if x.shape[0] <= MAX_BATCH:
-        return _kernel(x, q)(x, q, scale)
+    M, din = x.shape
+    kernel = route(M, x.dtype, din, q.shape[1], q.data_ptr() % 16 == 0)
+    if kernel == "int8_wgmma":
+        return int8_wgmma(x, q, scale)
+    fn = int8_mma if kernel == "int8_mma" else int8_gemv_kernel
+    if M <= MAX_BATCH:
+        return fn(x, q, scale)
     # a chunk that does not start 16-byte aligned, as a fresh tensor does, is copied
     chunks = [c if c.data_ptr() % 16 == 0 else c.clone()
               for c in x.contiguous().split(MAX_BATCH)]
-    return torch.cat([_kernel(c, q)(c, q, scale) for c in chunks])
-
-
-def _kernel(x, q):
-    """The kernel a call of x's rows launches."""
-    return int8_mma if use_mma(x.shape[0], x.dtype, x.shape[1], q.shape[1]) \
-        else int8_gemv_kernel
+    return torch.cat([fn(c, q, scale) for c in chunks])
 
 
 def int8_gemv_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -162,8 +199,43 @@ def int8_mma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Ten
     return out
 
 
+def int8_wgmma(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8_gemv's function through the `int8_wgmma` kernel (wgmma over
+    128-row tiles), one launch per call: x bf16 of any row count, din a
+    multiple of 16, dout a multiple of MMA_WARP_COLS, q and scale 16-byte
+    aligned (x is copied where its rows are not); on a CPU tensor the plain
+    version."""
+    _check(x, q, scale)
+    if x.device.type == "cpu":
+        return int8_gemv_plain(x, q, scale)
+    _check_cuda("int8_wgmma", x, q, scale, 16)
+    M, din = x.shape
+    dout = q.shape[1]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"int8_wgmma: x dtype {x.dtype}, not bfloat16")
+    if M < 1:
+        raise ValueError(f"int8_wgmma: {M} rows")
+    if din % 16 or dout % MMA_WARP_COLS:
+        raise ValueError(f"int8_wgmma: din {din} must be a multiple of 16, dout {dout} a "
+                         f"multiple of {MMA_WARP_COLS}")
+    if x.data_ptr() % 16:
+        x = x.clone()  # the TMA reads from a 16-byte aligned base; a new tensor has one
+    split_rows, splits = int8_wgmma_plan(din, dout, _num_sms(x.device.index or 0), M)
+    out = torch.empty((M, dout), dtype=torch.bfloat16, device=x.device)
+    partial = (torch.empty((splits, M, dout), dtype=torch.float32, device=x.device)
+               if splits > 1 else out)
+    lib = build.load("int8_wgmma")
+    err = lib.int8_wgmma(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                         partial.data_ptr(), M, din, dout, split_rows, splits,
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "int8_wgmma")
+    int8_wgmma.launches += 1
+    return out
+
+
 int8_gemv.launches = 0
 int8_mma.launches = 0
+int8_wgmma.launches = 0
 
 
 def _int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

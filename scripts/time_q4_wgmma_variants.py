@@ -54,8 +54,8 @@ STAGES = "constexpr int kStages = 4;"
 
 # the probe: clock64() stamps of block (0, 0, 0) at each barrier of a
 # stage (< 64), read back through q4_wgmma_probe
-PROBE_HEAD = ('#include "gemv_common.cuh"\n',
-              '#include "gemv_common.cuh"\n'
+PROBE_HEAD = ('#include "wgmma_common.cuh"\n',
+              '#include "wgmma_common.cuh"\n'
               '__device__ unsigned long long g_probe[7 * 64];\n'
               '#define PROBE(k, s) if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 '
               '&& (s) < 64) g_probe[(k) * 64 + (s)] = clock64();\n')

@@ -509,6 +509,169 @@ def test_int8_mma_c_entry_rejects_what_it_does_not_take(gen):
     assert _rel(out, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
 
 
+# int8_wgmma (wgmma over 128-row tiles): bf16 x of more than 16 rows, held
+# to the bf16 bound; the TTS frame's shapes at 32 model rows and the int8
+# training forward's at 512 beside the depformer's
+WG8 = qmatmul.int8_wgmma
+TTS_WG8_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048), (2048, 1024)]
+TRAIN_WG8_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096), (4096, 32000)]
+
+
+def _wg8_check(x, qt):
+    """One int8_wgmma call against the plain version: exactly one
+    int8_wgmma launch counted and none of int8_mma or the int8_gemv
+    kernel."""
+    counted = (qmatmul.int8_gemv, MMA8, WG8)
+    n = [fn.launches for fn in counted]
+    y = WG8(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert [fn.launches - k for fn, k in zip(counted, n)] == [0, 0, 1]
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (x.shape[0], qt.q.shape[-1])
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+    return y
+
+
+@pytest.mark.parametrize("M", [17, 63, 64, 65, 127, 128, 129, 200, 512])
+def test_int8_wgmma_every_row_edge(M, gen):
+    """The row edges of the 64-row warpgroups and 128-row blocks: a dead
+    warpgroup (M <= 64), a part-full one, a second and a fifth row tile."""
+    _wg8_check(*_mma8_case(gen, M, 1024, 1536))
+
+
+@pytest.mark.parametrize("din,dout,M", [(din, dout, M) for din, dout in INT8_MAIN_SHAPES
+                                        for M in (32, 64, 512)]
+                         + [(din, dout, 32) for din, dout in TTS_WG8_SHAPES]
+                         + [(din, dout, 512) for din, dout in TRAIN_WG8_SHAPES])
+def test_int8_wgmma_main_path_shapes(din, dout, M, gen):
+    """The main paths' shapes through the entry point int8_gemv: one
+    int8_wgmma launch, split and unsplit as the planner says, against the
+    plain version and equal to int8_wgmma called directly."""
+    x, qt = _mma8_case(gen, M, din, dout)
+    assert qmatmul.route(M, torch.bfloat16, din, dout, qt.q.data_ptr() % 16 == 0) == "int8_wgmma"
+    counted = (qmatmul.int8_gemv, MMA8, WG8)
+    n = [fn.launches for fn in counted]
+    y = qmatmul.int8_gemv(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert [fn.launches - k for fn, k in zip(counted, n)] == [0, 0, 1]
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+    assert torch.equal(y, _wg8_check(x, qt))
+
+
+@pytest.mark.parametrize("din,dout", [(16, 64), (1040, 192), (80, 128), (4112, 640)])
+def test_int8_wgmma_ragged_shapes(din, dout, gen):
+    """A din of one k16 step, a last stage short of 64 (1040, 80, 4112),
+    a last column tile half full (192, 640), split and unsplit."""
+    _wg8_check(*_mma8_case(gen, 100, din, dout))
+
+
+def test_int8_wgmma_stacked_member_view(gen):
+    """int8_wgmma on the view q[l] of a stacked weight reads member l."""
+    qt = tq.quantize_tensor(torch.randn(3, 1, 512, 768, device="cuda", generator=gen))
+    x = torch.randn(100, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    for layer in range(3):
+        assert qt.q[layer][0].data_ptr() % 16 == 0
+        y = qmatmul.int8_gemv(x, qt.q[layer][0], qt.scale[layer][0])
+        ref = qmatmul.int8_gemv_plain(x, qt.q[layer][0], qt.scale[layer][0])
+        assert _rel(y, ref) <= BOUND[torch.bfloat16]
+        assert torch.equal(y, _wg8_check(x, tq.QTensor(qt.q[layer][0], qt.scale[layer][0])))
+
+
+@pytest.mark.parametrize("M", [17, 512])
+def test_int8_wgmma_deterministic_and_counted(M, gen):
+    """Two calls give the same bytes (split partials added in order, no
+    atomics); each counts one int8_wgmma launch."""
+    x, qt = _mma8_case(gen, M, 1024, 1024)
+    assert qmatmul.int8_wgmma_plan(1024, 1024, _num_sms(), M)[1] > 1
+    a, b = _wg8_check(x, qt), _wg8_check(x, qt)
+    assert torch.equal(a, b)
+
+
+def test_int8_wgmma_takes_unaligned_rows(gen):
+    """x whose address is off 16 bytes (a view two bytes in) is copied by
+    the wrapper: same result as the aligned x."""
+    x, qt = _mma8_case(gen, 40, 1024, 256)
+    buf = torch.empty(40 * 1024 + 1, dtype=torch.bfloat16, device="cuda")
+    xu = buf[1:].view(40, 1024)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16
+    assert torch.equal(_wg8_check(xu, qt), WG8(x, qt.q, qt.scale))
+
+
+def test_int8_wgmma_writes_nothing_past_y(gen):
+    """At 200 rows (the second row tile 72 rows full) and a split plan, no
+    byte of a guard band of rows before and after y, and after the split
+    partials, is written."""
+    from moshi_tpu_torch.ops import build
+    M, din, dout, G, sentinel = 200, 2048, 1024, 64, 7.0
+    x, qt = _mma8_case(gen, M, din, dout)
+    split_rows, splits = qmatmul.int8_wgmma_plan(din, dout, _num_sms(), M)
+    assert splits > 1
+    ybuf = torch.full((M + 2 * G, dout), sentinel, dtype=torch.bfloat16, device="cuda")
+    pbuf = torch.full((splits * M + 2 * G, dout), sentinel, dtype=torch.float32, device="cuda")
+    y, partial = ybuf[G:G + M], pbuf[G:G + splits * M]
+    lib = build.load("int8_wgmma")
+    err = lib.int8_wgmma(x.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(), y.data_ptr(),
+                         partial.data_ptr(), M, din, dout, split_rows, splits,
+                         torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "int8_wgmma")
+    torch.cuda.synchronize()
+    assert torch.equal(y, _wg8_check(x, qt))
+    for band in (ybuf[:G], ybuf[G + M:], pbuf[:G], pbuf[G + splits * M:]):
+        assert (band == sentinel).all()
+
+
+def test_int8_wgmma_rejects_what_the_kernel_does_not_take(gen):
+    x, qt = _mma8_case(gen, 40, 256, 128)
+    with pytest.raises(TypeError):
+        WG8(x.float(), qt.q, qt.scale)                   # f32 activations
+    with pytest.raises(TypeError):
+        WG8(x.half(), qt.q, qt.scale)                    # fp16 activations
+    with pytest.raises(ValueError):
+        WG8(x[:0], qt.q, qt.scale)                       # no rows
+    x96, q96 = _mma8_case(gen, 40, 256, 96)
+    with pytest.raises(ValueError):
+        WG8(x96, q96.q, q96.scale)                       # dout not a multiple of 64
+    x24, q24 = _mma8_case(gen, 40, 24, 128)
+    with pytest.raises(ValueError):
+        WG8(x24, q24.q, q24.scale)                       # din not a multiple of 16
+    q_buf = torch.empty(qt.q.numel() + 8, dtype=torch.int8, device="cuda")
+    q_off = q_buf[8:].view(qt.q.shape)
+    q_off.copy_(qt.q)
+    with pytest.raises(ValueError):
+        WG8(x, q_off, qt.scale)                          # q 8 bytes off 16
+    with pytest.raises(ValueError):
+        WG8(x, qt.q.cpu(), qt.scale)                     # mixed devices
+    # the entry point sends the unaligned q to int8_mma's 16-row chunks instead
+    n = MMA8.launches
+    y = qmatmul.int8_gemv(x, q_off, qt.scale)
+    torch.cuda.synchronize()
+    assert MMA8.launches == n + 3
+    assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+
+
+def test_int8_wgmma_c_entry_rejects_what_it_does_not_take(gen):
+    """The C entry returns cudaErrorInvalidValue (1) and launches nothing
+    for what the wrapper would not pass on."""
+    from moshi_tpu_torch.ops import build
+    x, qt = _mma8_case(gen, 40, 256, 128)
+    out = torch.empty(40, 128, device="cuda", dtype=torch.bfloat16)
+    partial = torch.empty(2, 40, 128, device="cuda")
+    lib = build.load("int8_wgmma")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(m=40, din=256, dout=128, split_rows=128, splits=2, xp=0, qp=0, sp=0):
+        return lib.int8_wgmma(x.data_ptr() + xp, qt.q.data_ptr() + qp,
+                              qt.scale.data_ptr() + sp, out.data_ptr(), partial.data_ptr(), m,
+                              din, dout, split_rows, splits, stream)
+    assert call() == 0
+    for bad in ({"m": 0}, {"din": 248}, {"din": 8}, {"dout": 96}, {"split_rows": 96},
+                {"split_rows": 0}, {"splits": 0}, {"splits": 1}, {"splits": 3},
+                {"xp": 2}, {"qp": 8}, {"sp": 4}):
+        assert call(**bad) == 1, bad
+    torch.cuda.synchronize()
+    assert _rel(out, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[torch.bfloat16]
+
+
 # the CUDA-core GEMVs (csrc/int8_gemv.cu, csrc/q4_gemv.cu), one launch a
 # call planned by q4matmul.gemv_plan: a lane's columns, warps over din, a
 # cluster of blocks over din added in distributed shared memory
@@ -1864,8 +2027,9 @@ def test_graphed_tts_equals_eager(batch, kv, gen):
     (the cross K/V and the summed condition too) does at the end; no op
     between frames moves a state tensor; graph 1 is captured once in each
     mode, graph 2 once, and the captures counted one frame's K4 or K6
-    launches per mode.  At 32 slots every int8 linear runs as two 16-row
-    int8 GEMV launches."""
+    launches per mode.  At 32 slots the int8 linears take 32 rows: one
+    int8_wgmma launch each where dout is a multiple of 64, 16-row chunks
+    of the int8_gemv kernel otherwise."""
     from moshi_tpu_torch.serve.batched_tts import serve_tts
     models = _tiny_tts(kv)
     schedule = _tts_schedule(batch)
@@ -1951,23 +2115,24 @@ def test_dropped_engine_frees_its_memory_without_the_cycle_collector(engine, gen
 
 
 # int8 above a decoding batch: int8_gemv (the entry int8_linear calls) runs
-# M rows as chunks of at most 16, one launch each, into one output
+# bf16 x as one int8_wgmma launch, f32 x as chunks of at most 16 rows, one
+# launch each, into one output
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M", [33, 512])
 def test_int8_chunked_rows(M, dtype, gen):
     """M = 33 (two whole chunks and one row) and 512 (the training
-    forward's B * T) at a depformer shape, bf16 on int8_mma and f32 on the
-    int8_gemv kernel: ceil(M / 16) launches, against the plain version;
-    the per-launch kernels still refuse more than 16 rows."""
+    forward's B * T) at a depformer shape, bf16 on one int8_wgmma launch and
+    f32 on the int8_gemv kernel in ceil(M / 16) launches, against the plain
+    version; the per-launch kernels still refuse more than 16 rows."""
     din, dout = 1024, 3072
     qt = tq.quantize_tensor(torch.randn(din, dout, device="cuda", generator=gen) / din ** 0.5)
     x = torch.randn(M, din, device="cuda", generator=gen).to(dtype)
-    counted = qmatmul.int8_mma if dtype == torch.bfloat16 else qmatmul.int8_gemv
-    other = qmatmul.int8_gemv if dtype == torch.bfloat16 else qmatmul.int8_mma
-    n, o = counted.launches, other.launches
+    counted = (qmatmul.int8_gemv, qmatmul.int8_mma, qmatmul.int8_wgmma)
+    n = [fn.launches for fn in counted]
     y = qmatmul.int8_gemv(x, qt.q, qt.scale)
     torch.cuda.synchronize()
-    assert (counted.launches - n, other.launches - o) == (-(-M // 16), 0)
+    assert [fn.launches - k for fn, k in zip(counted, n)] == (
+        [0, 0, 1] if dtype == torch.bfloat16 else [-(-M // 16), 0, 0])
     assert y.dtype == dtype and tuple(y.shape) == (M, dout)
     assert _rel(y, qmatmul.int8_gemv_plain(x, qt.q, qt.scale)) <= BOUND[dtype]
     with pytest.raises(ValueError):
@@ -1988,7 +2153,7 @@ def test_frozen_linear_dx_on_the_card(kind, gen):
         counted = q4matmul.q4_wgmma
     else:
         qt, linear, plain = tq.quantize_tensor(w), qmatmul.int8_linear, qmatmul.int8_gemv_plain
-        counted = qmatmul.int8_mma
+        counted = qmatmul.int8_wgmma
     x = torch.randn(2, 256, din, device="cuda", generator=gen).to(torch.bfloat16)
     dy = torch.randn(2, 256, dout, device="cuda", generator=gen).to(torch.bfloat16)
     xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)

@@ -71,7 +71,8 @@ def test_q4_plain_matches_pallas_stacked(dt):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("B,din,dout", [(1, 256, 384), (4, 96, 64)])
+@pytest.mark.parametrize("B,din,dout", [(1, 256, 384), (4, 96, 64), (33, 256, 384),
+                                        (200, 96, 64)])
 def test_int8_plain_matches_jax_wdot(B, din, dout, dt):
     rs = np.random.RandomState(din + B)
     jdt, tdt = DTYPES[dt]
@@ -454,7 +455,7 @@ def pallas_interpret(monkeypatch):
                                                              interpret=True))
 
 
-@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("B", [1, 16, 33, 200])
 def test_int8_plain_matches_pallas_qgemv(B, pallas_interpret):
     """The plain int8 version against the Pallas qgemv itself (interpret
     mode), bf16, at 128 x 128 blocks: 2 x 3 grid steps."""
@@ -522,6 +523,91 @@ def test_int8_mma_is_built_by_name():
     p, i = build.SIGNATURES["int8_gemv"][0], build.SIGNATURES["int8_gemv"][5]
     assert build.SIGNATURES["int8_mma"] == [p] * 4 + [i] * 5 + [p]
     assert build.library_path("int8_mma").name.startswith("int8_mma-")
+
+
+# the int8 linears above 16 rows: the TTS frame's (at 32 model rows; its
+# heads of 32001 and 2049 columns keep the 16-row chunks) and the int8
+# training forward's (Moshi-7B's temporal linears and text head at B * T =
+# 512 rows), beside the depformer's (INT8_MAIN_SHAPES)
+TTS_INT8_SHAPES = ((2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048), (2048, 32001),
+                   (1024, 3072), (1024, 1024), (1024, 5632), (2816, 1024), (2048, 1024),
+                   (1024, 2049))
+TRAIN_INT8_SHAPES = ((4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096), (4096, 32000))
+INT8_ROWS = (17, 32, 64, 512)
+
+
+@pytest.mark.parametrize("M", INT8_ROWS)
+def test_int8_route_above_16_rows(M):
+    """bf16 x of more than 16 rows at every depformer, TTS and training
+    shape goes to one int8_wgmma launch where dout % 64 == 0 and q is
+    16-byte aligned; the TTS heads (odd dout), f32 x and a din off 16 keep
+    the 16-row chunks (int8_gemv), q off 16 bytes int8_mma's chunks; 16
+    rows stay on int8_mma."""
+    bf16 = torch.bfloat16
+    for din, dout in INT8_MAIN_SHAPES + TTS_INT8_SHAPES + TRAIN_INT8_SHAPES:
+        wide = dout % 64 == 0
+        assert qmatmul.route(M, bf16, din, dout, True) == ("int8_wgmma" if wide else "int8_gemv")
+        assert qmatmul.route(M, bf16, din, dout, False) == ("int8_mma" if wide else "int8_gemv")
+        assert qmatmul.route(M, torch.float32, din, dout, True) == "int8_gemv"
+        assert qmatmul.route(M, bf16, din + 8, dout, True) == "int8_gemv"
+        assert qmatmul.route(16, bf16, din, dout, True) == ("int8_mma" if wide else "int8_gemv")
+    assert (2048, 32001) in TTS_INT8_SHAPES and (1024, 2049) in TTS_INT8_SHAPES
+
+
+@pytest.mark.parametrize("num_sms", [132, 114])
+@pytest.mark.parametrize("M", INT8_ROWS)
+def test_int8_wgmma_plans(M, num_sms):
+    """int8_wgmma's din splits at the depformer's, the TTS frame's and the
+    training forward's shapes: whole stages of 64 din rows covering din, at
+    least WGMMA_MIN_SPLIT_ROWS a split, the f32 partials [splits, M, dout]
+    within MMA_WORKSPACE_BYTES, and a grid that fills WGMMA_WAVE_FILL of the
+    SMs unless those limits keep it from it."""
+    stage = qmatmul.WGMMA_STAGE_ROWS
+    for din, dout in INT8_MAIN_SHAPES + TTS_INT8_SHAPES + TRAIN_INT8_SHAPES + ((1040, 192),):
+        if dout % 64:
+            continue
+        split_rows, splits = qmatmul.int8_wgmma_plan(din, dout, num_sms, M)
+        assert split_rows % stage == 0 and (splits - 1) * split_rows < din <= splits * split_rows
+        assert splits == 1 or split_rows >= q4matmul.WGMMA_MIN_SPLIT_ROWS
+        assert splits == 1 or 4 * splits * M * dout <= q4matmul.MMA_WORKSPACE_BYTES
+        tiles = -(-M // q4matmul.WGMMA_ROWS) * -(-dout // q4matmul.WGMMA_COLS)
+        stages = -(-din // stage)
+        most = min(stages, max(1, din // q4matmul.WGMMA_MIN_SPLIT_ROWS),
+                   max(1, q4matmul.MMA_WORKSPACE_BYTES // (4 * M * dout)))
+        most = -(-stages // -(-stages // most))  # the most whole-stage splits within the limits
+        fill = q4matmul.WGMMA_WAVE_FILL * num_sms
+        assert tiles * splits >= fill or tiles * most < fill
+
+
+def test_int8_wgmma_on_cpu_runs_the_plain_version():
+    """On CPU tensors int8_wgmma and the int8_gemv entry point compute the
+    plain version and count no launch, at 40 rows (int8_wgmma's route) and
+    at 16; int8_wgmma refuses mismatched shapes."""
+    rs = np.random.RandomState(6)
+    q8 = tq.quantize_tensor(torch.from_numpy(rs.randn(256, 128).astype(np.float32)))
+    counted = (qmatmul.int8_gemv, qmatmul.int8_mma, qmatmul.int8_wgmma)
+    counts = [fn.launches for fn in counted]
+    for M in (16, 40):
+        x = torch.from_numpy(rs.randn(M, 256).astype(np.float32)).to(torch.bfloat16)
+        ref = qmatmul.int8_gemv_plain(x, q8.q, q8.scale)
+        for fn in (qmatmul.int8_wgmma, qmatmul.int8_gemv):
+            assert torch.equal(fn(x, q8.q, q8.scale), ref)
+        with pytest.raises(ValueError):
+            qmatmul.int8_wgmma(x[:, :128], q8.q, q8.scale)
+    assert [fn.launches for fn in counted] == counts
+
+
+def test_int8_wgmma_is_built_by_name():
+    """int8_wgmma is a kernel of the build: its source, its C signature (x,
+    q, scale, out, partial; M, din, dout, split_rows, splits; stream), a
+    library named for it, and the shared wgmma header beside q4_wgmma's."""
+    from moshi_tpu_torch.ops import build
+    assert (build.CSRC / "int8_wgmma.cu").is_file()
+    p, i = build.SIGNATURES["int8_gemv"][0], build.SIGNATURES["int8_gemv"][5]
+    assert build.SIGNATURES["int8_wgmma"] == [p] * 5 + [i] * 5 + [p]
+    assert build.library_path("int8_wgmma").name.startswith("int8_wgmma-")
+    for name in ("int8_wgmma", "q4_wgmma"):
+        assert '#include "wgmma_common.cuh"' in (build.CSRC / f"{name}.cu").read_text()
 
 
 # decode_attention_int8's main-path shapes (B, H, cap): ASR B = 256, Moshi B = 16
