@@ -143,7 +143,23 @@ Phases, each printing its own line(s):
                (c) Mimi v0.1 in f32 through `python -m moshi_tpu_torch.train`
                (two subprocesses with --deterministic: 20 steps saved at 10,
                then a resume from 10), the loss at steps 1 and 20, entropy,
-               the synced codec's codes, the resumed final loss;
+               the synced codec's codes, the resumed final loss; (d) (a2)'s
+               tree as a native checkpoint trained by two ranks sharing the
+               one card (two processes on cuda:0 in a gloo group, which moves
+               the collectives' CUDA tensors through host memory; NCCL
+               refuses two ranks on one device), mesh {dp: 2} and then
+               {dp: 2, fsdp: true}: the step-0 loss and all-reduced adapter
+               gradient against (a2)'s one-rank step on the global batch
+               (bound TRAIN_MESH_BOUND) and against the same step taken as
+               two one-row halves (TRAIN_MESH_SPLIT_BOUND), then 2 steps
+               through run_training:
+               exactly 33 int8_wgmma of 256 rows per rank a step, s/step,
+               each rank's peak GiB in the steps and resident GiB of params
+               and optimizer state between steps; (e) the same checkpoint
+               through `torchrun --nproc_per_node 1 -m moshi_tpu_torch.train`
+               with mesh {dp: 1} (NCCL, world size 1) and through the plain
+               CLI without a mesh, 2 steps each with --deterministic: the
+               saved params equal byte for byte; the checkpoint is deleted;
  6b. hibiki  - speech translation at the full width of s2s_2b_16rvq_202501
                with a Hibiki checkpoint's depformer fields (16 steps on 9
                weight sets, rank-128 depformer embeddings) and a
@@ -355,7 +371,7 @@ import shutil
 import subprocess
 import sys
 import time
-from contextlib import contextmanager, nullcontext, redirect_stdout
+from contextlib import ExitStack, contextmanager, nullcontext, redirect_stdout
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -6087,6 +6103,26 @@ TRAIN_MIMI = {"batch_size": 4, "seq_len": 25, "steps": 20, "save_every": 10,
               "optimizer": {"lr": 1e-4, "grad_clip": 1.0}}
 TRAIN_RESUME_BOUND = 1e-2
 TRAIN_DIR = ROOT / "build" / "train"
+# (d): the step-0 gradient of every adapter over two ranks (each its row of
+# the batch, 256 rows a linear, the CE divided by the global count, the
+# gradients all-reduced) against (a2)'s one-rank step at 512 rows,
+# ||g_dp - g_1|| / ||g_1||, and the losses' relative difference (stated
+# before the first card run, PERF.md §6): each row's forward and backward
+# is the same arithmetic on the same kernels (int8_wgmma computes a row of a
+# 128-row tile alone), so the two differ by the order of the sums over rows
+# only (the weight gradients' reduction split in two halves, the CE's sum),
+# which TRAIN_WITNESS_BOUND's 5e-2 bounds with room
+TRAIN_MESH_BOUND = 5e-2
+# ... and against the same one-rank step taken as two one-row halves (each
+# row's gradient with its own CE mean, the two averaged, the rows' counts of
+# valid positions being equal): the ranks run exactly those launches, and a
+# CE divided by twice the count scales every backward value by 1/2, exactly,
+# so the two differ by f32 rounding at most (stated after the first card
+# run read 3.249e-2 against the whole batch, before this witness's first
+# run: the whole batch's 512-row matmuls round otherwise than 256-row ones)
+TRAIN_MESH_SPLIT_BOUND = 1e-4
+TRAIN_MESH = {"world": 2, "steps": 2, "timeout": 300}
+MESH_DIR = ROOT / "build" / "train_mesh"
 
 
 @contextmanager
@@ -6393,10 +6429,249 @@ def mimi_cli(dev, card: str) -> dict:
             "peak_gib": last.get("peak_gib"), "call_s": wall}
 
 
+def mesh_train_config(out_dir=None, **over) -> dict:
+    """(d)/(e)'s config: (a2)'s LoRA tree from MESH_DIR's checkpoint, its
+    seeded codes, TRAIN_MESH["steps"] steps of TRAIN_OPT."""
+    return {"target": "lm", "checkpoint_dir": str(MESH_DIR / "ckpt"), "lora_only": True,
+            "optimizer": TRAIN_OPT, "steps": TRAIN_MESH["steps"],
+            "batch_size": TRAIN_LORA["batch"], "seq_len": TRAIN_LORA["frames"],
+            "data": {"kind": "synthetic_repeat", "seed": SEED}, "log_every": 1,
+            "seed": SEED, "out_dir": out_dir, **over}
+
+
+def mesh_rank(rank: int) -> None:
+    """One rank of (d), run as `chip_smoke.py --mesh-rank RANK`: a gloo
+    group of TRAIN_MESH["world"] processes on cuda:0 through a file store in
+    MESH_DIR; for dp and then fsdp the step-0 witness (rank 0 holds it
+    against (a2)'s gradient) and TRAIN_MESH["steps"] steps through
+    run_training; each int8 linear's rows recorded.  Writes
+    MESH_DIR/rank{RANK}.json."""
+    import torch.distributed as dist
+    from moshi_tpu_torch import train
+    from moshi_tpu_torch.models import native_ckpt
+    from moshi_tpu_torch.models.loaders import CheckpointInfo
+    from moshi_tpu_torch.parallel import collectives
+    from moshi_tpu_torch.parallel.mesh import make_mesh
+    from moshi_tpu_torch.utils import matmul
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{MESH_DIR / 'store'}", rank=rank,
+                            world_size=TRAIN_MESH["world"])
+    rows = []
+    int8_linear = matmul.int8_linear
+
+    def recorded(x, q, scale):
+        rows.append(x.numel() // x.shape[-1])
+        return int8_linear(x, q, scale)
+    matmul.int8_linear = recorded
+    cfg = mesh_train_config()
+    out = {}
+    try:
+        for mode in ("dp", "fsdp"):
+            fsdp = mode == "fsdp"
+            lm, params = CheckpointInfo.from_dir(cfg["checkpoint_dir"]).get_moshi(
+                dtype=torch.float32, device=dev)
+            paths = train.lora_optimizer(train.make_optimizer({}), params).select(params)
+            dp = train.DataParallel(make_mesh(TRAIN_MESH["world"], tp=1), params, paths, fsdp)
+            kept = dp.shard(params)
+            del params
+            codes = torch.from_numpy(dp.rows(next(train._data_batches(cfg, "lm", lm, 1)))
+                                     ).long().to(dev)
+            whole = dp.gather(kept)
+            zero_counts()
+            rows.clear()
+            loss, _, grads = train.value_and_grad(train.make_loss_fn(lm, dp.group), whole,
+                                                  paths, codes)
+            witness_launches, witness_rows = read_counts(), sorted(set(rows))
+            del whole, kept
+            grads = dp.reduce(grads)
+            loss = float(dp.total(loss))
+            grads = [g if d is None else collectives.all_gather(g, d, dp.group)
+                     for g, d in zip(grads, dp.grad_dims)]
+            res = {"loss0": loss, "witness_launches": witness_launches,
+                   "witness_rows": witness_rows}
+            if rank == 0:
+                ref = native_ckpt.load_params(MESH_DIR / "step0.safetensors", dev)
+                res["grads_rel_err"] = grads_rel_err(grads, ref["grads"])
+                res["grads_rel_err_split"] = grads_rel_err(grads, ref["grads_split"])
+                res["loss_rel_err"] = abs(loss - float(ref["loss"])) / abs(float(ref["loss"]))
+                del ref
+            del grads
+            free_memory()
+            lines = []
+            zero_counts()
+            rows.clear()
+            run = train.run_training({**cfg, "mesh": {"dp": TRAIN_MESH["world"], "fsdp": fsdp}},
+                                     log=lambda line: lines.append(json.loads(line)), device=dev)
+            steps = [d for d in lines if "sec_per_step" in d]
+            resident = sum(t.numel() * t.element_size() for tree in ("params", "opt_state")
+                           for _, t in train.tree_leaves(run[tree]))
+            res.update({"launches": read_counts(), "rows": sorted(set(rows)),
+                        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                        "resident_gib": resident / 2**30, "losses": [d["loss"] for d in steps],
+                        "final_loss": run["loss"],
+                        "sec_per_step": [d["sec_per_step"] for d in steps],
+                        "gloo_note": any(d.get("event") == "mesh" for d in lines)})
+            del run
+            free_memory()
+            out[mode] = res
+    finally:
+        matmul.int8_linear = int8_linear
+        dist.destroy_process_group()
+    (MESH_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def train_mesh(dev, card: str, lm8, params8) -> dict:
+    """(d) two ranks on the one card and (e) the torchrun CLI at world size
+    1, over (a2)'s int8 tree with its fresh adapters."""
+    from dataclasses import asdict
+    from moshi_tpu_torch import train
+    from moshi_tpu_torch.models import native_ckpt
+    from moshi_tpu_torch.models.lora import replace_all_linear_with_lora
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    (MESH_DIR / "ckpt").mkdir(parents=True)
+    try:
+        lp = replace_all_linear_with_lora(params8, TRAIN_LORA["rank"],
+                                          torch.Generator(device=dev).manual_seed(SEED + 31),
+                                          TRAIN_LORA["scaling"], torch.float32)
+        (MESH_DIR / "ckpt" / "config.json").write_text(json.dumps(
+            {**asdict(lm8.config), "native_format": True, "moshi_name": "m.safetensors"}))
+        native_ckpt.save_params(MESH_DIR / "ckpt" / "m.safetensors", lp)
+        # (a2)'s one-rank step 0 on the global batch, for the ranks' witness
+        paths = train.lora_optimizer(train.make_optimizer({}), lp).select(lp)
+        codes = train_codes(lm8, dev)
+        loss_fn = train.make_loss_fn(lm8)
+        loss1, _, g1 = train.value_and_grad(loss_fn, lp, paths, codes)
+        halves = [train.value_and_grad(loss_fn, lp, paths, codes[i:i + 1])[2]
+                  for i in range(codes.shape[0])]
+        split = [(a + b) / 2 for a, b in zip(*halves)]
+        native_ckpt.save_params(MESH_DIR / "step0.safetensors",
+                                {"loss": loss1, "grads": g1, "grads_split": split})
+        del halves, split, lp, g1
+        free_memory()
+        t_setup = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        logs = [MESH_DIR / f"rank{r}.log" for r in range(TRAIN_MESH["world"])]
+        with ExitStack() as files:
+            procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                       "--mesh-rank", str(r)], cwd=ROOT,
+                                      stdout=files.enter_context(open(log, "w")),
+                                      stderr=subprocess.STDOUT)
+                     for r, log in enumerate(logs)]
+            try:
+                rcs = [p.wait(timeout=TRAIN_MESH["timeout"]) for p in procs]
+            finally:
+                for p in procs:
+                    p.kill()
+                    p.wait()
+        if any(rcs):
+            raise RuntimeError("(d) a rank failed: "
+                               + "\n".join(log.read_text()[-3000:] for log in logs))
+        ranks = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+                 for r in range(TRAIN_MESH["world"])]
+        t_d = time.perf_counter() - t1
+
+        per_step = 4 * lm8.config.num_layers + 1
+        rows = TRAIN_LORA["frames"] * TRAIN_LORA["batch"] // TRAIN_MESH["world"]
+        res = {}
+        for mode in ("dp", "fsdp"):
+            rk = [r[mode] for r in ranks]
+            w = rk[0]
+            ok = (w["grads_rel_err"] <= TRAIN_MESH_BOUND and w["loss_rel_err"] <= TRAIN_LOSS_BOUND
+                  and w["grads_rel_err_split"] <= TRAIN_MESH_SPLIT_BOUND
+                  and all(r["witness_launches"]["int8_wgmma"] == per_step
+                          and r["launches"]["int8_wgmma"] == per_step * TRAIN_MESH["steps"]
+                          and sum(r["launches"].values()) == r["launches"]["int8_wgmma"]
+                          and r["rows"] == [rows] and r["witness_rows"] == [rows]
+                          for r in rk)
+                  and len(w["losses"]) == TRAIN_MESH["steps"] and all(np.isfinite(w["losses"]))
+                  and rk[0]["final_loss"] == rk[1]["final_loss"] == w["losses"][-1]
+                  and w["gloo_note"])
+            # the log's sec_per_step is the mean since the first step
+            done = [v * (i + 1) for i, v in enumerate(w["sec_per_step"])]
+            step_s = [b - a for a, b in zip([0.0] + done[:-1], done)]
+            phase("train", f"(d) mesh {{dp: 2{', fsdp: true' if mode == 'fsdp' else ''}}}, two "
+                  f"ranks sharing the one card (gloo: the collectives' CUDA tensors go "
+                  f"through host memory): step-0 loss {w['loss0']:.5f} (rel "
+                  f"{w['loss_rel_err']:.2e} against one rank, bound {TRAIN_LOSS_BOUND:.0e}), "
+                  f"all-reduced adapter gradients ||g_dp - g_1|| / ||g_1|| "
+                  f"{w['grads_rel_err']:.3e} (bound {TRAIN_MESH_BOUND:.0e}), against the same "
+                  f"step as two one-row halves {w['grads_rel_err_split']:.3e} (bound "
+                  f"{TRAIN_MESH_SPLIT_BOUND:.0e}); "
+                  f"{TRAIN_MESH['steps']} steps through run_training: losses "
+                  f"{[round(v, 4) for v in w['losses']]}, int8_wgmma per rank "
+                  f"{[r['launches']['int8_wgmma'] for r in rk]} ({per_step} a step of "
+                  f"{rk[0]['rows']} rows), s/step {[round(v, 3) for v in step_s]}, peak GiB "
+                  f"per rank {[round(r['peak_gib'], 2) for r in rk]}, resident GiB of params "
+                  f"and optimizer state per rank {[round(r['resident_gib'], 3) for r in rk]} "
+                  f"{'ok' if ok else 'FAIL'} ({card})")
+            if not ok:
+                raise RuntimeError(f"(d) {mode}: {rk}")
+            res[mode] = {"ranks": rk, "s_per_step": step_s}
+        res["fsdp_resident_share"] = (res["fsdp"]["ranks"][0]["resident_gib"]
+                                      / res["dp"]["ranks"][0]["resident_gib"])
+        res["d_s"] = t_d
+
+        # (e): torchrun at world size 1 (NCCL) against the plain CLI
+        t2 = time.perf_counter()
+        for name, over in (("torchrun", {"mesh": {"dp": 1}}), ("plain", {})):
+            (MESH_DIR / f"{name}.json").write_text(json.dumps(mesh_train_config(
+                str(MESH_DIR / name), device="cuda", **over)))
+        launcher = {"torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", "1"], "plain": [sys.executable]}
+        with ExitStack() as files:
+            procs = {name: subprocess.Popen(
+                [*cmd, "-m", "moshi_tpu_torch.train", "--config", str(MESH_DIR / f"{name}.json"),
+                 "--deterministic"], cwd=ROOT,
+                stdout=files.enter_context(open(MESH_DIR / f"{name}.log", "w")),
+                stderr=subprocess.STDOUT) for name, cmd in launcher.items()}
+            try:
+                rcs = {name: p.wait(timeout=TRAIN_MESH["timeout"]) for name, p in procs.items()}
+            finally:
+                for p in procs.values():
+                    p.kill()
+                    p.wait()
+        runs = {name: (MESH_DIR / f"{name}.log").read_text() for name in procs}
+        for name, rc in rcs.items():
+            if rc:
+                raise RuntimeError(f"(e) {name} exited {rc}: {runs[name][-3000:]}")
+        at = f"train-{TRAIN_MESH['steps']:06d}.safetensors"
+        a, b = (train.load_train_state(MESH_DIR / name / at)[0] for name in ("torchrun", "plain"))
+        la, lb = list(train.tree_leaves(a)), list(train.tree_leaves(b))
+        equal = [p for p, _ in la] == [p for p, _ in lb] and all(
+            x.dtype == y.dtype and x.shape == y.shape
+            and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+            for (_, x), (_, y) in zip(la, lb))
+        finals = {name: [json.loads(line) for line in runs[name].splitlines()
+                         if line.startswith('{"final_step"')] for name in runs}
+        del a, b, la, lb
+        t_e = time.perf_counter() - t2
+        ok = equal and all(len(v) == 1 for v in finals.values())
+        phase("train", f"(e) `torch.distributed.run --standalone --nproc_per_node 1 -m "
+              f"moshi_tpu_torch.train` with mesh {{dp: 1}} (NCCL, world size 1) against the "
+              f"plain CLI, {TRAIN_MESH['steps']} steps each with --deterministic: final loss "
+              f"{finals['torchrun'][0]['final_loss'] if finals['torchrun'] else None} vs "
+              f"{finals['plain'][0]['final_loss'] if finals['plain'] else None}, saved params "
+              f"byte for byte equal: {equal}; (d) {t_d:.1f} s, (e) {t_e:.1f} s, setup "
+              f"{t_setup:.1f} s {'ok' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise RuntimeError("(e) the torchrun run's params differ from the plain CLI's")
+        res.update({"e_bytewise_equal": equal, "e_s": t_e, "setup_s": t_setup,
+                    "phase_s": time.perf_counter() - t0})
+        return res
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+
+
 def run_train(dev, card: str, lm, lm_params) -> dict:
     """[train]: (a) LoRA over the q4/int8 Moshi-7B weights, with remat;
     (a2) the same over int8 serving weights at cut depth; (b) the trained
-    tree served by LMGen and fused; (c) Mimi through the CLI."""
+    tree served by LMGen and fused; (d) (a2)'s tree over two ranks and (e)
+    through torchrun; (c) Mimi through the CLI."""
     from dataclasses import replace
     from moshi_tpu_torch.models.lm import LMModel
     from moshi_tpu_torch.utils.quantize import quantize_lm_params
@@ -6419,6 +6694,8 @@ def run_train(dev, card: str, lm, lm_params) -> dict:
     _, res8 = lora_train(dev, card, lm8, params8,
                          f"LoRA over Moshi-7B int8 ({cfg8.num_layers} layers)",
                          TRAIN_INT8["steps"], per_step8, remat=False)
+    free_memory()
+    res["mesh"] = train_mesh(dev, card, lm8, params8)
     del params8
     free_memory()
     res["int8_base"] = res8
@@ -6516,6 +6793,8 @@ def main() -> None:
                "py_basr": fleet["py_basr"]["launches"], **tts["launches"],
                "tts_serve": tts_serve["launches"], "train_lora": train["launches"],
                "train_int8_base": train["int8_base"]["launches"],
+               **{f"train_mesh_{m}": {k: sum(r["launches"][k] for r in train["mesh"][m]["ranks"])
+                                      for k in counters()} for m in ("dp", "fsdp")},
                "train_lmgen": train["serve"]["launches"], **helium["launches"],
                **bench_cli["launches"],
                **{f"configs_prefill_{kv}": v["launches"] for kv, v in configs["prefill"].items()}}
@@ -6528,6 +6807,9 @@ def main() -> None:
                          **tts["per_frame"], **hibiki["per_step"], "stt": stt["per_step"],
                          "train_step": train["launches_per_step"],
                          "train_int8_step": train["int8_base"]["launches_per_step"],
+                         "train_mesh_rank_step": {
+                             k: v // TRAIN_MESH["steps"]
+                             for k, v in train["mesh"]["dp"]["ranks"][0]["launches"].items()},
                          "train_lmgen": train["serve"]["per_step"], **helium["per_step"],
                          **bench_cli["per_step"]}
     kernels = []
@@ -6623,4 +6905,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]))
+    else:
+        main()

@@ -375,15 +375,17 @@ def undelay_logits(delays: tuple[int, ...], logits: torch.Tensor
     return torch.stack(outs, dim=1), mask
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                  count: torch.Tensor | None = None) -> torch.Tensor:
     """Masked cross entropy in f32 over every position where `mask` holds,
-    averaged over them (moshi_tpu lm.py:477-483): logits [..., card],
-    targets and mask [...]."""
+    summed and divided by `count`, by default the number of them (moshi_tpu
+    lm.py:477-483): logits [..., card], targets and mask [...].  A
+    data-parallel rank passes the global batch's count, so the ranks' losses
+    sum to the global mean."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
     ll = torch.where(mask, ll, torch.zeros_like(ll))
-    return -ll.sum() / mask.sum().clamp(min=1)
+    return -ll.sum() / (mask.sum() if count is None else count).clamp(min=1)
 
 
 class LMModel:

@@ -14,9 +14,15 @@ state a dict of tensors.  Random draws come from an explicit
 package's keys has no counterpart, so only the deterministic part (an
 initialized state, no expired code) equals the JAX package's outputs.  The
 codebook statistics carry no gradient; the gradient reaches the encoder
-through the commit loss and the straight-through estimator.  Multi-worker
-synchronisation of the statistics (the JAX package's `axis_name`) waits for
-the port's mesh (ROADMAP A.13).
+through the commit loss and the straight-through estimator.
+
+Over several workers there are two semantics.  `group` is the JAX
+package's `axis_name`: each worker quantizes its own rows and the batch
+statistics are averaged over the group (an all_reduce divided by its size,
+lax.pmean's counterpart).  `rows` is the mesh trainer's: x holds the global
+batch (every worker's rows, only its own carrying gradient), the
+statistics, k-means and the replacement draws are taken over all of it,
+as one device would, and the outputs are of the worker's rows alone.
 """
 
 import math
@@ -24,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..parallel import collectives
 from .vq import RVQConfig, nearest_codebook
 
 
@@ -83,15 +90,14 @@ def kmeans(generator: torch.Generator, samples: torch.Tensor, num_clusters: int,
 
 
 def rvq_train_forward(config: RVQConfig, tcfg: RVQTrainConfig, params: dict, state: dict,
-                      x: torch.Tensor, generator: torch.Generator,
-                      axis_name: str | None = None) -> tuple[dict, dict]:
+                      x: torch.Tensor, generator: torch.Generator, group=None,
+                      rows: tuple[int, int] | None = None) -> tuple[dict, dict]:
     """One training forward of a (non-split) RVQ over x [B, T, Cin].
     Returns (outputs, new_state); outputs hold `quantized` (the
     straight-through value, [B, T, Cout]), `codes` [B, K, T],
-    `commit_loss`, `entropy` and `expired_frac`."""
-    if axis_name is not None:
-        raise NotImplementedError("synchronising the codebook statistics over workers "
-                                  "waits for the port's mesh (ROADMAP A.13)")
+    `commit_loss`, `entropy` and `expired_frac`.  `group`: a process group
+    whose workers' batch statistics are averaged; `rows` (start, stop): the
+    outputs are of x's rows [start, stop) only, the statistics of all."""
     n_q, bins, dim = config.n_q, config.bins, config.dimension
     decay, eps = tcfg.decay, tcfg.epsilon
 
@@ -122,8 +128,13 @@ def rvq_train_forward(config: RVQConfig, tcfg: RVQTrainConfig, params: dict, sta
         sums_new.append(_sums(c, residual, bins))
         residual, quantized = residual - quant, quantized + quant
 
-    cluster_usage = state["cluster_usage"] * decay + torch.stack(usage_new) * (1 - decay)
-    embedding_sum = state["embedding_sum"] * decay + torch.stack(sums_new) * (1 - decay)
+    usage_new, sums_new = torch.stack(usage_new), torch.stack(sums_new)
+    if group is not None:
+        n = collectives.size(group)
+        usage_new = collectives.all_reduce(usage_new, group) / n
+        sums_new = collectives.all_reduce(sums_new, group) / n
+    cluster_usage = state["cluster_usage"] * decay + usage_new * (1 - decay)
+    embedding_sum = state["embedding_sum"] * decay + sums_new * (1 - decay)
 
     # expired-code replacement: a draw every step, whether or not a code expired
     total = cluster_usage.sum(dim=1, keepdim=True)
@@ -137,6 +148,9 @@ def rvq_train_forward(config: RVQConfig, tcfg: RVQTrainConfig, params: dict, sta
 
     # straight-through estimator and commit loss
     quantized = quantized.reshape(x_in.shape[:-1] + (dim,)).to(x_in.dtype)
+    codes = torch.stack(codes).reshape(n_q, *x_in.shape[:-1]).movedim(0, 1)
+    if rows is not None:
+        x_in, quantized, codes = (t[rows[0]:rows[1]] for t in (x_in, quantized, codes))
     commit_loss = torch.mean(torch.square(x_in.float() - quantized.float()))
     quantized = x_in + (quantized - x_in).detach()
     if "output_proj" in params:
@@ -149,7 +163,7 @@ def rvq_train_forward(config: RVQConfig, tcfg: RVQTrainConfig, params: dict, sta
     new_state = {"initialized": torch.ones_like(state["initialized"]),
                  "cluster_usage": cluster_usage, "embedding_sum": embedding_sum}
     outputs = {"quantized": quantized,
-               "codes": torch.stack(codes).reshape(n_q, *x_in.shape[:-1]).movedim(0, 1),
+               "codes": codes,
                "commit_loss": commit_loss, "entropy": entropy.mean(),
                "expired_frac": expired.float().mean()}
     return outputs, new_state

@@ -50,7 +50,7 @@ through a `send` coroutine, so the same code runs under aiohttp
 (`handle_chat`) and under an in-process transport; only `handle_chat`,
 `make_app` and `main` import aiohttp, when called.
 
-Not ported yet: `--tp` (ROADMAP A.13).
+Not ported yet: `--tp` (ROADMAP A.13b).
 """
 
 import argparse
@@ -988,12 +988,12 @@ def main(argv=None):
                     help="serve https/wss; makes a self-signed certificate in CERT_DIR if "
                          "none is there")
     ap.add_argument("--tp", type=int, default=0,
-                    help="tensor-parallel ways over several cards (not ported: ROADMAP A.13)")
+                    help="tensor-parallel ways over several cards (not ported: ROADMAP A.13b)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     if args.tp:
-        raise NotImplementedError("--tp is not ported yet (ROADMAP A.13, the multi-card mesh)")
+        raise NotImplementedError("--tp is not ported yet (ROADMAP A.13b, tensor-parallel serving)")
     device = serving_device(args.device)
     state = load_state(args.checkpoint_dir, device, args.cfg_coef, args.kv_cache,
                        args.session_timeout, log_dir=args.log_dir, vault_url=args.vault,

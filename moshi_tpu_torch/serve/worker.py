@@ -74,7 +74,7 @@ from .metrics import OPEN_CHANNELS, REGISTRY
 
 # what the worker does not build yet -> the ROADMAP item it waits for
 NOT_PORTED_TYPES: dict[str, str] = {}
-NOT_PORTED_KEYS = {"tp": "A.13 (the multi-card mesh)"}
+NOT_PORTED_KEYS = {"tp": "A.13b (tensor-parallel serving)"}
 
 
 def log(level: str, msg: str):

@@ -26,9 +26,23 @@ structure.
 [--steps N] [--out-dir D] [--resume F] [--device cpu] [--deterministic]`,
 both targets, with gradient accumulation, schedules, clipping and resume
 on one device, bitwise on the CPU and, with `--deterministic`, on the card
-(without it cuDNN's convolutions and index_add's atomics may reorder sums).  Not ported: the JAX package's dp / fsdp mesh (ROADMAP A.13).  A
-`lora_only` config whose params hold no LoRAWeight is refused: the JAX
+(without it cuDNN's convolutions and index_add's atomics may reorder sums).
+A `lora_only` config whose params hold no LoRAWeight is refused: the JAX
 package's CLI trains nothing there, silently (ROADMAP C.10).
+
+The JAX package's `mesh: {dp: N}` and `{dp: N, fsdp: true}` run over
+torch.distributed, one process per rank (`torchrun --nproc_per_node N -m
+moshi_tpu_torch.train --config c.json`, or run_training inside an
+initialized process group), and compute what one device computes on the
+global batch, as JAX's GSPMD mesh does (`DataParallel`): every rank draws
+the global batch and takes its rows, the LM's cross entropy divides by the
+global count of valid positions, each micro-step's gradients are summed over
+the ranks, Mimi's RVQ statistics are taken over the global batch.  Under
+fsdp the params and the optimizer state rest as this rank's shards
+(parallel/mesh.fsdp_param_spec), each step gathers the whole params, and
+the gradients are reduce-scattered onto the shards, where the optimizer
+acts; clipping takes the global norm.  Rank 0 alone logs and saves, a
+checkpoint gathered whole, so it resumes at any dp.
 """
 
 import json
@@ -41,10 +55,12 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .models import native_ckpt
 from .models.lm import LMModel, LmConfig, cross_entropy
 from .models.lora import LoRAWeight, has_lora, lora_labels
+from .parallel import collectives
 from .utils.quantize import QTensor, QTensor4
 
 
@@ -84,6 +100,10 @@ def tree_replace(tree, new: dict, path=()):
         return LoRAWeight(tree_replace(tree.base, new, path + ("base",)),
                           tree_replace(tree.a, new, path + ("a",)),
                           tree_replace(tree.b, new, path + ("b",)), tree.scaling)
+    if isinstance(tree, (QTensor, QTensor4)):
+        q, scale = (tree_replace(tree.q, new, path + ("q",)),
+                    tree_replace(tree.scale, new, path + ("scale",)))
+        return tree if q is tree.q and scale is tree.scale else type(tree)(q, scale)
     return tree
 
 
@@ -212,11 +232,14 @@ def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4) -> GradientTransfor
     return GradientTransformation(init, update)
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, sum_squares: Callable | None = None
+                        ) -> GradientTransformation:
     """optax.clip_by_global_norm: where the global norm reaches max_norm,
-    each update becomes t / norm * max_norm."""
+    each update becomes t / norm * max_norm.  `sum_squares(grads)` gives
+    the squared norm of gradients held as shards (DataParallel's)."""
     def update(grads, state, leaves):
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads) if sum_squares is None
+                          else sum_squares(grads))
         if bool(norm < max_norm):
             return grads, state
         return [g / norm.to(g.dtype) * max_norm for g in grads], state
@@ -259,13 +282,16 @@ def multi_steps(inner: GradientTransformation, k: int) -> GradientTransformation
     return GradientTransformation(init, update)
 
 
-def make_optimizer(ocfg: dict, total_steps: int | None = None) -> Optimizer:
+def make_optimizer(ocfg: dict, total_steps: int | None = None,
+                   sum_squares: Callable | None = None) -> Optimizer:
     """The optimizer of a config dict (moshi_tpu train.py make_optimizer):
     clip_by_global_norm -> adamw(schedule) [-> MultiSteps].  Keys, all
     optional: lr (3e-4), schedule ("constant" | "cosine" | "linear"),
     warmup_steps (0), end_lr_ratio (0.1), b1 (0.9), b2 (0.95), eps (1e-8),
     weight_decay (0.0), grad_clip (0.0 = off), accum_steps (1);
-    `total_steps` bounds the decay of cosine and linear."""
+    `total_steps` bounds the decay of cosine and linear; `sum_squares` is
+    the clipping's squared norm of sharded gradients.  Every transformation
+    acts leaf-wise but the clipping, so on shards as on whole leaves."""
     lr = float(ocfg.get("lr", 3e-4))
     warmup = int(ocfg.get("warmup_steps", 0))
     kind = ocfg.get("schedule", "constant")
@@ -288,7 +314,7 @@ def make_optimizer(ocfg: dict, total_steps: int | None = None) -> Optimizer:
                 weight_decay=float(ocfg.get("weight_decay", 0.0)))
     clip = float(ocfg.get("grad_clip", 0.0))
     if clip > 0:
-        opt = chain(clip_by_global_norm(clip), opt)
+        opt = chain(clip_by_global_norm(clip, sum_squares), opt)
     accum = int(ocfg.get("accum_steps", 1))
     if accum > 1:
         opt = multi_steps(opt, accum)
@@ -322,35 +348,125 @@ def value_and_grad(loss_fn, params, paths, *args):
     return loss.detach(), aux, list(grads)
 
 
+# ------------------------------------------------------------ data parallel
+class DataParallel:
+    """A train step spread over the dp ranks of a (dp, 1) mesh
+    (parallel/mesh.make_mesh), computing what one device computes on the
+    global batch: each rank takes its rows of the global batch (`rows`),
+    and its gradients are summed over the ranks (`reduce`) on every
+    micro-step, before the optimizer sees them.  With `fsdp` the params and
+    the optimizer state rest as this rank's shards (`shard`, per
+    fsdp_param_spec and opt_state_spec; a leaf no dim of which dp divides
+    stays whole), a step `gather`s the whole params, and a sharded leaf's
+    gradient is reduce-scattered onto its shard (a whole leaf's is summed)
+    where the optimizer acts; `sum_squares` is the clipping's squared
+    global norm, counting a whole leaf once.  `paths`: the trained leaves,
+    in the optimizer's order."""
+
+    def __init__(self, mesh, params, paths: list, fsdp: bool = False):
+        from .parallel.mesh import fsdp_param_spec
+        self.mesh, self.paths, self.fsdp = mesh, list(paths), fsdp
+        self.group = mesh.group("dp")
+        self.size, self.index = mesh.shape["dp"], mesh.index("dp")
+        self.specs = fsdp_param_spec(params, mesh) if fsdp else {}
+        self.opt_specs = {}
+        self.grad_dims = [next((i for i, a in enumerate(self.specs.get(p, ())) if a), None)
+                          for p in self.paths]
+
+    def rows(self, batch):
+        """This rank's rows of a global batch."""
+        b = batch.shape[0] // self.size
+        return batch[self.index * b:(self.index + 1) * b]
+
+    def shard(self, params, opt_state=None):
+        """The whole params (and optimizer state) as this rank keeps them."""
+        if self.fsdp:
+            from .parallel.mesh import opt_state_spec, shard_tree
+            if opt_state is not None:
+                self.opt_specs = opt_state_spec(opt_state, params, self.specs, self.paths,
+                                                self.mesh)
+                opt_state = shard_tree(opt_state, self.mesh, self.opt_specs)
+            params = shard_tree(params, self.mesh, self.specs)
+        return params if opt_state is None else (params, opt_state)
+
+    def gather(self, params, opt_state=None):
+        """The whole params (and optimizer state) from every rank's shards
+        (every rank calls it)."""
+        if self.fsdp:
+            from .parallel.mesh import gather_tree
+            params = gather_tree(params, self.mesh, self.specs)
+            if opt_state is not None:
+                opt_state = gather_tree(opt_state, self.mesh, self.opt_specs)
+        return params if opt_state is None else (params, opt_state)
+
+    def reduce(self, grads: list, mean: bool = False) -> list:
+        """Each rank's gradients of the trained leaves summed (or averaged)
+        over the ranks: whole, or this rank's shard under fsdp."""
+        out = []
+        for g, dim in zip(grads, self.grad_dims):
+            g = (collectives.all_reduce(g.contiguous(), self.group) if dim is None
+                 else collectives.reduce_scatter(g, dim, self.group))
+            out.append(g / self.size if mean else g)
+        return out
+
+    def total(self, t: torch.Tensor, mean: bool = False) -> torch.Tensor:
+        """A per-rank value summed (or averaged) over the ranks."""
+        t = collectives.all_reduce(t.detach().clone(), self.group)
+        return t / self.size if mean else t
+
+    def sum_squares(self, grads: list) -> torch.Tensor:
+        whole = [torch.sum(g * g) for g, d in zip(grads, self.grad_dims) if d is None]
+        shards = [torch.sum(g * g) for g, d in zip(grads, self.grad_dims) if d is not None]
+        total = sum(whole)
+        if shards:
+            total = total + collectives.all_reduce(sum(shards).clone(), self.group)
+        return total
+
+
 # ------------------------------------------------------------------ LM half
-def make_loss_fn(model: LMModel):
+def make_loss_fn(model: LMModel, group=None):
     """loss_fn(params, codes [B, K, T]) -> (audio_ce + text_ce, metrics).
     NaN logits (the delayed tails of `undelay_logits`) become 0 before the
     masked CE, as in the JAX package: log_softmax's backward would turn a
-    NaN row's zero upstream gradient into NaN."""
+    NaN row's zero upstream gradient into NaN.  With a data-parallel
+    `group`, codes are this rank's rows and each CE divides by the global
+    batch's count of valid positions, so the ranks' losses and gradients sum
+    to the global batch's."""
     c = model.config
 
     def loss_fn(params, codes):
         out = model.forward(params, codes)
+        counts = [None, None]
+        if group is not None:
+            counts = collectives.all_reduce(
+                torch.stack([out["mask"].sum(), out["text_mask"].sum()]), group)
         audio_ce = cross_entropy(
             torch.nan_to_num(out["logits"]),
-            codes[:, c.audio_offset:c.audio_offset + c.dep_q].clamp(min=0), out["mask"])
+            codes[:, c.audio_offset:c.audio_offset + c.dep_q].clamp(min=0), out["mask"],
+            counts[0])
         text_ce = cross_entropy(torch.nan_to_num(out["text_logits"]),
-                                codes[:, :1].clamp(min=0), out["text_mask"])
+                                codes[:, :1].clamp(min=0), out["text_mask"], counts[1])
         return audio_ce + text_ce, {"audio_ce": audio_ce.detach(),
                                     "text_ce": text_ce.detach()}
     return loss_fn
 
 
-def make_train_step(model: LMModel, optimizer: Optimizer):
+def make_train_step(model: LMModel, optimizer: Optimizer, dp: DataParallel | None = None):
     """train_step(params, opt_state, codes) -> (params, opt_state, loss,
     metrics): a new tree whose trained leaves are updated (the others are
-    the same tensors)."""
-    loss_fn = make_loss_fn(model)
+    the same tensors).  With `dp`, codes are this rank's rows, the params
+    and state are what the rank keeps, and the loss and metrics are the
+    global batch's on every rank."""
+    loss_fn = make_loss_fn(model, dp and dp.group)
 
     def train_step(params, opt_state, codes):
-        paths = optimizer.select(params)
-        loss, metrics, grads = value_and_grad(loss_fn, params, paths, codes)
+        whole = params if dp is None else dp.gather(params)
+        paths = optimizer.select(whole)
+        loss, metrics, grads = value_and_grad(loss_fn, whole, paths, codes)
+        del whole
+        if dp is not None:
+            grads = dp.reduce(grads)
+            loss, metrics = dp.total(loss), {k: dp.total(v) for k, v in metrics.items()}
         leaves = [_get(params, p) for p in paths]
         updates, opt_state = optimizer.update(grads, opt_state, leaves)
         return apply_updates(params, paths, leaves, updates), opt_state, loss, metrics
@@ -389,11 +505,14 @@ def init_mimi_vq_state(mimi, device=None) -> dict:
             "rest": init_train_state(q.rvq_rest.config, device)}
 
 
-def make_mimi_loss_fn(mimi, tcfg=None, loss_weights: dict | None = None):
+def make_mimi_loss_fn(mimi, tcfg=None, loss_weights: dict | None = None, group=None):
     """loss_fn(params, vq_state, pcm [B, 1, T], generator) -> (loss,
     metrics, new_vq_state): the offline Mimi forward with the EMA RVQ in the
     middle; gradients reach the encoder through the commit loss and the
-    straight-through estimator, and the decoder."""
+    straight-through estimator, and the decoder.  With a data-parallel
+    `group`, pcm is this rank's rows: the RVQ's statistics and draws are
+    taken over every rank's embeddings (gathered), as one device takes them
+    over the global batch, and the losses are means over this rank's rows."""
     from .quantization.train import RVQTrainConfig, rvq_train_forward
     tcfg = tcfg or RVQTrainConfig()
     w = {"l1": 1.0, "mstft": 1.0, "commit": 0.25, **(loss_weights or {})}
@@ -405,10 +524,17 @@ def make_mimi_loss_fn(mimi, tcfg=None, loss_weights: dict | None = None):
         emb = mimi.encoder.apply(params["encoder"], pcm.transpose(1, 2))
         (emb,) = mimi.encoder_transformer.apply(params["encoder_transformer"], emb)
         emb = mimi.downsample.apply(params["downsample"], emb)
+        rows = None
+        if group is not None:
+            # the global batch's embeddings, this rank's rows the live ones
+            b = emb.shape[0]
+            rows = (dist.get_rank(group) * b, (dist.get_rank(group) + 1) * b)
+            every = collectives.all_gather(emb.detach(), 0, group)
+            emb = torch.cat([every[:rows[0]], emb, every[rows[1]:]])
         r1, st1 = rvq_train_forward(q.rvq_first.config, tcfg, params["quantizer"]["rvq_first"],
-                                    vq_state["first"], emb, generator)
+                                    vq_state["first"], emb, generator, rows=rows)
         r2, st2 = rvq_train_forward(q.rvq_rest.config, tcfg, params["quantizer"]["rvq_rest"],
-                                    vq_state["rest"], emb, generator)
+                                    vq_state["rest"], emb, generator, rows=rows)
         out = mimi.upsample.apply(params["upsample"], r1["quantized"] + r2["quantized"])
         (out,) = mimi.decoder_transformer.apply(params["decoder_transformer"], out)
         recon = mimi.decoder.apply(params["decoder"], out).transpose(1, 2)
@@ -440,15 +566,22 @@ def mimi_ema_label_tree(params: dict):
 
 
 def make_mimi_train_step(mimi, optimizer: Optimizer, tcfg=None,
-                         loss_weights: dict | None = None):
+                         loss_weights: dict | None = None, dp: DataParallel | None = None):
     """train_step(params, vq_state, opt_state, pcm, generator) -> (params,
-    vq_state, opt_state, loss, metrics)."""
-    loss_fn = make_mimi_loss_fn(mimi, tcfg, loss_weights)
+    vq_state, opt_state, loss, metrics); `dp` as make_train_step's (each
+    rank's loss is the mean over its rows, so the gradients are averaged)."""
+    loss_fn = make_mimi_loss_fn(mimi, tcfg, loss_weights, dp and dp.group)
 
     def train_step(params, vq_state, opt_state, pcm, generator):
-        paths = optimizer.select(params)
-        loss, (metrics, vq_state), grads = value_and_grad(loss_fn, params, paths, vq_state,
+        whole = params if dp is None else dp.gather(params)
+        paths = optimizer.select(whole)
+        loss, (metrics, vq_state), grads = value_and_grad(loss_fn, whole, paths, vq_state,
                                                           pcm, generator)
+        del whole
+        if dp is not None:
+            grads = dp.reduce(grads, mean=True)
+            loss = dp.total(loss, mean=True)
+            metrics = {k: dp.total(v, mean=True) for k, v in metrics.items()}
         leaves = [_get(params, p) for p in paths]
         updates, opt_state = optimizer.update(grads, opt_state, leaves)
         return (apply_updates(params, paths, leaves, updates), vq_state, opt_state, loss,
@@ -557,16 +690,60 @@ def _data_batches(cfg: dict, target: str, model, steps: int):
         raise ValueError(f"unknown data kind {kind!r}")
 
 
-def _check_mesh(cfg: dict) -> None:
+LAUNCH = ("launch one process per rank (torchrun --nproc_per_node DP -m "
+          "moshi_tpu_torch.train --config CONFIG), or call run_training inside an "
+          "initialized process group of DP ranks")
+
+
+def _check_mesh(cfg: dict) -> tuple[int, bool]:
+    """A config's (mesh.dp, mesh.fsdp), dp 0 without a mesh: fsdp without
+    two dp ranks is refused as the JAX package's trainer refuses it, and a
+    batch that does not split into dp equal shards."""
     mesh = dict(cfg.get("mesh", {}))
-    if int(mesh.get("dp", 0)) >= 2 or mesh.get("fsdp"):
-        raise NotImplementedError(f"mesh {mesh}: data-parallel and FSDP training are not "
-                                  "ported yet (ROADMAP A.13); the port trains on one device")
+    dp, fsdp = int(mesh.get("dp", 0)), bool(mesh.get("fsdp", False))
+    if fsdp and dp < 2:
+        # a config that claims ZeRO-3 but would run replicated
+        raise ValueError(f"mesh.fsdp requires mesh.dp >= 2 (got dp={dp}); "
+                         "FSDP shards params/optimizer state over the dp axis")
+    batch = int(cfg.get("batch_size", 2))
+    if dp and batch % dp:
+        raise ValueError(f"batch_size {batch} does not split into mesh.dp = {dp} equal shards")
+    return dp, fsdp
+
+
+def _join_mesh(dp: int, device: torch.device):
+    """(mesh, device) of a config's mesh.dp: a (dp, 1) mesh over the
+    initialized process group, or over one initialized here from torchrun's
+    environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT): NCCL on
+    cuda:LOCAL_RANK (or the device's own index), gloo on the CPU.  Without
+    either, dp 1 trains on one device (None, device)."""
+    from .parallel.mesh import make_mesh
+    if not dist.is_initialized():
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            if dp >= 2:
+                raise ValueError(f"mesh.dp = {dp} trains over {dp} processes and no process "
+                                 f"group is initialized: {LAUNCH}")
+            return None, device
+        if device.type == "cuda":
+            if device.index is None:
+                device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+            dist.init_process_group("nccl", device_id=device)
+        else:
+            dist.init_process_group("gloo")
+    world = dist.get_world_size()
+    if world != dp:
+        raise ValueError(f"mesh.dp = {dp} in a process group of {world} ranks: {LAUNCH}")
+    return make_mesh(dp, tp=1), device
 
 
 def run_training(cfg: dict, log=print, device=None) -> dict:
     """Run a training config; returns {step, loss, metrics, params,
-    opt_state, vq_state}.  `device` (default cfg["device"], else "cuda")."""
+    opt_state, vq_state, dp}.  `device` (default cfg["device"], else
+    "cuda").  With a `mesh` (_join_mesh), `dp` is the step's DataParallel,
+    the params and optimizer state are what this rank keeps (under fsdp its
+    shards: dp.gather gives them whole), the loss is the global batch's, and
+    only rank 0 logs and saves."""
     device = torch.device(device or cfg.get("device", "cuda"))
     target = cfg.get("target", "lm")
     steps = int(cfg.get("steps", 100))
@@ -575,31 +752,45 @@ def run_training(cfg: dict, log=print, device=None) -> dict:
     log_every = int(cfg.get("log_every", 20))
     save_every = int(cfg.get("save_every", 0))
     out_dir = cfg.get("out_dir")
-    _check_mesh(cfg)
+    n_dp, fsdp = _check_mesh(cfg)
+    mesh = None
+    if n_dp:
+        mesh, device = _join_mesh(n_dp, device)
+    rank0 = mesh is None or mesh.rank == 0
+    if not rank0:
+        def log(line):
+            pass
     generator = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 0)))
 
     if target == "lm":
         model, params = _build_lm(cfg, device)
-        optimizer = make_optimizer(ocfg, steps * accum)
-        if cfg.get("lora_only"):
-            if not has_lora(params):
-                raise ValueError(
-                    "lora_only: the params hold no LoRAWeight, so nothing would train; "
-                    "add adapters with models.lora.replace_all_linear_with_lora (and save "
-                    "the tree as a native checkpoint for the CLI)")
-            optimizer = lora_optimizer(optimizer, params)
-        step_fn = make_train_step(model, optimizer)
-        vq_state = None
+        if cfg.get("lora_only") and not has_lora(params):
+            raise ValueError(
+                "lora_only: the params hold no LoRAWeight, so nothing would train; "
+                "add adapters with models.lora.replace_all_linear_with_lora (and save "
+                "the tree as a native checkpoint for the CLI)")
+
+        def trained(opt):
+            return lora_optimizer(opt, params) if cfg.get("lora_only") else opt
     elif target == "mimi":
-        from .quantization.train import RVQTrainConfig
         model, params = _build_mimi(cfg, device)
-        optimizer = masked(make_optimizer(ocfg, steps * accum), mimi_ema_label_tree(params),
-                           "train")
-        step_fn = make_mimi_train_step(model, optimizer, RVQTrainConfig(**cfg.get("rvq", {})),
-                                       cfg.get("loss_weights"))
-        vq_state = init_mimi_vq_state(model, device)
+
+        def trained(opt):
+            return masked(opt, mimi_ema_label_tree(params), "train")
     else:
         raise ValueError(f"unknown target {target!r}")
+    dp = None
+    if mesh is not None:
+        dp = DataParallel(mesh, params, trained(make_optimizer({})).select(params), fsdp)
+    optimizer = trained(make_optimizer(ocfg, steps * accum, dp.sum_squares if fsdp else None))
+    if target == "lm":
+        step_fn = make_train_step(model, optimizer, dp)
+        vq_state = None
+    else:
+        from .quantization.train import RVQTrainConfig
+        step_fn = make_mimi_train_step(model, optimizer, RVQTrainConfig(**cfg.get("rvq", {})),
+                                       cfg.get("loss_weights"), dp)
+        vq_state = init_mimi_vq_state(model, device)
     opt_state = optimizer.init(params)
 
     start = 0
@@ -610,16 +801,27 @@ def run_training(cfg: dict, log=print, device=None) -> dict:
         if target == "mimi":
             vq_state = native_ckpt.load_params(str(cfg["resume"]) + ".vq", device)
         log(json.dumps({"event": "resumed", "step": start}))
+    if dp is not None:
+        params, opt_state = dp.shard(params, opt_state)
+        if device.type == "cuda" and dist.get_backend(dp.group) == "gloo":
+            log(json.dumps({"event": "mesh", "note": "gloo moves the collectives' CUDA "
+                            "tensors through host memory"}))
 
     def save(step_no):
-        Path(out_dir).mkdir(parents=True, exist_ok=True)
-        path = str(Path(out_dir) / f"train-{step_no:06d}.safetensors")
-        save_train_state(path, params, opt_state, step_no, generator)
-        if vq_state is not None:
-            native_ckpt.save_params(path + ".vq", vq_state)
-        log(json.dumps({"event": "saved", "path": path, "step": step_no}))
+        p, o = (params, opt_state) if dp is None else dp.gather(params, opt_state)
+        if rank0:
+            Path(out_dir).mkdir(parents=True, exist_ok=True)
+            path = str(Path(out_dir) / f"train-{step_no:06d}.safetensors")
+            save_train_state(path, p, o, step_no, generator)
+            if vq_state is not None:
+                native_ckpt.save_params(path + ".vq", vq_state)
+            log(json.dumps({"event": "saved", "path": path, "step": step_no}))
+        if dp is not None:
+            dist.barrier(dp.group)
 
     loss = metrics = None
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)   # the logged peak is the steps'
     t0 = time.time()
     batches = _data_batches(cfg, target, model, (steps - start) * accum)
     for step_no in range(start, steps):
@@ -627,6 +829,9 @@ def run_training(cfg: dict, log=print, device=None) -> dict:
             batch = next(batches)
             if target == "lm":
                 _check_lm_codes(model, batch)
+            if dp is not None:
+                batch = dp.rows(batch)
+            if target == "lm":
                 params, opt_state, loss, metrics = step_fn(
                     params, opt_state, torch.from_numpy(batch).long().to(device))
             else:
@@ -643,12 +848,15 @@ def run_training(cfg: dict, log=print, device=None) -> dict:
             save(step_no + 1)
 
     if target == "mimi":
-        params = sync_codebooks_from_vq_state(params, vq_state)
+        if dp is None:
+            params = sync_codebooks_from_vq_state(params, vq_state)
+        else:
+            params = dp.shard(sync_codebooks_from_vq_state(dp.gather(params), vq_state))
     if out_dir:
         save(steps)
     return {"step": steps, "loss": float(loss),
             "metrics": {k: float(v) for k, v in (metrics or {}).items()},
-            "params": params, "opt_state": opt_state, "vq_state": vq_state}
+            "params": params, "opt_state": opt_state, "vq_state": vq_state, "dp": dp}
 
 
 def main(argv=None):
@@ -681,9 +889,15 @@ def main(argv=None):
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
         torch.backends.cudnn.benchmark = False
-    out = run_training(cfg)
-    print(json.dumps({"final_step": out["step"], "final_loss": out["loss"],
-                      **out["metrics"]}), flush=True)
+    joined = dist.is_initialized()
+    try:
+        out = run_training(cfg)
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+    if out["dp"] is None or out["dp"].mesh.rank == 0:
+        print(json.dumps({"final_step": out["step"], "final_loss": out["loss"],
+                          **out["metrics"]}), flush=True)
     return out
 
 

@@ -36,8 +36,8 @@ from moshi_tpu_torch.utils.params import from_jax
 from test_lm import tiny_lm_config
 from test_torch_port import max_abs, port_config, port_lm_config, to_np
 from test_torch_tts_serve import (_drain_jax, _drain_port, record_jax_tokens,
-                                  record_port_tokens, same_session, two_voiced_sessions,
-                                  write_tts_checkpoint)
+                                  record_port_tokens, same_session)
+from test_torch_tts_serve_cli import two_voiced_sessions, write_tts_checkpoint
 
 OUT_TOL = 1e-5
 GATINGS = ("silu", "gelu", "relu", "tanh", "sigmoid")

@@ -3,7 +3,7 @@ port's against the JAX package's (moshi_tpu/models/loaders.py `hf_get`,
 `CheckpointInfo.from_hf_repo`; tests/test_hf_loading.py does the same
 for JAX).  No test fetches anything: both packages' `_hf_hub_download` are
 replaced by one that serves a local directory, a tiny TTS checkpoint the
-port writes (tests/test_torch_tts_serve.py `write_tts_checkpoint`: an LM,
+port writes (tests/test_torch_tts_serve_cli.py `write_tts_checkpoint`: an LM,
 a 1200 Hz Mimi, a synthetic tokenizer, config.json and two voices), plus
 that Mimi under its PyTorch names for the reference TOML.
 
@@ -34,7 +34,7 @@ from moshi_tpu_torch.models import loaders as tl
 from moshi_tpu_torch.serve import toml_compat as tcompat
 from moshi_tpu_torch.serve import worker as tworker
 from test_torch_checkpoint import assert_same_tree, mimi_torch_state
-from test_torch_tts_serve import WORDS, write_tts_checkpoint
+from test_torch_tts_serve_cli import WORDS, write_tts_checkpoint
 
 REPO = "kyutai/tiny-test"
 INFO_FIELDS = ("raw_config", "moshi_name", "mimi_name", "mimi_config_name", "tokenizer_name",

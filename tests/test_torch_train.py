@@ -245,13 +245,15 @@ def test_lora_training_keeps_the_base():
 
 
 def test_cli_refusals(tmp_path):
-    """A dp >= 2 or fsdp mesh waits for ROADMAP A.13; lora_only over a tree
-    without adapters trains nothing in the JAX package and is refused here
-    (ROADMAP C.10)."""
+    """fsdp without two dp ranks is refused as the JAX package's trainer
+    refuses it; a dp >= 2 mesh outside a process group says how to launch
+    one; lora_only over a tree without adapters trains nothing in the JAX
+    package and is refused here (ROADMAP C.10)."""
     cfg, _, _, _ = jax_lora_tree()
-    for mesh in ({"dp": 2}, {"dp": 1, "fsdp": True}):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            ttrain.run_training(_tiny_lm_train_cfg(cfg, mesh=mesh, steps=1))
+    with pytest.raises(ValueError, match="fsdp requires mesh.dp >= 2"):
+        ttrain.run_training(_tiny_lm_train_cfg(cfg, mesh={"dp": 1, "fsdp": True}, steps=1))
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
+        ttrain.run_training(_tiny_lm_train_cfg(cfg, mesh={"dp": 2}, steps=1))
     with pytest.raises(ValueError, match="lora_only"):
         ttrain.run_training(_tiny_lm_train_cfg(cfg, lora_only=True, steps=1))
     # a native checkpoint whose tree holds adapters trains them alone
